@@ -246,13 +246,20 @@ _TEMPLATES = ("gmem", "smem", "f4", "shift", "unroll", "semi")
 class hopper(Backend):
     """Hand-written CUDA kernels for sm_90a (``kernels/stencil``).
 
-    ``template`` gmem/smem/f4 run the fused-step kernel (one thread per
+    ``template`` gmem/smem/f4 run the fused-step kernel K1 (one thread per
     interior point, taps from global memory); shift/unroll run the 2.5D
-    streaming kernel (a ring of halo'd planes in shared memory along axis
-    0).  ``block`` is the tile in points, ``(b0, b1, b2)`` in 3D or
-    ``(b0, b1)`` in 2D: the thread block covers ``b1 × b2`` (2D: ``b1``)
-    points and the streaming kernel walks ``b0`` planes per block.
-    ``mem_type`` is accepted for compatibility with the paper's knob.
+    streaming kernel K2 (a ring of halo'd planes in shared memory along
+    axis 0); semi runs the semi-stencil kernel K5 (each input plane
+    scattered once into a register ring of partial output planes; the
+    kernel must be linear in its taps).  ``time_block=k > 1`` runs the
+    temporal-blocking kernel K3 under every template: one launch advances
+    ``k`` leapfrog steps of ``st.timeloop`` (a swap pair and one output,
+    ``swap[0]``, are required), and a fusion window that is not a multiple
+    of ``k`` ends with single steps of the template's kernel.  ``block``
+    is the tile in points, ``(b0, b1, b2)`` in 3D or ``(b0, b1)`` in 2D:
+    the thread block covers ``b1 × b2`` (2D: ``b1``) points and the
+    streaming kernels walk ``b0`` planes per block.  ``mem_type`` is
+    accepted for compatibility with the paper's knob.
     """
     kind: str = "hopper"
     template: str = "gmem"
@@ -263,13 +270,8 @@ class hopper(Backend):
     def __post_init__(self):
         if self.template not in _TEMPLATES:
             raise ValueError(f"unknown template {self.template!r}")
-        if self.template == "semi":
-            raise not_ported("template 'semi'", "kernel K5 (semi-stencil)")
         if int(self.time_block) < 1:
             raise ValueError("time_block must be >= 1")
-        if int(self.time_block) > 1:
-            raise not_ported("time_block > 1",
-                             "kernel K3 (in-kernel temporal blocking)")
 
 
 def cuda(computeCapability: str = "", threadsPerBlock: Optional[Tuple[int, ...]] = None,
@@ -294,6 +296,7 @@ class _Ctx(threading.local):
         self.profile: Dict[str, float] = {}
         self.active = False
         self.fuse_steps: Optional[int] = None
+        self.time_block: Optional[int] = None
 
     def add(self, phase: str, dt: float):
         self.profile[phase] = self.profile.get(phase, 0.0) + dt
@@ -460,6 +463,16 @@ def _run_timeloop(k: Kernel, args, call: _TimeloopCall) -> TimeloopResult:
     grids, scalars = _bind_args(k, args)
     interior = next(iter(grids.values())).shape
     backend = _CTX.backend if _CTX.active else torch_backend()
+    tb = _CTX.time_block if _CTX.active else None
+    if tb is not None:
+        # launch-level override of the in-kernel temporal-blocking depth
+        if backend.kind == "hopper":
+            backend = dataclasses.replace(backend, time_block=int(tb))
+        elif int(tb) != 1:
+            # silently running without blocking would let a user believe
+            # the depth is active while measuring the plain fused loop
+            raise ValueError(f"time_block={tb} requires a hopper backend; "
+                             f"got '{backend.kind}'")
     swap = _tl.normalize_swap(k.ir, call.swap)
     fuse = call.fuse_steps
     if fuse is None and _CTX.active:
@@ -508,15 +521,18 @@ def differentiable_timeloop(*args, **kw):
 # launch
 # --------------------------------------------------------------------------
 class _Launcher:
-    def __init__(self, backend: Backend, fuse_steps: Optional[int] = None):
+    def __init__(self, backend: Backend, fuse_steps: Optional[int] = None,
+                 time_block: Optional[int] = None):
         self.backend = backend
         self.fuse_steps = fuse_steps
+        self.time_block = time_block
 
     def __call__(self, tgt: Callable):
         def run(*args, **kw) -> LaunchResult:
-            prev = (_CTX.backend, _CTX.profile, _CTX.active, _CTX.fuse_steps)
+            prev = (_CTX.backend, _CTX.profile, _CTX.active, _CTX.fuse_steps,
+                    _CTX.time_block)
             _CTX.backend, _CTX.profile, _CTX.active = self.backend, {}, True
-            _CTX.fuse_steps = self.fuse_steps
+            _CTX.fuse_steps, _CTX.time_block = self.fuse_steps, self.time_block
             t0 = time.perf_counter()
             try:
                 value = tgt(*args, **kw)
@@ -524,7 +540,7 @@ class _Launcher:
                 prof = _CTX.profile
                 prof["total"] = time.perf_counter() - t0
                 (_CTX.backend, _CTX.profile, _CTX.active,
-                 _CTX.fuse_steps) = prev
+                 _CTX.fuse_steps, _CTX.time_block) = prev
             return LaunchResult(value=value, profile=prof)
         return run
 
@@ -535,15 +551,15 @@ def launch(backend: Backend = None, mesh=None, profile: bool = True,
            autotune: bool = False, **autotune_kw) -> _Launcher:
     """Run a ``@st.target`` under ``backend`` (default ``st.torch()``).
     ``fuse_steps`` sets the default fusion window of every ``st.timeloop``
-    inside the target.  ``mesh``, ``time_block > 1`` and ``autotune`` are
-    not ported yet and raise."""
+    inside the target.  ``time_block=k`` replaces the temporal-blocking
+    depth of a hopper backend for those time loops; under another backend
+    a ``k`` other than 1 raises ``ValueError`` rather than run without
+    blocking.  ``mesh`` and ``autotune`` are not ported yet and raise."""
     del profile
     if mesh is not None:
         raise not_ported("st.launch(mesh=...)", "queue 1, item 9 (distributed)")
-    if time_block is not None and int(time_block) != 1:
-        raise not_ported("st.launch(time_block=k)",
-                         "kernel K3 (in-kernel temporal blocking)")
     if autotune or autotune_kw:
         raise not_ported("st.launch(autotune=...)",
                          "queue 1, item 5 (cost model + autotuner)")
-    return _Launcher(backend or torch_backend(), fuse_steps=fuse_steps)
+    return _Launcher(backend or torch_backend(), fuse_steps=fuse_steps,
+                     time_block=time_block)

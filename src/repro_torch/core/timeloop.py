@@ -10,11 +10,16 @@ only at window boundaries.  Per backend:
   hopper  — lowering is split as in the JAX package's Pallas path: a
             one-time layout stage per window (``CudaPlan.to_padded``: each
             grid cut to its layout halo and made contiguous, counted once
-            per grid per window in ``codegen.PAD_COUNT``), then one CUDA
-            kernel launch per step on the layout buffers
-            (``CudaPlan.step``), then the write-back of the touched grids'
-            interiors (``CudaPlan.from_padded``).  A window is a Python loop
-            of kernel launches on the current stream.
+            per grid per window in ``codegen.PAD_COUNT``), then CUDA kernel
+            launches on the layout buffers (``CudaPlan.step``), then the
+            write-back of the touched grids' interiors
+            (``CudaPlan.from_padded``).  With ``time_block=k`` a window of
+            ``kw`` steps is ``kw // k`` launches of K3, each advancing
+            ``k`` steps into spare buffers, then ``kw % k`` single steps
+            through a second plan with ``time_block=1`` on the same layout
+            (the JAX engine's decomposition); ``fuse_steps`` is never
+            rounded to a multiple of ``k``.  A window is a Python loop of
+            kernel launches on the current stream.
 
 In place: ``run`` advances the tensors of the ``arrays`` dict it is given
 (the output and swap grids' buffers); the returned dict holds those tensors
@@ -22,6 +27,7 @@ under the rotated names.  Callers that need the initial state clone first.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Callable, Dict, Mapping, Optional, Tuple
 
@@ -117,11 +123,22 @@ class TimeloopEngine:
         self.swap = normalize_swap(kernel, swap)
         self._profile_cb = profile_cb
         self._windows: Dict[int, Callable] = {}
-        self._plan = None
+        self._plan = self._plan1 = None
+        self.time_block = 1
         if backend.kind == "hopper":
             from repro_torch.kernels.stencil import codegen as _codegen
             self._plan = _codegen.plan_cuda(kernel, self.halos, self.interior,
                                             backend, swap=self.swap)
+            self.time_block = self._plan.time_block
+            self._plan1 = self._plan
+            if self.time_block > 1:
+                # single-step plan for the window remainder (kw mod k):
+                # the same layout buffers feed both kernels
+                be1 = dataclasses.replace(backend, time_block=1,
+                                          block=self._plan.B)
+                self._plan1 = _codegen.plan_cuda(kernel, self.halos,
+                                                 self.interior, be1,
+                                                 swap=self.swap)
         elif backend.kind != "torch":
             raise ValueError(f"timeloop: unsupported backend {backend.kind}")
 
@@ -175,13 +192,27 @@ class TimeloopEngine:
     def _run_window(self, arrays, scal, kw):
         if self._plan is None:
             return self._window(kw)(arrays, scal)
-        plan, swap = self._plan, self.swap
+        plan, swap, k = self._plan, self.swap, self.time_block
         t0 = time.perf_counter()
         padded = plan.to_padded(arrays)          # ONE layout cut/grid/window
         self._add("layout", time.perf_counter() - t0)
         plan.count_window(kw)
-        for _ in range(kw):
-            padded = plan.step(padded, scal)
+        m, r = divmod(kw, k) if k > 1 else (0, kw)
+        if m:
+            spares = plan.make_spares(padded)
+            for _ in range(m):
+                # K3 writes into the spares; the buffers just read become
+                # the next launch's spares.  k rotations net to k mod 2,
+                # applied to the names of both, so every name keeps a
+                # spare carrying its own halo
+                out = plan.step(padded, scal, spares=spares)
+                spares = {g: padded[g] for g in plan.step_out_grids}
+                padded = out
+                if swap and k % 2:
+                    padded = _rotate(padded, swap)
+                    spares = _rotate(spares, swap)
+        for _ in range(r):
+            padded = self._plan1.step(padded, scal)
             if swap:
                 padded = _rotate(padded, swap)
         # the layout buffers rotated kw times; apply the same parity to the

@@ -11,7 +11,16 @@ function is
 where ``rd.template at<G>(dx, dy, dz)`` reads operand grid ``G`` at a tap
 offset (2D kernels map ``(dx, dy)`` to ``(dx, 0, dy)``: see
 ``CudaPlan``), ``s`` holds the f32 scalars in signature order and
-``out[o]`` receives the new value of output grid ``o``.
+``out[o]`` receives the new value of output grid ``o``.  K1, K2 and K3
+call it, each with its own reader.
+
+The semi-stencil kernel K5 calls the scatter ``semi_scatter<O, D>(rd, s,
+acc)`` instead: it adds, term by term in the order ``semi_linearize``
+gives, each axis-0 offset ``D`` term of output ``O`` (its coefficient read
+at output plane ``x_in - D`` through ``rd.template cf<G>(D)``, times the
+input plane's tap ``rd.template tap<G>(dy, dz)``) to the partial sum
+``acc``; ``semi_const<O>(rd, s)`` is the constant part at the emitted
+plane (``cf<G>(RT_H)``).
 
 Statement semantics follow the JAX package's ``_exec_statements``: a
 ``LocalDef`` becomes a ``const`` local; a center read of a grid written by
@@ -54,8 +63,10 @@ def offsets3(offs: Sequence[int]) -> Tuple[int, int, int]:
 
 
 class _Emitter:
-    def __init__(self, kernel: ir.StencilIR, opnd_grids: Sequence[str]):
+    def __init__(self, kernel: ir.StencilIR, opnd_grids: Sequence[str],
+                 tap=None):
         self.kernel = kernel
+        self.tap = tap          # C source of a Tap, when not the default
         self.gidx = {g: i for i, g in enumerate(opnd_grids)}
         self.sidx = {n: i for i, (n, _) in enumerate(kernel.scalar_params)}
         self.lines: List[str] = []
@@ -72,6 +83,8 @@ class _Emitter:
         if isinstance(e, ir.LocalRef):
             return self.locals[e.name]
         if isinstance(e, ir.Tap):
+            if self.tap is not None:
+                return self.tap(e)
             if e.grid in self.written and not any(e.offsets):
                 return self.written[e.grid]
             dx, dy, dz = offsets3(e.offsets)
@@ -162,5 +175,75 @@ def header(kernel: ir.StencilIR, opnd_grids: Sequence[str],
         table("out_grid", oidx).replace("(int g)", "(int o)")
         .replace("g == ", "o == "),
         point_function(kernel, opnd_grids, out_grids),
+        "",
+    ])
+
+
+def semi_groups(lin, out_grids: Sequence[str]) -> List[Dict[int, list]]:
+    """Per output grid ``O`` (in ``out_grids`` order): axis-0 offset ``D`` →
+    its terms ``[(grid, offsets3, coefficient)]`` in ``semi_linearize``
+    order, the order in which K5 and its plain version add them."""
+    groups = []
+    for og in out_grids:
+        by_d: Dict[int, list] = {}
+        for g, offs, c in lin[og][0]:
+            d = offsets3(offs)
+            by_d.setdefault(d[0], []).append((g, d, c))
+        groups.append(by_d)
+    return groups
+
+
+def _constexpr_chain(cases, default) -> List[str]:
+    """``if constexpr (cond) {...} else if ... else {default}`` lines."""
+    lines = []
+    for i, (cond, body) in enumerate(cases):
+        lines.append(("  " if i == 0 else "  } else ")
+                     + f"if constexpr ({cond}) {{")
+        lines += ["    " + b for b in body]
+    if not cases:
+        return ["  " + b for b in default]
+    lines.append("  } else {")
+    lines += ["    " + b for b in default]
+    return lines + ["  }"]
+
+
+def semi_functions(kernel: ir.StencilIR, opnd_grids: Sequence[str],
+                   out_grids: Sequence[str], lin, H: int) -> str:
+    """C++ source of K5's generated part: ``RT_H``, ``RT_NR`` (the ring of
+    ``2H+1`` partial planes), ``semi_scatter`` and ``semi_const`` (see the
+    module docstring) for the linearized kernel ``lin``."""
+    gidx = {g: i for i, g in enumerate(opnd_grids)}
+
+    def coef(e, d):
+        em = _Emitter(kernel, opnd_grids,
+                      tap=lambda t: f"rd.template cf<{gidx[t.grid]}>({d})")
+        return em.c(em.expr(e))
+
+    scatter, const = [], []
+    for o, by_d in enumerate(semi_groups(lin, out_grids)):
+        for d, terms in sorted(by_d.items()):
+            scatter.append((f"O == {o} && D == {d}",
+                            [f"acc += {coef(c, d)} * rd.template tap<"
+                             f"{gidx[g]}>({offs[1]}, {offs[2]});"
+                             for g, offs, c in terms]))
+        const.append((f"O == {o}",
+                      [f"return {coef(lin[out_grids[o]][1], 'RT_H')};"]))
+    return "\n".join([
+        f"#define RT_H {H}",
+        f"#define RT_NR {2 * H + 1}",
+        f"// semi-stencil scatter of stencil '{kernel.name}' (generated from "
+        "StencilIR by emit.py)",
+        "template <int O, int D, class Rd>",
+        "__host__ __device__ inline void semi_scatter("
+        "const Rd& rd, const float* s, float& acc) {",
+        "  (void)rd; (void)s; (void)acc;",
+        *_constexpr_chain(scatter, []),
+        "}",
+        "template <int O, class Rd>",
+        "__host__ __device__ inline float semi_const(const Rd& rd, "
+        "const float* s) {",
+        "  (void)rd; (void)s;",
+        *_constexpr_chain(const, ["return 0.0f;"]),
+        "}",
         "",
     ])

@@ -1,0 +1,101 @@
+"""K5 — the semi-stencil kernel (template semi) and its plain version.
+
+Replaces the JAX package's ``kernels/stencil/codegen.py`` ``_stream_outputs``
+semi branch (with ``_semi_linearize`` and ``_stream_halo``), reached from
+``_make_body_fused`` (``PallasPlan._call_for``, ``time_block=1``).  CUDA
+source: ``csrc/semi_step.cuh`` with the per-column ring of
+``csrc/semi_ring.cuh``: a thread block covers a tile of the two fast axes
+and walks a chunk of ``b0`` planes; each input plane is staged once in
+shared memory and scattered into ``2H+1`` partial output planes per column,
+kept in registers.  The scatter itself is generated (``emit.semi_functions``).
+Bound: device-memory bytes.
+
+The plain version walks the same chunks and the same ring slots (output
+plane ``o = x_in - D`` of input plane ``x_in``, local index ``i``, in slot
+``(i + H - D) mod (2H+1)``; plane ``x_in - H`` is emitted from slot
+``i mod (2H+1)``), adds the terms in the kernel's order and, like the
+kernel, adds only into planes of the chunk; one tile spans the whole
+plane.
+
+In place: both versions write the output grids' interiors into their
+layout buffers; nothing else is written.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Dict
+
+import torch
+
+from repro_torch.core import lowering
+from repro_torch.core.dsl import scalar_tensors
+
+from . import _build
+from .emit import semi_groups
+
+
+def semi_step_plain(plan, padded: Dict[str, torch.Tensor],
+                    scalars: Dict[str, float]) -> None:
+    """K5's plain PyTorch version (see the module docstring)."""
+    R0, R1, R2 = plan.R3
+    H, chunk = plan.H, plan.B3[0]
+    nr = 2 * H + 1
+    out0 = padded[plan.out_grids[0]]
+    dtype, device = out0.dtype, out0.device
+    scal = scalar_tensors(scalars, device)
+    groups = semi_groups(plan.lin, plan.out_grids)
+    bufs = {g: plan.buf3(padded[g]) for g in plan.opnd_grids}
+
+    def field_at(plane):
+        # coefficient fields: center taps at output plane ``plane``
+        return lambda g, offs: plan.interior3(g, padded[g], plane)
+
+    def tap(g, xin, d):
+        w = plan.hw3[g]
+        return bufs[g][w[0] + xin, w[1] + d[1]:w[1] + d[1] + R1,
+                       w[2] + d[2]:w[2] + d[2] + R2]
+
+    for x0 in range(0, R0, chunk):
+        x1 = min(x0 + chunk, R0)
+        acc = [torch.zeros((nr, R1, R2), dtype=dtype, device=device)
+               for _ in plan.out_grids]
+        for i in range(x1 - x0 + 2 * H):
+            xin = x0 - H + i
+            for o, by_d in enumerate(groups):
+                for d in range(-H, H + 1):
+                    if not x0 <= xin - d < x1:
+                        continue
+                    rd = field_at(xin - d)
+                    for g, offs, c in by_d.get(d, ()):
+                        cval = lowering.eval_expr(c, rd, scal, {})
+                        acc[o][(i + H - d) % nr] += cval * tap(g, xin, offs)
+                if x0 <= xin - H < x1:
+                    cv = lowering.eval_expr(plan.lin[plan.out_grids[o]][1],
+                                            field_at(xin - H), scal, {})
+                    plan.interior3(plan.out_grids[o], padded[plan.out_grids[o]],
+                                   xin - H).copy_(acc[o][i % nr] + cv)
+                acc[o][i % nr].zero_()
+
+
+def semi_step(plan, padded: Dict[str, torch.Tensor],
+              scalars: Dict[str, float]) -> None:
+    """One time step of ``plan`` on its layout buffers.  CPU tensors run
+    the plain version; CUDA tensors launch the kernel (counted in
+    ``semi_step.launches``) on the current stream, or raise."""
+    device = padded[plan.out_grids[0]].device
+    if device.type == "cpu":
+        semi_step_plain(plan, padded, scalars)
+        return
+    if device.type != "cuda":
+        raise ValueError(f"semi_step: unsupported device {device}")
+    meta, scal = plan.launch_args(padded, scalars)
+    fn = _build.load(plan.source(), "rt_semi_step")
+    with torch.cuda.device(device):
+        err = fn(ctypes.addressof(meta), ctypes.addressof(scal),
+                 torch.cuda.current_stream(device).cuda_stream)
+    if err:
+        raise RuntimeError(f"semi_step launch failed: cudaError {err}")
+    semi_step.launches += 1
+
+
+semi_step.launches = 0

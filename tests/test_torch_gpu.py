@@ -1,0 +1,167 @@
+"""The port's CUDA kernels on the card, at configurations ``chip_smoke.py``
+does not reach: 2D stencils (run as ``(R0, 1, R1)``), box taps, a
+coefficient grid read off-center, K3 at k=4 (its rings near the 227 KB
+shared-memory limit) and at odd depths, K5 with two outputs.
+
+Each kernel is held against its plain version on the same CUDA tensors
+(the plain versions are held against the JAX package on the CPU by the
+other ``test_torch_*`` files), within 2e-5 × max(1, |plain|) as in
+``chip_smoke.py``: f32 sums in another order, with FMA contraction.
+Every test needs a CUDA device and skips without one:
+
+    PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core import dsl as st  # noqa: E402
+from repro_torch.core import suite  # noqa: E402
+from repro_torch.kernels.stencil import codegen  # noqa: E402
+from repro_torch.kernels.stencil.fused_step import fused_step, fused_step_plain  # noqa: E402
+from repro_torch.kernels.stencil.semi_step import semi_step, semi_step_plain  # noqa: E402
+from repro_torch.kernels.stencil.stream_step import stream_step, stream_step_plain  # noqa: E402
+from repro_torch.kernels.stencil.temporal_step import (  # noqa: E402
+    temporal_step, temporal_step_plain)
+
+pytestmark = pytest.mark.gpu
+RTOL = 2e-5
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@st.kernel
+def _tapped_coef(u: st.grid, v: st.grid, c: st.grid, w: st.grid):
+    v.at(0, 0).set(0.5 * u.at(0, 0) - 0.25 * v.at(0, 0)
+                   + 0.1 * c.at(1, 0) * (u.at(0, 1) + u.at(-1, 0))
+                   + 0.05 * w.at(0, 0) * u.at(1, -1))
+
+
+@st.kernel
+def _two_lin(u: st.grid, a: st.grid, b: st.grid, c: st.f32):
+    a.at(0, 0).set(0.5 * (u.at(1, 0) + u.at(-1, 0)) - c * u.at(0, -2))
+    b.at(0, 0).set(b.at(0, 0) * 2.0 - 0.25 * u.at(0, 2) + c * u.at(-2, 1))
+
+
+def _kernel(name):
+    if name == "tapped_coef":
+        return _tapped_coef, ("v", "u"), {}
+    if name == "two_lin":
+        return _two_lin, None, {"c": 0.25}
+    k = suite.get_kernel(name)
+    return k, suite.swap_pair(name), {}
+
+
+def _layout(kernel, shape, device, seed):
+    """Random layout buffers (every cell, halos included) of ``kernel``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    h = kernel.info.order
+    arrays = {g: torch.randn(tuple(s + 2 * h for s in shape), generator=gen,
+                             device=device)
+              for g in kernel.ir.grid_params}
+    return arrays, {g: (h,) * kernel.ir.ndim for g in arrays}
+
+
+def _check(got, want, key):
+    assert bool(torch.isfinite(got).all()), key
+    err = float((got - want).abs().max())
+    assert err <= RTOL * max(1.0, float(want.abs().max())), (key, err)
+
+
+@pytest.mark.parametrize("name,shape,time_block,block", [
+    ("star2d2r", (61, 133), 2, (8, 64)),
+    ("star2d2r", (61, 133), 3, (8, 64)),
+    ("star2d2r", (61, 133), 4, None),
+    ("box2d1r", (70, 45), 4, (5, 32)),
+    ("j2d9pt_gol", (33, 70), 3, None),
+    ("box3d1r", (21, 30, 47), 3, (4, 4, 16)),
+    ("star3d4r", (40, 37, 70), 4, None),
+    ("tapped_coef", (45, 77), 2, (6, 32)),
+    ("tapped_coef", (45, 77), 3, None),
+])
+def test_temporal_kernel_matches_plain(cuda, name, shape, time_block, block):
+    k, swap, scal = _kernel(name)
+    arrays, halos = _layout(k, shape, cuda, 1)
+    plan = codegen.plan_cuda(k.ir, halos, shape,
+                             st.hopper(template="shift", time_block=time_block,
+                                       block=block), swap=swap)
+    padded = plan.to_padded(arrays)
+    before = {g: t.clone() for g, t in padded.items()}
+    spares, ref = plan.make_spares(padded), plan.make_spares(padded)
+    n = temporal_step.launches
+    temporal_step(plan, padded, spares, scal)
+    temporal_step_plain(plan, padded, ref, scal)
+    torch.cuda.synchronize()
+    assert temporal_step.launches == n + 1
+    for g in plan.step_out_grids:
+        _check(spares[g], ref[g], f"{name}/k={time_block}/{g}")
+    for g, t in padded.items():
+        assert torch.equal(t, before[g]), f"{name}: wrote its read buffer {g}"
+
+
+@pytest.mark.parametrize("name,shape,block", [
+    ("star2d4r", (61, 133), None),
+    ("star2d4r", (61, 133), (5, 32)),
+    ("two_lin", (50, 90), (7, 64)),
+    ("j3d27pt", (21, 30, 47), (4, 4, 16)),
+    ("box3d1r", (21, 30, 47), None),
+])
+def test_semi_kernel_matches_plain(cuda, name, shape, block):
+    k, _, scal = _kernel(name)
+    arrays, halos = _layout(k, shape, cuda, 2)
+    plan = codegen.plan_cuda(k.ir, halos, shape,
+                             st.hopper(template="semi", block=block))
+    padded = plan.to_padded(arrays)
+    ref = {g: t.clone() for g, t in padded.items()}
+    n = semi_step.launches
+    semi_step(plan, padded, scal)
+    semi_step_plain(plan, ref, scal)
+    torch.cuda.synchronize()
+    assert semi_step.launches == n + 1
+    for g in plan.out_grids:
+        _check(padded[g], ref[g], f"{name}/{g}")
+
+
+@pytest.mark.parametrize("template", ("gmem", "shift"))
+@pytest.mark.parametrize("name", ("star2d4r", "two_lin", "tapped_coef"))
+def test_single_step_kernels_2d_match_plain(cuda, template, name):
+    k, _, scal = _kernel(name)
+    arrays, halos = _layout(k, (61, 133), cuda, 3)
+    plan = codegen.plan_cuda(k.ir, halos, (61, 133),
+                             st.hopper(template=template))
+    padded = plan.to_padded(arrays)
+    ref = {g: t.clone() for g, t in padded.items()}
+    kern, plain = ((fused_step, fused_step_plain) if template == "gmem"
+                   else (stream_step, stream_step_plain))
+    kern(plan, padded, scal)
+    plain(plan, ref, scal)
+    torch.cuda.synchronize()
+    for g in plan.out_grids:
+        _check(padded[g], ref[g], f"{name}/{template}/{g}")
+
+
+@pytest.mark.parametrize("template,time_block", [
+    ("gmem", 3), ("semi", 2), ("unroll", 4), ("semi", 1)])
+def test_timeloop_on_the_card_matches_torch(cuda, template, time_block):
+    """``st.timeloop`` on CUDA grids, K3 launches plus remainder steps, vs
+    ``st.torch()`` on the card."""
+    k = suite.get_kernel("star2d2r")
+    rng = np.random.default_rng(4)
+    init = {g: rng.standard_normal((133 + 4, 70 + 4)).astype(np.float32)
+            for g in ("u", "v")}
+    out = []
+    for be in (st.torch(), st.hopper(template=template, time_block=time_block)):
+        g = {n: st.grid(shape=(133, 70), order=2, data=torch.tensor(a),
+                        device=cuda) for n, a in init.items()}
+        st.launch(backend=be)(
+            lambda u, v: st.timeloop(11, swap=("v", "u"), fuse_steps=5)(k)(
+                u, v))(g["u"], g["v"])
+        out.append(g)
+    for n in ("u", "v"):
+        _check(out[1][n].data, out[0][n].data, n)
