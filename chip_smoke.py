@@ -7,17 +7,24 @@ Phases, each of which exits non-zero when it fails:
 
 1. environment — the card's name and power limit (``nvidia-smi``) and its
    compute capability, which must be 9.x (Hopper);
-2. build — every kernel of the main paths (K1 fused step, K2 2.5D
-   streaming, K3 temporal blocking at k=2 and k=3, K5 semi-stencil, for
-   ``star3d4r`` and acoustic ISO), built from ``src`` with one ``nvcc`` per
-   source, all started together;
+2. build — every kernel of the main paths (K1 fused step: K4 gmem's
+   body in place, K2 2.5D
+   streaming, K3 temporal blocking at k=2 and k=3, K5 semi-stencil, and
+   the per-application kernels of ``st.map``: K4 gmem/f4/smem, K2's and
+   K5's builds with a destination, for ``star3d4r`` and acoustic ISO, and
+   for a Jacobi kernel that reads its output off-center), built from
+   ``src`` with one ``nvcc`` per source, all started together;
 3. kernels — each kernel against its plain PyTorch version on the card,
    after one launch (K3: k=2 and k=3, both reading buffers left intact),
    at a block-multiple shape (64³), a ragged one (61×70×133) and the
    main-path shape (512³, K3 at k=2 only); time per step of kernel and
    plain version at 512³ (CUDA events; K3's launch time divided by k),
    and for ``star3d4r`` of the one library call that computes the same
-   update (``conv3d`` in f32 with the star as a dense 9³ weight);
+   update (``conv3d`` in f32 with the star as a dense 9³ weight); then
+   each per-application kernel against its plain version after one
+   application at the same shapes, at a sub-region whose z-start is not a
+   multiple of 4, and for the Jacobi kernel (outputs into a destination
+   buffer), with its time per application at 512³;
 4. main path — at 512³ f32 interior through ``st.launch(backend=
    st.hopper(...))``: templates gmem (K1), shift (K2), shift with
    ``time_block=2`` (K3) and semi (K5); ``star3d4r`` 100 steps, acoustic
@@ -28,11 +35,26 @@ Phases, each of which exits non-zero when it fails:
 5. absorbing boundary — acoustic ISO as in 4 at 64³, where the wave
    enters the PML within the 100 steps, against ``st.torch()``, plus K3
    with ``fuse_steps=7`` (3 K3 launches and one K2 remainder step a
-   window).
+   window);
+6. per-application main path — at 512³ f32 under templates gmem, f4, smem
+   (K4), shift (K4 streaming) and semi (K5): ``star3d4r`` as 100 ``st.map``
+   applications with the ``(u.data, v.data)`` swap, acoustic ISO through
+   ``acoustic.run(iters=100, pml_width=10)`` with the source injected every
+   step; exactly 100 launches of the path's kernel and no other, fields
+   within 2e-5 of their max of the same loop under ``st.torch()``;
+7. regions and Listing 1 — one ``star3d4r`` application at 512³ as the
+   seven regions of ``regions.seven_region(shape, 10)`` under gmem and f4
+   against one whole-interior ``st.map`` under the same template, and that
+   against one under ``st.torch()``; the paper's Listing 1 (2D
+   ``star2d4r``, 50 ``st.map`` steps at 256² under ``st.cuda(
+   computeCapability="9.0", threadsPerBlock=(8, 128), template="gmem")``)
+   against ``st.torch()`` within 1e-5 of the field's max.
 
 It prints the kernels line ``{"kernels": [...]}`` and then, last,
 ``{"ok": true, "device": {...}}``.  ``--quick`` runs phases 1–3 at the two
-small shapes only and prints no result line.  The script imports neither
+small shapes only and prints no result line.  Phases 4 and 5 read the
+launch counts of the fused path, 6 and 7 those of ``st.map``: each sets
+the counts to 0 just before its run and reads them just after.  The script imports neither
 JAX nor the JAX package, and needs nothing outside the checkout.
 """
 from __future__ import annotations
@@ -59,6 +81,24 @@ REPLACES = {
     "temporal_step": "src/repro/kernels/stencil/codegen.py:699",
     "semi_step": "src/repro/kernels/stencil/codegen.py:319",
 }
+# per-application kernels of st.map: entry -> (kernel wrapper, template)
+MAP_KERNELS = {"map_step.gmem": ("map_step", "gmem"),
+               "map_step.f4": ("map_step", "f4"),
+               "map_step.smem": ("map_step", "smem"),
+               "stream_step.map": ("stream_step", "shift"),
+               "semi_step.map": ("semi_step", "semi")}
+REPLACES.update({
+    "map_step.gmem": "src/repro/kernels/stencil/codegen.py:203",
+    "map_step.f4": "src/repro/kernels/stencil/codegen.py:203",
+    "map_step.smem": "src/repro/kernels/stencil/codegen.py:203",
+    "stream_step.map": "src/repro/kernels/stencil/codegen.py:429",
+    "semi_step.map": "src/repro/kernels/stencil/codegen.py:319",
+})
+# a sub-region of the ragged shape whose z-start (and origin) is not a
+# multiple of 4: f4 loads from below its first cell
+SUB_REGION = ((5, 50), (3, 61), (10, 127))
+PML_WIDTH = 10
+LISTING1_SHAPE, LISTING1_STEPS = (256, 256), 50
 # K3 is also checked at an odd depth (the other leapfrog parity)
 TEMPORAL_SMALL_DEPTHS = (2, 3)
 # device memory rate (B/s) and f32 rate outside the tensor cores (FLOP/s)
@@ -127,12 +167,15 @@ def star_conv(torch, w, codegen, plain, ref):
 
 
 class Workload:
-    """One main-path kernel: its IR, halos, fields made from a seed."""
+    """One main-path kernel (or ``kernel``, given): its IR, halos, fields
+    made from a seed."""
 
-    def __init__(self, name, mods):
+    def __init__(self, name, mods, kernel=None):
         self.name = name
         st, suite, acoustic = mods["st"], mods["suite"], mods["acoustic"]
-        if name == "star3d4r":
+        if kernel is not None:
+            self.kernel, self.swap, self.scalars = kernel, None, {}
+        elif name == "star3d4r":
             self.kernel = suite.get_kernel("star3d4r")
             self.swap = ("v", "u")
             self.scalars = {}
@@ -150,6 +193,11 @@ class Workload:
             self.st.hopper(template=template, time_block=time_block),
             swap=self.swap)
 
+    def map_plan(self, codegen, shape, template, region=None):
+        halos = {g: (self.halo,) * 3 for g in self.kernel.ir.grid_params}
+        return codegen.lower_hopper(self.kernel.ir, halos, shape, region,
+                                    self.st.hopper(template=template))
+
     def arrays(self, torch, shape, seed):
         """Random halo'd fields on the card (torch generator, seeded);
         acoustic coefficients in their physical ranges."""
@@ -164,6 +212,72 @@ class Workload:
             else:
                 out[g] = torch.randn(full, generator=gen, device="cuda")
         return out
+
+
+def extra_kernels(st):
+    """A Jacobi sweep that reads its output grid off-center (its
+    per-application kernels write into a destination buffer), and the
+    paper's Listing 1 stencil (``examples/quickstart.py``)."""
+    @st.kernel
+    def jacobi3d(u: st.grid, f: st.grid):
+        u.at(0, 0, 0).set(0.16666667 * (u.at(-1, 0, 0) + u.at(1, 0, 0)
+                                        + u.at(0, -1, 0) + u.at(0, 1, 0)
+                                        + u.at(0, 0, -1) + u.at(0, 0, 1))
+                          - 0.5 * f.at(0, 0, 0))
+
+    @st.kernel
+    def kernel_star2d4r(u: st.grid, v: st.grid):
+        v.at(0, 0).set(0.25005 * u.at(0, 0)
+                       + 0.11111 * (u.at(-4, 0) + u.at(4, 0))
+                       + 0.06251 * (u.at(-3, 0) + u.at(3, 0))
+                       + 0.06255 * (u.at(-2, 0) + u.at(2, 0))
+                       + 0.06245 * (u.at(-1, 0) + u.at(1, 0))
+                       + 0.06248 * (u.at(0, -1) + u.at(0, 1))
+                       + 0.06243 * (u.at(0, -2) + u.at(0, 2))
+                       + 0.06253 * (u.at(0, -3) + u.at(0, 3))
+                       - 0.22220 * (u.at(0, -4) + u.at(0, 4)))
+    return jacobi3d, kernel_star2d4r
+
+
+def bound_of(rates, nbytes: float, nflop: float):
+    """(bound ms, "bytes" or "operations"): the larger of the bytes over
+    the memory rate and the operations over the f32 rate; (None, None)
+    without rates."""
+    if rates is None:
+        return None, None
+    t_bytes = nbytes / rates[0] * 1e3
+    t_ops = nflop / rates[1] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def one_map(torch, key, kern, plain, plan, arrays, scalars):
+    """One application of per-application kernel ``kern`` and of its plain
+    version on copies of the same grids; returns (max abs err, timing
+    closures).  Fails on a non-finite output, a difference over the limit
+    or, when the plan writes to destinations, a write into a grid."""
+    bufs = {g: arrays[g] for g in plan.opnd_grids}
+    ref = {g: t.clone() for g, t in bufs.items()}
+    dst, rdst = plan.make_dst(bufs), plan.make_dst(ref)
+    kern(plan, bufs, scalars, dst)
+    plain(plan, ref, scalars, rdst)
+    torch.cuda.synchronize()
+    err = 0.0
+    for g in plan.out_grids:
+        # in place the whole tensor: cells outside the region must keep
+        # their values, as the plain version leaves them
+        a, b = (bufs[g], ref[g]) if dst is None else (dst[g], rdst[g])
+        if not bool(torch.isfinite(a).all()):
+            fail(f"{key}: non-finite output '{g}'")
+        e = float((a - b).abs().max())
+        scale = max(1.0, float(b.abs().max()))
+        # f32 sums of the taps in another order, with FMA contraction
+        if e > 2e-5 * scale:
+            fail(f"{key}: max |kernel - plain| = {e} > 2e-5 * {scale}")
+        err = max(err, e)
+    if dst is not None and not all(torch.equal(bufs[g], ref[g]) for g in bufs):
+        fail(f"{key}: the kernel wrote a grid it should leave to the copy")
+    return (err, lambda: kern(plan, bufs, scalars, dst),
+            lambda: plain(plan, ref, scalars, rdst))
 
 
 def time_ms(torch, fn, reps: int, warmup: int = 1) -> float:
@@ -219,11 +333,13 @@ def main(argv=None) -> int:
         fail("torch.cuda.is_available() is false: this script needs a GPU")
     sys.path.insert(0, str(ROOT / "src"))
     try:
-        from repro_torch.core import acoustic, suite
+        from repro_torch.core import acoustic, regions, suite
         from repro_torch.core import dsl as st
         from repro_torch.kernels.stencil import _build, codegen
         from repro_torch.kernels.stencil.fused_step import (fused_step,
                                                            fused_step_plain)
+        from repro_torch.kernels.stencil.map_step import (map_step,
+                                                         map_step_plain)
         from repro_torch.kernels.stencil.semi_step import (semi_step,
                                                           semi_step_plain)
         from repro_torch.kernels.stencil.stream_step import (stream_step,
@@ -235,7 +351,8 @@ def main(argv=None) -> int:
     wrappers = {"fused_step": (fused_step, fused_step_plain),
                 "stream_step": (stream_step, stream_step_plain),
                 "temporal_step": (temporal_step, temporal_step_plain),
-                "semi_step": (semi_step, semi_step_plain)}
+                "semi_step": (semi_step, semi_step_plain),
+                "map_step": (map_step, map_step_plain)}
 
     def reset_counts():
         for kern, _ in wrappers.values():
@@ -271,6 +388,8 @@ def main(argv=None) -> int:
 
     mods = {"st": st, "suite": suite, "acoustic": acoustic}
     workloads = [Workload("star3d4r", mods), Workload("acoustic_iso", mods)]
+    jacobi3d, listing1_kernel = extra_kernels(st)
+    jacobi = Workload("jacobi3d", mods, kernel=jacobi3d)
 
     # -- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -279,6 +398,13 @@ def main(argv=None) -> int:
     sources += [w.plan(codegen, MAIN_SHAPE, KERNELS["temporal_step"][0],
                        k).source()
                 for w in workloads for k in TEMPORAL_SMALL_DEPTHS]
+    # a map plan's source does not depend on the shape or the region
+    sources += [w.map_plan(codegen, SMALL_SHAPES[0], t).source()
+                for w in workloads + [jacobi] for _, t in MAP_KERNELS.values()]
+    sources += [codegen.lower_hopper(
+        listing1_kernel.ir, {"u": (4, 4), "v": (4, 4)}, LISTING1_SHAPE, None,
+        st.cuda(computeCapability="9.0", threadsPerBlock=(8, 128),
+                template="gmem")).source()]
     try:
         _build.build_many(sources)
     except RuntimeError as e:
@@ -344,20 +470,14 @@ def main(argv=None) -> int:
                         # buffer the launch writes written once, per k steps
                         nbytes = 4 * n * (len(info.input_grids)
                                           + len(plan.step_out_grids)) / k
-                        nflop = info.flops_per_point * n
-                        bound, bound_by = None, None
-                        if rates is not None:
-                            t_bytes = nbytes / rates[0] * 1e3
-                            t_ops = nflop / rates[1] * 1e3
-                            bound = max(t_bytes, t_ops)
-                            bound_by = ("bytes" if t_bytes >= t_ops
-                                        else "operations")
+                        bound, bound_by = bound_of(
+                            rates, nbytes, info.flops_per_point * n)
                         lib = (library[w.name] if kname != "temporal_step"
                                else None)   # no one call does k steps
                         entries[key] = {
                             "name": key, "route": "cuda",
                             "source": "src/repro_torch/kernels/stencil/csrc/"
-                                      f"{kname}.cuh",
+                                      + codegen.KERNEL_FILES[plan.kind],
                             "replaces": REPLACES[kname], "launches": None,
                             "max_abs_err": None, "ms": ms,
                             "plain_ms": plain_ms, "bound_ms": bound,
@@ -369,6 +489,54 @@ def main(argv=None) -> int:
                             f"library {lib} ms)")
                     del plan, got, ref, run_kern, run_plain
                     torch.cuda.empty_cache()
+            if key in entries:
+                entries[key]["max_abs_err"] = worst
+
+    # the per-application kernels: the workloads at every shape and at a
+    # sub-region of the ragged one; the Jacobi kernel (outputs into a
+    # destination) at the ragged shape and the sub-region
+    for w in workloads + [jacobi]:
+        for ename, (wname, template) in MAP_KERNELS.items():
+            kern, plain = wrappers[wname]
+            key = f"{ename}[{w.name}]"
+            cases = [(shape, None) for shape in shapes if w is not jacobi]
+            cases += [(SMALL_SHAPES[1], None)] if w is jacobi else []
+            cases += [(SMALL_SHAPES[1], SUB_REGION)]
+            worst = 0.0
+            for shape, region in cases:
+                plan = w.map_plan(codegen, shape, template, region)
+                if plan.in_place == (w is jacobi):
+                    fail(f"{key}: in_place is {plan.in_place}")
+                err, run_kern, run_plain = one_map(
+                    torch, f"{key} at {shape} region {region}", kern, plain,
+                    plan, w.arrays(torch, shape, seed=2), w.scalars)
+                worst = max(worst, err)
+                say(f"kernel {key} {shape} region {region}: max abs err "
+                    f"{err:.3g}")
+                if shape == MAIN_SHAPE:
+                    ms = time_ms(torch, run_kern, 50, 10)
+                    plain_ms = time_ms(torch, run_plain, 1)
+                    info = w.kernel.info
+                    n = np.prod(shape, dtype=np.float64)
+                    bound, bound_by = bound_of(
+                        rates, 4 * n * (len(info.input_grids)
+                                        + len(info.output_grids)),
+                        info.flops_per_point * n)
+                    entries[key] = {
+                        "name": key, "route": "cuda",
+                        "source": "src/repro_torch/kernels/stencil/csrc/"
+                                  + codegen.KERNEL_FILES[plan.kind],
+                        "replaces": REPLACES[ename], "launches": None,
+                        "max_abs_err": None, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound, "bound_by": bound_by,
+                        "library_ms": library.get(w.name),
+                        "template": template,
+                        "modeled_bytes_per_step": plan.hbm_bytes_per_step()}
+                    say(f"time {key} {shape}: {ms:.4f} ms/application "
+                        f"(plain {plain_ms:.2f} ms, bound {bound} ms, "
+                        f"library {library.get(w.name)} ms)")
+                del plan, run_kern, run_plain
+                torch.cuda.empty_cache()
             if key in entries:
                 entries[key]["max_abs_err"] = worst
     if args.quick:
@@ -493,7 +661,133 @@ def main(argv=None) -> int:
             f"(field max {scale:.3g}; in the PML {share:.2f} of it)")
     record["absorbing_boundary"] = pml_rows
 
-    kernels = [entries[f"{k}[{w.name}]"] for w in workloads for k in KERNELS]
+    # -- 6. per-application main path --------------------------------------------
+    def star_map(backend):
+        grids = suite.make_grids("star3d4r", MAIN_SHAPE, seed=0)
+        k = suite.get_kernel("star3d4r")
+
+        @st.target
+        def run(u, v):
+            for _ in range(STEPS):
+                st.map(e=u.shape)(k)(u, v)
+                (u.data, v.data) = (v.data, u.data)
+        t0 = time.perf_counter()
+        st.launch(backend=backend)(run)(grids["u"], grids["v"])
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, grids
+
+    def acoustic_map(backend):
+        # the wall time of the step loop, source injections included as
+        # in the fused run's ``between``; the fields are made before it
+        p1, prof = acoustic.run(shape=MAIN_SHAPE, iters=STEPS,
+                                pml_width=PML_WIDTH, backend=backend)
+        torch.cuda.synchronize()
+        return prof["loop"], {"p1": p1}
+
+    map_rows = []
+    n = float(np.prod(MAIN_SHAPE))
+    for w, run in zip(workloads, (star_map, acoustic_map)):
+        ref_s, ref = run(st.torch())
+        nbytes = 4 * n * (len(w.kernel.info.input_grids)
+                          + len(w.kernel.info.output_grids))
+        for ename, (wname, template) in MAP_KERNELS.items():
+            key = f"{ename}[{w.name}]"
+            reset_counts()
+            seconds, got = run(st.hopper(template=template))
+            seen = counts()
+            if seen[wname] != STEPS or sum(seen.values()) != STEPS:
+                fail(f"st.map {key}: launch counts {seen}, expected {STEPS} "
+                     f"of {wname} and no other")
+            entries[key]["launches"] = seen[wname]
+            diff, scale = max_diff(torch, f"st.map {key}", got, ref)
+            steps_s = STEPS / seconds
+            row = {"path": f"st.map {key}", "template": template,
+                   "steps": STEPS, "seconds": seconds, "steps_per_s": steps_s,
+                   "gpoints_per_s": steps_s * n / 1e9,
+                   "effective_gb_per_s": steps_s * nbytes / 1e9,
+                   "max_abs_diff_vs_torch": diff, "field_max": scale,
+                   "torch_seconds": ref_s}
+            map_rows.append(row)
+            say(f"per-application path {key}: {STEPS} st.map in {seconds:.3f}"
+                f" s = {steps_s:.1f} steps/s, {row['gpoints_per_s']:.2f} "
+                f"Gpoint/s, {row['effective_gb_per_s']:.0f} GB/s effective; "
+                f"max |diff| vs st.torch() {diff:.3g} (field max {scale:.3g});"
+                f" st.torch() took {ref_s:.1f} s")
+            del got
+            torch.cuda.empty_cache()
+        del ref
+        torch.cuda.empty_cache()
+    record["map_path"] = map_rows
+
+    # -- 7. regions and Listing 1 ------------------------------------------------
+    k = suite.get_kernel("star3d4r")
+    init = suite.make_grids("star3d4r", MAIN_SHAPE, seed=3)
+    boxes = regions.seven_region(MAIN_SHAPE, PML_WIDTH)
+    region_rows = []
+
+    def whole_map(be):
+        whole = {g: x.copy() for g, x in init.items()}
+        st.launch(backend=be)(lambda u, v: st.map(e=u.shape)(k)(u, v))(
+            whole["u"], whole["v"])
+        return whole
+    want = whole_map(st.torch())
+    for template in ("gmem", "f4"):
+        be = st.hopper(template=template)
+        whole = whole_map(be)
+        diff_torch, _ = max_diff(torch, f"whole-interior {template}", whole,
+                                 want)
+        parts = {g: x.copy() for g, x in init.items()}
+
+        def seven(u, v):
+            for r in boxes:
+                st.map(begin=[b for b, _ in r], end=[e for _, e in r])(k)(u, v)
+        reset_counts()
+        st.launch(backend=be)(seven)(parts["u"], parts["v"])
+        seen = counts()
+        if seen["map_step"] != len(boxes) or sum(seen.values()) != len(boxes):
+            fail(f"seven regions {template}: launch counts {seen}")
+        diff, scale = max_diff(torch, f"seven regions {template}", parts, whole)
+        region_rows.append({"template": template, "regions": len(boxes),
+                            "max_abs_diff_vs_whole": diff,
+                            "whole_max_abs_diff_vs_torch": diff_torch})
+        say(f"seven regions {template} at {MAIN_SHAPE}: max |diff| vs one "
+            f"whole-interior st.map {diff:.3g} (field max {scale:.3g}), "
+            f"which is {diff_torch:.3g} from st.torch()")
+        del whole, parts
+    del init, want
+    torch.cuda.empty_cache()
+
+    def listing1(u, v, iters):
+        for _ in range(iters):
+            st.map(e=u.shape)(listing1_kernel)(u, v)
+            (u.data, v.data) = (v.data, u.data)
+
+    def listing1_grids():
+        return (st.grid(dtype=st.f32, shape=LISTING1_SHAPE, order=4).randomize(0),
+                st.grid(dtype=st.f32, shape=LISTING1_SHAPE, order=4))
+    u, v = listing1_grids()
+    st.launch(backend=st.torch())(listing1)(u, v, LISTING1_STEPS)
+    want = u.interior.clone()
+    u, v = listing1_grids()
+    reset_counts()
+    st.launch(backend=st.cuda(computeCapability="9.0", threadsPerBlock=(8, 128),
+                              template="gmem"))(listing1)(u, v, LISTING1_STEPS)
+    seen = counts()
+    if seen["map_step"] != LISTING1_STEPS or sum(seen.values()) != LISTING1_STEPS:
+        fail(f"Listing 1: launch counts {seen}")
+    err = float((u.interior - want).abs().max())
+    scale = max(1.0, float(want.abs().max()))
+    # the stencil amplifies oscillatory modes: the quickstart's own limit
+    if not err / scale < 1e-5:
+        fail(f"Listing 1: max |hopper - torch| = {err} ({err / scale} of "
+             f"{scale})")
+    say(f"Listing 1 at {LISTING1_SHAPE}, {LISTING1_STEPS} steps: max |hopper "
+        f"- torch| {err:.3g} (relative {err / scale:.3g})")
+    record["regions"] = region_rows
+    record["listing1"] = {"max_abs_diff": err, "relative": err / scale}
+
+    kernels = [entries[f"{k}[{w.name}]"] for w in workloads
+               for k in list(KERNELS) + list(MAP_KERNELS)]
     record["kernels"], record["main_path"] = kernels, main_rows
     if args.json:
         path = pathlib.Path(args.json)

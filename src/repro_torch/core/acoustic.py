@@ -17,6 +17,7 @@ grids' buffers in place (``st.timeloop``/``st.map``).
 """
 from __future__ import annotations
 
+import time
 from typing import Optional, Tuple
 
 import numpy as np
@@ -118,11 +119,16 @@ def run(shape=(64, 64, 64), iters: int = 10, backend=None,
         fuse_steps: int = None, device=None):
     """Convenience entry point.  Returns (final wavefield grid, launch profile).
 
-    ``fuse_steps`` switches to the fused time-loop engine: the wavelet is
-    injected every ``fuse_steps`` steps instead of every step — identical
-    when ``fuse_steps=1``.  Without it the per-step ``st.map`` path runs,
-    which needs ``st.torch()`` (the per-application CUDA kernel is not
-    ported yet).  Fields live on ``device`` (None: the card).
+    Without ``fuse_steps`` the per-step path runs (the paper's host-side
+    loop): one ``st.map`` launch per step under ``backend`` (default
+    ``st.torch()``; ``st.hopper(template=...)`` runs the per-application
+    kernels), with the wavelet injected every step.  ``fuse_steps``
+    switches to the fused time-loop engine: the wavelet is then injected
+    every ``fuse_steps`` steps instead of every step — identical when
+    ``fuse_steps=1``.  Fields live on ``device`` (None: the card).  The
+    per-step path's profile sums the launches' phases and adds ``loop``,
+    the host seconds of the whole step loop, injections included (each
+    ``st.map`` ends in a sync).
     """
     p0, p1, vp2, damp, dt = make_fields(shape, pml_width=pml_width,
                                         device=device)
@@ -140,6 +146,7 @@ def run(shape=(64, 64, 64), iters: int = 10, backend=None,
                                    between=between)
         return p1, res.profile
     total_prof = {}
+    t0 = time.perf_counter()
     for t in range(iters):
         if with_source:
             inject_source(p1, t)
@@ -147,4 +154,5 @@ def run(shape=(64, 64, 64), iters: int = 10, backend=None,
             p0, p1, vp2, damp, dt, 1)
         for k, v in res.profile.items():
             total_prof[k] = total_prof.get(k, 0.0) + v
+    total_prof["loop"] = time.perf_counter() - t0
     return p1, total_prof

@@ -246,20 +246,26 @@ _TEMPLATES = ("gmem", "smem", "f4", "shift", "unroll", "semi")
 class hopper(Backend):
     """Hand-written CUDA kernels for sm_90a (``kernels/stencil``).
 
-    ``template`` gmem/smem/f4 run the fused-step kernel K1 (one thread per
-    interior point, taps from global memory); shift/unroll run the 2.5D
-    streaming kernel K2 (a ring of halo'd planes in shared memory along
-    axis 0); semi runs the semi-stencil kernel K5 (each input plane
-    scattered once into a register ring of partial output planes; the
-    kernel must be linear in its taps).  ``time_block=k > 1`` runs the
+    In ``st.timeloop``, ``template`` gmem/smem/f4 run the fused-step
+    kernel K1 (K4 gmem's build, in place: taps from global memory);
+    shift/unroll run the 2.5D streaming kernel K2 (a ring of halo'd planes
+    in shared memory along axis 0); semi runs the semi-stencil kernel K5
+    (each input plane scattered once into a register ring of partial
+    output planes; the kernel must be linear in its taps).  In ``st.map``
+    gmem/f4/smem run the per-application kernel K4 (taps from global
+    memory; 4 points a thread from aligned float4 rows; a halo'd tile in
+    shared memory), shift/unroll and semi the per-application builds of K2
+    and K5.  ``time_block=k > 1`` runs the
     temporal-blocking kernel K3 under every template: one launch advances
     ``k`` leapfrog steps of ``st.timeloop`` (a swap pair and one output,
     ``swap[0]``, are required), and a fusion window that is not a multiple
     of ``k`` ends with single steps of the template's kernel.  ``block``
     is the tile in points, ``(b0, b1, b2)`` in 3D or ``(b0, b1)`` in 2D:
-    the thread block covers ``b1 × b2`` (2D: ``b1``) points and the
-    streaming kernels walk ``b0`` planes per block.  ``mem_type`` is
-    accepted for compatibility with the paper's knob.
+    the thread block covers ``b1 × b2`` (2D: ``b1``) points (K4's f4: a
+    quarter as many threads, 4 points each), the streaming kernels walk
+    ``b0`` planes per block and K1's and K4's threads ``b0`` points each.
+    ``mem_type`` (``"registers"`` or ``"vmem"``) is accepted for
+    compatibility with the paper's knob; both run the same kernels.
     """
     kind: str = "hopper"
     template: str = "gmem"
@@ -272,6 +278,9 @@ class hopper(Backend):
             raise ValueError(f"unknown template {self.template!r}")
         if int(self.time_block) < 1:
             raise ValueError("time_block must be >= 1")
+        if self.mem_type not in (None, "registers", "vmem"):
+            raise ValueError(f"mem_type must be 'registers' or 'vmem', got "
+                             f"{self.mem_type!r}")
 
 
 def cuda(computeCapability: str = "", threadsPerBlock: Optional[Tuple[int, ...]] = None,
@@ -339,8 +348,13 @@ def map(begin=None, end=None, e=None) -> _MapCall:  # noqa: A001 (paper name)
     """Apply a kernel over an interior region (paper §4.2's ``map``):
     ``st.map(e=u.shape)(k)(u, v)`` sweeps the whole interior,
     ``st.map(begin=..., end=...)`` a sub-box.  Output grids are updated in
-    place.  Runs under ``st.torch()``; the per-application CUDA kernel (K4)
-    is not ported yet."""
+    place on the region; every other cell keeps its value.  Under
+    ``st.hopper(template=...)`` one application is one launch of a
+    hand-written kernel (``codegen.lower_hopper``): gmem/f4/smem run K4,
+    shift/unroll K4's streaming kernel (K2's source), semi K5; taps read the
+    old values, also of an output grid read off-center, and on CPU grids
+    the kernels' plain versions run.  The host syncs after each
+    application."""
     return _MapCall(begin=begin, end=end, e=e)
 
 
@@ -387,22 +401,26 @@ def _apply_kernel(k: Kernel, args, begin, end):
         if region == tuple((0, s) for s in interior):
             region = None
     backend = _CTX.backend if _CTX.active else torch_backend()
-    if backend.kind != "torch":
-        raise not_ported(f"st.map under the {backend.kind} backend",
-                         "kernel K4 (per-application st.map kernels)")
     key = ("map", backend.cache_key(),
            tuple(sorted((n, g.shape, g.order, str(g.dtype))
                         for n, g in grids.items())), region)
     fn = k._cache.get(key)
     if fn is None:
         t0 = time.perf_counter()
-        fn = _lowering.lower_torch(k.ir, {n: g.halo for n, g in grids.items()},
-                                   interior, region)
+        halos = {n: g.halo for n, g in grids.items()}
+        if backend.kind == "hopper":
+            from repro_torch.kernels.stencil import codegen as _codegen
+            fn = _codegen.lower_hopper(k.ir, halos, interior, region,
+                                       backend).apply
+        else:
+            lowered = _lowering.lower_torch(k.ir, halos, interior, region)
+            fn = lambda arrays, scal: lowered(  # noqa: E731
+                arrays, scalar_tensors(scal, next(iter(arrays.values())).device))
         _CTX.add("codegen", time.perf_counter() - t0)
         k._cache[key] = fn
     device = next(iter(grids.values())).device
     t0 = time.perf_counter()
-    fn({n: g.data for n, g in grids.items()}, scalar_tensors(scalars, device))
+    fn({n: g.data for n, g in grids.items()}, scalars)
     _sync(device)
     _CTX.add("kernel", time.perf_counter() - t0)
     return None

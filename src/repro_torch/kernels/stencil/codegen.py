@@ -1,4 +1,5 @@
-"""StencilIR → hand-written Hopper CUDA kernels: the fused time-loop plan.
+"""StencilIR → hand-written Hopper CUDA kernels: the fused time-loop plan
+(``CudaPlan``) and the per-application plan (``MapPlan``, ``st.map``).
 
 ``CudaPlan`` is the counterpart of the JAX package's ``PallasPlan``: it
 splits a fused time loop into
@@ -10,7 +11,8 @@ splits a fused time loop into
                     is, so its buffer is then advanced in place);
   ``step``        — one kernel launch on the layout buffers.  With
                     ``time_block=1`` it advances one step in place: K1
-                    (``fused_step``, templates gmem/smem/f4), K2
+                    (``fused_step``, templates gmem/smem/f4: K4 gmem's
+                    body in the layout buffers), K2
                     (``stream_step``, shift/unroll) or K5 (``semi_step``,
                     semi); writing in place is legal because output grids
                     must have center-only taps.  With ``time_block=k>1``
@@ -31,6 +33,16 @@ The kernels' structure is hand-written (``csrc/*.cuh``); only the per-point
 expression (K5: the per-offset scatter) is generated (``emit.py``) and
 compiled at first use (``_build.py``).  The layout halo stays ``hw`` under
 temporal blocking: K3 clamps its loads to the tap reach ``[-h, R + h)``.
+
+``MapPlan`` (``lower_hopper``) is the counterpart of the JAX package's
+``lower_pallas``: one application over the interior or a sub-region, with
+no layout stage.  Each grid's full halo'd tensor goes to the kernel with
+its origin at the region's first point and the region's extent as ``R``,
+so taps outside the region read the real neighbouring cells.  Templates
+gmem/f4/smem run K4 (``map_step``), shift/unroll K2's source with a
+destination (K4 streaming), semi K5's.  Outputs are written in place when
+every output grid has center-only taps; otherwise into a destination
+buffer that no block reads, whose region is then copied into the grid.
 """
 from __future__ import annotations
 
@@ -45,10 +57,15 @@ from repro_torch.core import analysis, ir
 
 from . import emit
 
-# threads cover b1 x b2 points; the streaming kernel walks b0 planes
-DEFAULT_BLOCK = {"fused": {2: (1, 256), 3: (1, 8, 32)},
-                 "stream": {2: (64, 256), 3: (64, 8, 32)}}
+# threads cover b1 x b2 points; the streaming kernels walk b0 planes, and
+# the one-step kernels' threads (K1, K4; f4: groups of 4 points along
+# axis 2) b0 points of a column
+DEFAULT_BLOCK = {"step": {2: (4, 256), 3: (4, 8, 32)},
+                 "stream": {2: (64, 256), 3: (64, 8, 32)},
+                 "f4": {2: (4, 512), 3: (4, 8, 128)}}
 STREAM_TEMPLATES = ("shift", "unroll", "semi")
+# RT_MAP_T of K4's blocked templates (csrc/map_step.cuh)
+MAP_TEMPLATES = {"gmem": 0, "f4": 1, "smem": 2}
 SMEM_LIMIT = 227 * 1024          # shared memory one block may use on sm_90
 
 # layout conversions per grid name: one per grid per fusion window
@@ -74,15 +91,21 @@ def to3(t, fill: int) -> Tuple[int, int, int]:
 
 
 def choose_block(user_block, template: str, ndim: int,
-                 time_block: int = 1) -> Tuple[int, ...]:
+                 time_block: int = 1,
+                 per_application: bool = False) -> Tuple[int, ...]:
     """The tile in points (the port's own defaults, see ``DEFAULT_BLOCK``;
-    K3 walks chunks of planes like the streaming kernels)."""
+    K3 walks chunks of planes like the streaming kernels; K4's f4,
+    ``per_application``, takes a wider tile)."""
     if user_block is not None:
         if len(user_block) != ndim:
             raise ValueError(f"block must have {ndim} dims")
         return tuple(int(b) for b in user_block)
-    kind = ("stream" if template in STREAM_TEMPLATES or time_block > 1
-            else "fused")
+    if template in STREAM_TEMPLATES or time_block > 1:
+        kind = "stream"
+    elif per_application and template == "f4":
+        kind = "f4"
+    else:
+        kind = "step"
     return DEFAULT_BLOCK[kind][ndim]
 
 
@@ -131,11 +154,125 @@ def _window_cells(R3, B3, e3, c3) -> int:
                      for ax in range(3))
 
 
-KERNEL_FILES = {"fused": "fused_step.cuh", "stream": "stream_step.cuh",
-                "semi": "semi_step.cuh", "temporal": "temporal_step.cuh"}
+KERNEL_FILES = {"fused": "map_step.cuh", "stream": "stream_step.cuh",
+                "semi": "semi_step.cuh", "temporal": "temporal_step.cuh",
+                "map": "map_step.cuh"}
 
 
-class CudaPlan:
+def _smem_bytes(kind: str, B3, gh3, time_block: int = 1, h_swap=None) -> int:
+    """Shared memory one block of ``kind`` takes: K2's rings of ``2h0+1``
+    halo'd planes, K5's double-buffered plane, K3's ``k`` plane rings, K4
+    smem's halo'd tile, of every grid with an off-center tap."""
+    ring = [h for h in gh3.values() if any(h)]
+    if kind == "stream":
+        return 4 * sum((2 * h[0] + 1) * (B3[1] + 2 * h[1]) * (B3[2] + 2 * h[2])
+                       for h in ring)
+    if kind == "semi":
+        return 8 * sum((B3[1] + 2 * h[1]) * (B3[2] + 2 * h[2]) for h in ring)
+    if kind == "temporal":
+        h, k = h_swap, time_block
+        return 4 * (2 * h[0] + 1) * sum(
+            (B3[1] + 2 * (k - 1 - r) * h[1]) * (B3[2] + 2 * (k - 1 - r) * h[2])
+            for r in range(-1, k - 1))
+    if kind == "smem":
+        return 4 * sum(math.prod(B3[ax] + 2 * h[ax] for ax in range(3))
+                       for h in ring)
+    return 0
+
+
+class _Plan:
+    """What the fused and the per-application plans share: the buffers'
+    3D form, the view of the region the kernel computes, and the traffic
+    model.  A subclass sets ``kernel``, ``kind``, ``ndim``, ``R3``, ``B3``,
+    ``gh3``, ``org3`` (each grid's element origin of the computed box, 3D
+    form), ``in_grids``, ``out_grids``, ``opnd_grids``, ``time_block``,
+    ``swap``, ``step_out_grids`` and ``H``."""
+
+    def buf3(self, t: torch.Tensor) -> torch.Tensor:
+        """A buffer in the kernels' 3D form (a view)."""
+        return t if self.ndim == 3 else t.unsqueeze(1)
+
+    def interior3(self, g: str, t: torch.Tensor, x=None) -> torch.Tensor:
+        """View of the box grid ``g``'s kernel computes (the interior, or
+        ``MapPlan``'s region) in its 3D buffer (plane ``x`` only, when
+        given)."""
+        w, R = self.org3[g], self.R3
+        b = self.buf3(t)
+        lead = slice(w[0], w[0] + R[0]) if x is None else w[0] + x
+        return b[lead, w[1]:w[1] + R[1], w[2]:w[2] + R[2]]
+
+    def out3(self, g: str, bufs: Dict[str, torch.Tensor], dst=None,
+             x=None) -> torch.Tensor:
+        """Where the kernel writes output ``g`` (plane ``x`` only, when
+        given): its grid's box, or ``dst[g]`` (of the box's shape)."""
+        if dst is None:
+            return self.interior3(g, bufs[g], x)
+        b = self.buf3(dst[g])
+        return b if x is None else b[x]
+
+    # -- traffic model -----------------------------------------------------
+    def hbm_bytes_per_step(self, itemsize: int = 4) -> float:
+        """Modeled bytes one step moves: the loads the blocks make plus the
+        writes, an upper bound on device-memory traffic where L1/L2 serve
+        re-reads (tile halos of neighbouring blocks, chunk overlaps).  The
+        compulsory traffic, each input read and each written buffer written
+        once per launch, is the smaller figure ``chip_smoke.py`` bounds with.
+
+        K1 and K4's blocked templates: each operand grid read once over the
+        reach of its taps (``R + 2·gh``) and each output written once (a
+        grid that is only written is not read).  K2: per tile and chunk the
+        halo'd window of each ringed grid, clipped to the tap reach, plus
+        the point-read grids.  K5: per tile and chunk each term grid's
+        planes ``[x0 - H, x1 + H)`` with its y/z halo, clipped to its reach,
+        plus one read per point of each grid its coefficients read.  K3, per
+        launch of ``k`` steps divided by ``k``: the read grid's window
+        widened by ``k·h`` (clipped to the reach ``[-h, R + h)``), the halo
+        cells each sub-step's ring takes from the buffer it stands for, one
+        read per computed point and sub-step of every grid read at the
+        point, and one write of each swap buffer.  The spares K3 writes are
+        written, not fetched: no destination read (the TPU kernel DMAs its
+        destination blocks in)."""
+        R3, B3, k = self.R3, self.B3, self.time_block
+        n = math.prod(R3)
+        zero = (0, 0, 0)
+        read = 0
+        if self.kind == "temporal":
+            written, other = self.swap
+            h = self.gh3[other]
+            kh = tuple(k * x for x in h)
+            read += _window_cells(R3, B3, kh, h)
+            for j in range(k):
+                e = tuple((k - 1 - j) * x for x in h)
+                inner = _window_cells(R3, B3, e, zero)
+                if j < k - 1:        # halo cells of sub-step j's ring
+                    read += _window_cells(R3, B3, e, h) - inner
+                point = [g for g in self.in_grids if g not in self.swap]
+                if j == 0 and written in self.in_grids:
+                    point.append(written)
+                read += len(point) * inner
+            write = len(self.step_out_grids) * n
+            return float((read + write) * itemsize) / k
+        if self.kind == "semi":
+            # center taps are what the coefficients and constants read
+            fields = {t.grid for t in self.kernel.taps() if not any(t.offsets)}
+            for g in self.in_grids:
+                h = self.gh3[g]
+                if any(h):
+                    read += _window_cells(R3, B3, (self.H,) + h[1:], h)
+                if g in fields:
+                    read += n
+        else:
+            for g in self.in_grids:
+                h = self.gh3[g]
+                if self.kind == "stream" and any(h):
+                    read += _window_cells(R3, B3, h, h)
+                else:
+                    read += math.prod(R3[ax] + 2 * h[ax] for ax in range(3))
+        write = len(self.out_grids) * n
+        return float((read + write) * itemsize)
+
+
+class CudaPlan(_Plan):
     """Layout and per-step kernel stage of the hopper backend for one
     (kernel, halos, interior, backend, swap); see the module docstring.
     ``kind`` names the kernel ``step`` launches: ``"fused"`` (K1),
@@ -202,22 +339,12 @@ class CudaPlan:
         else:
             kind = "stream" if template in STREAM_TEMPLATES else "fused"
         R3 = to3(R, 1)
-        if kind == "fused" and R3[0] > 65535:
-            raise ValueError("fused-step kernel: axis 0 extent must be <= 65535")
+        if kind == "fused" and (-(-R3[0] // B3[0]) > 65535
+                                or -(-R3[1] // B3[1]) > 65535):
+            raise ValueError(f"block {B}: more than 65535 blocks along axis "
+                             f"0 or 1 of the interior {R}")
         gh3 = {g: to3(gh[g], 0) for g in opnd_grids}
-        ring = [h for h in gh3.values() if any(h)]
-        if kind == "stream":
-            smem = 4 * sum((2 * h[0] + 1) * (B3[1] + 2 * h[1]) * (B3[2] + 2 * h[2])
-                           for h in ring)
-        elif kind == "semi":           # one double-buffered plane per grid
-            smem = 8 * sum((B3[1] + 2 * h[1]) * (B3[2] + 2 * h[2]) for h in ring)
-        elif kind == "temporal":       # k rings of 2h+1 widened planes
-            h = gh3[swap[1]]
-            smem = 4 * (2 * h[0] + 1) * sum(
-                (B3[1] + 2 * (k - 1 - r) * h[1]) * (B3[2] + 2 * (k - 1 - r) * h[2])
-                for r in range(-1, k - 1))
-        else:
-            smem = 0
+        smem = _smem_bytes(kind, B3, gh3, k, gh3[swap[1]] if k > 1 else None)
         if smem > SMEM_LIMIT:
             what = (f"time_block={k}: the {k} plane rings of block {B} need"
                     if kind == "temporal" else f"{kind} tile of block {B} needs")
@@ -232,6 +359,7 @@ class CudaPlan:
         self.gh, self.hw, self.swap = gh, hw, swap
         self.gh3 = gh3
         self.hw3 = {g: to3(hw[g], 0) for g in opnd_grids}
+        self.org3 = self.hw3        # the interior starts after the layout halo
         self.in_grids, self.out_grids = in_grids, out_grids
         self.opnd_grids = opnd_grids
         # the buffers one launch writes: with k > 1 both swap buffers
@@ -245,67 +373,6 @@ class CudaPlan:
         self.touched = tuple(g for g in opnd_grids
                              if g in set(out_grids) | set(swap or ()))
         self._source: Optional[str] = None
-
-    # -- traffic model -----------------------------------------------------
-    def hbm_bytes_per_step(self, itemsize: int = 4) -> float:
-        """Modeled bytes one step moves: the loads the blocks make plus the
-        writes, an upper bound on device-memory traffic where L1/L2 serve
-        re-reads (tile halos of neighbouring blocks, chunk overlaps).  The
-        compulsory traffic, each input read and each written buffer written
-        once per launch, is the smaller figure ``chip_smoke.py`` bounds with.
-
-        K1: each operand grid read once over the reach of its taps
-        (``R + 2·gh``) and each output written once (a grid that is only
-        written is not read).  K2: per tile and chunk the halo'd window of
-        each ringed grid, clipped to the tap reach, plus the point-read
-        grids.  K5: per tile and chunk each term grid's planes
-        ``[x0 - H, x1 + H)`` with its y/z halo, clipped to its reach, plus
-        one read per point of each grid its coefficients read.  K3, per
-        launch of ``k`` steps divided by ``k``: the read grid's window
-        widened by ``k·h`` (clipped to the reach ``[-h, R + h)``), the halo
-        cells each sub-step's ring takes from the buffer it stands for, one
-        read per computed point and sub-step of every grid read at the
-        point, and one write of each swap buffer.  The spares K3 writes are
-        written, not fetched: no destination read (the TPU kernel DMAs its
-        destination blocks in)."""
-        R3, B3, k = self.R3, self.B3, self.time_block
-        n = math.prod(R3)
-        zero = (0, 0, 0)
-        read = 0
-        if self.kind == "temporal":
-            written, other = self.swap
-            h = self.gh3[other]
-            kh = tuple(k * x for x in h)
-            read += _window_cells(R3, B3, kh, h)
-            for j in range(k):
-                e = tuple((k - 1 - j) * x for x in h)
-                inner = _window_cells(R3, B3, e, zero)
-                if j < k - 1:        # halo cells of sub-step j's ring
-                    read += _window_cells(R3, B3, e, h) - inner
-                point = [g for g in self.in_grids if g not in self.swap]
-                if j == 0 and written in self.in_grids:
-                    point.append(written)
-                read += len(point) * inner
-            write = len(self.step_out_grids) * n
-            return float((read + write) * itemsize) / k
-        if self.kind == "semi":
-            # center taps are what the coefficients and constants read
-            fields = {t.grid for t in self.kernel.taps() if not any(t.offsets)}
-            for g in self.in_grids:
-                h = self.gh3[g]
-                if any(h):
-                    read += _window_cells(R3, B3, (self.H,) + h[1:], h)
-                if g in fields:
-                    read += n
-        else:
-            for g in self.in_grids:
-                h = self.gh3[g]
-                if self.kind == "stream" and any(h):
-                    read += _window_cells(R3, B3, h, h)
-                else:
-                    read += math.prod(R3[ax] + 2 * h[ax] for ax in range(3))
-        write = len(self.out_grids) * n
-        return float((read + write) * itemsize)
 
     def count_window(self, steps: int) -> None:
         """Accumulate the modeled grid reads/writes of a fusion window of
@@ -338,18 +405,6 @@ class CudaPlan:
         so its halo is the grid's own (K3 writes interiors only)."""
         return {g: padded[g].clone() for g in self.step_out_grids}
 
-    def buf3(self, t: torch.Tensor) -> torch.Tensor:
-        """A layout buffer in the kernels' 3D form (a view)."""
-        return t if self.ndim == 3 else t.unsqueeze(1)
-
-    def interior3(self, g: str, t: torch.Tensor, x=None) -> torch.Tensor:
-        """View of grid ``g``'s interior in its 3D layout buffer (plane
-        ``x`` only, when given)."""
-        w, R = self.hw3[g], self.R3
-        b = self.buf3(t)
-        lead = slice(w[0], w[0] + R[0]) if x is None else w[0] + x
-        return b[lead, w[1]:w[1] + R[1], w[2]:w[2] + R[2]]
-
     # -- kernel stage ------------------------------------------------------
     def source(self) -> str:
         """Full CUDA source of this plan's kernel: the generated header and
@@ -357,7 +412,11 @@ class CudaPlan:
         if self._source is None:
             src = emit.header(self.kernel, self.opnd_grids, self.out_grids,
                               self.gh3, self.B3)
-            if self.kind == "semi":
+            if self.kind == "fused":
+                # K4 gmem's build, its destinations the grids themselves
+                src = ("#define RT_MAP 1\n"
+                       f"#define RT_MAP_T {MAP_TEMPLATES['gmem']}\n" + src)
+            elif self.kind == "semi":
                 src += emit.semi_functions(self.kernel, self.opnd_grids,
                                            self.out_grids, self.lin, self.H)
             elif self.kind == "temporal":
@@ -370,8 +429,9 @@ class CudaPlan:
     def launch_args(self, padded: Dict[str, torch.Tensor], scalars,
                     spares: Optional[Dict[str, torch.Tensor]] = None):
         """(meta, scal) ctypes arrays for the C entry (layout in
-        ``csrc/common.cuh``; K3 appends its destination pointers), after
-        checking the buffers."""
+        ``csrc/common.cuh``; K3 appends its destination pointers, K1 the
+        ``RT_MAP`` destinations, which are its output grids' buffers),
+        after checking the buffers."""
         ptrs, sx, sy, org = [], [], [], []
         device = padded[self.opnd_grids[0]].device
 
@@ -401,6 +461,9 @@ class CudaPlan:
                 raise ValueError(f"spare of '{g}' aliases a buffer the "
                                  "kernel reads")
             dst.append(spares[g].data_ptr())
+        if self.kind == "fused":
+            i = [self.opnd_grids.index(g) for g in self.out_grids]
+            dst = [v[j] for v in (ptrs, sx, sy, org) for j in i]
         meta = (ctypes.c_longlong * (4 * len(ptrs) + 3 + len(dst)))(
             *ptrs, *sx, *sy, *org, *self.R3, *dst)
         vals = [float(scalars[n]) for n in self.scal_names] or [0.0]
@@ -462,3 +525,227 @@ def plan_cuda(kernel: ir.StencilIR,
     """Build the split (layout / per-step kernel) lowering used by the
     fused time-loop engine (``repro_torch.core.timeloop``)."""
     return CudaPlan(kernel, halos, interior_shape, backend, swap=swap)
+
+
+class MapPlan(_Plan):
+    """Per-application kernel stage of the hopper backend (``st.map``) for
+    one (kernel, halos, interior, region, backend); see the module
+    docstring.  ``kind`` names the kernel ``apply`` launches: ``"map"`` (K4
+    gmem/f4/smem), ``"stream"`` (K4 shift/unroll, K2's source) or
+    ``"semi"`` (K5).  ``in_place`` is True when every output grid has
+    center-only taps: no thread then reads a point another thread writes."""
+
+    def __init__(self, kernel: ir.StencilIR,
+                 halos: Dict[str, Tuple[int, ...]],
+                 interior_shape: Tuple[int, ...],
+                 region,
+                 backend):
+        info = analysis.analyze(kernel)
+        ndim = kernel.ndim
+        if ndim not in (2, 3):
+            raise ValueError("hopper backend supports 2D and 3D stencils")
+        interior = tuple(int(s) for s in interior_shape)
+        if region is None:
+            region = tuple((0, s) for s in interior)
+        region = tuple((int(b), int(e)) for b, e in region)
+        if len(region) != ndim or not all(
+                0 <= b < e <= n for (b, e), n in zip(region, interior)):
+            raise ValueError(f"region {region} is not a non-empty box of the "
+                             f"interior {interior}")
+        R = tuple(e - b for b, e in region)
+        if int(getattr(backend, "time_block", 1) or 1) > 1:
+            raise ValueError(
+                "time_block > 1 is a fused time-loop feature (st.timeloop / "
+                "plan_cuda); the per-application path advances one step")
+        template = backend.template
+        in_grids, out_grids = info.input_grids, info.output_grids
+        opnd_grids = tuple(g for g in kernel.grid_params
+                           if g in set(in_grids) | set(out_grids))
+        gh = {g: info.halo_per_grid.get(g, (0,) * ndim) for g in opnd_grids}
+        # a tap may leave the region by the kernel halo, never the grid
+        for g in in_grids:
+            for ax in range(ndim):
+                h, b, e = halos[g][ax], region[ax][0], region[ax][1]
+                if h + b < gh[g][ax] or e + gh[g][ax] > interior[ax] + h:
+                    raise ValueError(
+                        f"grid '{g}' halo {h} too small for kernel halo "
+                        f"{gh[g][ax]} at region {region[ax]}")
+        B = choose_block(backend.block, template, ndim, per_application=True)
+        B3 = to3(B, 1)
+        if template == "f4" and B3[2] % 4:
+            raise ValueError(f"f4 template: block {B} must cover a multiple "
+                             "of 4 points along the last axis (each thread "
+                             "computes 4)")
+        threads = B3[1] * B3[2] // (4 if template == "f4" else 1)
+        if min(B3) < 1 or not 1 <= threads <= 1024:
+            raise ValueError(f"block {B}: a thread block of {threads} "
+                             "threads (1 to 1024)")
+        R3 = to3(R, 1)
+        if -(-R3[0] // B3[0]) > 65535 or -(-R3[1] // B3[1]) > 65535:
+            raise ValueError(f"block {B}: more than 65535 blocks along axis "
+                             f"0 or 1 of the region {R}")
+        lin, H = semi_linearize(kernel) if template == "semi" else (None, 0)
+        if template == "semi":
+            kind = "semi"
+        else:
+            kind = "stream" if template in STREAM_TEMPLATES else "map"
+        gh3 = {g: to3(gh[g], 0) for g in opnd_grids}
+        smem = _smem_bytes("smem" if template == "smem" else kind, B3, gh3)
+        if smem > SMEM_LIMIT:
+            raise ValueError(f"{template} tile of block {B} needs {smem} B of "
+                             f"shared memory (> {SMEM_LIMIT}); reduce block")
+
+        self.kernel, self.info, self.backend = kernel, info, backend
+        self.template, self.kind, self.time_block = template, kind, 1
+        self.ndim, self.R, self.B = ndim, R, B
+        self.R3, self.B3 = R3, B3
+        self.interior, self.region = interior, region
+        self.halos = {g: tuple(halos[g]) for g in opnd_grids}
+        self.gh, self.gh3, self.swap = gh, gh3, None
+        self.org3 = {g: to3([halos[g][ax] + region[ax][0]
+                             for ax in range(ndim)], 0) for g in opnd_grids}
+        self.full_shapes = {g: tuple(n + 2 * halos[g][ax]
+                                     for ax, n in enumerate(interior))
+                            for g in opnd_grids}
+        self.in_grids, self.out_grids = in_grids, out_grids
+        self.opnd_grids = opnd_grids
+        self.step_out_grids = tuple(out_grids)
+        self.in_place = not any(any(gh[g]) for g in out_grids)
+        self.lin, self.H = lin, H
+        self.smem_bytes = smem
+        self.scal_names = [n for n, _ in kernel.scalar_params]
+        self._source: Optional[str] = None
+
+    def hbm_bytes_per_step(self, itemsize: int = 4) -> float:
+        """The fused plan's model of the kernel's traffic (``_Plan``) plus,
+        when the outputs go to destination buffers, the copy of each into
+        its grid (one read, one write per point)."""
+        copy = 0 if self.in_place else 2 * len(self.out_grids) * math.prod(self.R3)
+        return super().hbm_bytes_per_step(itemsize) + float(copy * itemsize)
+
+    def source(self) -> str:
+        """Full CUDA source of this plan's kernel: ``RT_MAP``, the generated
+        header (f4: the tap rows and their point function) and the
+        hand-written template it includes."""
+        if self._source is None:
+            src = "#define RT_MAP 1\n"
+            point = None
+            if self.kind == "map":
+                src += f"#define RT_MAP_T {MAP_TEMPLATES[self.template]}\n"
+                if self.template == "f4":
+                    point = emit.f4_functions(self.kernel, self.opnd_grids,
+                                              self.out_grids)
+            src += emit.header(self.kernel, self.opnd_grids, self.out_grids,
+                               self.gh3, self.B3, point)
+            if self.kind == "semi":
+                src += emit.semi_functions(self.kernel, self.opnd_grids,
+                                           self.out_grids, self.lin, self.H)
+            self._source = src + f'#include "{KERNEL_FILES[self.kind]}"\n'
+        return self._source
+
+    def make_dst(self, bufs: Dict[str, torch.Tensor]):
+        """The destination buffers of one application: None when it writes
+        in place, else one uninitialised tensor of the region's shape per
+        output grid, on the grids' device."""
+        if self.in_place:
+            return None
+        t = bufs[self.opnd_grids[0]]
+        return {g: torch.empty(self.R, dtype=t.dtype, device=t.device)
+                for g in self.out_grids}
+
+    def launch_args(self, bufs: Dict[str, torch.Tensor], scalars,
+                    dst: Optional[Dict[str, torch.Tensor]] = None):
+        """(meta, scal) ctypes arrays for the C entry (layout in
+        ``csrc/common.cuh`` with ``RT_MAP``), after checking the grids and
+        the destinations (``dst``: None when in place, else ``make_dst``'s
+        buffers, which may not overlap a grid)."""
+        device = bufs[self.opnd_grids[0]].device
+        f4 = self.kind == "map" and self.template == "f4"
+
+        def check(what, t, shape):
+            if t.device != device:
+                raise ValueError(f"{what} is on {t.device}, not {device}")
+            if t.dtype != torch.float32:
+                raise TypeError(f"{what}: the CUDA kernels take float32, "
+                                f"got {t.dtype}")
+            if tuple(t.shape) != shape or not t.is_contiguous():
+                raise ValueError(f"{what}: expected a contiguous tensor of "
+                                 f"shape {shape}")
+            if f4 and t.data_ptr() % 16:
+                raise ValueError(f"{what}: the f4 template loads float4s and "
+                                 "needs a 16-byte aligned tensor")
+
+        def span(t):
+            return t.data_ptr(), t.data_ptr() + t.numel() * t.element_size()
+
+        ptrs, sx, sy, org = [], [], [], []
+        for g in self.opnd_grids:
+            t = bufs[g]
+            check(f"grid '{g}'", t, self.full_shapes[g])
+            b, w = self.buf3(t), self.org3[g]
+            ptrs.append(t.data_ptr())
+            sx.append(b.stride(0))
+            sy.append(b.stride(1))
+            org.append(w[0] * b.stride(0) + w[1] * b.stride(1) + w[2])
+        if (dst is None) != self.in_place:
+            raise ValueError("destinations: None exactly when the plan "
+                             "writes in place (make_dst)")
+        d, dsx, dsy, dorg = [], [], [], []
+        for g in self.out_grids:
+            if dst is None:
+                i = self.opnd_grids.index(g)
+                d.append(ptrs[i])
+                dsx.append(sx[i])
+                dsy.append(sy[i])
+                dorg.append(org[i])
+                continue
+            t = dst[g]
+            check(f"destination of '{g}'", t, self.R)
+            lo, hi = span(t)
+            if any(lo < span(b)[1] and span(b)[0] < hi for b in bufs.values()):
+                raise ValueError(f"destination of '{g}' aliases a grid the "
+                                 "kernel reads")
+            b = self.buf3(t)
+            d.append(t.data_ptr())
+            dsx.append(b.stride(0))
+            dsy.append(b.stride(1))
+            dorg.append(0)
+        meta = (ctypes.c_longlong * (4 * len(ptrs) + 3 + 4 * len(d)))(
+            *ptrs, *sx, *sy, *org, *self.R3, *d, *dsx, *dsy, *dorg)
+        vals = [float(scalars[n]) for n in self.scal_names] or [0.0]
+        scal = (ctypes.c_float * len(vals))(*vals)
+        return meta, scal
+
+    def apply(self, arrays: Dict[str, torch.Tensor],
+              scalars: Dict[str, float]) -> Dict[str, torch.Tensor]:
+        """One application on the grids' full tensors: the kernel of
+        ``kind`` (on CPU tensors its plain version) writes the outputs'
+        region in place or into ``make_dst``'s buffers, which are then
+        copied into it.  Cells outside the region, halos included, keep
+        their values.  Returns ``arrays``."""
+        from .map_step import map_step
+        from .semi_step import semi_step
+        from .stream_step import stream_step
+        bufs = {g: arrays[g] for g in self.opnd_grids}
+        for g, t in bufs.items():
+            if t.dtype != torch.float32:
+                raise TypeError(f"grid '{g}': the CUDA kernels take float32, "
+                                f"got {t.dtype}")
+        dst = self.make_dst(bufs)
+        {"map": map_step, "stream": stream_step,
+         "semi": semi_step}[self.kind](self, bufs, scalars, dst)
+        if dst is not None:
+            for g in self.out_grids:
+                self.interior3(g, bufs[g]).copy_(self.buf3(dst[g]))
+        return arrays
+
+
+def lower_hopper(kernel: ir.StencilIR,
+                 halos: Dict[str, Tuple[int, ...]],
+                 interior_shape: Tuple[int, ...],
+                 region,
+                 backend) -> MapPlan:
+    """The per-application lowering of ``st.map`` on the hopper backend
+    (the counterpart of the JAX package's ``lower_pallas``); the plan's
+    ``apply(arrays, scalars)`` runs it."""
+    return MapPlan(kernel, halos, interior_shape, region, backend)

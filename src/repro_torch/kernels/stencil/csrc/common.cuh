@@ -3,12 +3,17 @@
 // A kernel source is the generated header (emit.py: RT_NG operand grids,
 // RT_NS scalars, RT_NO outputs, the tile RT_TB0 x RT_TB1 x RT_TB2, the
 // per-grid tap halos grid_h0/1/2, grid_ring, out_grid and the point
-// function stencil_point) followed by one of fused_step.cuh or
-// stream_step.cuh, which include this file.
+// function stencil_point) followed by one of the kernel templates
+// (map_step.cuh, stream_step.cuh, semi_step.cuh, temporal_step.cuh), which
+// include this file.
 //
-// Every grid is a layout buffer (CudaPlan.to_padded): the interior plus the
-// grid's layout halo, contiguous along axis 2.  2D stencils run as 3D ones
-// of shape (R0, 1, R1).  Indices are 64-bit.
+// Every grid is a buffer contiguous along axis 2: on the fused path a
+// layout buffer (CudaPlan.to_padded: the interior plus the grid's layout
+// halo), on the per-application path (MapPlan) the grid's full halo'd
+// tensor, with org at the region's first point and R the region's extent.
+// With RT_MAP (every MapPlan build, and K1) outputs go to destinations of
+// their own.  2D stencils run as 3D ones of shape (R0, 1, R1).
+// Indices are 64-bit.
 #pragma once
 #include <cuda_runtime.h>
 
@@ -18,11 +23,18 @@ struct Params {
   long long sy[RT_NG];      // element stride of axis 1 (axis 2 is dense)
   long long org[RT_NG];     // element index of interior point (0, 0, 0)
   float s[RT_NS > 0 ? RT_NS : 1];
-  int R0, R1, R2;           // interior extent
+  int R0, R1, R2;           // interior (RT_MAP: region) extent
+#ifdef RT_MAP
+  // where output o goes: its own grid (in place) or a destination buffer
+  // of the region's shape that no block reads
+  float* d[RT_NO];
+  long long dsx[RT_NO], dsy[RT_NO], dorg[RT_NO];
+#endif
 };
 
-// meta = [g x NG, sx x NG, sy x NG, org x NG, R0, R1, R2] as int64,
-// scal = NS floats; both in host memory.
+// meta = [g x NG, sx x NG, sy x NG, org x NG, R0, R1, R2] as int64 (with
+// RT_MAP followed by [d x NO, dsx x NO, dsy x NO, dorg x NO]), scal = NS
+// floats; both in host memory.
 static inline Params rt_params(const void* meta, const void* scal) {
   const long long* m = static_cast<const long long*>(meta);
   const float* sc = static_cast<const float*>(scal);
@@ -37,5 +49,26 @@ static inline Params rt_params(const void* meta, const void* scal) {
   p.R0 = static_cast<int>(m[4 * RT_NG]);
   p.R1 = static_cast<int>(m[4 * RT_NG + 1]);
   p.R2 = static_cast<int>(m[4 * RT_NG + 2]);
+#ifdef RT_MAP
+  const long long* d = m + 4 * RT_NG + 3;
+  for (int o = 0; o < RT_NO; ++o) {
+    p.d[o] = reinterpret_cast<float*>(d[o]);
+    p.dsx[o] = d[RT_NO + o];
+    p.dsy[o] = d[2 * RT_NO + o];
+    p.dorg[o] = d[3 * RT_NO + o];
+  }
+#endif
   return p;
+}
+
+// Store output o of point (x, y, z): into its grid, or with RT_MAP into
+// the plan's destination for it.
+__device__ __forceinline__ void store_out(const Params& p, int o, int x, int y, int z,
+                                          float v) {
+#ifdef RT_MAP
+  p.d[o][p.dorg[o] + x * p.dsx[o] + y * p.dsy[o] + z] = v;
+#else
+  const int g = out_grid(o);
+  p.g[g][p.org[g] + x * p.sx[g] + y * p.sy[g] + z] = v;
+#endif
 }

@@ -25,6 +25,11 @@
 // Outputs are written in place: they have center-only taps, and a block
 // reads an output grid only at its own chunk's points, each before it
 // writes it.
+//
+// With RT_MAP this is K5's per-application call (template semi of
+// lower_pallas, _make_body_streaming -> _stream_outputs): the grids are the
+// full halo'd tensors with org at the region's first point and outputs go
+// to the plan's destinations (store_out).
 #include "common.cuh"
 
 __host__ __device__ constexpr int plane_elems(int g) {
@@ -108,10 +113,7 @@ semi_step_kernel(const Params p) {
         if (semi_plane(rd, p.s, acc, r, x0, x1, out)) {
           const int o = xin - RT_H;
 #pragma unroll
-          for (int k = 0; k < RT_NO; ++k) {
-            const int g = out_grid(k);
-            p.g[g][p.org[g] + static_cast<long long>(o) * p.sx[g] + y * p.sy[g] + z] = out[k];
-          }
+          for (int k = 0; k < RT_NO; ++k) store_out(p, k, o, y, z, out[k]);
         }
       }
     }

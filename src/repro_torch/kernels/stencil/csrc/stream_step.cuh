@@ -20,6 +20,14 @@
 // columns of neighbouring tiles (from L2) and each chunk re-reads 2*h0
 // planes; those re-reads are what the tile and chunk sizes trade against
 // occupancy.  Outputs are written in place (center-only taps, as K1).
+//
+// With RT_MAP this is K4's streaming kernel (templates shift/unroll of the
+// per-application path: _make_body_streaming -> _stream_outputs, reached
+// from lower_pallas): the grids are the full halo'd tensors with org at
+// the region's first point, planes and tile halos outside the region are
+// the real neighbouring cells, and outputs go to the plan's destinations
+// (store_out).  The JAX body's common x-halo H = max h0 with zero planes
+// beyond a grid's own h0 gives the same values as these per-grid rings.
 #include "common.cuh"
 
 __host__ __device__ constexpr int ring_elems(int g) {
@@ -118,7 +126,7 @@ stream_step_kernel(const Params p) {
       float out[RT_NO];
       stencil_point(rd, p.s, out);
 #pragma unroll
-      for (int o = 0; o < RT_NO; ++o) p.g[out_grid(o)][rd.idx[out_grid(o)]] = out[o];
+      for (int o = 0; o < RT_NO; ++o) store_out(p, o, x, y, z, out[o]);
     }
     __syncthreads();   // the next plane overwrites the oldest slot
   }

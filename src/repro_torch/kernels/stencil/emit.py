@@ -11,8 +11,9 @@ function is
 where ``rd.template at<G>(dx, dy, dz)`` reads operand grid ``G`` at a tap
 offset (2D kernels map ``(dx, dy)`` to ``(dx, 0, dy)``: see
 ``CudaPlan``), ``s`` holds the f32 scalars in signature order and
-``out[o]`` receives the new value of output grid ``o``.  K1, K2 and K3
-call it, each with its own reader.
+``out[o]`` receives the new value of output grid ``o``.  K1, K2, K3 and
+K4 call it, each with its own reader; K4's f4 template reads whole tap
+rows instead, as ``rd.template at<r, dz>()`` (``f4_functions``).
 
 The semi-stencil kernel K5 calls the scatter ``semi_scatter<O, D>(rd, s,
 acc)`` instead: it adds, term by term in the order ``semi_linearize``
@@ -83,10 +84,10 @@ class _Emitter:
         if isinstance(e, ir.LocalRef):
             return self.locals[e.name]
         if isinstance(e, ir.Tap):
-            if self.tap is not None:
-                return self.tap(e)
             if e.grid in self.written and not any(e.offsets):
                 return self.written[e.grid]
+            if self.tap is not None:
+                return self.tap(e)
             dx, dy, dz = offsets3(e.offsets)
             return f"rd.template at<{self.gidx[e.grid]}>({dx}, {dy}, {dz})"
         if isinstance(e, ir.Neg):
@@ -132,10 +133,11 @@ class _Emitter:
 
 
 def point_function(kernel: ir.StencilIR, opnd_grids: Sequence[str],
-                   out_grids: Sequence[str]) -> str:
+                   out_grids: Sequence[str], tap=None) -> str:
     """C++ source of ``stencil_point`` for ``kernel``; operand grid ``G``
-    is ``opnd_grids[G]`` and ``out[o]`` is ``out_grids[o]``."""
-    lines = _Emitter(kernel, opnd_grids).body(out_grids)
+    is ``opnd_grids[G]`` and ``out[o]`` is ``out_grids[o]``.  ``tap``, when
+    given, maps an ``ir.Tap`` read through the reader to its C source."""
+    lines = _Emitter(kernel, opnd_grids, tap).body(out_grids)
     return "\n".join(
         [f"// point function of stencil '{kernel.name}' (generated from "
          "StencilIR by emit.py)",
@@ -145,20 +147,25 @@ def point_function(kernel: ir.StencilIR, opnd_grids: Sequence[str],
          "  (void)s;"] + lines + ["}"])
 
 
+def _table(name: str, vals, arg: str = "g") -> str:
+    """A ``constexpr int name(int arg)`` returning ``vals[arg]`` (0 past
+    the end)."""
+    cases = " : ".join(f"{arg} == {i} ? {v}" for i, v in enumerate(vals))
+    body = f"{cases} : 0" if vals else "0"
+    return (f"__host__ __device__ constexpr int {name}(int {arg}) "
+            f"{{ return {body}; }}")
+
+
 def header(kernel: ir.StencilIR, opnd_grids: Sequence[str],
            out_grids: Sequence[str], halo3: Dict[str, Tuple[int, int, int]],
-           block3: Tuple[int, int, int]) -> str:
+           block3: Tuple[int, int, int], point: str = None) -> str:
     """The generated part of a kernel source: sizes, per-grid tap halos (3D
     form; a grid with any off-center tap is kept in the streaming kernel's
-    plane ring), the output → operand map, and the point function."""
+    plane ring), the output → operand map, and the point function
+    (``point``, default ``point_function``'s)."""
     ng, no = len(opnd_grids), len(out_grids)
     ns = len(kernel.scalar_params)
-
-    def table(name, vals):
-        cases = " : ".join(f"g == {i} ? {v}" for i, v in enumerate(vals))
-        return (f"__host__ __device__ constexpr int {name}(int g) "
-                f"{{ return {cases} : 0; }}")
-
+    table = _table
     h = [halo3[g] for g in opnd_grids]
     oidx = [list(opnd_grids).index(g) for g in out_grids]
     return "\n".join([
@@ -172,9 +179,50 @@ def header(kernel: ir.StencilIR, opnd_grids: Sequence[str],
         table("grid_h1", [x[1] for x in h]),
         table("grid_h2", [x[2] for x in h]),
         table("grid_ring", [int(any(x)) for x in h]),
-        table("out_grid", oidx).replace("(int g)", "(int o)")
-        .replace("g == ", "o == "),
-        point_function(kernel, opnd_grids, out_grids),
+        table("out_grid", oidx, "o"),
+        point or point_function(kernel, opnd_grids, out_grids),
+        "",
+    ])
+
+
+def f4_rows(kernel: ir.StencilIR, opnd_grids: Sequence[str],
+            out_grids: Sequence[str]) -> List[Tuple[str, int, int, int, int]]:
+    """The f4 template's tap rows ``(grid, dx, dy, lo, hi)`` in
+    ``f4_functions``' order (``lo``/``hi``: the range of the row's ``dz``
+    taps)."""
+    rows: Dict[Tuple[str, int, int], List[int]] = {}
+    _f4_point(kernel, opnd_grids, out_grids, rows)
+    return [(g, dx, dy, min(dzs), max(dzs)) for (g, dx, dy), dzs in rows.items()]
+
+
+def _f4_point(kernel, opnd_grids, out_grids, rows) -> str:
+    def tap(t):
+        dx, dy, dz = offsets3(t.offsets)
+        rows.setdefault((t.grid, dx, dy), []).append(dz)
+        return f"rd.template at<{list(rows).index((t.grid, dx, dy))}, {dz}>()"
+    return point_function(kernel, opnd_grids, out_grids, tap)
+
+
+def f4_functions(kernel: ir.StencilIR, opnd_grids: Sequence[str],
+                 out_grids: Sequence[str]) -> str:
+    """The f4 template's generated part (K4, ``csrc/f4_rows.cuh``): the
+    tap rows the point function reads through the reader, in the order it
+    first reads them (row ``r``: grid, ``(dx, dy)`` and the range of its
+    ``dz`` taps), and ``stencil_point`` reading tap ``dz`` of row ``r`` as
+    ``rd.template at<r, dz>()``.  A center read of a grid an earlier
+    statement wrote is served from the new value and makes no row."""
+    gidx = {g: i for i, g in enumerate(opnd_grids)}
+    rows: Dict[Tuple[str, int, int], List[int]] = {}
+    point = _f4_point(kernel, opnd_grids, out_grids, rows)
+    keys = list(rows)
+    return "\n".join([
+        f"#define RT_F4_ROWS {len(keys)}",
+        _table("f4_row_grid", [gidx[g] for g, _, _ in keys], "r"),
+        _table("f4_row_dx", [dx for _, dx, _ in keys], "r"),
+        _table("f4_row_dy", [dy for _, _, dy in keys], "r"),
+        _table("f4_row_lo", [min(rows[k]) for k in keys], "r"),
+        _table("f4_row_hi", [max(rows[k]) for k in keys], "r"),
+        point,
         "",
     ])
 

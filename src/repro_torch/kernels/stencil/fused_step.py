@@ -2,8 +2,11 @@
 
 Replaces the JAX package's ``kernels/stencil/codegen.py``
 ``_make_body_fused`` tap branch (``PallasPlan._call_for`` with
-``time_block=1``).  CUDA source: ``csrc/fused_step.cuh``: one thread per
-interior point, taps from global memory, outputs in place.  Bound: device
+``time_block=1``).  CUDA source: K4 gmem's body, ``csrc/map_step.cuh``
+(``RT_MAP_T 0``), its destinations the output grids' own layout buffers
+(the same build as ``map_step``'s gmem in place): a thread block covers a
+``b0 × b1 × b2`` tile of the interior, each thread walks its column's
+``b0`` points, taps from global memory, outputs in place.  Bound: device
 memory bytes (each operand grid read once, each output written once per
 step).
 
@@ -58,7 +61,7 @@ def fused_step(plan, padded: Dict[str, torch.Tensor],
     if device.type != "cuda":
         raise ValueError(f"fused_step: unsupported device {device}")
     meta, scal = plan.launch_args(padded, scalars)
-    fn = _build.load(plan.source(), "rt_fused_step")
+    fn = _build.load(plan.source(), "rt_map_step")
     with torch.cuda.device(device):
         err = fn(ctypes.addressof(meta), ctypes.addressof(scal),
                  torch.cuda.current_stream(device).cuda_stream)

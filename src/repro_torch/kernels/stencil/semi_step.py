@@ -17,13 +17,19 @@ plane ``o = x_in - D`` of input plane ``x_in``, local index ``i``, in slot
 kernel, adds only into planes of the chunk; one tile spans the whole
 plane.
 
-In place: both versions write the output grids' interiors into their
-layout buffers; nothing else is written.
+It also runs K5's per-application call (template semi of ``st.map``, a
+``MapPlan``: ``_make_body_streaming`` → ``_stream_outputs``, reached from
+``lower_pallas``): the same source built with ``RT_MAP``, on the grids'
+full tensors with the origin at the region's first point, outputs into
+the plan's destinations.
+
+Writes: both versions write the output grids' interiors (``MapPlan``: the
+region, in place or into ``dst``); nothing else is written.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -35,7 +41,8 @@ from .emit import semi_groups
 
 
 def semi_step_plain(plan, padded: Dict[str, torch.Tensor],
-                    scalars: Dict[str, float]) -> None:
+                    scalars: Dict[str, float],
+                    dst: Optional[Dict[str, torch.Tensor]] = None) -> None:
     """K5's plain PyTorch version (see the module docstring)."""
     R0, R1, R2 = plan.R3
     H, chunk = plan.H, plan.B3[0]
@@ -51,7 +58,7 @@ def semi_step_plain(plan, padded: Dict[str, torch.Tensor],
         return lambda g, offs: plan.interior3(g, padded[g], plane)
 
     def tap(g, xin, d):
-        w = plan.hw3[g]
+        w = plan.org3[g]
         return bufs[g][w[0] + xin, w[1] + d[1]:w[1] + d[1] + R1,
                        w[2] + d[2]:w[2] + d[2] + R2]
 
@@ -72,23 +79,27 @@ def semi_step_plain(plan, padded: Dict[str, torch.Tensor],
                 if x0 <= xin - H < x1:
                     cv = lowering.eval_expr(plan.lin[plan.out_grids[o]][1],
                                             field_at(xin - H), scal, {})
-                    plan.interior3(plan.out_grids[o], padded[plan.out_grids[o]],
-                                   xin - H).copy_(acc[o][i % nr] + cv)
+                    plan.out3(plan.out_grids[o], padded, dst,
+                              xin - H).copy_(acc[o][i % nr] + cv)
                 acc[o][i % nr].zero_()
 
 
 def semi_step(plan, padded: Dict[str, torch.Tensor],
-              scalars: Dict[str, float]) -> None:
-    """One time step of ``plan`` on its layout buffers.  CPU tensors run
-    the plain version; CUDA tensors launch the kernel (counted in
-    ``semi_step.launches``) on the current stream, or raise."""
+              scalars: Dict[str, float],
+              dst: Optional[Dict[str, torch.Tensor]] = None) -> None:
+    """One time step of ``plan`` on its layout buffers, or one application
+    of a ``MapPlan`` on the grids' full tensors with outputs into ``dst``
+    (None: in place).  CPU tensors run the plain version; CUDA tensors
+    launch the kernel (counted in ``semi_step.launches``) on the current
+    stream, or raise."""
     device = padded[plan.out_grids[0]].device
     if device.type == "cpu":
-        semi_step_plain(plan, padded, scalars)
+        semi_step_plain(plan, padded, scalars, dst)
         return
     if device.type != "cuda":
         raise ValueError(f"semi_step: unsupported device {device}")
-    meta, scal = plan.launch_args(padded, scalars)
+    meta, scal = (plan.launch_args(padded, scalars) if dst is None
+                  else plan.launch_args(padded, scalars, dst))
     fn = _build.load(plan.source(), "rt_semi_step")
     with torch.cuda.device(device):
         err = fn(ctypes.addressof(meta), ctypes.addressof(scal),

@@ -14,13 +14,19 @@ The plain version walks the same chunks and the same ring slots (plane
 reads slot ``(t + h0 + dx) mod n``), with one tile spanning the whole
 plane, so the CPU tests exercise the kernel's slot arithmetic.
 
-In place: both versions write the output grids' interiors into their
-layout buffers; nothing else is written.
+It also runs K4's streaming templates (shift/unroll of ``st.map``, a
+``MapPlan``: ``_make_body_streaming`` → ``_stream_outputs``, reached from
+``lower_pallas``): the same source built with ``RT_MAP``, on the grids'
+full tensors with the origin at the region's first point, outputs into
+the plan's destinations.
+
+Writes: both versions write the output grids' interiors (``MapPlan``: the
+region, in place or into ``dst``); nothing else is written.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -32,7 +38,8 @@ from .emit import offsets3
 
 
 def stream_step_plain(plan, padded: Dict[str, torch.Tensor],
-                      scalars: Dict[str, float]) -> None:
+                      scalars: Dict[str, float],
+                      dst: Optional[Dict[str, torch.Tensor]] = None) -> None:
     """K2's plain PyTorch version (see the module docstring)."""
     R0, R1, R2 = plan.R3
     chunk = plan.B3[0]
@@ -51,7 +58,7 @@ def stream_step_plain(plan, padded: Dict[str, torch.Tensor],
 
         def load(g, xp, slot):
             # cells outside the tap reach [-h, R + h) are never read
-            h, w = plan.gh3[g], plan.hw3[g]
+            h, w = plan.gh3[g], plan.org3[g]
             if -h[0] <= xp < R0 + h[0]:
                 rings[g][slot] = bufs[g][w[0] + xp, w[1] - h[1]:w[1] + R1 + h[1],
                                          w[2] - h[2]:w[2] + R2 + h[2]]
@@ -80,21 +87,25 @@ def stream_step_plain(plan, padded: Dict[str, torch.Tensor],
             env = lowering.exec_statements(plan.kernel, tap_read, scal,
                                            (R1, R2), dtype, device)
             for g in plan.out_grids:
-                plan.interior3(g, padded[g], x).copy_(env[g])
+                plan.out3(g, padded, dst, x).copy_(env[g])
 
 
 def stream_step(plan, padded: Dict[str, torch.Tensor],
-                scalars: Dict[str, float]) -> None:
-    """One time step of ``plan`` on its layout buffers.  CPU tensors run
-    the plain version; CUDA tensors launch the kernel (counted in
-    ``stream_step.launches``) on the current stream, or raise."""
+                scalars: Dict[str, float],
+                dst: Optional[Dict[str, torch.Tensor]] = None) -> None:
+    """One time step of ``plan`` on its layout buffers, or one application
+    of a ``MapPlan`` on the grids' full tensors with outputs into ``dst``
+    (None: in place).  CPU tensors run the plain version; CUDA tensors
+    launch the kernel (counted in ``stream_step.launches``) on the current
+    stream, or raise."""
     device = padded[plan.out_grids[0]].device
     if device.type == "cpu":
-        stream_step_plain(plan, padded, scalars)
+        stream_step_plain(plan, padded, scalars, dst)
         return
     if device.type != "cuda":
         raise ValueError(f"stream_step: unsupported device {device}")
-    meta, scal = plan.launch_args(padded, scalars)
+    meta, scal = (plan.launch_args(padded, scalars) if dst is None
+                  else plan.launch_args(padded, scalars, dst))
     fn = _build.load(plan.source(), "rt_stream_step")
     with torch.cuda.device(device):
         err = fn(ctypes.addressof(meta), ctypes.addressof(scal),

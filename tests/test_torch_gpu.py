@@ -1,7 +1,12 @@
 """The port's CUDA kernels on the card, at configurations ``chip_smoke.py``
 does not reach: 2D stencils (run as ``(R0, 1, R1)``), box taps, a
 coefficient grid read off-center, K3 at k=4 (its rings near the 227 KB
-shared-memory limit) and at odd depths, K5 with two outputs.
+shared-memory limit) and at odd depths, K5 with two outputs; and the
+per-application kernels of ``st.map`` (K4 gmem/f4/smem, K2's and K5's
+builds with a destination) in 2D, with box taps, with an output read
+off-center (into a destination buffer), with two outputs where the second
+reads the first, at a thin region at each face, f4 at a ragged pitch and
+region start, and under both ``mem_type`` values.
 
 Each kernel is held against its plain version on the same CUDA tensors
 (the plain versions are held against the JAX package on the CPU by the
@@ -18,8 +23,9 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core import dsl as st  # noqa: E402
 from repro_torch.core import suite  # noqa: E402
-from repro_torch.kernels.stencil import codegen  # noqa: E402
+from repro_torch.kernels.stencil import _build, codegen  # noqa: E402
 from repro_torch.kernels.stencil.fused_step import fused_step, fused_step_plain  # noqa: E402
+from repro_torch.kernels.stencil.map_step import map_step, map_step_plain  # noqa: E402
 from repro_torch.kernels.stencil.semi_step import semi_step, semi_step_plain  # noqa: E402
 from repro_torch.kernels.stencil.stream_step import stream_step, stream_step_plain  # noqa: E402
 from repro_torch.kernels.stencil.temporal_step import (  # noqa: E402
@@ -49,11 +55,35 @@ def _two_lin(u: st.grid, a: st.grid, b: st.grid, c: st.f32):
     b.at(0, 0).set(b.at(0, 0) * 2.0 - 0.25 * u.at(0, 2) + c * u.at(-2, 1))
 
 
+@st.kernel
+def _two_out(u: st.grid, a: st.grid, b: st.grid, c: st.f32):
+    a.at(0, 0).set(0.5 * (u.at(1, 0) + u.at(-1, 0)) - c * u.at(0, -2))
+    b.at(0, 0).set(a.at(0, 0) * 2.0 + b.at(0, 0) - u.at(0, 2) ** 2.0)
+
+
+@st.kernel
+def _jacobi2(u: st.grid, f: st.grid):
+    u.at(0, 0).set(0.25 * (u.at(-1, 0) + u.at(1, 0) + u.at(0, -1) + u.at(0, 1))
+                   - 0.5 * f.at(0, 0))
+
+
+@st.kernel
+def _jacobi3(u: st.grid, f: st.grid):
+    u.at(0, 0, 0).set(0.16666667 * (u.at(-1, 0, 0) + u.at(1, 0, 0)
+                                    + u.at(0, -1, 0) + u.at(0, 1, 0)
+                                    + u.at(0, 0, -1) + u.at(0, 0, 1))
+                      - 0.5 * f.at(0, 0, 0))
+
+
 def _kernel(name):
     if name == "tapped_coef":
         return _tapped_coef, ("v", "u"), {}
     if name == "two_lin":
         return _two_lin, None, {"c": 0.25}
+    if name == "two_out":
+        return _two_out, None, {"c": 0.25}
+    if name in ("jacobi2", "jacobi3"):
+        return {"jacobi2": _jacobi2, "jacobi3": _jacobi3}[name], None, {}
     k = suite.get_kernel(name)
     return k, suite.swap_pair(name), {}
 
@@ -146,6 +176,29 @@ def test_single_step_kernels_2d_match_plain(cuda, template, name):
         _check(padded[g], ref[g], f"{name}/{template}/{g}")
 
 
+@pytest.mark.parametrize("name,shape,block", [
+    ("star2d4r", (61, 133), (5, 64)),
+    ("tapped_coef", (45, 77), (3, 32)),
+    ("star3d4r", (61, 70, 133), (3, 4, 32)),
+    ("box3d1r", (21, 30, 47), (8, 2, 16)),
+])
+def test_fused_step_column_walk_matches_plain(cuda, name, shape, block):
+    """K1's threads walk ``b0`` points of a column, in place: a ragged last
+    column along axis 0 and outputs read at their center."""
+    k, _, scal = _kernel(name)
+    arrays, halos = _layout(k, shape, cuda, 6)
+    plan = codegen.plan_cuda(k.ir, halos, shape, st.hopper(block=block))
+    padded = plan.to_padded(arrays)
+    ref = {g: t.clone() for g, t in padded.items()}
+    n = fused_step.launches
+    fused_step(plan, padded, scal)
+    fused_step_plain(plan, ref, scal)
+    torch.cuda.synchronize()
+    assert fused_step.launches == n + 1
+    for g in plan.opnd_grids:
+        _check(padded[g], ref[g], f"{name}/{g}")
+
+
 @pytest.mark.parametrize("template,time_block", [
     ("gmem", 3), ("semi", 2), ("unroll", 4), ("semi", 1)])
 def test_timeloop_on_the_card_matches_torch(cuda, template, time_block):
@@ -162,6 +215,118 @@ def test_timeloop_on_the_card_matches_torch(cuda, template, time_block):
         st.launch(backend=be)(
             lambda u, v: st.timeloop(11, swap=("v", "u"), fuse_steps=5)(k)(
                 u, v))(g["u"], g["v"])
+        out.append(g)
+    for n in ("u", "v"):
+        _check(out[1][n].data, out[0][n].data, n)
+
+
+# ---- per-application kernels (st.map) -------------------------------------------
+MAP_TEMPLATES = ("gmem", "f4", "smem", "shift", "semi")
+MAP_WRAPPERS = {"map": (map_step, map_step_plain),
+                "stream": (stream_step, stream_step_plain),
+                "semi": (semi_step, semi_step_plain)}
+FACE_SHAPE = (20, 24, 37)
+
+
+def _faces(shape, width=3):
+    """A region ``width`` thick at each face of the interior."""
+    out = []
+    for ax in range(len(shape)):
+        for lo in (True, False):
+            r = [(0, n) for n in shape]
+            r[ax] = (0, width) if lo else (shape[ax] - width, shape[ax])
+            out.append(tuple(r))
+    return out
+
+
+# (id, kernel, interior, region, template, block, mem_type)
+MAP_CASES = []
+for _t in MAP_TEMPLATES:
+    MAP_CASES += [
+        (f"2d-{_t}", "star2d4r", (61, 133), None, _t, None, None),
+        (f"2d-listing1-block-{_t}", "star2d4r", (61, 133), None, _t, (8, 128), None),
+        (f"box-{_t}", "box3d2r", (21, 30, 47), None, _t, None, None),
+        (f"offcenter2d-{_t}", "jacobi2", (45, 77), ((3, 40), (5, 77)), _t, None, None),
+        (f"offcenter3d-{_t}", "jacobi3", (21, 30, 47), None, _t, None, None),
+    ]
+    if _t != "semi":        # not linear in its taps
+        MAP_CASES.append((f"two_out-{_t}", "two_out", (50, 90), None, _t, None, None))
+    MAP_CASES += [(f"face{i}-{_t}", "star3d4r", FACE_SHAPE, r, _t, None, None)
+                  for i, r in enumerate(_faces(FACE_SHAPE))]
+MAP_CASES += [
+    ("f4-ragged-pitch", "star3d2r", (9, 11, 13), ((1, 9), (2, 11), (1, 13)),
+     "f4", (2, 4, 8), None),
+    ("f4-ragged-pitch-2d", "box2d1r", (33, 71), ((0, 33), (3, 70)), "f4", (3, 16), None),
+]
+MAP_CASES += [(f"mem-{mt}-{t}", "box3d1r", (21, 30, 47), None, t, None, mt)
+              for t in ("gmem", "shift") for mt in ("registers", "vmem")]
+
+
+def _map_plan(name, shape, region, template, block, mem_type):
+    k, _, _ = _kernel(name)
+    halos = {g: (k.info.order,) * k.ir.ndim for g in k.ir.grid_params}
+    return codegen.lower_hopper(k.ir, halos, shape, region,
+                                st.hopper(template=template, block=block,
+                                          mem_type=mem_type))
+
+
+@pytest.fixture(scope="module")
+def map_built():
+    """Every source of the map cases, built in parallel (one nvcc each)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    _build.build_many([_map_plan(*c[1:]).source() for c in MAP_CASES])
+
+
+@pytest.mark.parametrize("case", MAP_CASES, ids=[c[0] for c in MAP_CASES])
+def test_map_kernel_matches_plain(cuda, map_built, case):
+    _, name, shape, region, template, block, mem_type = case
+    k, _, scal = _kernel(name)
+    plan = _map_plan(name, shape, region, template, block, mem_type)
+    assert plan.in_place == (not name.startswith("jacobi"))
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    bufs = {g: torch.randn(plan.full_shapes[g], generator=gen, device=cuda)
+            for g in plan.opnd_grids}
+    ref = {g: t.clone() for g, t in bufs.items()}
+    dst, rdst = plan.make_dst(bufs), plan.make_dst(ref)
+    kern, plain = MAP_WRAPPERS[plan.kind]
+    n = kern.launches
+    kern(plan, bufs, scal, dst)
+    plain(plan, ref, scal, rdst)
+    torch.cuda.synchronize()
+    assert kern.launches == n + 1
+    for g in plan.out_grids:
+        # in place the whole tensor: cells outside the region keep theirs
+        if dst is None:
+            _check(bufs[g], ref[g], f"{case[0]}/{g}")
+        else:
+            _check(dst[g], rdst[g], f"{case[0]}/{g}")
+    if dst is not None:
+        for g in bufs:
+            assert torch.equal(bufs[g], ref[g]), f"{case[0]}: wrote grid {g}"
+
+
+@pytest.mark.parametrize("template", MAP_TEMPLATES)
+def test_map_on_the_card_matches_torch(cuda, template):
+    """Five ``st.map`` applications with the ``.data`` swap on CUDA grids
+    vs ``st.torch()`` on the card, one launch each."""
+    k = suite.get_kernel("star2d2r")
+    rng = np.random.default_rng(6)
+    init = {g: rng.standard_normal((133 + 4, 70 + 4)).astype(np.float32)
+            for g in ("u", "v")}
+    out = []
+    for be in (st.torch(), st.hopper(template=template)):
+        g = {n: st.grid(shape=(133, 70), order=2, data=torch.tensor(a),
+                        device=cuda) for n, a in init.items()}
+        counts = [w.launches for w, _ in MAP_WRAPPERS.values()]
+
+        def loop(u, v):
+            for _ in range(5):
+                st.map(e=u.shape)(k)(u, v)
+                (u.data, v.data) = (v.data, u.data)
+        st.launch(backend=be)(loop)(g["u"], g["v"])
+        added = sum(w.launches for w, _ in MAP_WRAPPERS.values()) - sum(counts)
+        assert added == (5 if be.kind == "hopper" else 0)
         out.append(g)
     for n in ("u", "v"):
         _check(out[1][n].data, out[0][n].data, n)

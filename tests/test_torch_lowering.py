@@ -233,24 +233,34 @@ def test_not_ported_features_raise(call):
 
 
 def test_map_under_hopper_raises():
+    """``st.map`` runs under hopper (K4); it refuses grids its f32 kernels
+    do not take, on the CPU as on the card."""
     k = suite.get_kernel("star2d1r")
-    g = suite.make_grids("star2d1r", shape=(8, 8), device="cpu")
+    g = {n: st.grid(dtype=st.f64, shape=(8, 8), order=1, device="cpu")
+         for n in ("u", "v")}
 
     def tgt(u, v):
         st.map(e=u.shape)(k)(u, v)
 
-    with pytest.raises(NotImplementedError, match="K4"):
+    with pytest.raises(TypeError, match="float32"):
         st.launch(backend=st.hopper())(tgt)(g["u"], g["v"])
+
+
+@st.kernel
+def _squared(u: st.grid, v: st.grid):
+    v.at(0, 0).set(u.at(1, 0) * u.at(-1, 0))
 
 
 @pytest.mark.parametrize("backend", [st.hopper(template="semi"),
                                      st.hopper(time_block=2)],
                          ids=["semi", "time_block"])
 def test_map_under_semi_and_time_block_raises(backend):
-    """The per-application kernels of semi (and the temporal knob, which the
-    JAX package refuses for st.map too) wait for K4."""
-    k = suite.get_kernel("star2d1r")
+    """``st.map`` refuses, as the JAX package's does: the semi template for
+    a kernel that is not linear in its taps, and the temporal knob, which
+    belongs to the fused time loop."""
     g = suite.make_grids("star2d1r", shape=(8, 8), device="cpu")
-    with pytest.raises(NotImplementedError, match="K4"):
+    k = _squared if backend.template == "semi" else suite.get_kernel("star2d1r")
+    with pytest.raises(ValueError,
+                       match="tap-bearing|time_block > 1"):
         st.launch(backend=backend)(
             lambda u, v: st.map(e=u.shape)(k)(u, v))(g["u"], g["v"])
