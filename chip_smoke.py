@@ -12,8 +12,9 @@ Phases, each of which exits non-zero when it fails:
    streaming, K3 temporal blocking at k=2 and k=3, K5 semi-stencil, and
    the per-application kernels of ``st.map``: K4 gmem/f4/smem, K2's and
    K5's builds with a destination, for ``star3d4r`` and acoustic ISO, and
-   for a Jacobi kernel that reads its output off-center), built from
-   ``src`` with one ``nvcc`` per source, all started together;
+   for a Jacobi kernel that reads its output off-center), K6 (causal
+   conv1d) and K7 (flash decode attention), built from ``src`` with one
+   ``nvcc`` per source, all started together;
 3. kernels — each kernel against its plain PyTorch version on the card,
    after one launch (K3: k=2 and k=3, both reading buffers left intact),
    at a block-multiple shape (64³), a ragged one (61×70×133) and the
@@ -24,7 +25,15 @@ Phases, each of which exits non-zero when it fails:
    each per-application kernel against its plain version after one
    application at the same shapes, at a sub-region whose z-start is not a
    multiple of 4, and for the Jacobi kernel (outputs into a destination
-   buffer), with its time per application at 512³;
+   buffer), with its time per application at 512³; K6 in bf16 and f32 at
+   the serving decode shape ``[4, 4, 4096]``, a prefill-sized
+   ``[4, 2048, 4096]`` and a ragged ``[3, 1001, 4100]``, each at widths 1
+   and 4, and K7 in bf16 at RecurrentGemma's decode shape (B=8, H=16, K=1,
+   hd=256, S=2048, random lengths) and a GQA one (H=8, K=2, hd=128,
+   S=1000), each against its plain version after one launch, with the
+   time of kernel, plain version and one library call (``F.conv1d`` with
+   ``groups=W``; ``F.scaled_dot_product_attention`` on the expanded
+   cache);
 4. main path — at 512³ f32 interior through ``st.launch(backend=
    st.hopper(...))``: templates gmem (K1), shift (K2), shift with
    ``time_block=2`` (K3) and semi (K5); ``star3d4r`` 100 steps, acoustic
@@ -48,13 +57,27 @@ Phases, each of which exits non-zero when it fails:
    against one under ``st.torch()``; the paper's Listing 1 (2D
    ``star2d4r``, 50 ``st.map`` steps at 256² under ``st.cuda(
    computeCapability="9.0", threadsPerBlock=(8, 128), template="gmem")``)
-   against ``st.torch()`` within 1e-5 of the field's max.
+   against ``st.torch()`` within 1e-5 of the field's max;
+8. serving — ``recurrentgemma-9b`` at its published widths and depth (38
+   layers, bf16 compute, f32 parameters drawn from a seed on the card)
+   through ``BatchServer``: 8 requests of 4–16 prompt tokens (numpy seed),
+   ``batch_size=4``, 8 new tokens each, greedy; K6 must launch exactly 26
+   times a decode step (once per recurrent layer), its plain version and
+   every other kernel never; tokens in range; the first 4 decode steps'
+   logits finite and within 2e-2 of their max of the same steps with
+   ``use_kernel_conv=False``; tokens/s, ms per decode step and request
+   latency; then K7 against the model's ``_sdpa`` on the last wave's
+   local-attention cache with ``lengths = min(pos + 1, Sc)`` (K7 is
+   standalone, as in the JAX package: nothing on the serving path calls
+   it); last, 4 decode steps under ``torch.profiler``: the kernels' device
+   time a step and K6's share of it.
 
 It prints the kernels line ``{"kernels": [...]}`` and then, last,
 ``{"ok": true, "device": {...}}``.  ``--quick`` runs phases 1–3 at the two
-small shapes only and prints no result line.  Phases 4 and 5 read the
-launch counts of the fused path, 6 and 7 those of ``st.map``: each sets
-the counts to 0 just before its run and reads them just after.  The script imports neither
+small shapes only (K6 and K7 at all of theirs) and prints no result
+line.  Phases 4 and 5 read the launch counts of the fused path, 6 and 7
+those of ``st.map``, 8 those of serving: each sets the counts to 0 just
+before its run and reads them just after.  The script imports neither
 JAX nor the JAX package, and needs nothing outside the checkout.
 """
 from __future__ import annotations
@@ -105,6 +128,35 @@ TEMPORAL_SMALL_DEPTHS = (2, 3)
 # of the card the bounds were derived for, from NVIDIA's data sheet (H100
 # SXM); another card gets no bound
 CARD_RATES = {"NVIDIA H100 80GB HBM3": (3.35e12, 67e12)}
+# K6 and K7: the TPU kernels they replace, their shapes in phase 3 and
+# the served model of phase 8
+REPLACES.update({
+    "causal_conv1d": "src/repro/kernels/conv1d/conv1d.py:50",
+    "decode_attention": "src/repro/kernels/decode_attn/decode_attn.py:84",
+})
+SERVE_ARCH = "recurrentgemma-9b"
+SERVE_REQUESTS, SERVE_BATCH, SERVE_MAX_NEW = 8, 4, 8
+SERVE_PROMPT_LEN = (4, 16)
+SERVE_CHECK_STEPS = 4
+# K6 at decode (T = cw = 4 rows: the conv state and the new token), at a
+# prefill-sized and at a ragged shape; the decode shape is the main path's
+CONV_SHAPES = {"decode": (SERVE_BATCH, 4, 4096), "prefill": (4, 2048, 4096),
+               "ragged": (3, 1001, 4100)}
+CONV_WIDTHS = (1, 4)
+# K7: (B, H, K, hd, S) at RecurrentGemma's decode shape and a GQA one
+ATTN_SHAPES = {"recurrentgemma": (8, 16, 1, 256, 2048),
+               "gqa": (4, 8, 2, 128, 1000)}
+# kernel vs plain version: K6 rounds as its plain version does (bit for
+# bit expected; f32 1e-6, bf16 one rounding 8e-3, of max(1, |plain|)); K7
+# sums in another order (bf16 output: 1e-2)
+CONV_TOL = {"float32": 1e-6, "bfloat16": 8e-3}
+ATTN_TOL = 1e-2
+# served logits with K6 vs with its plain version (same roundings: equal
+# expected; 2e-2 of max(1, |logits|) for bf16 roundings that propagate),
+# and K7 vs ``_sdpa`` in bf16 (which rounds its logits and probabilities
+# to bf16): the JAX package's bf16 tolerance, 3e-2
+SERVE_LOGITS_TOL = 2e-2
+SDPA_TOL = 3e-2
 # hopper vs st.torch() after 100 steps, relative to the field's max: the
 # leapfrog update carries per-step rounding differences (FMA contraction,
 # summation order) forward; an H100 reads 4e-7 (star) and 2e-6 (acoustic)
@@ -293,6 +345,26 @@ def time_ms(torch, fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(torch, fn, calls: int = 100, replays: int = 20) -> float:
+    """Device time of one call of ``fn``: ``calls`` calls captured in one
+    CUDA graph, its replays timed with CUDA events, so the host's launch
+    overhead (which bounds back-to-back eager calls of a small kernel) is
+    out of the count."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    ms = time_ms(torch, graph.replay, replays, 2) / calls
+    del graph
+    return ms
+
+
 def one_launch(torch, kname, kern, plain, plan, arrays, scalars):
     """One launch of kernel ``kern`` and of its plain version on the same
     layout buffers; returns (kernel result, plain result, timing closures),
@@ -320,6 +392,382 @@ def one_launch(torch, kname, kern, plain, plan, arrays, scalars):
             lambda: plain(plan, ref, scalars))
 
 
+def conv_phase(torch, rates, conv, conv_ref, quick: bool):
+    """K6 against its plain version on the card: bf16 and f32 at each of
+    ``CONV_SHAPES`` and ``CONV_WIDTHS``, one launch each; times (CUDA
+    events) of kernel, plain version and ``F.conv1d`` at every shape in
+    bf16 with width 4.  Returns (kernel-line entry, rows)."""
+    F = torch.nn.functional
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    worst, rows, entry = 0.0, [], None
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        for label, (B, T, W) in CONV_SHAPES.items():
+            for cw in CONV_WIDTHS:
+                key = f"causal_conv1d {dname} {label} [{B}, {T}, {W}] cw={cw}"
+                x = torch.randn((B, T, W), generator=gen, device="cuda").to(dtype)
+                w = (0.3 * torch.randn((cw, W), generator=gen,
+                                       device="cuda")).to(dtype)
+                got = conv.causal_conv1d_cuda(x, w)
+                want = conv_ref.causal_conv1d_ref(x, w)
+                torch.cuda.synchronize()
+                if got.dtype != dtype or got.shape != x.shape \
+                        or not bool(torch.isfinite(got).all()):
+                    fail(f"{key}: output {got.dtype} {tuple(got.shape)}, "
+                         f"finite {bool(torch.isfinite(got).all())}")
+                err = float((got.float() - want.float()).abs().max())
+                scale = max(1.0, float(want.float().abs().max()))
+                if err > CONV_TOL[dname] * scale:
+                    fail(f"{key}: max |kernel - plain| = {err} > "
+                         f"{CONV_TOL[dname]} * {scale}")
+                worst = max(worst, err)
+                row = {"case": key, "max_abs_err": err,
+                       "bit_equal": bool(torch.equal(got, want))}
+                if dtype == torch.bfloat16 and cw == 4 and not quick:
+                    xt = x.transpose(1, 2)            # [B, W, T], a view
+                    wt = w.t().contiguous()[:, None]  # [W, 1, cw]
+
+                    def lib():
+                        return F.conv1d(xt, wt, padding=cw - 1, groups=W)
+                    lib_out = lib()[..., :T].transpose(1, 2)
+                    lib_err = float((lib_out.float() - want.float()).abs().max())
+                    if lib_err > 3e-2 * scale:
+                        fail(f"{key}: F.conv1d differs from plain by {lib_err}")
+                    # device times from CUDA graphs: at the decode shape
+                    # eager back-to-back calls measure the host's overhead
+                    # (kept as eager_ms)
+                    kern_fn = lambda: conv.causal_conv1d_cuda(x, w)  # noqa: E731
+                    plain_fn = lambda: conv_ref.causal_conv1d_ref(x, w)  # noqa: E731
+                    calls = 100 if label == "decode" else 10
+                    ms = graph_ms(torch, kern_fn, calls)
+                    plain_ms = graph_ms(torch, plain_fn, calls)
+                    lib_ms = graph_ms(torch, lib, calls)
+                    eager = {"eager_ms": time_ms(torch, kern_fn, 100, 10),
+                             "eager_plain_ms": time_ms(torch, plain_fn, 20, 2),
+                             "eager_library_ms": time_ms(torch, lib, 100, 10)}
+                    n = float(B * T * W)
+                    bound, bound_by = bound_of(
+                        rates, 2 * n * x.element_size() + w.numel() * w.element_size(),
+                        2 * cw * n)
+                    row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                               bound_ms=bound, bound_by=bound_by,
+                               library_max_abs_err=lib_err, **eager)
+                    say(f"time {key}: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
+                        f"bound {bound} ms, F.conv1d {lib_ms:.4f} ms; eager "
+                        f"calls {eager['eager_ms']:.4f} / "
+                        f"{eager['eager_plain_ms']:.4f} / "
+                        f"{eager['eager_library_ms']:.4f} ms)")
+                    if label == "decode":
+                        entry = {"name": "causal_conv1d", "route": "cuda",
+                                 "source": "src/repro_torch/kernels/conv1d/"
+                                           "csrc/conv1d.cu",
+                                 "replaces": REPLACES["causal_conv1d"],
+                                 "launches": None, "max_abs_err": None,
+                                 "ms": ms, "plain_ms": plain_ms,
+                                 "bound_ms": bound, "bound_by": bound_by,
+                                 "library_ms": lib_ms,
+                                 "shape": [B, T, W], "dtype": dname}
+                say(f"kernel {key}: max abs err {err:.3g}"
+                    f"{' (bit for bit)' if row['bit_equal'] else ''}")
+                rows.append(row)
+                del x, w, got, want
+    if entry is not None:
+        entry["max_abs_err"] = worst
+    torch.cuda.empty_cache()
+    return entry, rows
+
+
+def attn_phase(torch, rates, attn, attn_ref, quick: bool):
+    """K7 against its plain version on the card in bf16 at each of
+    ``ATTN_SHAPES`` (random lengths in [1, S]), one launch each; times of
+    kernel, plain version and ``F.scaled_dot_product_attention`` on the
+    expanded cache at RecurrentGemma's shape.  Returns (kernel-line entry,
+    rows)."""
+    F = torch.nn.functional
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    worst, rows, entry = 0.0, [], None
+    for label, (B, H, K, hd, S) in ATTN_SHAPES.items():
+        key = f"decode_attention bf16 {label} B={B} H={H} K={K} hd={hd} S={S}"
+        q = torch.randn((B, H, hd), generator=gen, device="cuda").bfloat16()
+        k = torch.randn((B, S, K, hd), generator=gen, device="cuda").bfloat16()
+        v = torch.randn((B, S, K, hd), generator=gen, device="cuda").bfloat16()
+        lengths = torch.randint(1, S + 1, (B,), generator=gen, device="cuda",
+                                dtype=torch.int32)
+        got = attn.decode_attention_cuda(q, k, v, lengths)
+        want = attn_ref.decode_attention_ref(q, k, v, lengths)
+        torch.cuda.synchronize()
+        if got.shape != q.shape or not bool(torch.isfinite(got).all()):
+            fail(f"{key}: output {tuple(got.shape)}, finite "
+                 f"{bool(torch.isfinite(got).all())}")
+        err = float((got.float() - want.float()).abs().max())
+        scale = max(1.0, float(want.float().abs().max()))
+        if err > ATTN_TOL * scale:
+            fail(f"{key}: max |kernel - plain| = {err} > {ATTN_TOL} * {scale}")
+        worst = max(worst, err)
+        say(f"kernel {key}: max abs err {err:.3g}")
+        row = {"case": key, "max_abs_err": err,
+               "lengths_sum": int(lengths.sum())}
+        if label == "recurrentgemma" and not quick:
+            G = H // K
+            # the expanded cache [B, H, S, hd] and the key mask, made once
+            ke = k.permute(0, 2, 1, 3).repeat_interleave(G, dim=1).contiguous()
+            ve = v.permute(0, 2, 1, 3).repeat_interleave(G, dim=1).contiguous()
+            mask = (torch.arange(S, device="cuda")[None]
+                    < lengths[:, None])[:, None, None]
+            qe = q[:, :, None]
+
+            def lib():
+                return F.scaled_dot_product_attention(qe, ke, ve,
+                                                      attn_mask=mask)
+            lib_err = float((lib()[:, :, 0].float() - want.float()).abs().max())
+            if lib_err > ATTN_TOL * scale:
+                fail(f"{key}: scaled_dot_product_attention differs from plain "
+                     f"by {lib_err}")
+            ms = time_ms(torch, lambda: attn.decode_attention_cuda(
+                q, k, v, lengths), 100, 10)
+            plain_ms = time_ms(torch, lambda: attn_ref.decode_attention_ref(
+                q, k, v, lengths), 20, 2)
+            lib_ms = time_ms(torch, lib, 100, 10)
+            n_kv = float(lengths.sum()) * K * hd      # cache values read, each
+            bound, bound_by = bound_of(
+                rates, 2 * (2 * n_kv + 2 * q.numel()), 4 * float(lengths.sum()) * H * hd)
+            row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       bound_ms=bound, bound_by=bound_by,
+                       library_max_abs_err=lib_err)
+            say(f"time {key}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
+                f"{bound} ms, scaled_dot_product_attention {lib_ms:.4f} ms)")
+            entry = {"name": "decode_attention", "route": "cuda",
+                     "source": "src/repro_torch/kernels/decode_attn/csrc/"
+                               "decode_attn.cu",
+                     "replaces": REPLACES["decode_attention"], "launches": None,
+                     "max_abs_err": None, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound, "bound_by": bound_by,
+                     "library_ms": lib_ms, "shape": [B, H, K, hd, S],
+                     "lengths_sum": int(lengths.sum())}
+            del ke, ve, mask
+        rows.append(row)
+        del q, k, v, got, want
+    if entry is not None:
+        entry["max_abs_err"] = worst
+    torch.cuda.empty_cache()
+    return entry, rows
+
+
+def profile_steps(torch, api, cfg, params, cache, toks, steps: int):
+    """Device time of ``steps`` decode steps under ``torch.profiler``: the
+    sum of the kernels' device time, K6's share of it and the kernels that
+    take the most, against the wall time of the window (which the profiler
+    lengthens on the host)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for s in range(steps):
+            _, cache = api.decode_step(cfg, params, cache, toks[:, s:s + 1])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    def dev_us(e):
+        return float(getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0.0)))
+    # the kernels' own entries (an operator's entry repeats its kernels' time)
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0]
+    total = sum(dev_us(e) for e in events)
+    k6 = sum(dev_us(e) for e in events if "causal_conv1d" in e.key)
+    top = sorted(events, key=dev_us, reverse=True)[:8]
+    return {"steps": steps, "wall_ms_per_step": 1e3 * wall / steps,
+            "device_ms_per_step": total / 1e3 / steps if total else None,
+            "device_busy_share": total / 1e6 / wall if total else None,
+            "k6_device_ms_per_step": k6 / 1e3 / steps if total else None,
+            "k6_share_of_device": k6 / total if total else None,
+            "top_kernels": [(e.key[:80], dev_us(e) / 1e3 / steps, e.count // steps)
+                            for e in top]}
+
+
+def serve_phase(torch, np, mods, counters):
+    """Phase 8: serve ``SERVE_ARCH`` through ``BatchServer`` on the card;
+    checks the launch counts, the tokens, the first decode steps against
+    the plain K6, and K7 against ``_sdpa`` on the served cache; then
+    profiles decode steps with ``torch.profiler``.  Returns the record of
+    the phase."""
+    configs, api, griffin, L = (mods["configs"], mods["api"], mods["griffin"],
+                                mods["layers"])
+    serve_loop, conv, conv_ref, attn = (mods["serve_loop"], mods["conv"],
+                                        mods["conv_ref"], mods["attn"])
+    reset_counts, counts = counters
+    cfg = configs.get(SERVE_ARCH)
+    n_rec = griffin.block_types(cfg).count("rec")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = api.param_count(cfg)
+    say(f"serving {cfg.name}: {cfg.n_layers} layers ({n_rec} recurrent), "
+        f"d_model {cfg.d_model}, rnn {cfg.rnn_width}, vocab {cfg.vocab}, "
+        f"{n_params} parameters (f32, {torch.cuda.memory_allocated() / 1e9:.1f}"
+        f" GB on the card) drawn in {init_s:.1f} s; compute {cfg.dtype}")
+
+    rng = np.random.default_rng(0)
+    lo, hi = SERVE_PROMPT_LEN
+    prompts = [rng.integers(0, cfg.vocab, int(rng.integers(lo, hi + 1)))
+               .astype(np.int32) for _ in range(SERVE_REQUESTS)]
+
+    # the first decode steps of the first wave, with K6 and with its plain
+    # version (comparison launches: outside the main path's count)
+    S1 = max(len(p) for p in prompts[:SERVE_BATCH])
+    toks = np.zeros((SERVE_BATCH, S1), np.int32)
+    for i, p in enumerate(prompts[:SERVE_BATCH]):
+        toks[i, S1 - len(p):] = p
+    toks = torch.as_tensor(toks, device="cuda")
+    cache_len = api.decode_cache_len(cfg, 32)
+    caches = {flag: api.init_cache(cfg, SERVE_BATCH, cache_len)
+              for flag in (None, False)}
+    step_ms, host_ms, wait_ms, worst, agree = [], [], [], 0.0, 0
+    for s in range(SERVE_CHECK_STEPS):
+        out = {}
+        for flag in (None, False):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            h0 = time.perf_counter()
+            start.record()
+            logits, caches[flag] = api.decode_step(
+                cfg, params, caches[flag], toks[:, s:s + 1],
+                use_kernel_conv=flag)
+            end.record()
+            h1 = time.perf_counter()
+            torch.cuda.synchronize()
+            if flag is None:
+                # host time to enqueue the step, and how long the device
+                # ran on after the host had finished enqueueing
+                step_ms.append(start.elapsed_time(end))
+                host_ms.append(1e3 * (h1 - h0))
+                wait_ms.append(1e3 * (time.perf_counter() - h1))
+            out[flag] = logits[:, -1].float()
+        got, want = out[None], out[False]
+        if got.shape != (SERVE_BATCH, cfg.vocab) \
+                or not bool(torch.isfinite(got).all()):
+            fail(f"serving step {s}: logits {tuple(got.shape)}, finite "
+                 f"{bool(torch.isfinite(got).all())}")
+        err = float((got - want).abs().max())
+        scale = max(1.0, float(want.abs().max()))
+        if err > SERVE_LOGITS_TOL * scale:
+            fail(f"serving step {s}: max |logits(K6) - logits(plain)| = {err} "
+                 f"> {SERVE_LOGITS_TOL} * {scale}")
+        worst = max(worst, err)
+        agree += int((got.argmax(-1) == want.argmax(-1)).sum())
+    say(f"serving: first {SERVE_CHECK_STEPS} decode steps, K6 vs plain "
+        f"conv: max |logits diff| {worst:.3g}, greedy tokens agree "
+        f"{agree}/{SERVE_CHECK_STEPS * SERVE_BATCH}; ms a step (CUDA events) "
+        f"{', '.join(f'{m:.2f}' for m in step_ms)}, of which the host "
+        f"enqueued for {', '.join(f'{m:.2f}' for m in host_ms)} and the "
+        f"device ran on {', '.join(f'{m:.2f}' for m in wait_ms)}")
+    del caches, logits, out, got, want
+
+    # -- the main path --------------------------------------------------------
+    server = serve_loop.BatchServer(
+        cfg, params, batch_size=SERVE_BATCH,
+        gen=serve_loop.GenConfig(max_new_tokens=SERVE_MAX_NEW))
+    for p in prompts:
+        server.submit(p, SERVE_MAX_NEW)
+    waves = [prompts[i:i + SERVE_BATCH]
+             for i in range(0, len(prompts), SERVE_BATCH)]
+    # a wave's context is bucketed to a power of two; one decode step per
+    # context position but the last
+    steps = sum((1 << max(1, (max(len(p) for p in w) + SERVE_MAX_NEW - 1)
+                          .bit_length())) - 1 for w in waves)
+    torch.cuda.synchronize()
+    reset_counts()
+    conv_ref.causal_conv1d_ref.calls = 0
+    t0 = time.perf_counter()
+    done = server.run_until_drained()
+    wall = time.perf_counter() - t0
+    seen = counts()
+    plain_calls = conv_ref.causal_conv1d_ref.calls
+    if seen["causal_conv1d"] != n_rec * steps or plain_calls \
+            or sum(seen.values()) != seen["causal_conv1d"]:
+        fail(f"serving: launch counts {seen} and {plain_calls} calls of K6's "
+             f"plain version over {steps} decode steps; expected "
+             f"{n_rec} x {steps} of causal_conv1d and nothing else")
+    results = [done[uid].result for uid in sorted(done)]
+    if len(results) != SERVE_REQUESTS or any(
+            len(r) != SERVE_MAX_NEW or (r < 0).any() or (r >= cfg.vocab).any()
+            for r in results):
+        fail(f"serving: results {results}")
+    lat = np.array([r.done_at - r.submitted_at for r in done.values()])
+    n_tok = sum(len(r) for r in results)
+    cache = server.generator.cache
+    for i, st in enumerate(cache["blocks"]):
+        for name, t in st.items():
+            if not bool(torch.isfinite(t.float()).all()):
+                fail(f"serving: non-finite cache '{name}' of layer {i}")
+    row = {"arch": cfg.name, "n_layers": cfg.n_layers, "params": n_params,
+           "requests": SERVE_REQUESTS, "batch_size": SERVE_BATCH,
+           "max_new_tokens": SERVE_MAX_NEW, "waves": len(waves),
+           "decode_steps": steps, "new_tokens": n_tok, "seconds": wall,
+           "tokens_per_s": n_tok / wall, "ms_per_decode_step": 1e3 * wall / steps,
+           "event_ms_per_decode_step": step_ms,
+           "host_enqueue_ms_per_decode_step": host_ms,
+           "device_after_host_ms_per_decode_step": wait_ms,
+           "latency_p50_s": float(np.percentile(lat, 50)),
+           "latency_max_s": float(lat.max()),
+           "k6_launches": seen["causal_conv1d"],
+           "k6_launches_per_step": seen["causal_conv1d"] / steps,
+           "k6_vs_plain_logits_max_abs_diff": worst,
+           "k6_vs_plain_greedy_agree": agree,
+           "init_s": init_s,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "first_results": [r.tolist() for r in results[:2]]}
+    say(f"serving main path: {SERVE_REQUESTS} requests in {len(waves)} waves, "
+        f"{steps} decode steps, {n_tok} new tokens in {wall:.3f} s = "
+        f"{row['tokens_per_s']:.2f} tokens/s, {row['ms_per_decode_step']:.2f} "
+        f"ms a decode step (wall); latency p50 {row['latency_p50_s']:.3f} s, "
+        f"max {row['latency_max_s']:.3f} s; K6 {seen['causal_conv1d']} "
+        f"launches = {n_rec} x {steps}; peak {row['peak_gb']:.1f} GB")
+
+    # -- K7 against the model's attention on the served cache -----------------
+    li = griffin.block_types(cfg).index("attn")
+    k, v = cache["blocks"][li]["k"], cache["blocks"][li]["v"]
+    B, Sc, K, hd = k.shape
+    pos = cache["pos"] - 1                  # the last decoded position
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    q = torch.randn((B, cfg.n_heads, hd), generator=gen,
+                    device="cuda").to(k.dtype)
+    lengths = torch.full((B,), min(pos + 1, Sc), dtype=torch.int32,
+                         device="cuda")
+    positions = torch.full((B, 1), pos, device="cuda")
+    k_pos = L.cache_abs_pos(pos, Sc, "cuda").expand(B, Sc)
+    mask = L._mask(positions, k_pos, "causal", cfg.local_window)[:, None]
+    if int(mask.sum()) != B * min(pos + 1, Sc):
+        fail("serving cache: the valid slots are not min(pos + 1, Sc)")
+    want = L._sdpa(q[:, None], k, v, mask, hd ** -0.5)[:, 0]
+    got = attn.decode_attention_cuda(q, k, v, lengths)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    scale = max(1.0, float(want.float().abs().max()))
+    if not bool(torch.isfinite(got).all()) or err > SDPA_TOL * scale:
+        fail(f"K7 vs _sdpa on layer {li}'s served cache: max |diff| = {err} "
+             f"> {SDPA_TOL} * {scale}")
+    say(f"K7 vs _sdpa on layer {li}'s served cache (B={B}, Sc={Sc}, pos={pos},"
+        f" lengths {min(pos + 1, Sc)}): max abs diff {err:.3g}")
+    row["k7_vs_sdpa_max_abs_diff"] = err
+    prof = profile_steps(torch, api, cfg, params,
+                         api.init_cache(cfg, SERVE_BATCH, cache_len), toks,
+                         SERVE_CHECK_STEPS)
+    row["profile"] = prof
+    say(f"serving profile ({prof['steps']} decode steps): wall "
+        f"{prof['wall_ms_per_step']:.2f} ms a step, device "
+        f"{prof['device_ms_per_step']} ms a step (busy share "
+        f"{prof['device_busy_share']}), K6 {prof['k6_device_ms_per_step']} "
+        f"ms a step ({prof['k6_share_of_device']} of the device time); "
+        f"top kernels {prof['top_kernels']}")
+    del params, server, cache, k, v
+    torch.cuda.empty_cache()
+    return row
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -335,7 +783,8 @@ def main(argv=None) -> int:
     try:
         from repro_torch.core import acoustic, regions, suite
         from repro_torch.core import dsl as st
-        from repro_torch.kernels.stencil import _build, codegen
+        from repro_torch.kernels import _build
+        from repro_torch.kernels.stencil import codegen
         from repro_torch.kernels.stencil.fused_step import (fused_step,
                                                            fused_step_plain)
         from repro_torch.kernels.stencil.map_step import (map_step,
@@ -346,6 +795,14 @@ def main(argv=None) -> int:
                                                             stream_step_plain)
         from repro_torch.kernels.stencil.temporal_step import (
             temporal_step, temporal_step_plain)
+        from repro_torch import configs
+        from repro_torch.kernels.conv1d import conv1d as conv
+        from repro_torch.kernels.conv1d import ref as conv_ref
+        from repro_torch.kernels.decode_attn import decode_attn as attn
+        from repro_torch.kernels.decode_attn import ref as attn_ref
+        from repro_torch.models import api, griffin
+        from repro_torch.models import layers as lm_layers
+        from repro_torch.serving import serve_loop
     except ImportError as e:
         fail(f"cannot import the port from {ROOT / 'src'}: {e}")
     wrappers = {"fused_step": (fused_step, fused_step_plain),
@@ -354,12 +811,19 @@ def main(argv=None) -> int:
                 "semi_step": (semi_step, semi_step_plain),
                 "map_step": (map_step, map_step_plain)}
 
+    lm_wrappers = {"causal_conv1d": conv.causal_conv1d_cuda,
+                   "decode_attention": attn.decode_attention_cuda}
+
     def reset_counts():
         for kern, _ in wrappers.values():
             kern.launches = 0
+        for kern in lm_wrappers.values():
+            kern.launches = 0
 
     def counts():
-        return {kname: kern.launches for kname, (kern, _) in wrappers.items()}
+        seen = {kname: kern.launches for kname, (kern, _) in wrappers.items()}
+        seen.update({k: kern.launches for k, kern in lm_wrappers.items()})
+        return seen
 
     record = {"phases": {}}
 
@@ -405,6 +869,7 @@ def main(argv=None) -> int:
         listing1_kernel.ir, {"u": (4, 4), "v": (4, 4)}, LISTING1_SHAPE, None,
         st.cuda(computeCapability="9.0", threadsPerBlock=(8, 128),
                 template="gmem")).source()]
+    sources += [conv.source(), attn.source()]
     try:
         _build.build_many(sources)
     except RuntimeError as e:
@@ -539,6 +1004,9 @@ def main(argv=None) -> int:
                 torch.cuda.empty_cache()
             if key in entries:
                 entries[key]["max_abs_err"] = worst
+    conv_entry, conv_rows = conv_phase(torch, rates, conv, conv_ref, args.quick)
+    attn_entry, attn_rows = attn_phase(torch, rates, attn, attn_ref, args.quick)
+    record["lm_kernels"] = conv_rows + attn_rows
     if args.quick:
         say("quick: phases 1-3 passed")
         return 0
@@ -785,9 +1253,21 @@ def main(argv=None) -> int:
         f"- torch| {err:.3g} (relative {err / scale:.3g})")
     record["regions"] = region_rows
     record["listing1"] = {"max_abs_diff": err, "relative": err / scale}
+    del u, v, want
+    torch.cuda.empty_cache()
+
+    # -- 8. serving ------------------------------------------------------------
+    lm_mods = {"configs": configs, "api": api, "griffin": griffin,
+               "layers": lm_layers, "serve_loop": serve_loop, "conv": conv,
+               "conv_ref": conv_ref, "attn": attn}
+    serve_row = serve_phase(torch, np, lm_mods, (reset_counts, counts))
+    record["serving"] = serve_row
+    conv_entry["launches"] = serve_row["k6_launches"]
+    attn_entry["launches"] = 0          # standalone: not on the serving path
 
     kernels = [entries[f"{k}[{w.name}]"] for w in workloads
                for k in list(KERNELS) + list(MAP_KERNELS)]
+    kernels += [conv_entry, attn_entry]
     record["kernels"], record["main_path"] = kernels, main_rows
     if args.json:
         path = pathlib.Path(args.json)

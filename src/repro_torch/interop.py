@@ -5,17 +5,25 @@ coefficient grids (``vp2``, ``damp``).  The JAX package holds them as
 halo-padded arrays; ``grids_from_numpy`` takes those arrays (converted to
 numpy by the caller, e.g. ``np.asarray(g.data)``) and builds the port's
 tensors and ``st.grid``s.  The kernel source itself is shared text that
-both frontends parse, so the kernels need no conversion.  Nothing here
-imports JAX, and the arrays given are copied, never written.
+both frontends parse, so the kernels need no conversion.
+
+For a Griffin model, ``params_from_jax`` and ``cache_from_jax`` take the
+JAX package's parameter and decode-cache trees (leaves converted to numpy
+by the caller, e.g. ``jax.tree.map(np.asarray, params)``) and unstack them
+into the port's one-dict-per-layer lists.
+
+Nothing here imports JAX, and the arrays given are copied, never written.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple, Union
+from typing import Dict, List, Mapping, Tuple, Union
 
 import numpy as np
 import torch
 
+from .configs.base import ModelConfig
 from .core import dsl as st
+from .models import griffin
 
 
 def grids_from_numpy(arrays: Mapping[str, np.ndarray],
@@ -39,3 +47,51 @@ def grids_from_numpy(arrays: Mapping[str, np.ndarray],
         out[name] = st.grid(dtype=data.dtype, shape=shape, order=hs[0],
                             data=data, device=dev)
     return out
+
+
+def _tensor(arr, device=None) -> torch.Tensor:
+    """A copy of ``arr`` on ``device`` (None: the card) in its dtype;
+    bfloat16 arrays (``ml_dtypes``) go through f32, which is exact."""
+    arr = np.asarray(arr)
+    dev = st.resolve_device(device)
+    if arr.dtype.name == "bfloat16":
+        return torch.tensor(arr.astype(np.float32), device=dev).to(torch.bfloat16)
+    return torch.tensor(np.ascontiguousarray(arr), device=dev)
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map(v, fn) for v in tree]
+    return fn(tree)
+
+
+def _unstack(tree, cfg: ModelConfig) -> List:
+    """One entry per layer from a JAX Griffin tree's ``cycles`` (each leaf
+    stacked over the ``n_cycles`` full cycles, keyed by pattern position)
+    and ``tail``: layer ``c·P + p`` is cycle ``c``, position ``p``."""
+    P = len(griffin.pattern_of(cfg))
+    n_cycles, tail = griffin._cycle_split(cfg)
+    layers = [_map(tree["cycles"][str(p)], lambda a, c=c: np.asarray(a)[c])
+              for c in range(n_cycles) for p in range(P)]
+    layers += [tree["tail"][p] for p in range(tail)]
+    return layers
+
+
+def params_from_jax(tree, cfg: ModelConfig, device=None):
+    """The port's Griffin parameters (``{"embed", "blocks", "final_norm"}``)
+    from the JAX package's tree of numpy arrays, on ``device`` (None: the
+    card)."""
+    conv = lambda a: _tensor(a, device)  # noqa: E731
+    return {"embed": _map(tree["embed"], conv),
+            "blocks": [_map(b, conv) for b in _unstack(tree, cfg)],
+            "final_norm": _map(tree["final_norm"], conv)}
+
+
+def cache_from_jax(tree, cfg: ModelConfig, device=None):
+    """The port's Griffin decode cache (``{"blocks", "pos"}``) from the JAX
+    package's cache tree of numpy arrays, on ``device`` (None: the card)."""
+    conv = lambda a: _tensor(a, device)  # noqa: E731
+    return {"blocks": [_map(b, conv) for b in _unstack(tree, cfg)],
+            "pos": int(np.asarray(tree["pos"]))}

@@ -31,7 +31,7 @@ whole-block ring as on the TPU: the kernels mask their own ragged edge, so
 
 The kernels' structure is hand-written (``csrc/*.cuh``); only the per-point
 expression (K5: the per-offset scatter) is generated (``emit.py``) and
-compiled at first use (``_build.py``).  The layout halo stays ``hw`` under
+compiled at first use (``kernels/_build.py``).  The layout halo stays ``hw`` under
 temporal blocking: K3 clamps its loads to the tap reach ``[-h, R + h)``.
 
 ``MapPlan`` (``lower_hopper``) is the counterpart of the JAX package's

@@ -33,7 +33,7 @@ import torch
 from repro_torch.core import lowering
 from repro_torch.core.dsl import scalar_tensors
 
-from . import _build
+from .. import _build
 from .emit import offsets3
 
 

@@ -23,7 +23,8 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core import dsl as st  # noqa: E402
 from repro_torch.core import suite  # noqa: E402
-from repro_torch.kernels.stencil import _build, codegen  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.stencil import codegen  # noqa: E402
 from repro_torch.kernels.stencil.fused_step import fused_step, fused_step_plain  # noqa: E402
 from repro_torch.kernels.stencil.map_step import map_step, map_step_plain  # noqa: E402
 from repro_torch.kernels.stencil.semi_step import semi_step, semi_step_plain  # noqa: E402
@@ -330,3 +331,74 @@ def test_map_on_the_card_matches_torch(cuda, template):
         out.append(g)
     for n in ("u", "v"):
         _check(out[1][n].data, out[0][n].data, n)
+
+
+# ---- K6 (causal conv1d) and K7 (flash decode attention) ------------------------
+# at the shapes of the CPU parity tests (tests/test_torch_conv1d.py,
+# tests/test_torch_decode_attn.py), held against their plain versions on
+# the card.  K6 rounds as its plain version does (f32 products and sums,
+# no contraction, one rounding), so the two agree bit for bit; K7 sums in
+# another order (f32 2e-5 of the magnitude; bf16 one rounding of the
+# output, 1e-2).
+CONV_SHAPES = [(2, 32, 16, 4), (1, 100, 24, 4), (3, 16, 128, 2),
+               (2, 64, 8, 1), (1, 8, 16, 8)]
+ATTN_SHAPES = [(2, 64, 8, 4, 16, 16), (3, 100, 4, 1, 32, 32),
+               (1, 33, 16, 16, 8, 8), (2, 128, 8, 2, 16, 128),
+               (4, 48, 8, 8, 64, 16)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,T,W,cw", CONV_SHAPES)
+def test_conv1d_kernel_matches_plain(cuda, B, T, W, cw, dtype):
+    from repro_torch.kernels.conv1d.conv1d import causal_conv1d_cuda
+    from repro_torch.kernels.conv1d.ref import causal_conv1d_ref
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn((B, T, W), generator=gen, device=cuda).to(dtype)
+    w = torch.randn((cw, W), generator=gen, device=cuda).to(dtype)
+    n = causal_conv1d_cuda.launches
+    got = causal_conv1d_cuda(x, w)
+    want = causal_conv1d_ref(x, w)
+    torch.cuda.synchronize()
+    assert causal_conv1d_cuda.launches == n + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("B,S,H,K,hd,bs", ATTN_SHAPES)
+def test_decode_attn_kernel_matches_plain(cuda, B, S, H, K, hd, bs):
+    from repro_torch.kernels.decode_attn.decode_attn import decode_attention_cuda
+    from repro_torch.kernels.decode_attn.ref import decode_attention_ref
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    q = torch.randn((B, H, hd), generator=gen, device=cuda)
+    k = torch.randn((B, S, K, hd), generator=gen, device=cuda)
+    v = torch.randn((B, S, K, hd), generator=gen, device=cuda)
+    lengths = torch.randint(1, S + 1, (B,), generator=gen, device=cuda,
+                            dtype=torch.int32)
+    n = decode_attention_cuda.launches
+    got = decode_attention_cuda(q, k, v, lengths, block_s=bs)
+    want = decode_attention_ref(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert decode_attention_cuda.launches == n + 1
+    _check(got, want, f"decode_attn {B, S, H, K, hd, bs}")
+
+
+def test_decode_attn_kernel_bf16_and_masked_tail(cuda):
+    from repro_torch.kernels.decode_attn.decode_attn import decode_attention_cuda
+    from repro_torch.kernels.decode_attn.ref import decode_attention_ref
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    q, k, v = (torch.randn(s, generator=gen, device=cuda).bfloat16()
+               for s in ((2, 8, 32), (2, 64, 4, 32), (2, 64, 4, 32)))
+    lengths = torch.tensor([5, 17], dtype=torch.int32, device=cuda)
+    got = decode_attention_cuda(q, k, v, lengths, block_s=16)
+    want = decode_attention_ref(q, k, v, lengths)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, 32:] = 999.0
+    v2[:, 32:] = -999.0
+    got2 = decode_attention_cuda(q, k2, v2, lengths, block_s=16)
+    zero = decode_attention_cuda(q, k, v, torch.zeros_like(lengths))
+    torch.cuda.synchronize()
+    assert torch.equal(got, got2)
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= 1e-2 * max(1.0, float(want.float().abs().max())), err
+    assert bool((zero == 0).all())          # length 0: output 0, as on the TPU

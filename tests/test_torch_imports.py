@@ -2,7 +2,10 @@
 ``chip_smoke.py`` imports JAX or the JAX package ``repro``; and entry points
 run on the card unless the caller asks for the CPU."""
 import ast
+import os
 import pathlib
+import subprocess
+import sys
 
 import pytest
 
@@ -10,6 +13,9 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core import acoustic, suite  # noqa: E402
 from repro_torch.core import dsl as st  # noqa: E402
+from repro_torch import configs  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import api  # noqa: E402
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
@@ -45,6 +51,43 @@ def test_no_jax_or_repro_imports(path):
     assert not bad, f"{path}: imports {bad}"
 
 
+# the LM serving slice: configs, models, K6, K7, serving, the CLI
+SERVING_MODULES = (
+    "repro_torch.configs", "repro_torch.configs.base",
+    "repro_torch.configs.recurrentgemma_9b", "repro_torch.models.layers",
+    "repro_torch.models.griffin", "repro_torch.models.api",
+    "repro_torch.kernels._build", "repro_torch.kernels.conv1d.conv1d",
+    "repro_torch.kernels.conv1d.ops", "repro_torch.kernels.conv1d.ref",
+    "repro_torch.kernels.decode_attn.decode_attn",
+    "repro_torch.kernels.decode_attn.ops", "repro_torch.kernels.decode_attn.ref",
+    "repro_torch.serving.serve_loop", "repro_torch.launch.serve",
+    "repro_torch.interop")
+
+
+@pytest.mark.parametrize("mod", SERVING_MODULES)
+def test_serving_modules_are_checked(mod):
+    path = REPO / "src" / (mod.replace(".", "/") + ".py")
+    if not path.exists():
+        path = path.with_suffix("") / "__init__.py"
+    assert path in FILES
+
+
+def test_serving_modules_load_neither_jax_nor_repro():
+    """Importing every module of the serving slice in a fresh interpreter
+    leaves ``jax`` and ``repro`` out of ``sys.modules``."""
+    code = ("import sys\n"
+            + "".join(f"import {m}\n" for m in SERVING_MODULES)
+            + "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+              "('jax', 'jaxlib', 'repro'))\n"
+              "print(bad)\n"
+              "assert not bad\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=str(REPO / "src")),
+                         timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
 def test_forbidden_rule():
     assert _forbidden("jax.numpy") and _forbidden("repro.core.dsl")
     assert not _forbidden("repro_torch.core") and not _forbidden("torch")
@@ -55,7 +98,11 @@ def test_forbidden_rule():
     lambda: suite.make_grids("star2d1r", (4, 4)),
     lambda: acoustic.make_fields((4, 5, 6)),
     lambda: acoustic.run(shape=(4, 5, 6), iters=1),
-], ids=["grid", "make_grids", "make_fields", "acoustic_run"])
+    lambda: api.init_params(configs.tiny(configs.get("recurrentgemma-9b"))),
+    lambda: api.init_cache(configs.tiny(configs.get("recurrentgemma-9b")), 1, 4),
+    lambda: serve.main(["--requests", "1"]),
+], ids=["grid", "make_grids", "make_fields", "acoustic_run", "init_params",
+        "init_cache", "serve_cli"])
 def test_default_device_is_the_card(make, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

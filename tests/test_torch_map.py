@@ -38,7 +38,8 @@ from repro.kernels.stencil import ops as jops  # noqa: E402
 from repro.kernels.stencil import ref as jref  # noqa: E402
 from repro_torch.core import acoustic, regions, suite  # noqa: E402
 from repro_torch.core import dsl as st  # noqa: E402
-from repro_torch.kernels.stencil import _build, codegen, emit, ops  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.stencil import codegen, emit, ops  # noqa: E402
 from repro_torch.kernels.stencil.map_step import map_step, map_step_plain  # noqa: E402
 
 ATOL = 1e-5
@@ -575,7 +576,7 @@ def test_f4_rows_compile_and_match(name, interior, region, tmp_path):
     cpp.write_text(_HARNESS % header)
     so = tmp_path / "libharness.so"
     subprocess.run([gxx, "-std=c++17", "-O2", "-shared", "-fPIC",
-                    "-D__host__=", "-D__device__=", "-I", str(_build.CSRC),
+                    "-D__host__=", "-D__device__=", "-I", str(_build.STENCIL_CSRC),
                     "-o", str(so), str(cpp)], check=True, capture_output=True)
     lib = ctypes.CDLL(str(so))
     lib.host_f4.argtypes = [ctypes.c_void_p, ctypes.c_void_p]

@@ -33,7 +33,8 @@ from repro.kernels.stencil import codegen as jcodegen  # noqa: E402
 from repro.kernels.stencil import ops as jops  # noqa: E402
 from repro_torch.core import acoustic, analysis, suite  # noqa: E402
 from repro_torch.core import dsl as st  # noqa: E402
-from repro_torch.kernels.stencil import _build, codegen  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.stencil import codegen  # noqa: E402
 from repro_torch.kernels.stencil.semi_step import semi_step, semi_step_plain  # noqa: E402
 
 ATOL = 1e-5
@@ -336,7 +337,7 @@ def test_emitted_semi_scatter_compiles_and_matches(name, interior, block,
     cpp.write_text(_HARNESS % header)
     so = tmp_path / "libharness.so"
     subprocess.run([gxx, "-std=c++17", "-O2", "-shared", "-fPIC",
-                    "-D__host__=", "-D__device__=", "-I", str(_build.CSRC),
+                    "-D__host__=", "-D__device__=", "-I", str(_build.STENCIL_CSRC),
                     "-o", str(so), str(cpp)], check=True, capture_output=True)
     lib = ctypes.CDLL(str(so))
     lib.host_semi.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
