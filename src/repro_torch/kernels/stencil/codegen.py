@@ -34,6 +34,11 @@ expression (K5: the per-offset scatter) is generated (``emit.py``) and
 compiled at first use (``kernels/_build.py``).  The layout halo stays ``hw`` under
 temporal blocking: K3 clamps its loads to the tap reach ``[-h, R + h)``.
 
+Grids are f32 or bf16, as the JAX package's Pallas kernels take them; all
+the grids of one launch share one type, which is part of the kernel's
+source (``source(dtype)``, ``ELEM_TYPES``) and so of its build key.  The
+kernels compute in f32 and round once, when they store an output cell.
+
 ``MapPlan`` (``lower_hopper``) is the counterpart of the JAX package's
 ``lower_pallas``: one application over the interior or a sub-region, with
 no layout stage.  Each grid's full halo'd tensor goes to the kernel with
@@ -59,14 +64,20 @@ from . import emit
 
 # threads cover b1 x b2 points; the streaming kernels walk b0 planes, and
 # the one-step kernels' threads (K1, K4; f4: groups of 4 points along
-# axis 2) b0 points of a column
+# axis 2) b0 points of a column; K5's threads walk two columns along axis
+# 1 with f32 grids (csrc/semi_step.cuh kCols), so its tile is twice K2's
 DEFAULT_BLOCK = {"step": {2: (4, 256), 3: (4, 8, 32)},
                  "stream": {2: (64, 256), 3: (64, 8, 32)},
+                 "semi": {2: (64, 256), 3: (64, 16, 32)},
                  "f4": {2: (4, 512), 3: (4, 8, 128)}}
 STREAM_TEMPLATES = ("shift", "unroll", "semi")
 # RT_MAP_T of K4's blocked templates (csrc/map_step.cuh)
 MAP_TEMPLATES = {"gmem": 0, "f4": 1, "smem": 2}
 SMEM_LIMIT = 227 * 1024          # shared memory one block may use on sm_90
+# grid dtype -> the kernels' element type (RT_ELEM, csrc/common.cuh)
+ELEM_TYPES = {torch.float32: "float", torch.bfloat16: "__nv_bfloat16"}
+# staged planes of K5's ring (csrc/semi_step.cuh kStages)
+SEMI_STAGES = 3
 
 # layout conversions per grid name: one per grid per fusion window
 PAD_COUNT: collections.Counter = collections.Counter()
@@ -94,13 +105,15 @@ def choose_block(user_block, template: str, ndim: int,
                  time_block: int = 1,
                  per_application: bool = False) -> Tuple[int, ...]:
     """The tile in points (the port's own defaults, see ``DEFAULT_BLOCK``;
-    K3 walks chunks of planes like the streaming kernels; K4's f4,
-    ``per_application``, takes a wider tile)."""
+    K3 walks chunks of planes like the streaming kernels, K5 a tile twice
+    as tall; K4's f4, ``per_application``, takes a wider tile)."""
     if user_block is not None:
         if len(user_block) != ndim:
             raise ValueError(f"block must have {ndim} dims")
         return tuple(int(b) for b in user_block)
-    if template in STREAM_TEMPLATES or time_block > 1:
+    if template == "semi" and time_block == 1:
+        kind = "semi"
+    elif template in STREAM_TEMPLATES or time_block > 1:
         kind = "stream"
     elif per_application and template == "f4":
         kind = "f4"
@@ -160,15 +173,17 @@ KERNEL_FILES = {"fused": "map_step.cuh", "stream": "stream_step.cuh",
 
 
 def _smem_bytes(kind: str, B3, gh3, time_block: int = 1, h_swap=None) -> int:
-    """Shared memory one block of ``kind`` takes: K2's rings of ``2h0+1``
-    halo'd planes, K5's double-buffered plane, K3's ``k`` plane rings, K4
-    smem's halo'd tile, of every grid with an off-center tap."""
+    """Shared memory one block of ``kind`` takes with f32 grids (bf16 ones
+    take no more): K2's rings of ``2h0+1`` halo'd planes, K5's ring of
+    ``SEMI_STAGES`` staged planes, K3's ``k`` plane rings, K4 smem's halo'd
+    tile, of every grid with an off-center tap."""
     ring = [h for h in gh3.values() if any(h)]
     if kind == "stream":
         return 4 * sum((2 * h[0] + 1) * (B3[1] + 2 * h[1]) * (B3[2] + 2 * h[2])
                        for h in ring)
     if kind == "semi":
-        return 8 * sum((B3[1] + 2 * h[1]) * (B3[2] + 2 * h[2]) for h in ring)
+        return 4 * SEMI_STAGES * sum((B3[1] + 2 * h[1]) * (B3[2] + 2 * h[2])
+                                     for h in ring)
     if kind == "temporal":
         h, k = h_swap, time_block
         return 4 * (2 * h[0] + 1) * sum(
@@ -178,6 +193,17 @@ def _smem_bytes(kind: str, B3, gh3, time_block: int = 1, h_swap=None) -> int:
         return 4 * sum(math.prod(B3[ax] + 2 * h[ax] for ax in range(3))
                        for h in ring)
     return 0
+
+
+def check_dtype(what: str, t: torch.Tensor, dtype) -> None:
+    """Raise ``TypeError`` unless ``t`` is of a type the kernels take and
+    of the launch's ``dtype``."""
+    if t.dtype not in ELEM_TYPES:
+        raise TypeError(f"{what}: the CUDA kernels take float32 or bfloat16, "
+                        f"got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{what}: the grids of one launch share one dtype, "
+                        f"got {t.dtype} and {dtype}")
 
 
 class _Plan:
@@ -372,7 +398,7 @@ class CudaPlan(_Plan):
                               for g in opnd_grids}
         self.touched = tuple(g for g in opnd_grids
                              if g in set(out_grids) | set(swap or ()))
-        self._source: Optional[str] = None
+        self._sources: Dict[torch.dtype, str] = {}
 
     def count_window(self, steps: int) -> None:
         """Accumulate the modeled grid reads/writes of a fusion window of
@@ -406,12 +432,13 @@ class CudaPlan(_Plan):
         return {g: padded[g].clone() for g in self.step_out_grids}
 
     # -- kernel stage ------------------------------------------------------
-    def source(self) -> str:
-        """Full CUDA source of this plan's kernel: the generated header and
-        the hand-written template it includes."""
-        if self._source is None:
+    def source(self, dtype=torch.float32) -> str:
+        """Full CUDA source of this plan's kernel on grids of ``dtype``: the
+        generated header and the hand-written template it includes."""
+        src = self._sources.get(dtype)
+        if src is None:
             src = emit.header(self.kernel, self.opnd_grids, self.out_grids,
-                              self.gh3, self.B3)
+                              self.gh3, self.B3, elem=ELEM_TYPES[dtype])
             if self.kind == "fused":
                 # K4 gmem's build, its destinations the grids themselves
                 src = ("#define RT_MAP 1\n"
@@ -423,8 +450,9 @@ class CudaPlan(_Plan):
                 src += (f"#define RT_K {self.time_block}\n"
                         f"#define RT_GW {self.opnd_grids.index(self.swap[0])}\n"
                         f"#define RT_GO {self.opnd_grids.index(self.swap[1])}\n")
-            self._source = src + f'#include "{KERNEL_FILES[self.kind]}"\n'
-        return self._source
+            src = self._sources[dtype] = \
+                src + f'#include "{KERNEL_FILES[self.kind]}"\n'
+        return src
 
     def launch_args(self, padded: Dict[str, torch.Tensor], scalars,
                     spares: Optional[Dict[str, torch.Tensor]] = None):
@@ -433,17 +461,19 @@ class CudaPlan(_Plan):
         ``RT_MAP`` destinations, which are its output grids' buffers),
         after checking the buffers."""
         ptrs, sx, sy, org = [], [], [], []
-        device = padded[self.opnd_grids[0]].device
+        t0 = padded[self.opnd_grids[0]]
+        device = t0.device
 
         def check(g, t):
             if t.device != device:
                 raise ValueError(f"grid '{g}' is on {t.device}, not {device}")
-            if t.dtype != torch.float32:
-                raise TypeError(f"grid '{g}': the CUDA kernels take float32, "
-                                f"got {t.dtype}")
+            check_dtype(f"grid '{g}'", t, t0.dtype)
             if tuple(t.shape) != self.padded_shapes[g] or not t.is_contiguous():
                 raise ValueError(f"grid '{g}': expected a contiguous layout "
                                  f"buffer of shape {self.padded_shapes[g]}")
+            if self.kind == "semi" and t.data_ptr() % 4:
+                raise ValueError(f"grid '{g}': the semi kernel copies 4-byte "
+                                 "granules and needs a 4-byte aligned buffer")
 
         for g in self.opnd_grids:
             t = padded[g]
@@ -614,7 +644,7 @@ class MapPlan(_Plan):
         self.lin, self.H = lin, H
         self.smem_bytes = smem
         self.scal_names = [n for n, _ in kernel.scalar_params]
-        self._source: Optional[str] = None
+        self._sources: Dict[torch.dtype, str] = {}
 
     def hbm_bytes_per_step(self, itemsize: int = 4) -> float:
         """The fused plan's model of the kernel's traffic (``_Plan``) plus,
@@ -623,11 +653,12 @@ class MapPlan(_Plan):
         copy = 0 if self.in_place else 2 * len(self.out_grids) * math.prod(self.R3)
         return super().hbm_bytes_per_step(itemsize) + float(copy * itemsize)
 
-    def source(self) -> str:
-        """Full CUDA source of this plan's kernel: ``RT_MAP``, the generated
-        header (f4: the tap rows and their point function) and the
-        hand-written template it includes."""
-        if self._source is None:
+    def source(self, dtype=torch.float32) -> str:
+        """Full CUDA source of this plan's kernel on grids of ``dtype``:
+        ``RT_MAP``, the generated header (f4: the tap rows and their point
+        function) and the hand-written template it includes."""
+        src = self._sources.get(dtype)
+        if src is None:
             src = "#define RT_MAP 1\n"
             point = None
             if self.kind == "map":
@@ -636,12 +667,13 @@ class MapPlan(_Plan):
                     point = emit.f4_functions(self.kernel, self.opnd_grids,
                                               self.out_grids)
             src += emit.header(self.kernel, self.opnd_grids, self.out_grids,
-                               self.gh3, self.B3, point)
+                               self.gh3, self.B3, point, ELEM_TYPES[dtype])
             if self.kind == "semi":
                 src += emit.semi_functions(self.kernel, self.opnd_grids,
                                            self.out_grids, self.lin, self.H)
-            self._source = src + f'#include "{KERNEL_FILES[self.kind]}"\n'
-        return self._source
+            src = self._sources[dtype] = \
+                src + f'#include "{KERNEL_FILES[self.kind]}"\n'
+        return src
 
     def make_dst(self, bufs: Dict[str, torch.Tensor]):
         """The destination buffers of one application: None when it writes
@@ -659,21 +691,26 @@ class MapPlan(_Plan):
         ``csrc/common.cuh`` with ``RT_MAP``), after checking the grids and
         the destinations (``dst``: None when in place, else ``make_dst``'s
         buffers, which may not overlap a grid)."""
-        device = bufs[self.opnd_grids[0]].device
-        f4 = self.kind == "map" and self.template == "f4"
+        t0 = bufs[self.opnd_grids[0]]
+        device = t0.device
+        # f4 loads vectors of 4 cells, semi copies 4-byte granules
+        align = 1
+        if self.kind == "map" and self.template == "f4":
+            align = 4 * t0.element_size()
+        elif self.kind == "semi":
+            align = 4
 
         def check(what, t, shape):
             if t.device != device:
                 raise ValueError(f"{what} is on {t.device}, not {device}")
-            if t.dtype != torch.float32:
-                raise TypeError(f"{what}: the CUDA kernels take float32, "
-                                f"got {t.dtype}")
+            check_dtype(what, t, t0.dtype)
             if tuple(t.shape) != shape or not t.is_contiguous():
                 raise ValueError(f"{what}: expected a contiguous tensor of "
                                  f"shape {shape}")
-            if f4 and t.data_ptr() % 16:
-                raise ValueError(f"{what}: the f4 template loads float4s and "
-                                 "needs a 16-byte aligned tensor")
+            if t.data_ptr() % align:
+                raise ValueError(f"{what}: the {self.template} template loads "
+                                 f"{align}-byte units and needs a {align}-byte "
+                                 "aligned tensor")
 
         def span(t):
             return t.data_ptr(), t.data_ptr() + t.numel() * t.element_size()
@@ -727,10 +764,9 @@ class MapPlan(_Plan):
         from .semi_step import semi_step
         from .stream_step import stream_step
         bufs = {g: arrays[g] for g in self.opnd_grids}
+        dtype = bufs[self.opnd_grids[0]].dtype
         for g, t in bufs.items():
-            if t.dtype != torch.float32:
-                raise TypeError(f"grid '{g}': the CUDA kernels take float32, "
-                                f"got {t.dtype}")
+            check_dtype(f"grid '{g}'", t, dtype)
         dst = self.make_dst(bufs)
         {"map": map_step, "stream": stream_step,
          "semi": semi_step}[self.kind](self, bufs, scalars, dst)

@@ -1,6 +1,7 @@
-// Shared parameter block of the stencil kernels.
+// Shared parameter block and element type of the stencil kernels.
 //
-// A kernel source is the generated header (emit.py: RT_NG operand grids,
+// A kernel source is the generated header (emit.py: RT_ELEM, the grids'
+// element type, float or __nv_bfloat16; RT_NG operand grids,
 // RT_NS scalars, RT_NO outputs, the tile RT_TB0 x RT_TB1 x RT_TB2, the
 // per-grid tap halos grid_h0/1/2, grid_ring, out_grid and the point
 // function stencil_point) followed by one of the kernel templates
@@ -14,11 +15,34 @@
 // With RT_MAP (every MapPlan build, and K1) outputs go to destinations of
 // their own.  2D stencils run as 3D ones of shape (R0, 1, R1).
 // Indices are 64-bit.
+//
+// Arithmetic is f32 whatever RT_ELEM is: every grid cell is read through
+// ld_elem (or converted when a kernel stages it), and store_out rounds
+// once, to nearest even, when it writes an output cell.
 #pragma once
 #include <cuda_runtime.h>
+#include <cuda_bf16.h>
+
+#ifndef RT_ELEM
+#define RT_ELEM float
+#endif
+typedef RT_ELEM elem_t;
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+// one grid cell, read through the read-only path, as f32
+__device__ __forceinline__ float ld_elem(const float* ptr) { return __ldg(ptr); }
+__device__ __forceinline__ float ld_elem(const __nv_bfloat16* ptr) {
+  return __bfloat162float(__ldg(ptr));
+}
+// v rounded to the element type, written at ptr
+__device__ __forceinline__ void st_elem(float* ptr, float v) { *ptr = v; }
+__device__ __forceinline__ void st_elem(__nv_bfloat16* ptr, float v) {
+  *ptr = __float2bfloat16_rn(v);
+}
 
 struct Params {
-  float* g[RT_NG];          // layout buffer of each operand grid
+  elem_t* g[RT_NG];         // layout buffer of each operand grid
   long long sx[RT_NG];      // element stride of axis 0
   long long sy[RT_NG];      // element stride of axis 1 (axis 2 is dense)
   long long org[RT_NG];     // element index of interior point (0, 0, 0)
@@ -27,7 +51,7 @@ struct Params {
 #ifdef RT_MAP
   // where output o goes: its own grid (in place) or a destination buffer
   // of the region's shape that no block reads
-  float* d[RT_NO];
+  elem_t* d[RT_NO];
   long long dsx[RT_NO], dsy[RT_NO], dorg[RT_NO];
 #endif
 };
@@ -40,7 +64,7 @@ static inline Params rt_params(const void* meta, const void* scal) {
   const float* sc = static_cast<const float*>(scal);
   Params p;
   for (int i = 0; i < RT_NG; ++i) {
-    p.g[i] = reinterpret_cast<float*>(m[i]);
+    p.g[i] = reinterpret_cast<elem_t*>(m[i]);
     p.sx[i] = m[RT_NG + i];
     p.sy[i] = m[2 * RT_NG + i];
     p.org[i] = m[3 * RT_NG + i];
@@ -52,7 +76,7 @@ static inline Params rt_params(const void* meta, const void* scal) {
 #ifdef RT_MAP
   const long long* d = m + 4 * RT_NG + 3;
   for (int o = 0; o < RT_NO; ++o) {
-    p.d[o] = reinterpret_cast<float*>(d[o]);
+    p.d[o] = reinterpret_cast<elem_t*>(d[o]);
     p.dsx[o] = d[RT_NO + o];
     p.dsy[o] = d[2 * RT_NO + o];
     p.dorg[o] = d[3 * RT_NO + o];
@@ -61,14 +85,14 @@ static inline Params rt_params(const void* meta, const void* scal) {
   return p;
 }
 
-// Store output o of point (x, y, z): into its grid, or with RT_MAP into
-// the plan's destination for it.
+// Store output o of point (x, y, z), rounded to the element type: into its
+// grid, or with RT_MAP into the plan's destination for it.
 __device__ __forceinline__ void store_out(const Params& p, int o, int x, int y, int z,
                                           float v) {
 #ifdef RT_MAP
-  p.d[o][p.dorg[o] + x * p.dsx[o] + y * p.dsy[o] + z] = v;
+  st_elem(p.d[o] + p.dorg[o] + x * p.dsx[o] + y * p.dsy[o] + z, v);
 #else
   const int g = out_grid(o);
-  p.g[g][p.org[g] + x * p.sx[g] + y * p.sy[g] + z] = v;
+  st_elem(p.g[g] + p.org[g] + x * p.sx[g] + y * p.sy[g] + z, v);
 #endif
 }

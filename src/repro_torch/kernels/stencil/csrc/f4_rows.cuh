@@ -11,12 +11,13 @@
 //
 // For a group at z0 with m = min(4, R2 - z0) points inside the region, a
 // row needs the n = m + hi - lo cells that start at `first`, the element
-// index of (x + dx, y + dy, z0 + lo).  It loads the float4s from a = first
-// rounded down to a multiple of 4 (the buffer's base is 16-byte aligned,
-// which the wrapper checks) while a + 4k < first + n: each float4 then
-// holds at least one needed cell, and none crosses a 16-byte boundary, so
+// index of (x + dx, y + dy, z0 + lo).  It loads the vectors of 4 cells
+// (float4s; 8-byte vectors of 4 bf16) from a = first rounded down to a
+// multiple of 4 (the buffer's base is aligned to 4 cells, which the
+// wrapper checks) while a + 4k < first + n: each vector then holds at
+// least one needed cell, and none crosses a boundary of its own size, so
 // none leaves the allocation whatever the pitch, the ragged edge or the
-// region's start.  Cell i of the row (z0 + lo + i) is w[off + i], off =
+// region's start.  The rows are f32 whatever the cells' type.  Cell i of the row (z0 + lo + i) is w[off + i], off =
 // first - a, taken by a 4-way select so that every index is a compile-time
 // constant and the rows stay in registers.
 #pragma once
@@ -33,9 +34,10 @@ struct F4Rows {
   float v[kF4Floats > 0 ? kF4Floats : 1];
 };
 
-// Row R of the group; ld(ptr, out4) loads the aligned float4 at ptr.
-template <int R, class Ld>
-__host__ __device__ __forceinline__ void f4_fill(F4Rows& rows, const float* base, long long first,
+// Row R of the group; ld(ptr, out4) loads the aligned vector of 4 cells
+// at ptr as f32.
+template <int R, class E, class Ld>
+__host__ __device__ __forceinline__ void f4_fill(F4Rows& rows, const E* base, long long first,
                                                  int n, const Ld& ld) {
   constexpr int NV = f4_vecs(R), W = f4_width(R);
   const long long a = first & ~3LL;
@@ -57,8 +59,8 @@ __host__ __device__ __forceinline__ void f4_fill(F4Rows& rows, const float* base
 
 // Every row of the group at (x, y, z0) with m points in the region; g, sx,
 // sy and org as in Params.
-template <int R, class Ld>
-__host__ __device__ __forceinline__ void f4_fill_rows(float* const* g, const long long* sx,
+template <int R, class E, class Ld>
+__host__ __device__ __forceinline__ void f4_fill_rows(E* const* g, const long long* sx,
                                                       const long long* sy, const long long* org,
                                                       F4Rows& rows, int x, int y, int z0, int m,
                                                       const Ld& ld) {

@@ -30,16 +30,18 @@
 //         128-byte line, and a thread's axis-0 taps of consecutive points
 //         fall on the lines its previous points loaded.
 //   f4:   each thread computes 4 consecutive points along axis 2 from tap
-//         rows loaded as aligned float4s (f4_rows.cuh): the TPU's
-//         lane-aligned blocks become 16-byte loads.
+//         rows loaded as aligned vectors of 4 cells (f4_rows.cuh): the
+//         TPU's lane-aligned blocks become 16-byte loads (8-byte ones of
+//         4 bf16 cells).
 //   smem: the block stages the halo'd tile (RT_TB0 + 2h0) x (RT_TB1 + 2h1) x
 //         (RT_TB2 + 2h2) of each grid with an off-center tap in shared
-//         memory, waits at one barrier, and evaluates its points from it.
+//         memory, as f32, waits at one barrier, and evaluates its points
+//         from it.
 //
 // Bound: device-memory bytes.  One application must read each input grid
 // once and write each output once: star3d4r at 512^3 moves 2 x 512^3 x 4 B
 // = 1.07 GB, 0.321 ms at 3.35 TB/s; acoustic ISO five grid passes, 0.801
-// ms.  The 2h+1 taps along each axis are re-read from L1/L2 (gmem), from
+// ms (bf16 grids: half the bytes).  The 2h+1 taps along each axis are re-read from L1/L2 (gmem), from
 // registers along axis 2 (f4) or from shared memory (smem); the designs
 // differ only in where those re-reads are served.
 #include "common.cuh"
@@ -48,6 +50,7 @@
 #include "f4_rows.cuh"
 constexpr int kThreads = RT_TB1 * RT_TB2 / 4;
 
+// the aligned vector of 4 cells at ptr, as f32
 struct DevLoad {
   __device__ __forceinline__ void operator()(const float* ptr, float* out) const {
     const float4 q = __ldg(reinterpret_cast<const float4*>(ptr));
@@ -55,6 +58,15 @@ struct DevLoad {
     out[1] = q.y;
     out[2] = q.z;
     out[3] = q.w;
+  }
+  __device__ __forceinline__ void operator()(const __nv_bfloat16* ptr, float* out) const {
+    const uint2 q = __ldg(reinterpret_cast<const uint2*>(ptr));
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.x));
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.y));
+    out[0] = a.x;
+    out[1] = a.y;
+    out[2] = b.x;
+    out[3] = b.y;
   }
 };
 
@@ -89,7 +101,7 @@ struct GmemReader {
   long long idx[RT_NG];   // element index of this point in each buffer
   template <int G>
   __device__ __forceinline__ float at(int dx, int dy, int dz) const {
-    return __ldg(p.g[G] + idx[G] + dx * p.sx[G] + dy * p.sy[G] + dz);
+    return ld_elem(p.g[G] + idx[G] + dx * p.sx[G] + dy * p.sy[G] + dz);
   }
 };
 constexpr int kTileFloats = 0;
@@ -105,7 +117,7 @@ __host__ __device__ constexpr int tile_offset(int g) {
 }
 constexpr int kTileFloats = tile_offset(RT_NG);
 
-// Stage the halo'd tile of every grid with an off-center tap; cells outside
+// Stage the halo'd tile of every grid with an off-center tap, as f32; cells outside
 // a grid's tap reach [-h, R + h) are never read for a point of the region
 // and are skipped.
 template <int G>
@@ -116,13 +128,13 @@ __device__ __forceinline__ void stage(const Params& p, float* smem, int x0, int 
       constexpr int W1 = RT_TB1 + 2 * h1, W2 = RT_TB2 + 2 * h2;
       constexpr int n = (RT_TB0 + 2 * h0) * W1 * W2;
       float* dst = smem + tile_offset(G);
-      const float* src = p.g[G] + p.org[G];
+      const elem_t* src = p.g[G] + p.org[G];
       for (int i = threadIdx.y * RT_TB2 + threadIdx.x; i < n; i += kThreads) {
         const int gx = x0 - h0 + i / (W1 * W2);
         const int gy = y0 - h1 + (i / W2) % W1;
         const int gz = z0 - h2 + i % W2;
         if (gx < p.R0 + h0 && gy < p.R1 + h1 && gz < p.R2 + h2)
-          dst[i] = __ldg(src + gx * p.sx[G] + gy * p.sy[G] + gz);
+          dst[i] = ld_elem(src + gx * p.sx[G] + gy * p.sy[G] + gz);
       }
     }
     stage<G + 1>(p, smem, x0, y0, z0);
@@ -141,7 +153,7 @@ struct TileReader {
       constexpr int W1 = RT_TB1 + 2 * h1, W2 = RT_TB2 + 2 * h2;
       return smem[tile_offset(G) + ((t + h0 + dx) * W1 + ty + h1 + dy) * W2 + tz + h2 + dz];
     } else {
-      return __ldg(p.g[G] + idx[G]);    // center-only grid
+      return ld_elem(p.g[G] + idx[G]);  // center-only grid
     }
   }
 };

@@ -9,22 +9,37 @@
 // fields" (acoustic's vp2, damp) and scalars.
 //
 // A thread block covers an RT_TB1 x RT_TB2 tile of the two fast axes and
-// walks a chunk of RT_TB0 output planes along axis 0.  Each input plane of
+// walks a chunk of RT_TB0 output planes along axis 0; a thread walks
+// kCols columns adjacent along y (two for f32 grids when RT_TB1 is even).
+// Each input plane of
 // every grid with an off-center tap is read from device memory once per
-// block, staged in shared memory with its y/z halo (double-buffered, one
-// barrier per plane), and scattered by each thread into the RT_NR = 2H+1
-// partial sums of its column, kept in registers (semi_ring.cuh); an output
-// plane completes 2H planes after its first input plane.  Coefficient
-// fields are read at the point from device memory (L1/L2 serve the 2H+1
-// reads of one plane).
+// block and staged with its y/z halo in a ring of kStages planes in
+// shared memory, in the grids' own element type; each thread scatters it
+// into the partial sums of its column, kept in registers (semi_ring.cuh);
+// an output plane completes 2H planes after its first input plane.
 //
 // Bound: device-memory bytes, as K1 (each operand grid read once, each
-// output written once).  The design keeps one staged plane per grid where
-// K2 keeps a ring of 2h+1, at the price of 2H+1 register partial sums per
-// output and of re-reading the coefficient fields once per offset.
+// output written once).  Two things keep a semi-stencil from it, and the
+// design answers both:
+//   - coefficients: evaluated per term, acoustic ISO's ((vp2*dt*dt)*C) /
+//     (1 + damp*dt) costs two loads and a division for each of 24 terms.
+//     The generated code groups the terms by the residual of their
+//     coefficient (emit.py semi_functions): a term adds kappa * tap to its
+//     group's partial sum, and each group's residual is evaluated once a
+//     point, from the fields at the output point, when the plane is
+//     emitted;
+//   - latency: a plane loaded only after the previous one was scattered
+//     costs each plane a full device-memory round trip.  Plane i+2 is
+//     copied with cp.async (4-byte granules: a halo'd row start z0 - h2 is
+//     not 16-byte aligned) into the ring while plane i is scattered; one
+//     barrier a plane orders the copies and the ring's reuse.
 // Outputs are written in place: they have center-only taps, and a block
 // reads an output grid only at its own chunk's points, each before it
 // writes it.
+//
+// Rows of a staged plane start at the granule below their first cell: a
+// bf16 row whose first cell has an odd element index is staged from the
+// cell before it, and the reader adds that offset back.
 //
 // With RT_MAP this is K5's per-application call (template semi of
 // lower_pallas, _make_body_streaming -> _stream_outputs): the grids are the
@@ -32,104 +47,157 @@
 // to the plan's destinations (store_out).
 #include "common.cuh"
 
+constexpr int kStages = 3;                      // staged planes in the ring
+constexpr int kAlign = 4 / sizeof(elem_t);      // cells of one 4-byte granule
+__host__ __device__ constexpr int row_pitch(int g) {
+  return (RT_TB2 + 2 * grid_h2(g) + 2 * (kAlign - 1)) / kAlign * kAlign;
+}
 __host__ __device__ constexpr int plane_elems(int g) {
-  return grid_ring(g) ? (RT_TB1 + 2 * grid_h1(g)) * (RT_TB2 + 2 * grid_h2(g)) : 0;
+  return grid_ring(g) ? (RT_TB1 + 2 * grid_h1(g)) * row_pitch(g) : 0;
 }
 __host__ __device__ constexpr int plane_offset(int g) {
   return g <= 0 ? 0 : plane_offset(g - 1) + plane_elems(g - 1);
 }
-constexpr int kPlaneFloats = plane_offset(RT_NG);
-constexpr int kThreads = RT_TB1 * RT_TB2;
+constexpr int kPlaneElems = plane_offset(RT_NG);
+// columns a thread walks, adjacent along y: their taps on the staged plane
+// share rows, so the compiler loads each shared cell once for both.  f32
+// only: a bf16 row's granule offset differs between the two columns' rows,
+// and two bf16 columns a thread ran slower than one on the card.
+constexpr int kCols = sizeof(elem_t) == 4 && RT_TB1 % 2 == 0 ? 2 : 1;
+constexpr int kThreads = RT_TB1 / kCols * RT_TB2;
 
 #include "semi_ring.cuh"
 
-// Stage plane xin of grid G with its y/z halo; planes and cells outside the
-// grid's tap reach [-h, R + h) are skipped (they only feed planes outside
-// [0, R0), which semi_ring.cuh never adds to).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+// wait until at most N of this thread's groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// element index of the first halo'd cell of row gy of plane xin of grid G
 template <int G>
-__device__ __forceinline__ void load_plane(const Params& p, float* buf, int xin,
-                                           int y0, int z0) {
+__device__ __forceinline__ long long row_start(const Params& p, int xin, int gy, int z0) {
+  return p.org[G] + static_cast<long long>(xin) * p.sx[G] +
+         static_cast<long long>(gy) * p.sy[G] + z0 - grid_h2(G);
+}
+
+// Issue the copies of plane xin of every ring grid with its y/z halo into
+// the staged plane buf; planes, rows and cells outside the grid's tap
+// reach [-h, R + h) are skipped (they only feed planes outside [0, R0),
+// which semi_ring.cuh never adds to).
+template <int G>
+__device__ __forceinline__ void stage_plane(const Params& p, elem_t* buf, int xin,
+                                            int y0, int z0) {
   if constexpr (G < RT_NG) {
     if constexpr (grid_ring(G) != 0) {
       constexpr int h0 = grid_h0(G), h1 = grid_h1(G), h2 = grid_h2(G);
       constexpr int W1 = RT_TB1 + 2 * h1, W2 = RT_TB2 + 2 * h2;
+      constexpr int GR = row_pitch(G) / kAlign;          // granules a row
       if (xin >= -h0 && xin < p.R0 + h0) {
-        float* dst = buf + plane_offset(G);
-        const float* src = p.g[G] + p.org[G] + static_cast<long long>(xin) * p.sx[G];
-        for (int i = threadIdx.y * RT_TB2 + threadIdx.x; i < W1 * W2; i += kThreads) {
-          const int gy = y0 - h1 + i / W2;
-          const int gz = z0 - h2 + i % W2;
-          if (gy < p.R1 + h1 && gz < p.R2 + h2) dst[i] = __ldg(src + gy * p.sy[G] + gz);
+        elem_t* dst = buf + plane_offset(G);
+        const int n = min(W2, p.R2 + h2 - (z0 - h2));      // cells a row needs
+        for (int i = threadIdx.y * RT_TB2 + threadIdx.x; i < W1 * GR; i += kThreads) {
+          const int row = i / GR, k = i - row * GR;
+          const int gy = y0 - h1 + row;
+          if (gy >= p.R1 + h1) continue;
+          const long long rs = row_start<G>(p, xin, gy, z0);
+          const long long a = rs & ~static_cast<long long>(kAlign - 1);
+          if (a + k * kAlign < rs + n)
+            cp_async4(dst + row * row_pitch(G) + k * kAlign, p.g[G] + a + k * kAlign);
         }
       }
     }
-    load_plane<G + 1>(p, buf, xin, y0, z0);
+    stage_plane<G + 1>(p, buf, xin, y0, z0);
   }
 }
 
 struct SemiReader {
   const Params& p;
-  const float* buf;       // the staged input plane xin
-  int xin, ty, tz, y, z;
+  const elem_t* buf;      // the staged input plane xin
+  int xin, y0, z0, ty, tz, y, z;
   // input plane xin of grid G at (y + dy, z + dz)
   template <int G>
   __device__ __forceinline__ float tap(int dy, int dz) const {
-    constexpr int W2 = RT_TB2 + 2 * grid_h2(G);
-    return buf[plane_offset(G) + (ty + grid_h1(G) + dy) * W2 + (tz + grid_h2(G) + dz)];
+    const int row = ty + grid_h1(G) + dy;
+    int off = 0;          // the row's first cell within its first granule
+    if constexpr (kAlign > 1) {
+      // low bits of the row's start index (32-bit arithmetic keeps them)
+      const int first = static_cast<int>(row_start<G>(p, xin, y0 - grid_h1(G), z0));
+      off = (first + row * static_cast<int>(p.sy[G])) & (kAlign - 1);
+    }
+    return to_float(buf[plane_offset(G) + row * row_pitch(G) + off + tz + grid_h2(G) + dz]);
   }
   // coefficient field G at output plane xin - d, this column
   template <int G>
   __device__ __forceinline__ float cf(int d) const {
-    return __ldg(p.g[G] + p.org[G] + static_cast<long long>(xin - d) * p.sx[G] +
-                 y * p.sy[G] + z);
+    return ld_elem(p.g[G] + p.org[G] + static_cast<long long>(xin - d) * p.sx[G] +
+                   static_cast<long long>(y) * p.sy[G] + z);
   }
 };
 
-__global__ void __launch_bounds__(RT_TB1 * RT_TB2)
+__global__ void __launch_bounds__(kThreads)
 semi_step_kernel(const Params p) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  elem_t* smem = reinterpret_cast<elem_t*>(smem_raw);
   const int z0 = blockIdx.x * RT_TB2, y0 = blockIdx.y * RT_TB1;
   const int x0 = blockIdx.z * RT_TB0;
-  const int tz = threadIdx.x, ty = threadIdx.y;
-  const int z = z0 + tz, y = y0 + ty;
-  const bool inside = z < p.R2 && y < p.R1;
+  const int tz = threadIdx.x, ty0 = threadIdx.y * kCols;   // first column's row
+  const int z = z0 + tz;
   const int x1 = min(x0 + RT_TB0, p.R0);
   const int n_in = x1 - x0 + 2 * RT_H;
-  float acc[RT_NO][RT_NR] = {};
+  SemiAcc acc[kCols] = {};
+  // the ring's first two planes; plane i + 2 is issued at plane i
+  stage_plane<0>(p, smem, x0 - RT_H, y0, z0);
+  cp_async_commit();
+  if (n_in > 1) stage_plane<0>(p, smem + kPlaneElems, x0 - RT_H + 1, y0, z0);
+  cp_async_commit();
+  int slot = 0;                               // i mod kStages
   for (int base = 0; base < n_in; base += RT_NR) {
 #pragma unroll
     for (int r = 0; r < RT_NR; ++r) {
       const int i = base + r;
       if (i >= n_in) break;                  // the same for the whole block
       const int xin = x0 - RT_H + i;
-      // double buffer: the plane staged two iterations ago was last read
-      // before the previous barrier
-      float* buf = smem + (i & 1) * kPlaneFloats;
-      load_plane<0>(p, buf, xin, y0, z0);
-      __syncthreads();
-      if (inside) {
-        const SemiReader rd{p, buf, xin, ty, tz, y, z};
-        float out[RT_NO];
-        if (semi_plane(rd, p.s, acc, r, x0, x1, out)) {
-          const int o = xin - RT_H;
+      cp_async_wait<1>();                    // this thread's copies of plane i
+      __syncthreads();                       // everyone's; plane i-1 done with
+      const int next = slot == 0 ? 2 : slot - 1;   // (i + 2) mod kStages
+      if (i + 2 < n_in) stage_plane<0>(p, smem + next * kPlaneElems, xin + 2, y0, z0);
+      cp_async_commit();                     // (an empty group past the end)
 #pragma unroll
-          for (int k = 0; k < RT_NO; ++k) store_out(p, k, o, y, z, out[k]);
+      for (int c = 0; c < kCols; ++c) {
+        const int y = y0 + ty0 + c;
+        if (z < p.R2 && y < p.R1) {
+          const SemiReader rd{p, smem + slot * kPlaneElems, xin, y0, z0, ty0 + c, tz, y, z};
+          float out[RT_NO];
+          if (semi_plane(rd, p.s, acc[c], r, x0, x1, out)) {
+            const int o = xin - RT_H;
+#pragma unroll
+            for (int k = 0; k < RT_NO; ++k) store_out(p, k, o, y, z, out[k]);
+          }
         }
       }
+      slot = slot == kStages - 1 ? 0 : slot + 1;
     }
   }
+  cp_async_wait<0>();
 }
 
 extern "C" int rt_semi_step(const void* meta, const void* scal, void* stream) {
   const Params p = rt_params(meta, scal);
-  const size_t smem_bytes = sizeof(float) * 2 * (kPlaneFloats > 0 ? kPlaneFloats : 1);
+  const size_t smem_bytes =
+      sizeof(elem_t) * kStages * (kPlaneElems > 0 ? kPlaneElems : 1);
   if (smem_bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         semi_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem_bytes));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const dim3 threads(RT_TB2, RT_TB1, 1);
+  const dim3 threads(RT_TB2, RT_TB1 / kCols, 1);
   const dim3 blocks((p.R2 + RT_TB2 - 1) / RT_TB2, (p.R1 + RT_TB1 - 1) / RT_TB1,
                     (p.R0 + RT_TB0 - 1) / RT_TB0);
   semi_step_kernel<<<blocks, threads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(p);

@@ -7,8 +7,8 @@
 // grid with an off-center tap keeps a ring of 2*h0+1 halo'd planes
 // ((RT_TB1 + 2*h1) x (RT_TB2 + 2*h2)) in shared memory: every plane is
 // loaded from device memory once per block and then read by all the taps
-// of the 2*h0+1 output planes that need it.  Grids tapped only at the
-// center are read at the point.
+// of the 2*h0+1 output planes that need it (staged as f32 whatever the
+// grids' type).  Grids tapped only at the center are read at the point.
 //
 // Ring slots: local plane p (the chunk's first plane is 0, the prologue
 // loads p = -h0 .. h0-1) lives in slot (p + h0) mod (2*h0+1); at plane t
@@ -51,11 +51,11 @@ __device__ __forceinline__ void load_plane(const Params& p, float* smem, int xp,
   constexpr int W1 = RT_TB1 + 2 * h1, W2 = RT_TB2 + 2 * h2;
   if (xp < -h0 || xp >= p.R0 + h0) return;
   float* dst = smem + ring_offset(G) + slot * (W1 * W2);
-  const float* src = p.g[G] + p.org[G] + xp * p.sx[G];
+  const elem_t* src = p.g[G] + p.org[G] + xp * p.sx[G];
   for (int i = threadIdx.y * RT_TB2 + threadIdx.x; i < W1 * W2; i += kThreads) {
     const int gy = y0 - h1 + i / W2;
     const int gz = z0 - h2 + i % W2;
-    if (gy < p.R1 + h1 && gz < p.R2 + h2) dst[i] = __ldg(src + gy * p.sy[G] + gz);
+    if (gy < p.R1 + h1 && gz < p.R2 + h2) dst[i] = ld_elem(src + gy * p.sy[G] + gz);
   }
 }
 
@@ -99,7 +99,7 @@ struct RingReader {
       return smem[ring_offset(G) + slot * (W1 * W2) + (ty + h1 + dy) * W2 +
                   (tz + h2 + dz)];
     } else {
-      return __ldg(p.g[G] + idx[G]);    // center-only grid
+      return ld_elem(p.g[G] + idx[G]);  // center-only grid
     }
   }
 };

@@ -37,7 +37,9 @@
 // grid passes per step where K1 moves 2.  The design pays for that with
 // redundant work on the widened stages ((8+8)x(32+8) cells of F_0 per
 // 8x32 tile at h=4, k=2) and with the widened ring -1 loads, which L2
-// serves; the rings take 64.5 KB at 8x32, k=2, h=4.
+// serves; the rings take 64.5 KB at 8x32, k=2, h=4.  The rings hold f32
+// whatever the grids' type: a sub-step's values reach the next one
+// unrounded, and only the spares' stores round.
 #include "common.cuh"
 
 constexpr int kH0 = grid_h0(RT_GO), kH1 = grid_h1(RT_GO), kH2 = grid_h2(RT_GO);
@@ -53,7 +55,7 @@ constexpr int kSmemFloats = ring_off(RT_K - 1);
 
 struct TParams {
   Params p;
-  float* dst[2];          // spares standing for RT_GW (0) and RT_GO (1)
+  elem_t* dst[2];         // spares standing for RT_GW (0) and RT_GO (1)
 };
 
 // meta as rt_params, followed by the two spare pointers
@@ -61,8 +63,8 @@ static inline TParams rt_tparams(const void* meta, const void* scal) {
   TParams t;
   t.p = rt_params(meta, scal);
   const long long* m = static_cast<const long long*>(meta);
-  t.dst[0] = reinterpret_cast<float*>(m[4 * RT_NG + 3]);
-  t.dst[1] = reinterpret_cast<float*>(m[4 * RT_NG + 4]);
+  t.dst[0] = reinterpret_cast<elem_t*>(m[4 * RT_NG + 3]);
+  t.dst[1] = reinterpret_cast<elem_t*>(m[4 * RT_NG + 4]);
   return t;
 }
 
@@ -85,7 +87,7 @@ __device__ __forceinline__ void load_input(const Params& p, float* smem, int x, 
   float* dst = smem + ring_off(-1) + slot_of(x, x0) * (W1 * W2);
   for (int i = threadIdx.y * RT_TB2 + threadIdx.x; i < W1 * W2; i += kThreads) {
     const int y = y0 - RT_K * kH1 + i / W2, z = z0 - RT_K * kH2 + i % W2;
-    dst[i] = in_reach(p, x, y, z) ? __ldg(p.g[RT_GO] + index_of(p, RT_GO, x, y, z)) : 0.0f;
+    dst[i] = in_reach(p, x, y, z) ? ld_elem(p.g[RT_GO] + index_of(p, RT_GO, x, y, z)) : 0.0f;
   }
 }
 
@@ -105,13 +107,13 @@ struct StageReader {
       return smem[ring_off(J - 1) + s * (W1 * W2) + (cy + kH1 + dy) * W2 + (cz + kH2 + dz)];
     } else if constexpr (G == RT_GW) {     // F_{J-2}, center only
       if constexpr (J == 0) {
-        return __ldg(p.g[G] + index_of(p, G, x, y, z));
+        return ld_elem(p.g[G] + index_of(p, G, x, y, z));
       } else {
         constexpr int W1 = ring_w1(J - 2), W2 = ring_w2(J - 2);
         return smem[ring_off(J - 2) + slot * (W1 * W2) + (cy + 2 * kH1) * W2 + (cz + 2 * kH2)];
       }
     } else {                               // a grid the steps do not change
-      return __ldg(p.g[G] + index_of(p, G, x + dx, y + dy, z + dz));
+      return ld_elem(p.g[G] + index_of(p, G, x + dx, y + dy, z + dz));
     }
   }
 };
@@ -142,10 +144,10 @@ __device__ __forceinline__ void stage(const TParams& t, float* smem, int tick, i
       if constexpr (J >= RT_K - 2) {
         if (x >= x0 && x < x1 && cy >= E1 && cy < E1 + RT_TB1 && cz >= E2 &&
             cz < E2 + RT_TB2)
-          t.dst[J % 2][index_of(p, role, x, y, z)] = v;
+          st_elem(t.dst[J % 2] + index_of(p, role, x, y, z), v);
       }
     } else if (in_reach(p, x, y, z)) {
-      v = __ldg(p.g[role] + index_of(p, role, x, y, z));
+      v = ld_elem(p.g[role] + index_of(p, role, x, y, z));
     }
     if constexpr (J < RT_K - 1) smem[ring_off(J) + slot * (W1 * W2) + i] = v;
   }

@@ -16,12 +16,18 @@ K4 call it, each with its own reader; K4's f4 template reads whole tap
 rows instead, as ``rd.template at<r, dz>()`` (``f4_functions``).
 
 The semi-stencil kernel K5 calls the scatter ``semi_scatter<O, D>(rd, s,
-acc)`` instead: it adds, term by term in the order ``semi_linearize``
-gives, each axis-0 offset ``D`` term of output ``O`` (its coefficient read
-at output plane ``x_in - D`` through ``rd.template cf<G>(D)``, times the
-input plane's tap ``rd.template tap<G>(dy, dz)``) to the partial sum
-``acc``; ``semi_const<O>(rd, s)`` is the constant part at the emitted
-plane (``cf<G>(RT_H)``).
+acc)`` instead.  Each term's coefficient is split into a number κ and a
+residual φ (``split_coefficient``), and the terms of an output are grouped
+by φ (``semi_plan``): the scatter adds, term by term in the order
+``semi_linearize`` gives, ``κ`` times the input plane's tap
+``rd.template tap<G>(dy, dz)`` of each axis-0 offset ``D`` term of output
+``O`` to its group's partial sum ``acc[g]``; ``semi_finish<O>(rd, s,
+acc)`` turns the group sums of the emitted plane into its value,
+``Σ_g φ_g · acc[g] + const``, reading each coefficient field once at that
+plane (``rd.template cf<G>(RT_H)``).
+
+The grids' element type (``RT_ELEM``: ``float`` or ``__nv_bfloat16``) is
+part of the header; the generated code sees f32 values either way.
 
 Statement semantics follow the JAX package's ``_exec_statements``: a
 ``LocalDef`` becomes a ``const`` local; a center read of a grid written by
@@ -33,7 +39,7 @@ double.  Nothing here mutates.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -158,10 +164,12 @@ def _table(name: str, vals, arg: str = "g") -> str:
 
 def header(kernel: ir.StencilIR, opnd_grids: Sequence[str],
            out_grids: Sequence[str], halo3: Dict[str, Tuple[int, int, int]],
-           block3: Tuple[int, int, int], point: str = None) -> str:
-    """The generated part of a kernel source: sizes, per-grid tap halos (3D
-    form; a grid with any off-center tap is kept in the streaming kernel's
-    plane ring), the output → operand map, and the point function
+           block3: Tuple[int, int, int], point: str = None,
+           elem: str = "float") -> str:
+    """The generated part of a kernel source: the grids' element type
+    ``elem`` (``float`` or ``__nv_bfloat16``), sizes, per-grid tap halos
+    (3D form; a grid with any off-center tap is kept in the streaming
+    kernel's plane ring), the output → operand map, and the point function
     (``point``, default ``point_function``'s)."""
     ng, no = len(opnd_grids), len(out_grids)
     ns = len(kernel.scalar_params)
@@ -169,6 +177,7 @@ def header(kernel: ir.StencilIR, opnd_grids: Sequence[str],
     h = [halo3[g] for g in opnd_grids]
     oidx = [list(opnd_grids).index(g) for g in out_grids]
     return "\n".join([
+        f"#define RT_ELEM {elem}",
         f"#define RT_NG {ng}",
         f"#define RT_NS {ns}",
         f"#define RT_NO {no}",
@@ -227,18 +236,49 @@ def f4_functions(kernel: ir.StencilIR, opnd_grids: Sequence[str],
     ])
 
 
-def semi_groups(lin, out_grids: Sequence[str]) -> List[Dict[int, list]]:
-    """Per output grid ``O`` (in ``out_grids`` order): axis-0 offset ``D`` →
-    its terms ``[(grid, offsets3, coefficient)]`` in ``semi_linearize``
-    order, the order in which K5 and its plain version add them."""
-    groups = []
+def split_coefficient(c: ir.Expr) -> Tuple[float, Optional[ir.Expr]]:
+    """``(κ, φ)`` with ``c == κ · φ``: κ the numbers pulled out of ``c``'s
+    chain of products, quotients and negations, φ what is left (``None``
+    when nothing is).  ``((vp2·dt·dt)·1.6) / (1 + damp·dt)`` gives ``(1.6,
+    (vp2·dt·dt) / (1 + damp·dt))``; any other node is its own residual."""
+    if isinstance(c, ir.Const):
+        return float(c.value), None
+    if isinstance(c, ir.Neg):
+        k, phi = split_coefficient(c.operand)
+        return -k, phi
+    if isinstance(c, ir.BinOp) and c.op in ("*", "/"):
+        kl, pl = split_coefficient(c.lhs)
+        kr, pr = split_coefficient(c.rhs)
+        if c.op == "*":
+            phi = pr if pl is None else pl if pr is None else ir.BinOp("*", pl, pr)
+            return kl * kr, phi
+        if kr != 0.0:
+            if pr is None:
+                return kl / kr, pl
+            return kl / kr, ir.BinOp("/", ir.Const(1.0) if pl is None else pl, pr)
+    return 1.0, c
+
+
+def semi_plan(lin, out_grids: Sequence[str]):
+    """Per output grid ``O`` (in ``out_grids`` order): ``(phis, by_d)``.
+    ``phis`` lists the residuals of its term groups, in the order of their
+    first term (``None``: the group of numeric coefficients); ``by_d`` maps
+    an axis-0 offset ``D`` to its terms ``[(grid, offsets3, group, κ)]`` in
+    ``semi_linearize`` order, the order in which K5 and its plain version
+    add them.  Residuals are compared structurally; a coefficient that
+    does not factor is its own group with κ = 1."""
+    plan = []
     for og in out_grids:
+        phis: List[Optional[ir.Expr]] = []
         by_d: Dict[int, list] = {}
         for g, offs, c in lin[og][0]:
+            kappa, phi = split_coefficient(c)
+            if phi not in phis:
+                phis.append(phi)
             d = offsets3(offs)
-            by_d.setdefault(d[0], []).append((g, d, c))
-        groups.append(by_d)
-    return groups
+            by_d.setdefault(d[0], []).append((g, d, phis.index(phi), kappa))
+        plan.append((phis, by_d))
+    return plan
 
 
 def _constexpr_chain(cases, default) -> List[str]:
@@ -258,40 +298,58 @@ def _constexpr_chain(cases, default) -> List[str]:
 def semi_functions(kernel: ir.StencilIR, opnd_grids: Sequence[str],
                    out_grids: Sequence[str], lin, H: int) -> str:
     """C++ source of K5's generated part: ``RT_H``, ``RT_NR`` (the ring of
-    ``2H+1`` partial planes), ``semi_scatter`` and ``semi_const`` (see the
-    module docstring) for the linearized kernel ``lin``."""
+    ``2H+1`` partial planes), ``RT_NGR`` (term groups an output has at
+    most), ``semi_scatter`` and ``semi_finish`` (see the module docstring)
+    for the linearized kernel ``lin``."""
     gidx = {g: i for i, g in enumerate(opnd_grids)}
+    plan = semi_plan(lin, out_grids)
+    ngr = max([len(phis) for phis, _ in plan] + [1])
 
-    def coef(e, d):
-        em = _Emitter(kernel, opnd_grids,
-                      tap=lambda t: f"rd.template cf<{gidx[t.grid]}>({d})")
-        return em.c(em.expr(e))
-
-    scatter, const = [], []
-    for o, by_d in enumerate(semi_groups(lin, out_grids)):
+    scatter, finish = [], []
+    for o, (phis, by_d) in enumerate(plan):
         for d, terms in sorted(by_d.items()):
-            scatter.append((f"O == {o} && D == {d}",
-                            [f"acc += {coef(c, d)} * rd.template tap<"
-                             f"{gidx[g]}>({offs[1]}, {offs[2]});"
-                             for g, offs, c in terms]))
-        const.append((f"O == {o}",
-                      [f"return {coef(lin[out_grids[o]][1], 'RT_H')};"]))
+            body = []
+            for g, offs, grp, kappa in terms:
+                tap = f"rd.template tap<{gidx[g]}>({offs[1]}, {offs[2]})"
+                body.append(f"acc[{grp}] += {tap};" if kappa == 1.0 else
+                            f"acc[{grp}] += {f32_literal(kappa)} * {tap};")
+            scatter.append((f"O == {o} && D == {d}", body))
+        # each coefficient field read once, at the emitted plane
+        fields: List[int] = []
+
+        def field(t):
+            if gidx[t.grid] not in fields:
+                fields.append(gidx[t.grid])
+            return f"f{gidx[t.grid]}"
+        em = _Emitter(kernel, opnd_grids, tap=field)
+        parts = [f"acc[{i}]" if phi is None else
+                 f"{em.c(em.expr(phi))} * acc[{i}]" for i, phi in enumerate(phis)]
+        const = em.expr(lin[out_grids[o]][1])
+        if not (isinstance(const, float) and const == 0.0) or not parts:
+            parts.append(em.c(const))
+        value = parts[0]
+        for part in parts[1:]:
+            value = f"({value} + {part})"
+        finish.append((f"O == {o}",
+                       [f"const float f{g} = rd.template cf<{g}>(RT_H);"
+                        for g in fields] + [f"return {value};"]))
     return "\n".join([
         f"#define RT_H {H}",
         f"#define RT_NR {2 * H + 1}",
+        f"#define RT_NGR {ngr}",
         f"// semi-stencil scatter of stencil '{kernel.name}' (generated from "
         "StencilIR by emit.py)",
         "template <int O, int D, class Rd>",
         "__host__ __device__ inline void semi_scatter("
-        "const Rd& rd, const float* s, float& acc) {",
+        "const Rd& rd, const float* s, float (&acc)[RT_NGR]) {",
         "  (void)rd; (void)s; (void)acc;",
         *_constexpr_chain(scatter, []),
         "}",
         "template <int O, class Rd>",
-        "__host__ __device__ inline float semi_const(const Rd& rd, "
-        "const float* s) {",
-        "  (void)rd; (void)s;",
-        *_constexpr_chain(const, ["return 0.0f;"]),
+        "__host__ __device__ inline float semi_finish(const Rd& rd, "
+        "const float* s, const float (&acc)[RT_NGR]) {",
+        "  (void)rd; (void)s; (void)acc;",
+        *_constexpr_chain(finish, ["return 0.0f;"]),
         "}",
         "",
     ])

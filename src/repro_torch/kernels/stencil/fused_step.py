@@ -10,6 +10,9 @@ Replaces the JAX package's ``kernels/stencil/codegen.py``
 memory bytes (each operand grid read once, each output written once per
 step).
 
+Both versions read f32 or bf16 buffers, compute in f32 and round once,
+when they store an output cell.
+
 In place: both versions write the output grids' interiors into their
 layout buffers; nothing else is written.
 """
@@ -33,18 +36,17 @@ def fused_step_plain(plan, padded: Dict[str, torch.Tensor],
     over the whole interior at once with shifted slices of the layout
     buffers."""
     R0, R1, R2 = plan.R3
-    dtype = padded[plan.out_grids[0]].dtype
     device = padded[plan.out_grids[0]].device
 
     def tap_read(g, offs):
         d, w = offsets3(offs), plan.hw3[g]
         b = plan.buf3(padded[g])
         return b[w[0] + d[0]:w[0] + d[0] + R0, w[1] + d[1]:w[1] + d[1] + R1,
-                 w[2] + d[2]:w[2] + d[2] + R2]
+                 w[2] + d[2]:w[2] + d[2] + R2].float()
 
     env = lowering.exec_statements(plan.kernel, tap_read,
                                    scalar_tensors(scalars, device),
-                                   plan.R3, dtype, device)
+                                   plan.R3, torch.float32, device)
     for g in plan.out_grids:
         plan.interior3(g, padded[g]).copy_(env[g])
 
@@ -61,7 +63,7 @@ def fused_step(plan, padded: Dict[str, torch.Tensor],
     if device.type != "cuda":
         raise ValueError(f"fused_step: unsupported device {device}")
     meta, scal = plan.launch_args(padded, scalars)
-    fn = _build.load(plan.source(), "rt_map_step")
+    fn = _build.load(plan.source(padded[plan.out_grids[0]].dtype), "rt_map_step")
     with torch.cuda.device(device):
         err = fn(ctypes.addressof(meta), ctypes.addressof(scal),
                  torch.cuda.current_stream(device).cuda_stream)

@@ -21,6 +21,9 @@ elements, float4s past the needed cells left 0, realigned by the row's
 offset; cells past the tensor's end, which only points past the region's
 end read, are taken from its last cell).  The CPU tests thus exercise the kernel's index arithmetic.
 
+Both versions read f32 or bf16 grids, compute in f32 and round once, when
+they store an output cell.
+
 Writes: both versions write the outputs' region, into the grids when the
 plan writes in place and else into the destination buffers; nothing else.
 """
@@ -69,8 +72,8 @@ def _f4_taps(plan, bufs, x0: int, x1: int):
         w = torch.where((start < end.unsqueeze(-1)).repeat_interleave(4, -1),
                         w, w.new_zeros(()))
         off = (first - a).unsqueeze(-1) + torch.arange(width, device=dev)
-        rows[(g, dx, dy)] = (torch.gather(w, -1, off.expand(*w.shape[:-1], width)),
-                             lo)
+        rows[(g, dx, dy)] = (torch.gather(w, -1, off.expand(*w.shape[:-1], width))
+                             .float(), lo)
 
     def tap_read(g, offs):
         dx, dy, dz = offsets3(offs)
@@ -85,8 +88,7 @@ def map_step_plain(plan, bufs: Dict[str, torch.Tensor],
                    dst: Optional[Dict[str, torch.Tensor]] = None) -> None:
     """K4's plain PyTorch version (see the module docstring)."""
     R0, R1, R2 = plan.R3
-    out0 = bufs[plan.opnd_grids[0]]
-    dtype, device = out0.dtype, out0.device
+    device = bufs[plan.opnd_grids[0]].device
     scal = scalar_tensors(scalars, device)
     grids = {g: plan.buf3(bufs[g]) for g in plan.opnd_grids}
 
@@ -104,22 +106,24 @@ def map_step_plain(plan, bufs: Dict[str, torch.Tensor],
         elif plan.template == "smem":
             # the staged tile: every cell of it lies within the tap reach
             tiles = {g: box(grids[g], plan.org3[g], x0, x1, (0, 0, 0),
-                            plan.gh3[g]).clone()
+                            plan.gh3[g]).float()
                      for g in plan.opnd_grids if any(plan.gh3[g])}
 
             def tap_read(g, offs, x0=x0, x1=x1, tiles=tiles):
                 d = offsets3(offs)
                 if g not in tiles:                 # center-only grid
-                    return box(grids[g], plan.org3[g], x0, x1, d)
+                    return box(grids[g], plan.org3[g], x0, x1, d).float()
                 h = plan.gh3[g]
                 return tiles[g][h[0] + d[0]:h[0] + d[0] + x1 - x0,
                                 h[1] + d[1]:h[1] + d[1] + R1,
                                 h[2] + d[2]:h[2] + d[2] + R2]
         else:
             def tap_read(g, offs, x0=x0, x1=x1):
-                return box(grids[g], plan.org3[g], x0, x1, offsets3(offs))
+                return box(grids[g], plan.org3[g], x0, x1,
+                           offsets3(offs)).float()
         env = lowering.exec_statements(plan.kernel, tap_read, scal,
-                                       (x1 - x0, R1, R2), dtype, device)
+                                       (x1 - x0, R1, R2), torch.float32,
+                                       device)
         for g in plan.out_grids:
             plan.out3(g, bufs, dst)[x0:x1].copy_(env[g])
 
@@ -138,7 +142,7 @@ def map_step(plan, bufs: Dict[str, torch.Tensor], scalars: Dict[str, float],
     if device.type != "cuda":
         raise ValueError(f"map_step: unsupported device {device}")
     meta, scal = plan.launch_args(bufs, scalars, dst)
-    fn = _build.load(plan.source(), "rt_map_step")
+    fn = _build.load(plan.source(bufs[plan.opnd_grids[0]].dtype), "rt_map_step")
     with torch.cuda.device(device):
         err = fn(ctypes.addressof(meta), ctypes.addressof(scal),
                  torch.cuda.current_stream(device).cuda_stream)

@@ -20,6 +20,9 @@ It also runs K4's streaming templates (shift/unroll of ``st.map``, a
 full tensors with the origin at the region's first point, outputs into
 the plan's destinations.
 
+Both versions read f32 or bf16 buffers, compute in f32 (the planes are
+staged as f32) and round once, when they store an output cell.
+
 Writes: both versions write the output grids' interiors (``MapPlan``: the
 region, in place or into ``dst``); nothing else is written.
 """
@@ -43,8 +46,7 @@ def stream_step_plain(plan, padded: Dict[str, torch.Tensor],
     """K2's plain PyTorch version (see the module docstring)."""
     R0, R1, R2 = plan.R3
     chunk = plan.B3[0]
-    out0 = padded[plan.out_grids[0]]
-    dtype, device = out0.dtype, out0.device
+    dtype, device = torch.float32, padded[plan.out_grids[0]].device
     scal = scalar_tensors(scalars, device)
     ring_grids = [g for g in plan.opnd_grids if any(plan.gh3[g])]
     bufs = {g: plan.buf3(padded[g]) for g in plan.opnd_grids}
@@ -75,8 +77,8 @@ def stream_step_plain(plan, padded: Dict[str, torch.Tensor],
 
             def tap_read(g, offs, t=t, x=x):
                 d = offsets3(offs)
-                if g not in rings:
-                    return plan.interior3(g, padded[g], x)   # center only
+                if g not in rings:                  # center only
+                    return plan.interior3(g, padded[g], x).float()
                 h = plan.gh3[g]
                 n = 2 * h[0] + 1
                 slot = t % n + h[0] + d[0]
@@ -106,7 +108,8 @@ def stream_step(plan, padded: Dict[str, torch.Tensor],
         raise ValueError(f"stream_step: unsupported device {device}")
     meta, scal = (plan.launch_args(padded, scalars) if dst is None
                   else plan.launch_args(padded, scalars, dst))
-    fn = _build.load(plan.source(), "rt_stream_step")
+    fn = _build.load(plan.source(padded[plan.out_grids[0]].dtype),
+                     "rt_stream_step")
     with torch.cuda.device(device):
         err = fn(ctypes.addressof(meta), ctypes.addressof(scal),
                  torch.cuda.current_stream(device).cuda_stream)

@@ -18,6 +18,10 @@ as the kernel does: the halo of the buffer the sub-step stands for within
 the tap reach ``[-h, R + h)``, 0 beyond it.  The CPU tests thus exercise
 the kernel's stage, slot and halo arithmetic.
 
+Both versions read f32 or bf16 buffers and compute in f32; the rings
+hold f32, so a sub-step's values reach the next one unrounded, and only
+the stores into the spares round.
+
 Writes: both versions write the interiors of the two spares only; the
 layout buffers they read are left as they were.
 """
@@ -45,7 +49,7 @@ def temporal_step_plain(plan, padded: Dict[str, torch.Tensor],
     h0, h1, h2 = plan.gh3[other]
     nr = 2 * h0 + 1
     role = (written, other)            # sub-step j stands for role[j % 2]
-    dtype, device = padded[other].dtype, padded[other].device
+    dtype, device = torch.float32, padded[other].device
     scal = scalar_tensors(scalars, device)
     bufs = {g: plan.buf3(padded[g]) for g in plan.opnd_grids}
 
@@ -91,14 +95,14 @@ def temporal_step_plain(plan, padded: Dict[str, torch.Tensor],
                             return r[a:a + R1, b:b + R2]
                         if g == written:        # sub-step j-2, center only
                             if j == 0:
-                                return plan.interior3(g, padded[g], x)
+                                return plan.interior3(g, padded[g], x).float()
                             r = rings[j - 2][slot(x)]
                             a, b = (k + 1 - j) * h1, (k + 1 - j) * h2
                             return r[a:a + R1, b:b + R2]
                         w = plan.hw3[g]
                         return bufs[g][w[0] + x + d[0],
                                        w[1] + d[1]:w[1] + d[1] + R1,
-                                       w[2] + d[2]:w[2] + d[2] + R2]
+                                       w[2] + d[2]:w[2] + d[2] + R2].float()
 
                     val = lowering.exec_statements(
                         plan.kernel, tap_read, scal, (R1, R2), dtype,
@@ -125,7 +129,8 @@ def temporal_step(plan, padded: Dict[str, torch.Tensor],
     if device.type != "cuda":
         raise ValueError(f"temporal_step: unsupported device {device}")
     meta, scal = plan.launch_args(padded, scalars, spares)
-    fn = _build.load(plan.source(), "rt_temporal_step")
+    fn = _build.load(plan.source(padded[plan.out_grids[0]].dtype),
+                     "rt_temporal_step")
     with torch.cuda.device(device):
         err = fn(ctypes.addressof(meta), ctypes.addressof(scal),
                  torch.cuda.current_stream(device).cuda_stream)

@@ -5,9 +5,13 @@ under a corrupted masked tail, and against the model's attention
 (``layers._sdpa``) on a decode cache, including a rolling buffer that has
 wrapped.
 
-The CUDA kernel runs only on the card (``chip_smoke.py``,
+The CUDA kernels run only on the card (``chip_smoke.py``,
 ``tests/test_torch_gpu.py``); on CPU tensors the entry point runs its plain
-version.  Tolerances: f32 2e-5 and bf16 3e-2, those of the JAX package's
+version.  The kernel splits the sequence over blocks and combines their
+partials in a second pass; the plain versions of both passes
+(``ref.split_ref``, ``ref.combine_ref``) run here on the kernel's own split
+plan (``decode_attn.split_plan``), with lengths 0, 1, S and one past a
+split boundary, against the JAX kernel and the plain whole function.  Tolerances: f32 2e-5 and bf16 3e-2, those of the JAX package's
 test (f32 sums in another order; bf16 output rounding).
 """
 import numpy as np
@@ -130,13 +134,17 @@ def test_cuda_launch_raises_on_cpu():
 
 
 @pytest.mark.parametrize("bad", ["heads", "dtype", "lengths", "head_dim",
-                                 "smem"])
+                                 "smem", "head_dim_multiple", "group"])
 def test_entry_rejects_what_the_kernel_does_not_take(bad):
     B, S, H, K, hd, bs = 1, 8, 4, 2, 8, 64
     if bad == "heads":
         H = 3
     elif bad == "head_dim":
         hd = 264
+    elif bad == "head_dim_multiple":
+        hd = 12
+    elif bad == "group":
+        H, K = 64, 1
     elif bad == "smem":
         H, K, hd, bs = 64, 1, 256, 1024
     q, k, v, lengths = _mk(B, S, H, K, hd)
@@ -152,10 +160,109 @@ def test_entry_rejects_what_the_kernel_does_not_take(bad):
 
 def test_smem_formula_matches_the_source():
     src = decode_attn.source().text
-    assert "2 * G * hd + G * bs + 3 * G" in src and "2 * bs * hd" in src
-    assert decode_attn.smem_bytes(16, 256, 64, 2) == \
-        4 * (2 * 16 * 256 + 16 * 64 + 48) + 2 * 64 * 256 * 2
-    assert "kMaxHd = 256" in src and decode_attn.MAX_HEAD_DIM == 256
+    assert "G * hd + G * bs + 3 * G" in src and "4 * bs * hd" in src
+    assert decode_attn.smem_bytes(16, 256, 32, 2) == \
+        4 * (16 * 256 + 16 * 32 + 48) + 4 * 32 * 256 * 2
+    assert "kMaxHd = 32 * kVec;       // 256" in src
+    assert decode_attn.MAX_HEAD_DIM == 256
+    assert "kVec = 8;" in src and decode_attn.HEAD_DIM_MULTIPLE == 8
+    assert "kMaxG = kMaxGW * kWarps;  // 32" in src
+    assert decode_attn.MAX_GROUP == 32
+
+
+# ---- the split over the sequence (flash-decoding) and its combine ----------
+@pytest.mark.parametrize("B,K,S,bs,n_sm,want", [
+    (8, 1, 2048, 32, 132, (32, 64)),      # RecurrentGemma decode: 256 blocks
+    (1, 1, 2048, 32, 132, (64, 32)),      # one row: chunks of one tile
+    (4, 2, 1000, 32, 132, (32, 32)),
+    (64, 8, 4096, 32, 132, (1, 4096)),    # enough rows: no split
+    (2, 1, 0, 16, 132, (1, 16)),          # an empty cache
+])
+def test_split_plan(B, K, S, bs, n_sm, want):
+    splits, chunk = decode_attn.split_plan(B, K, S, bs, n_sm)
+    assert (splits, chunk) == want
+    assert chunk % bs == 0 and splits * chunk >= S and (splits - 1) * chunk < max(S, 1)
+
+
+def test_split_plan_covers_the_card_at_recurrentgemma_width():
+    """B·K = 8 (RecurrentGemma's decode batch, one KV head): the split
+    pass's grid holds at least one block per SM of an H100."""
+    splits, _ = decode_attn.split_plan(8, 1, 2048, 32, 132)
+    assert 8 * splits >= 132
+
+
+def _split_lengths(S, chunk):
+    """Lengths 0, 1, S and one past a split boundary."""
+    return np.array([0, 1, S, chunk + 1], np.int32)
+
+
+@pytest.mark.parametrize("B,S,H,K,hd,bs", [
+    (4, 64, 8, 4, 16, 16),
+    (4, 100, 4, 1, 32, 8),
+    (4, 48, 16, 1, 64, 16),
+])
+@pytest.mark.parametrize("n_sm", [132, 16])
+def test_plain_split_and_combine_match_jax_kernel(B, S, H, K, hd, bs, n_sm):
+    """The kernel's two passes, in their plain versions and on the kernel's
+    split plan, against the JAX kernel (interpret mode) and the plain whole
+    function, with lengths 0, 1, S and one past a split boundary."""
+    splits, chunk = decode_attn.split_plan(B, K, S, bs, n_sm)
+    assert splits > 1
+    q, k, v, _ = _mk(B, S, H, K, hd, seed=5)
+    lengths = _split_lengths(S, chunk)
+    acc, ml = ref.split_ref(*_torch(q, k, v), torch.tensor(lengths), splits,
+                            chunk)
+    assert acc.shape == (B, K, splits, H // K, hd) and acc.dtype == torch.float32
+    assert ml.shape == (B, K, splits, H // K, 2)
+    got = ref.combine_ref(acc, ml, torch.tensor(lengths), S, chunk,
+                          torch.float32)
+    want = jax_decode_attention(*map(jnp.asarray, (q, k, v, lengths)),
+                                block_s=bs)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+    assert bool((got[0] == 0).all())                 # length 0: output 0
+    whole = ref.decode_attention_ref(*_torch(q, k, v), torch.tensor(lengths))
+    torch.testing.assert_close(got[1:], whole[1:], rtol=2e-5, atol=2e-5)
+
+
+def test_plain_split_and_combine_bf16():
+    B, S, H, K, hd, bs = 4, 96, 16, 1, 32, 16
+    splits, chunk = decode_attn.split_plan(B, K, S, bs, 132)
+    q, k, v, _ = _mk(B, S, H, K, hd, seed=6)
+    lengths = _split_lengths(S, chunk)
+    tq, tk, tv = _torch(q, k, v, dtype=torch.bfloat16)
+    acc, ml = ref.split_ref(tq, tk, tv, torch.tensor(lengths), splits, chunk)
+    got = ref.combine_ref(acc, ml, torch.tensor(lengths), S, chunk,
+                          torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    want = jax_decode_attention(*(jnp.asarray(a, jnp.bfloat16)
+                                  for a in (q, k, v)),
+                                jnp.asarray(lengths), block_s=bs)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=3e-2, atol=3e-2)
+
+
+def test_split_partials_hold_each_range():
+    """Split i's partial is the online-softmax state of its own positions
+    only: recombining the splits by hand gives the whole row, and a split
+    past the row's length holds nothing (m = -inf, l = 0)."""
+    B, S, H, K, hd = 2, 40, 4, 2, 8
+    q, k, v, _ = _mk(B, S, H, K, hd, seed=8)
+    q, k, v = _torch(q, k, v)
+    lengths = torch.tensor([9, 40], dtype=torch.int32)
+    acc, ml = ref.split_ref(q, k, v, lengths, 5, 8)
+    assert torch.isinf(ml[0, :, 2:, :, 0]).all() and (ml[0, :, 2:, :, 1] == 0).all()
+    # split 1 of row 0 holds position 8 alone: l = 1, acc = v[8]
+    assert torch.allclose(ml[0, :, 1, :, 1], torch.ones(K, H // K))
+    assert torch.allclose(acc[0, :, 1], v[0, 8][:, None, :].expand(K, H // K, hd))
+    # lengths 0 .. S: the plain passes agree with the whole function
+    for n in range(1, S + 1):
+        ln = torch.tensor([n, S - n + 1], dtype=torch.int32)
+        a, m = ref.split_ref(q, k, v, ln, 5, 8)
+        torch.testing.assert_close(ref.combine_ref(a, m, ln, S, 8, q.dtype),
+                                   ref.decode_attention_ref(q, k, v, ln),
+                                   rtol=2e-5, atol=2e-5)
 
 
 def test_plain_reference_is_the_jax_oracle():

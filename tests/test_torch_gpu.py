@@ -6,7 +6,11 @@ per-application kernels of ``st.map`` (K4 gmem/f4/smem, K2's and K5's
 builds with a destination) in 2D, with box taps, with an output read
 off-center (into a destination buffer), with two outputs where the second
 reads the first, at a thin region at each face, f4 at a ragged pitch and
-region start, and under both ``mem_type`` values.
+region start, and under both ``mem_type`` values; every stencil source
+built for bf16 grids (within one bf16 ulp of max(1, |plain|): both versions
+compute in f32 and round once), K5 with two coefficient groups, and K7's
+split and combine passes with lengths 0, 1, S and one past a split
+boundary, at B=1 and with 32 query heads to a KV head.
 
 Each kernel is held against its plain version on the same CUDA tensors
 (the plain versions are held against the JAX package on the CPU by the
@@ -16,11 +20,14 @@ Every test needs a CUDA device and skips without one:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 """
+import math
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.core import acoustic  # noqa: E402
 from repro_torch.core import dsl as st  # noqa: E402
 from repro_torch.core import suite  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -85,6 +92,8 @@ def _kernel(name):
         return _two_out, None, {"c": 0.25}
     if name in ("jacobi2", "jacobi3"):
         return {"jacobi2": _jacobi2, "jacobi3": _jacobi3}[name], None, {}
+    if name == "acoustic":
+        return acoustic.acoustic_iso_kernel, ("p0", "p1"), {"dt": 0.3}
     k = suite.get_kernel(name)
     return k, suite.swap_pair(name), {}
 
@@ -402,3 +411,113 @@ def test_decode_attn_kernel_bf16_and_masked_tail(cuda):
     err = float((got.float() - want.float()).abs().max())
     assert err <= 1e-2 * max(1.0, float(want.float().abs().max())), err
     assert bool((zero == 0).all())          # length 0: output 0, as on the TPU
+
+
+# ---- bf16 grids on every stencil source ------------------------------------------
+BF16_CASES = [("fused", "gmem", 1, None), ("fused", "shift", 1, None),
+              ("fused", "shift", 2, None), ("fused", "semi", 1, None)]
+BF16_CASES += [("map", t, 1, None) for t in MAP_TEMPLATES]
+# a region whose rows start at odd element indices (K5 stages bf16 rows
+# from the granule below) and whose z-start is not a multiple of 4 (f4)
+BF16_CASES += [("map", t, 1, ((1, 20), (2, 29), (3, 46))) for t in ("semi", "f4")]
+BF16_SHAPE = (21, 30, 47)
+
+
+def _bf16_ulp(scale):
+    return 2.0 ** (math.floor(math.log2(scale)) - 7)
+
+
+@pytest.mark.parametrize("name", ["star3d4r", "acoustic"])
+@pytest.mark.parametrize("case", BF16_CASES,
+                         ids=[f"{c[0]}-{c[1]}-k{c[2]}{'-region' if c[3] else ''}"
+                              for c in BF16_CASES])
+def test_bf16_kernels_match_plain(cuda, name, case):
+    kind, template, time_block, region = case
+    k, swap, scal = _kernel(name)
+    arrays, halos = _layout(k, BF16_SHAPE, cuda, 7)
+    if name == "acoustic":       # coefficients in their physical ranges
+        arrays["vp2"] = 0.5 + 1.5 * arrays["vp2"].abs().clamp(max=1)
+        arrays["damp"] = 0.2 * arrays["damp"].abs().clamp(max=1)
+    arrays = {g: t.bfloat16() for g, t in arrays.items()}
+    if kind == "fused":
+        plan = codegen.plan_cuda(k.ir, halos, BF16_SHAPE,
+                                 st.hopper(template=template,
+                                           time_block=time_block), swap=swap)
+        padded = plan.to_padded(arrays)
+        ref = {g: t.clone() for g, t in padded.items()}
+        if time_block > 1:
+            got, want = plan.make_spares(padded), plan.make_spares(padded)
+            temporal_step(plan, padded, got, scal)
+            temporal_step_plain(plan, padded, want, scal)
+        else:
+            kern, plain = {"gmem": (fused_step, fused_step_plain),
+                           "shift": (stream_step, stream_step_plain),
+                           "semi": (semi_step, semi_step_plain)}[template]
+            kern(plan, padded, scal)
+            plain(plan, ref, scal)
+            got, want = padded, ref
+        outs = plan.step_out_grids
+    else:
+        plan = codegen.lower_hopper(k.ir, halos, BF16_SHAPE, region,
+                                    st.hopper(template=template))
+        bufs = {g: arrays[g] for g in plan.opnd_grids}
+        ref = {g: t.clone() for g, t in bufs.items()}
+        kern, plain = MAP_WRAPPERS[plan.kind]
+        kern(plan, bufs, scal, None)
+        plain(plan, ref, scal, None)
+        got, want, outs = bufs, ref, plan.out_grids
+    torch.cuda.synchronize()
+    for g in outs:
+        assert got[g].dtype == torch.bfloat16
+        assert bool(torch.isfinite(got[g]).all())
+        scale = max(1.0, float(want[g].float().abs().max()))
+        err = float((got[g].float() - want[g].float()).abs().max())
+        assert err <= _bf16_ulp(scale), (name, case, g, err)
+
+
+# ---- K7: the split over the sequence and its combine ------------------------------
+@pytest.mark.parametrize("B,S,H,K,hd,dtype", [
+    (8, 2048, 16, 1, 256, torch.bfloat16),     # RecurrentGemma's decode shape
+    (1, 2048, 16, 1, 256, torch.bfloat16),
+    (4, 1000, 8, 2, 128, torch.float32),
+    (4, 300, 32, 1, 64, torch.bfloat16),       # 32 query heads to a KV head
+], ids=["recurrentgemma", "B1", "gqa-f32", "G32"])
+def test_decode_attn_split_and_combine_match_plain(cuda, B, S, H, K, hd, dtype):
+    from repro_torch.kernels.decode_attn import decode_attn as da
+    from repro_torch.kernels.decode_attn import ref as dref
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (torch.randn(sh, generator=gen, device=cuda).to(dtype)
+               for sh in ((B, H, hd), (B, S, K, hd), (B, S, K, hd)))
+    bs = da.DEFAULT_BLOCK_S
+    splits, chunk = da.split_plan(B, K, S, bs, da.sm_count(0))
+    special = [0, 1, S, chunk + 1]
+    cases = ([torch.tensor(special + [S] * (B - 4), dtype=torch.int32,
+                           device=cuda)] if B >= 4 else
+             [torch.full((B,), n, dtype=torch.int32, device=cuda)
+              for n in special])
+    tol = 1e-2 if dtype == torch.bfloat16 else RTOL
+    for lengths in cases:
+        n = (da.decode_attention_cuda.launches, da.split_cuda.launches,
+             da.combine_cuda.launches)
+        got = da.decode_attention_cuda(q, k, v, lengths)
+        assert (da.decode_attention_cuda.launches, da.split_cuda.launches,
+                da.combine_cuda.launches) == tuple(c + 1 for c in n)
+        want = dref.decode_attention_ref(q, k, v, lengths)
+        acc, ml = da.split_cuda(q, k, v, lengths, bs, splits, chunk)
+        racc, rml = dref.split_ref(q, k, v, lengths, splits, chunk)
+        comb = da.combine_cuda(racc, rml, lengths, S, chunk, dtype)
+        rcomb = dref.combine_ref(racc, rml, lengths, S, chunk, dtype)
+        torch.cuda.synchronize()
+        live = lengths > 0
+        assert got.dtype == dtype and bool((got[~live] == 0).all())
+        if bool(live.any()):
+            err = float((got[live].float() - want[live].float()).abs().max())
+            assert err <= tol * max(1.0, float(want[live].float().abs().max()))
+        used = (torch.arange(splits, device=cuda)[None]
+                < ((lengths + chunk - 1) // chunk)[:, None])
+        sel = used[:, None, :].expand(-1, K, -1)
+        if bool(sel.any()):         # a split holds positions
+            for a, b in ((acc[sel], racc[sel]), (ml[sel], rml[sel])):
+                _check(a, b, f"partials {lengths.tolist()}")
+        err = float((comb.float() - rcomb.float()).abs().max())
+        assert err <= tol * max(1.0, float(rcomb.float().abs().max()))

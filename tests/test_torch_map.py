@@ -441,13 +441,26 @@ def test_time_block_on_map_raises_like_jax():
 
 @pytest.mark.parametrize("dtype", (st.bf16, st.f64), ids=("bf16", "f64"))
 def test_other_dtypes_raise(dtype):
-    """The per-application kernels take f32; bf16 ones are still to port."""
+    """The per-application kernels take f32 and bf16 grids, all of one
+    type: bf16 grids run (``tests/test_torch_bf16.py`` holds them against
+    the JAX package), a bf16 grid beside an f32 one raises, and so do f64
+    grids."""
     k = suite.get_kernel("star2d1r")
-    g = [st.grid(dtype=dtype, shape=(8, 8), order=1, device="cpu")
-         for _ in range(2)]
-    with pytest.raises(TypeError, match="float32"):
+
+    def run(*g):
         st.launch(backend=st.hopper(template="shift"))(
             lambda u, v: st.map(e=u.shape)(k)(u, v))(*g)
+    if dtype is st.bf16:
+        g = [st.grid(dtype=dtype, shape=(8, 8), order=1,
+                     device="cpu").randomize(s) for s in range(2)]
+        run(*g)
+        assert g[1].data.dtype == torch.bfloat16 and g[1].data.abs().max() > 0
+        g[0] = st.grid(dtype=st.f32, shape=(8, 8), order=1, device="cpu")
+    else:
+        g = [st.grid(dtype=dtype, shape=(8, 8), order=1, device="cpu")
+             for _ in range(2)]
+    with pytest.raises(TypeError, match="float32"):
+        run(*g)
 
 
 def test_wrapper_refuses_other_devices_and_aliasing_destinations():

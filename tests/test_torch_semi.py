@@ -249,19 +249,82 @@ def test_semi_star3d4r_timeloop_matches_xla():
                                    atol=ATOL, rtol=0, err_msg=g)
 
 
+def test_semi_coefficient_groups():
+    """Each term's coefficient splits into a number κ and a residual φ; the
+    terms of an output group by φ.  Acoustic ISO: one group, φ =
+    vp2·dt·dt / (1 + damp·dt), κ the Laplacian's weights; star3d4r: one
+    group of numbers; a kernel with a scalar coefficient: two."""
+    from repro_torch.core import ir
+    from repro_torch.kernels.stencil import emit
+    lin, _ = codegen.semi_linearize(acoustic.acoustic_iso_kernel.ir)
+    [(phis, by_d)] = emit.semi_plan(lin, ["p0"])
+    assert len(phis) == 1
+    assert str(phis[0]) == str(ir.BinOp(
+        "/", ir.BinOp("*", ir.BinOp("*", ir.Tap("vp2", (0, 0, 0)),
+                                    ir.ScalarRef("dt")), ir.ScalarRef("dt")),
+        ir.BinOp("+", ir.Const(1.0), ir.BinOp("*", ir.Tap("damp", (0, 0, 0)),
+                                              ir.ScalarRef("dt")))))
+    kappas = sorted({round(t[3], 7) for terms in by_d.values() for t in terms})
+    assert kappas == [-0.2, -0.0017857, 0.0253968, 1.6]
+    assert sum(len(t) for t in by_d.values()) == 24
+    assert all(t[2] == 0 for terms in by_d.values() for t in terms)
+    # the generated finish evaluates the residual once, from fields read once
+    src = codegen.plan_cuda(acoustic.acoustic_iso_kernel.ir,
+                            {g: (4, 4, 4) for g in ("p0", "p1", "vp2", "damp")},
+                            (16, 16, 16), st.hopper(template="semi"),
+                            swap=("p0", "p1")).source()
+    assert "#define RT_NGR 1" in src
+    scatter, finish = src.split("inline float semi_finish")
+    assert " / " not in scatter.split("inline void semi_scatter")[1]
+    assert finish.count("rd.template cf<") == 4 and finish.count(" / ") == 2
+    lin, _ = codegen.semi_linearize(suite.get_kernel("star3d4r").ir)
+    [(phis, by_d)] = emit.semi_plan(lin, ["v"])
+    assert phis == [None] and sum(len(t) for t in by_d.values()) == 24
+    lin, _ = codegen.semi_linearize(KERNELS["two_lin"][0].ir)
+    plan = emit.semi_plan(lin, ["a", "b"])
+    assert [[None if p is None else str(p) for p in phis] for phis, _ in plan] == \
+        [[None, str(ir.ScalarRef("c"))], [None, str(ir.ScalarRef("c"))]]
+
+
+@pytest.mark.parametrize("coef,want", [
+    ("3.0", (3.0, None)),
+    ("-(2.0 * s)", (-2.0, "s")),
+    ("(s * 4.0) / 2.0", (2.0, "s")),
+    ("2.0 / s", (2.0, "1.0 / s")),
+    ("s + 1.0", (1.0, "s + 1.0")),
+    ("s / 0.0", (1.0, "s / 0.0")),
+])
+def test_split_coefficient(coef, want):
+    from repro_torch.core import ir
+    from repro_torch.kernels.stencil import emit
+    e = {"3.0": ir.Const(3.0),
+         "-(2.0 * s)": ir.Neg(ir.BinOp("*", ir.Const(2.0), ir.ScalarRef("s"))),
+         "(s * 4.0) / 2.0": ir.BinOp("/", ir.BinOp("*", ir.ScalarRef("s"),
+                                                   ir.Const(4.0)), ir.Const(2.0)),
+         "2.0 / s": ir.BinOp("/", ir.Const(2.0), ir.ScalarRef("s")),
+         "s + 1.0": ir.BinOp("+", ir.ScalarRef("s"), ir.Const(1.0)),
+         "s / 0.0": ir.BinOp("/", ir.ScalarRef("s"), ir.Const(0.0))}[coef]
+    kappa, phi = emit.split_coefficient(e)
+    residual = {None: None, "s": ir.ScalarRef("s"),
+                "1.0 / s": ir.BinOp("/", ir.Const(1.0), ir.ScalarRef("s")),
+                "s + 1.0": e, "s / 0.0": e}[want[1]]
+    assert (kappa, phi) == (want[0], residual)
+
+
 def test_semi_plan_geometry():
     k = acoustic.acoustic_iso_kernel
     halos = {g: (4, 4, 4) for g in k.ir.grid_params}
     plan = codegen.plan_cuda(k.ir, halos, (64, 64, 64),
                              st.hopper(template="semi"), swap=("p0", "p1"))
-    assert (plan.kind, plan.H, plan.B) == ("semi", 4, (64, 8, 32))
-    # one double-buffered 16×40 plane of p1
-    assert plan.smem_bytes == 8 * 16 * 40
-    # p1's planes [x0 - 4, x1 + 4) with its 4-cell y/z halo (one chunk, 8
-    # tiles of 8 rows, 2 of 32 columns), the four coefficient fields read
+    # a 16×32 tile: with f32 grids a thread walks two columns along y
+    assert (plan.kind, plan.H, plan.B) == ("semi", 4, (64, 16, 32))
+    # a ring of three staged 24×40 planes of p1 (f32)
+    assert plan.smem_bytes == 3 * 4 * 24 * 40
+    # p1's planes [x0 - 4, x1 + 4) with its 4-cell y/z halo (one chunk, 4
+    # tiles of 16 rows, 2 of 32 columns), the four coefficient fields read
     # once a point, one write
     n = 64 ** 3
-    assert plan.hbm_bytes_per_step() == 4 * (72 * (64 + 8 * 8) * (64 + 2 * 8)
+    assert plan.hbm_bytes_per_step() == 4 * (72 * (64 + 4 * 8) * (64 + 2 * 8)
                                              + 4 * n + n)
 
 
@@ -306,7 +369,7 @@ extern "C" void host_semi(const long long* m, const float* s) {
     const int x1 = x0 + RT_TB0 < R0 ? x0 + RT_TB0 : R0;
     for (long long y = 0; y < R1; ++y)
       for (long long z = 0; z < R2; ++z) {
-        float acc[RT_NO][RT_NR] = {};
+        SemiAcc acc = {};
         for (int i = 0; i < x1 - x0 + 2 * RT_H; ++i) {
           const HostSemiReader rd{g, sx, sy, org, x0 - RT_H + i, y, z};
           float out[RT_NO];
