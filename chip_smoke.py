@@ -12,10 +12,15 @@ Phases, each of which exits non-zero when it fails:
    streaming, K3 temporal blocking at k=2 and k=3, K5 semi-stencil, and
    the per-application kernels of ``st.map``: K4 gmem/f4/smem, K2's and
    K5's builds with a destination, for ``star3d4r`` and acoustic ISO, and
-   for a Jacobi kernel that reads its output off-center), their bf16
-   builds (K3 at k=2), K6 (causal conv1d) and K7 (flash decode attention:
-   its split and combine passes), built from ``src`` with one ``nvcc`` per
-   source, all started together;
+   for a Jacobi kernel that reads its output off-center; one for every
+   shape and region phase 3 runs them at and phase 7's seven regions under
+   f4, since f4's load path and smem's staging path follow from the grids'
+   pitches and the region), their bf16 builds (K3 at k=2), K6 (causal
+   conv1d) and K7 (flash decode attention: its split and combine passes),
+   built from ``src`` with one ``nvcc`` per source, all started together;
+   for every f4 and smem build its path (f4: each grid's rows aligned at
+   plan time or at run time; smem: each staged grid copied by TMA or by
+   4-byte ``cp.async`` granules) and its ``ptxas`` registers and spills;
 3. kernels — each kernel against its plain PyTorch version on the card,
    after one launch (K3: k=2 and k=3, both reading buffers left intact),
    at a block-multiple shape (64³), a ragged one (61×70×133) and the
@@ -28,8 +33,10 @@ Phases, each of which exits non-zero when it fails:
    multiple of 4, and for the Jacobi kernel (outputs into a destination
    buffer), with its time per application at 512³; every stencil source
    built for bf16 grids against its plain version at the two small shapes
-   (within one bf16 ulp of max(1, |plain|)), and K1 (gmem) and K2 (shift)
-   in bf16 at 512³ with their times; K6 in bf16 and f32 at
+   (within one bf16 ulp of max(1, |plain|)), K4 f4 and smem also at the
+   sub-region and 512³, and K1 (gmem), K2 (shift) and K4 f4/smem in bf16
+   at 512³ with their times (and ``conv3d`` on bf16 grids for
+   ``star3d4r``); K6 in bf16 and f32 at
    the serving decode shape ``[4, 4, 4096]``, a prefill-sized
    ``[4, 2048, 4096]`` and a ragged ``[3, 1001, 4100]``, each at widths 1
    and 4, and K7 in bf16 at RecurrentGemma's decode shape (B=8, H=16, K=1,
@@ -92,6 +99,7 @@ import argparse
 import json
 import math
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -176,6 +184,16 @@ END_TO_END_RTOL = 2e-5
 # so an output cell may differ by one rounding, one bf16 ulp of the
 # magnitude
 BF16_TIMED = ("fused_step", "stream_step")
+# per-application kernels held against their plain versions in bf16 at
+# every shape and the sub-region, and timed at 512³ (the others: bf16 at
+# the small shapes)
+MAP_BF16_ALL = ("f4", "smem")
+# conv3d in bf16 vs the plain version on bf16 grids: its weights (the
+# star's coefficients) are rounded to bf16, each to 2^-9 of itself, and its
+# output once; the JAX package's bf16 tolerance, 3e-2 of the magnitude
+LIBRARY_BF16_TOL = 3e-2
+# the source named in the kernels line where it is not the plan kind's
+MAP_SOURCES = {"smem": "map_smem.cuh"}
 
 
 def bf16_ulp(scale: float) -> float:
@@ -211,10 +229,11 @@ def max_diff(torch, key, got, ref):
 def star_conv(torch, w, codegen, plain, ref):
     """``star3d4r`` as one library call: ``conv3d`` (a correlation, as
     ``u.at`` reads) of the halo'd ``u`` with the star's taps as a dense
-    (2h+1)³ weight, zero off the star, in f32 (TF32 off).  The weight is
-    the plain version's response to a unit impulse, flipped.  Checked
-    against the plain version's output in ``ref``; returns (ms, max abs
-    err)."""
+    (2h+1)³ weight, zero off the star, in the grids' type (f32 with TF32
+    off, or bf16).  The weight is the plain version's response to a unit
+    impulse, flipped (rounded to bf16 for bf16 grids).  Checked against the
+    plain version's output in ``ref`` (f32: 2e-5 of the magnitude; bf16:
+    ``LIBRARY_BF16_TOL``); returns (ms, max abs err)."""
     F = torch.nn.functional
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.benchmark = True
@@ -226,14 +245,17 @@ def star_conv(torch, w, codegen, plain, ref):
     imp["u"][(2 * h,) * 3] = 1.0
     imp = probe.to_padded(imp)
     plain(probe, imp, {})
-    weight = imp["v"][h:-h, h:-h, h:-h].flip(0, 1, 2).contiguous()[None, None]
     x = ref["u"][None, None]
+    weight = (imp["v"][h:-h, h:-h, h:-h].flip(0, 1, 2).contiguous()[None, None]
+              .to(x.dtype))
     out = F.conv3d(x, weight)[0, 0]
     want = ref["v"][h:-h, h:-h, h:-h]
-    err = float((out - want).abs().max())
-    scale = max(1.0, float(want.abs().max()))
-    if err > 2e-5 * scale:
-        fail(f"conv3d[star3d4r]: max |conv3d - plain| = {err} > 2e-5 * {scale}")
+    err = float((out.float() - want.float()).abs().max())
+    scale = max(1.0, float(want.float().abs().max()))
+    tol = 2e-5 if x.dtype == torch.float32 else LIBRARY_BF16_TOL
+    if err > tol * scale:
+        fail(f"conv3d[star3d4r] {x.dtype}: max |conv3d - plain| = {err} > "
+             f"{tol} * {scale}")
     del out
     return time_ms(torch, lambda: F.conv3d(x, weight), 5, 2), err
 
@@ -310,6 +332,57 @@ def extra_kernels(st):
                        + 0.06253 * (u.at(0, -3) + u.at(0, 3))
                        - 0.22220 * (u.at(0, -4) + u.at(0, 4)))
     return jacobi3d, kernel_star2d4r
+
+
+def map_cases(w, jacobi, shapes):
+    """(shape, region) of every per-application case of workload ``w`` in
+    phase 3: the workloads at each shape and the sub-region of the ragged
+    one, the Jacobi kernel at the ragged shape and the sub-region."""
+    if w is jacobi:
+        return [(SMALL_SHAPES[1], None), (SMALL_SHAPES[1], SUB_REGION)]
+    return [(shape, None) for shape in shapes] + [(SMALL_SHAPES[1], SUB_REGION)]
+
+
+def map_dtypes(torch, template, shape, region):
+    """Grid types a per-application case runs in: f32 everywhere, bf16 at
+    the small shapes, and for f4 and smem (``MAP_BF16_ALL``) at 512³ and
+    the sub-region too."""
+    if template in MAP_BF16_ALL or (shape in SMALL_SHAPES and region is None):
+        return (torch.float32, torch.bfloat16)
+    return (torch.float32,)
+
+
+def path_of(plan, dtype):
+    """The load path of an f4 build (per grid: aligned at plan time, or at
+    run time) or the staging path of an smem build (TMA or 4-byte
+    granules)."""
+    if plan.template == "f4":
+        org = plan.f4_org_mod4()
+        return {"path": "f4 " + ", ".join(
+            f"{g}: {'run-time alignment' if o is None else f'aligned (place {o})'}"
+            for g, o in org.items()), "f4_org_mod4": org}
+    tma = plan.smem_tma(dtype)
+    return {"path": "smem " + ", ".join(
+        f"{g}: {'TMA' if v else 'cp.async granules'}" for g, v in tma.items()),
+        "smem_tma": tma}
+
+
+def ptxas_usage(log: str):
+    """Registers and spill bytes of the kernel ``map_step_kernel`` in an
+    ``nvcc -Xptxas -v`` log (None where the log does not say)."""
+    out = {"registers": None, "spill_stores": None, "spill_loads": None}
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and "map_step_kernel" in line:
+            for nxt in lines[i + 1:i + 6]:
+                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", nxt)
+                if m:
+                    out["spill_stores"], out["spill_loads"] = map(int, m.groups())
+                m = re.search(r"Used (\d+) registers", nxt)
+                if m:
+                    out["registers"] = int(m.group(1))
+            break
+    return out
 
 
 def bound_of(rates, nbytes: float, nflop: float):
@@ -979,20 +1052,31 @@ def main(argv=None) -> int:
     jacobi = Workload("jacobi3d", mods, kernel=jacobi3d)
 
     # -- 2. build ------------------------------------------------------------
+    shapes = SMALL_SHAPES if args.quick else SMALL_SHAPES + (MAIN_SHAPE,)
     t0 = time.perf_counter()
     sources = [w.plan(codegen, MAIN_SHAPE, t, k).source()
                for w in workloads for t, k in KERNELS.values()]
     sources += [w.plan(codegen, MAIN_SHAPE, KERNELS["temporal_step"][0],
                        k).source()
                 for w in workloads for k in TEMPORAL_SMALL_DEPTHS]
-    # a map plan's source does not depend on the shape or the region
-    sources += [w.map_plan(codegen, SMALL_SHAPES[0], t).source()
-                for w in workloads + [jacobi] for _, t in MAP_KERNELS.values()]
+    # a map plan's source depends on the grids' pitches and the region
+    # (f4's load paths, smem's staging paths): one for every case run below
+    map_builds = [(w, t, shape, region, dtype)
+                  for w in workloads + [jacobi] for _, t in MAP_KERNELS.values()
+                  for shape, region in map_cases(w, jacobi, shapes)
+                  for dtype in ((torch.float32,) if w is jacobi
+                                else map_dtypes(torch, t, shape, region))]
+    sources += [w.map_plan(codegen, shape, t, region).source(dtype)
+                for w, t, shape, region, dtype in map_builds]
     # the bf16 builds of every stencil source (K3 at k=2)
     sources += [w.plan(codegen, MAIN_SHAPE, t, k).source(torch.bfloat16)
                 for w in workloads for t, k in KERNELS.values()]
-    sources += [w.map_plan(codegen, SMALL_SHAPES[0], t).source(torch.bfloat16)
-                for w in workloads for _, t in MAP_KERNELS.values()]
+    # phase 7's seven regions under f4 (each region's first cell has its
+    # place in an aligned vector of 4)
+    sources += [codegen.lower_hopper(
+        workloads[0].kernel.ir, {g: (4,) * 3 for g in ("u", "v")}, MAIN_SHAPE,
+        r, st.hopper(template="f4")).source()
+        for r in regions.seven_region(MAIN_SHAPE, PML_WIDTH)]
     sources += [codegen.lower_hopper(
         listing1_kernel.ir, {"u": (4, 4), "v": (4, 4)}, LISTING1_SHAPE, None,
         st.cuda(computeCapability="9.0", threadsPerBlock=(8, 128),
@@ -1010,9 +1094,24 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 say(f"  ptxas: {line.strip()}")
     record["phases"]["build_s"] = build_s
+    # the load (f4) or staging (smem) path of every f4/smem build, with its
+    # registers and spills
+    record["paths"] = []
+    for w, t, shape, region, dtype in map_builds:
+        if t not in ("f4", "smem"):
+            continue
+        plan = w.map_plan(codegen, shape, t, region)
+        row = {"kernel": f"map_step.{t}[{w.name}]", "shape": list(shape),
+               "region": region, "dtype": str(dtype).split(".")[1],
+               "block": list(plan.B), **path_of(plan, dtype),
+               **ptxas_usage(_build.ptxas_log(plan.source(dtype)))}
+        record["paths"].append(row)
+        say(f"path {row['kernel']} {row['dtype']} at {shape} region {region}: "
+            f"{row['path']}, block {plan.B}; ptxas {row['registers']} "
+            f"registers, {row['spill_stores']} B spill stores, "
+            f"{row['spill_loads']} B spill loads")
 
     # -- 3. kernels vs plain versions ----------------------------------------
-    shapes = SMALL_SHAPES if args.quick else SMALL_SHAPES + (MAIN_SHAPE,)
     entries = {}
     library = {}        # workload -> ms of its one library call, or None
     for w in workloads:
@@ -1084,11 +1183,8 @@ def main(argv=None) -> int:
         for ename, (wname, template) in MAP_KERNELS.items():
             kern, plain = wrappers[wname]
             key = f"{ename}[{w.name}]"
-            cases = [(shape, None) for shape in shapes if w is not jacobi]
-            cases += [(SMALL_SHAPES[1], None)] if w is jacobi else []
-            cases += [(SMALL_SHAPES[1], SUB_REGION)]
             worst = 0.0
-            for shape, region in cases:
+            for shape, region in map_cases(w, jacobi, shapes):
                 plan = w.map_plan(codegen, shape, template, region)
                 if plan.in_place == (w is jacobi):
                     fail(f"{key}: in_place is {plan.in_place}")
@@ -1110,7 +1206,8 @@ def main(argv=None) -> int:
                     entries[key] = {
                         "name": key, "route": "cuda",
                         "source": "src/repro_torch/kernels/stencil/csrc/"
-                                  + codegen.KERNEL_FILES[plan.kind],
+                                  + MAP_SOURCES.get(template,
+                                                    codegen.KERNEL_FILES[plan.kind]),
                         "replaces": REPLACES[ename], "launches": None,
                         "max_abs_err": None, "ms": ms, "plain_ms": plain_ms,
                         "bound_ms": bound, "bound_by": bound_by,
@@ -1128,6 +1225,7 @@ def main(argv=None) -> int:
     # version at the small shapes; K1 and K2 also at 512³, timed
     bf16_rows = []
     bf16 = torch.bfloat16
+    library_bf16 = {}   # workload -> ms of conv3d on bf16 grids
     for w in workloads:
         for kname, (template, k) in KERNELS.items():
             kern, plain = wrappers[kname]
@@ -1151,27 +1249,57 @@ def main(argv=None) -> int:
                         rates, 2 * n * (len(info.input_grids)
                                         + len(plan.step_out_grids)),
                         info.flops_per_point * n)
+                    if w.name == "star3d4r" and w.name not in library_bf16:
+                        lib_ms, lib_err = star_conv(torch, w, codegen,
+                                                    fused_step_plain, ref)
+                        library_bf16[w.name] = lib_ms
+                        say(f"library conv3d[star3d4r] bf16 {shape}: "
+                            f"{lib_ms:.4f} ms, max abs err vs plain "
+                            f"{lib_err:.3g}")
                     row.update(ms=time_ms(torch, run_kern, 50, 10),
                                plain_ms=time_ms(torch, run_plain, 1),
                                bound_ms=bound, bound_by=bound_by,
+                               library_ms=library_bf16.get(w.name),
                                modeled_bytes_per_step=plan.hbm_bytes_per_step(2))
                     msg += (f"; {row['ms']:.4f} ms/step (plain "
-                            f"{row['plain_ms']:.2f} ms, bound {bound} ms)")
+                            f"{row['plain_ms']:.2f} ms, bound {bound} ms, "
+                            f"library {row['library_ms']} ms)")
                 bf16_rows.append(row)
                 say(msg)
                 del plan, got, ref, run_kern, run_plain
                 torch.cuda.empty_cache()
         for ename, (wname, template) in MAP_KERNELS.items():
             kern, plain = wrappers[wname]
-            for shape in SMALL_SHAPES:
-                key = f"{ename}[{w.name}] bf16 {shape}"
-                plan = w.map_plan(codegen, shape, template)
-                err, _, _ = one_map(torch, key, kern, plain, plan,
-                                    w.arrays(torch, shape, seed=5, dtype=bf16),
-                                    w.scalars, bf16_ulp)
-                bf16_rows.append({"case": key, "max_abs_err": err})
-                say(f"kernel {key}: max abs err {err:.3g}")
-                del plan
+            for shape, region in map_cases(w, jacobi, shapes):
+                if bf16 not in map_dtypes(torch, template, shape, region):
+                    continue
+                key = f"{ename}[{w.name}] bf16 {shape} region {region}"
+                plan = w.map_plan(codegen, shape, template, region)
+                err, run_kern, run_plain = one_map(
+                    torch, key, kern, plain, plan,
+                    w.arrays(torch, shape, seed=5, dtype=bf16), w.scalars,
+                    bf16_ulp)
+                row = {"case": key, "max_abs_err": err}
+                msg = f"kernel {key}: max abs err {err:.3g}"
+                if shape == MAIN_SHAPE:
+                    n = np.prod(shape, dtype=np.float64)
+                    info = w.kernel.info
+                    bound, bound_by = bound_of(
+                        rates, 2 * n * (len(info.input_grids)
+                                        + len(info.output_grids)),
+                        info.flops_per_point * n)
+                    row.update(ms=time_ms(torch, run_kern, 50, 10),
+                               plain_ms=time_ms(torch, run_plain, 1),
+                               bound_ms=bound, bound_by=bound_by,
+                               library_ms=library_bf16.get(w.name),
+                               modeled_bytes_per_step=plan.hbm_bytes_per_step(2))
+                    msg += (f"; {row['ms']:.4f} ms/application (plain "
+                            f"{row['plain_ms']:.2f} ms, bound {bound} ms, "
+                            f"library {row['library_ms']} ms)")
+                bf16_rows.append(row)
+                say(msg)
+                del plan, run_kern, run_plain
+                torch.cuda.empty_cache()
     record["bf16"] = bf16_rows
     conv_entry, conv_rows = conv_phase(torch, rates, conv, conv_ref, args.quick)
     attn_entries, attn_rows = attn_phase(torch, rates, attn, attn_ref,

@@ -48,6 +48,9 @@ gmem/f4/smem run K4 (``map_step``), shift/unroll K2's source with a
 destination (K4 streaming), semi K5's.  Outputs are written in place when
 every output grid has center-only taps; otherwise into a destination
 buffer that no block reads, whose region is then copied into the grid.
+f4's load path and smem's staging path follow from the grids' full shapes
+and the region (``f4_org_mod4``, ``smem_tma``), so they are part of the
+source and of its build key.
 """
 from __future__ import annotations
 
@@ -63,19 +66,28 @@ from repro_torch.core import analysis, ir
 from . import emit
 
 # threads cover b1 x b2 points; the streaming kernels walk b0 planes, and
-# the one-step kernels' threads (K1, K4; f4: groups of 4 points along
-# axis 2) b0 points of a column; K5's threads walk two columns along axis
-# 1 with f32 grids (csrc/semi_step.cuh kCols), so its tile is twice K2's
+# the one-step kernels' threads (K1, K4 gmem) b0 points of a column; K5's
+# threads walk two columns along axis 1 with f32 grids (csrc/semi_step.cuh
+# kCols), so its tile is twice K2's.  K4 f4's threads walk a column of
+# groups of 4 points along axis 2, long enough to amortise the prologue of
+# their axis-0 register queue (csrc/f4_rows.cuh).  K4 smem's persistent
+# blocks stage two halo'd tiles of b0 x b1 x b2 (csrc/map_smem.cuh): its
+# default is the first of SMEM_BLOCKS whose two stages fit in shared
+# memory, (8, 16, 64) in 3D for one staged grid at a halo of 4.
 DEFAULT_BLOCK = {"step": {2: (4, 256), 3: (4, 8, 32)},
                  "stream": {2: (64, 256), 3: (64, 8, 32)},
                  "semi": {2: (64, 256), 3: (64, 16, 32)},
-                 "f4": {2: (4, 512), 3: (4, 8, 128)}}
+                 "f4": {2: (16, 512), 3: (16, 8, 128)}}
+SMEM_BLOCKS = {2: ((32, 256), (16, 128), (8, 64), (4, 32)),
+               3: ((8, 16, 64), (4, 16, 64), (4, 8, 64), (4, 8, 32),
+                   (2, 4, 32))}
 STREAM_TEMPLATES = ("shift", "unroll", "semi")
 # RT_MAP_T of K4's blocked templates (csrc/map_step.cuh)
 MAP_TEMPLATES = {"gmem": 0, "f4": 1, "smem": 2}
 SMEM_LIMIT = 227 * 1024          # shared memory one block may use on sm_90
 # grid dtype -> the kernels' element type (RT_ELEM, csrc/common.cuh)
 ELEM_TYPES = {torch.float32: "float", torch.bfloat16: "__nv_bfloat16"}
+ELEM_BYTES = {torch.float32: 4, torch.bfloat16: 2}
 # staged planes of K5's ring (csrc/semi_step.cuh kStages)
 SEMI_STAGES = 3
 
@@ -106,7 +118,8 @@ def choose_block(user_block, template: str, ndim: int,
                  per_application: bool = False) -> Tuple[int, ...]:
     """The tile in points (the port's own defaults, see ``DEFAULT_BLOCK``;
     K3 walks chunks of planes like the streaming kernels, K5 a tile twice
-    as tall; K4's f4, ``per_application``, takes a wider tile)."""
+    as tall; K4's f4, ``per_application``, takes a longer, wider tile;
+    K4 smem's default is ``MapPlan``'s, from ``SMEM_BLOCKS``)."""
     if user_block is not None:
         if len(user_block) != ndim:
             raise ValueError(f"block must have {ndim} dims")
@@ -172,11 +185,42 @@ KERNEL_FILES = {"fused": "map_step.cuh", "stream": "stream_step.cuh",
                 "map": "map_step.cuh"}
 
 
+# K4 smem (csrc/smem_tile.cuh): each staged tile starts on a 128-byte
+# boundary (a TMA destination); a block's dynamic shared memory is the
+# slack to align its base, two stages and two 8-byte mbarriers
+SMEM_TILE_ALIGN = 128
+SMEM_BARRIER_BYTES = 16
+# a TMA box extent is at most 256 cells
+TMA_BOX_MAX = 256
+
+
+def smem_layout(B3, gh3, itemsize: int = 4):
+    """K4 smem's stage (``csrc/smem_tile.cuh``) on grids of ``itemsize``
+    bytes: ``({grid: (box, pitch, offset)}, stage bytes)`` for every grid
+    with an off-center tap.  ``box`` is the halo'd tile ``(b0 + 2h0, b1 +
+    2h1, b2 + 2h2)``; its rows lie ``pitch`` cells apart (the row plus one
+    4-byte granule of slack, rounded up to 16 bytes: also the inner extent
+    of the grid's TMA box); ``offset`` is the tile's byte offset in the
+    stage, a multiple of 128."""
+    gran, vec = 4 // itemsize, 16 // itemsize
+    out, off = {}, 0
+    for g, h in gh3.items():
+        if not any(h):
+            continue
+        box = tuple(B3[ax] + 2 * h[ax] for ax in range(3))
+        pitch = -(-(box[2] + gran - 1) // vec) * vec
+        out[g] = (box, pitch, off)
+        nbytes = box[0] * box[1] * pitch * itemsize
+        off += -(-nbytes // SMEM_TILE_ALIGN) * SMEM_TILE_ALIGN
+    return out, off
+
+
 def _smem_bytes(kind: str, B3, gh3, time_block: int = 1, h_swap=None) -> int:
     """Shared memory one block of ``kind`` takes with f32 grids (bf16 ones
     take no more): K2's rings of ``2h0+1`` halo'd planes, K5's ring of
-    ``SEMI_STAGES`` staged planes, K3's ``k`` plane rings, K4 smem's halo'd
-    tile, of every grid with an off-center tap."""
+    ``SEMI_STAGES`` staged planes, K3's ``k`` plane rings, K4 smem's two
+    stages of halo'd tiles (``smem_layout``) with their alignment slack
+    and mbarriers, of every grid with an off-center tap."""
     ring = [h for h in gh3.values() if any(h)]
     if kind == "stream":
         return 4 * sum((2 * h[0] + 1) * (B3[1] + 2 * h[1]) * (B3[2] + 2 * h[2])
@@ -190,8 +234,8 @@ def _smem_bytes(kind: str, B3, gh3, time_block: int = 1, h_swap=None) -> int:
             (B3[1] + 2 * (k - 1 - r) * h[1]) * (B3[2] + 2 * (k - 1 - r) * h[2])
             for r in range(-1, k - 1))
     if kind == "smem":
-        return 4 * sum(math.prod(B3[ax] + 2 * h[ax] for ax in range(3))
-                       for h in ring)
+        stage = smem_layout(B3, gh3)[1]
+        return SMEM_TILE_ALIGN + 2 * stage + SMEM_BARRIER_BYTES
     return 0
 
 
@@ -600,7 +644,14 @@ class MapPlan(_Plan):
                     raise ValueError(
                         f"grid '{g}' halo {h} too small for kernel halo "
                         f"{gh[g][ax]} at region {region[ax]}")
-        B = choose_block(backend.block, template, ndim, per_application=True)
+        gh3 = {g: to3(gh[g], 0) for g in opnd_grids}
+        if template == "smem" and backend.block is None:
+            # the largest default tile whose two stages fit
+            B = next((b for b in SMEM_BLOCKS[ndim] if _smem_bytes(
+                "smem", to3(b, 1), gh3) <= SMEM_LIMIT), SMEM_BLOCKS[ndim][-1])
+        else:
+            B = choose_block(backend.block, template, ndim,
+                             per_application=True)
         B3 = to3(B, 1)
         if template == "f4" and B3[2] % 4:
             raise ValueError(f"f4 template: block {B} must cover a multiple "
@@ -611,7 +662,10 @@ class MapPlan(_Plan):
             raise ValueError(f"block {B}: a thread block of {threads} "
                              "threads (1 to 1024)")
         R3 = to3(R, 1)
-        if -(-R3[0] // B3[0]) > 65535 or -(-R3[1] // B3[1]) > 65535:
+        # smem's persistent blocks walk the tiles, the others launch one
+        # block a tile
+        if template != "smem" and (-(-R3[0] // B3[0]) > 65535
+                                   or -(-R3[1] // B3[1]) > 65535):
             raise ValueError(f"block {B}: more than 65535 blocks along axis "
                              f"0 or 1 of the region {R}")
         lin, H = semi_linearize(kernel) if template == "semi" else (None, 0)
@@ -619,7 +673,6 @@ class MapPlan(_Plan):
             kind = "semi"
         else:
             kind = "stream" if template in STREAM_TEMPLATES else "map"
-        gh3 = {g: to3(gh[g], 0) for g in opnd_grids}
         smem = _smem_bytes("smem" if template == "smem" else kind, B3, gh3)
         if smem > SMEM_LIMIT:
             raise ValueError(f"{template} tile of block {B} needs {smem} B of "
@@ -637,6 +690,9 @@ class MapPlan(_Plan):
         self.full_shapes = {g: tuple(n + 2 * halos[g][ax]
                                      for ax, n in enumerate(interior))
                             for g in opnd_grids}
+        # the pitches (sx, sy) of each contiguous full tensor in 3D form
+        self.pitch3 = {g: ((f[1] * f[2], f[2]) if ndim == 3 else (f[1], f[1]))
+                       for g, f in self.full_shapes.items()}
         self.in_grids, self.out_grids = in_grids, out_grids
         self.opnd_grids = opnd_grids
         self.step_out_grids = tuple(out_grids)
@@ -653,10 +709,46 @@ class MapPlan(_Plan):
         copy = 0 if self.in_place else 2 * len(self.out_grids) * math.prod(self.R3)
         return super().hbm_bytes_per_step(itemsize) + float(copy * itemsize)
 
+    def f4_org_mod4(self) -> Dict[str, Optional[int]]:
+        """K4 f4's load path per grid: where both pitches are multiples of 4
+        cells, the place of the region's first cell in its aligned vector of
+        4 (then every tap row of a group starting at a multiple of 4 from
+        it has a place fixed by the plan: the aligned path); else None (the
+        kernel aligns each row at run time)."""
+        out = {}
+        for g in self.opnd_grids:
+            sx, sy = self.pitch3[g]
+            o = self.org3[g]
+            out[g] = ((o[0] * sx + o[1] * sy + o[2]) % 4
+                      if sx % 4 == 0 and sy % 4 == 0 else None)
+        return out
+
+    def smem_tma(self, dtype=torch.float32) -> Dict[str, bool]:
+        """K4 smem's staging path per grid with an off-center tap, on grids
+        of ``dtype``: TMA where both pitches are multiples of 16 bytes,
+        every tile's box starts on a 16-byte boundary along axis 2 (the
+        card refuses a box whose inner start is not: its first cell is
+        ``z0 - h2`` of the region, z0 a multiple of b2) and the halo'd box
+        fits a TMA box (at most 256 cells an axis); the wrapper checks that
+        the base is 16-byte aligned.  Else ``cp.async`` in 4-byte
+        granules."""
+        es = ELEM_BYTES[dtype]
+        layout, _ = smem_layout(self.B3, self.gh3, es)
+        return {g: all(p * es % 16 == 0 for p in self.pitch3[g])
+                and (self.org3[g][2] - self.gh3[g][2]) * es % 16 == 0
+                and self.B3[2] * es % 16 == 0
+                and max(box[0], box[1], pitch) <= TMA_BOX_MAX
+                for g, (box, pitch, _) in layout.items()}
+
     def source(self, dtype=torch.float32) -> str:
         """Full CUDA source of this plan's kernel on grids of ``dtype``:
-        ``RT_MAP``, the generated header (f4: the tap rows and their point
-        function) and the hand-written template it includes."""
+        ``RT_MAP``, the generated header (f4: the families and queue pieces
+        of its tap rows, with the load path each grid's pitches allow, and
+        their point function; smem: each grid's staging path, and whether
+        a tap reads it, so that an output none reads is not loaded) and
+        the hand-written template it includes.  The paths follow from the
+        grids' full shapes and the region, so they are part of the build
+        key."""
         src = self._sources.get(dtype)
         if src is None:
             src = "#define RT_MAP 1\n"
@@ -665,9 +757,18 @@ class MapPlan(_Plan):
                 src += f"#define RT_MAP_T {MAP_TEMPLATES[self.template]}\n"
                 if self.template == "f4":
                     point = emit.f4_functions(self.kernel, self.opnd_grids,
-                                              self.out_grids)
+                                              self.out_grids,
+                                              self.f4_org_mod4())
             src += emit.header(self.kernel, self.opnd_grids, self.out_grids,
                                self.gh3, self.B3, point, ELEM_TYPES[dtype])
+            if self.template == "smem":
+                tma = self.smem_tma(dtype)
+                src += "\n".join([
+                    emit.int_table("grid_tma", [int(tma.get(g, False))
+                                                for g in self.opnd_grids]),
+                    emit.int_table("grid_read", [int(g in self.in_grids)
+                                                 for g in self.opnd_grids]),
+                    ""])
             if self.kind == "semi":
                 src += emit.semi_functions(self.kernel, self.opnd_grids,
                                            self.out_grids, self.lin, self.H)
@@ -693,14 +794,16 @@ class MapPlan(_Plan):
         buffers, which may not overlap a grid)."""
         t0 = bufs[self.opnd_grids[0]]
         device = t0.device
-        # f4 loads vectors of 4 cells, semi copies 4-byte granules
+        # f4 loads vectors of 4 cells, semi and smem copy 4-byte granules,
+        # and smem's TMA copies need a 16-byte aligned base
         align = 1
         if self.kind == "map" and self.template == "f4":
             align = 4 * t0.element_size()
-        elif self.kind == "semi":
+        elif self.kind == "semi" or self.template == "smem":
             align = 4
+        tma = self.smem_tma(t0.dtype) if self.template == "smem" else {}
 
-        def check(what, t, shape):
+        def check(what, t, shape, align=align):
             if t.device != device:
                 raise ValueError(f"{what} is on {t.device}, not {device}")
             check_dtype(what, t, t0.dtype)
@@ -718,7 +821,8 @@ class MapPlan(_Plan):
         ptrs, sx, sy, org = [], [], [], []
         for g in self.opnd_grids:
             t = bufs[g]
-            check(f"grid '{g}'", t, self.full_shapes[g])
+            check(f"grid '{g}'", t, self.full_shapes[g],
+                  16 if tma.get(g) else align)
             b, w = self.buf3(t), self.org3[g]
             ptrs.append(t.data_ptr())
             sx.append(b.stride(0))
@@ -747,8 +851,11 @@ class MapPlan(_Plan):
             dsx.append(b.stride(0))
             dsy.append(b.stride(1))
             dorg.append(0)
-        meta = (ctypes.c_longlong * (4 * len(ptrs) + 3 + 4 * len(d)))(
-            *ptrs, *sx, *sy, *org, *self.R3, *d, *dsx, *dsy, *dorg)
+        # smem's TMA maps need each grid's extent along axis 0
+        n0 = ([bufs[g].shape[0] for g in self.opnd_grids]
+              if self.template == "smem" else [])
+        meta = (ctypes.c_longlong * (4 * len(ptrs) + 3 + 4 * len(d) + len(n0)))(
+            *ptrs, *sx, *sy, *org, *self.R3, *d, *dsx, *dsy, *dorg, *n0)
         vals = [float(scalars[n]) for n in self.scal_names] or [0.0]
         scal = (ctypes.c_float * len(vals))(*vals)
         return meta, scal

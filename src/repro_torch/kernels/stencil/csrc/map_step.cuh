@@ -1,7 +1,7 @@
 // One application of a kernel over a box of points, one launch: K4, the
 // per-application kernel of st.map, under the blocked templates gmem
-// (RT_MAP_T 0), f4 (1) and smem (2); and K1, the fused time step of
-// st.timeloop (the gmem build, every blocked template).
+// (RT_MAP_T 0), f4 (1) and smem (2, map_smem.cuh); and K1, the fused time
+// step of st.timeloop (the gmem build, every blocked template).
 //
 // K4 replaces the JAX package's kernels/stencil/codegen.py lower_pallas
 // with _make_body_blocked: gmem and f4 read each tap by concatenating
@@ -22,27 +22,28 @@
 // point another thread writes.  The pass-through outside the interior is
 // threads that do nothing.
 //
-// A thread block covers an RT_TB0 x RT_TB1 x RT_TB2 tile of the box; its
-// threads cover the RT_TB1 x RT_TB2 face (f4: RT_TB2 / 4 groups of 4) and
-// each walks the RT_TB0 points of its column.
+// gmem and f4: a thread block covers an RT_TB0 x RT_TB1 x RT_TB2 tile of
+// the box; its threads cover the RT_TB1 x RT_TB2 face (f4: RT_TB2 / 4
+// groups of 4) and each walks the RT_TB0 points of its column.
 //   gmem: taps through __ldg from device memory; threads run along the
 //         dense axis 2, so a warp's taps at one offset are one coalesced
 //         128-byte line, and a thread's axis-0 taps of consecutive points
 //         fall on the lines its previous points loaded.
 //   f4:   each thread computes 4 consecutive points along axis 2 from tap
-//         rows loaded as aligned vectors of 4 cells (f4_rows.cuh): the
-//         TPU's lane-aligned blocks become 16-byte loads (8-byte ones of
-//         4 bf16 cells).
-//   smem: the block stages the halo'd tile (RT_TB0 + 2h0) x (RT_TB1 + 2h1) x
-//         (RT_TB2 + 2h2) of each grid with an off-center tap in shared
-//         memory, as f32, waits at one barrier, and evaluates its points
-//         from it.
+//         rows loaded as aligned vectors of 4 cells and carried along its
+//         column in register queues (f4_rows.cuh): the TPU's lane-aligned
+//         blocks become 16-byte loads (8-byte ones of 4 bf16 cells), each
+//         loaded once a column; where the grids' pitches are multiples of 4
+//         cells the rows' alignment is fixed when the plan is made.
+// smem: persistent blocks stage each tile's halo'd box by TMA or cp.async
+// into one of two stages while they evaluate the other (map_smem.cuh).
 //
 // Bound: device-memory bytes.  One application must read each input grid
 // once and write each output once: star3d4r at 512^3 moves 2 x 512^3 x 4 B
 // = 1.07 GB, 0.321 ms at 3.35 TB/s; acoustic ISO five grid passes, 0.801
-// ms (bf16 grids: half the bytes).  The 2h+1 taps along each axis are re-read from L1/L2 (gmem), from
-// registers along axis 2 (f4) or from shared memory (smem); the designs
+// ms (bf16 grids: half the bytes).  The 2h+1 taps along each axis are
+// re-read from L1/L2 (gmem), from registers (f4: along axes 0 and 2) or
+// from shared memory (smem, and registers along axis 0); the designs
 // differ only in where those re-reads are served.
 #include "common.cuh"
 
@@ -70,18 +71,11 @@ struct DevLoad {
   }
 };
 
-__global__ void __launch_bounds__(kThreads) map_step_kernel(const Params p) {
-  const int z0 = blockIdx.x * RT_TB2 + 4 * threadIdx.x;
-  const int y = blockIdx.y * RT_TB1 + threadIdx.y;
-  const int x0 = blockIdx.z * RT_TB0;
-  if (z0 >= p.R2 || y >= p.R1) return;
-  const int m = min(4, p.R2 - z0);
-  const int x1 = min(x0 + RT_TB0, p.R0);
-  for (int x = x0; x < x1; ++x) {
-    F4Rows rows;
-    f4_fill_rows<0>(p.g, p.sx, p.sy, p.org, rows, x, y, z0, m, DevLoad{});
-    float out[4][RT_NO];
-    f4_points<0>(rows, p.s, out);
+// the m points of a group in the region, stored
+struct DevStore {
+  const Params& p;
+  int y, z0, m;
+  __device__ __forceinline__ void operator()(int x, const float (&out)[4][RT_NO]) const {
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       if (j < m) {
@@ -90,12 +84,24 @@ __global__ void __launch_bounds__(kThreads) map_step_kernel(const Params p) {
       }
     }
   }
+};
+
+__global__ void __launch_bounds__(kThreads) map_step_kernel(const Params p) {
+  const int z0 = blockIdx.x * RT_TB2 + 4 * threadIdx.x;
+  const int y = blockIdx.y * RT_TB1 + threadIdx.y;
+  const int x0 = blockIdx.z * RT_TB0;
+  if (z0 >= p.R2 || y >= p.R1) return;
+  const int m = min(4, p.R2 - z0);
+  f4_column(p.g, p.sx, p.sy, p.org, p.s, x0, min(x0 + RT_TB0, p.R0), y, z0, m, DevLoad{},
+            DevStore{p, y, z0, m});
 }
+
+#elif RT_MAP_T == 2
+#include "map_smem.cuh"
 
 #else
 constexpr int kThreads = RT_TB1 * RT_TB2;
 
-#if RT_MAP_T == 0
 struct GmemReader {
   const Params& p;
   long long idx[RT_NG];   // element index of this point in each buffer
@@ -104,60 +110,6 @@ struct GmemReader {
     return ld_elem(p.g[G] + idx[G] + dx * p.sx[G] + dy * p.sy[G] + dz);
   }
 };
-constexpr int kTileFloats = 0;
-
-#else
-__host__ __device__ constexpr int tile_elems(int g) {
-  return grid_ring(g) ? (RT_TB0 + 2 * grid_h0(g)) * (RT_TB1 + 2 * grid_h1(g)) *
-                            (RT_TB2 + 2 * grid_h2(g))
-                      : 0;
-}
-__host__ __device__ constexpr int tile_offset(int g) {
-  return g <= 0 ? 0 : tile_offset(g - 1) + tile_elems(g - 1);
-}
-constexpr int kTileFloats = tile_offset(RT_NG);
-
-// Stage the halo'd tile of every grid with an off-center tap, as f32; cells outside
-// a grid's tap reach [-h, R + h) are never read for a point of the region
-// and are skipped.
-template <int G>
-__device__ __forceinline__ void stage(const Params& p, float* smem, int x0, int y0, int z0) {
-  if constexpr (G < RT_NG) {
-    if constexpr (grid_ring(G) != 0) {
-      constexpr int h0 = grid_h0(G), h1 = grid_h1(G), h2 = grid_h2(G);
-      constexpr int W1 = RT_TB1 + 2 * h1, W2 = RT_TB2 + 2 * h2;
-      constexpr int n = (RT_TB0 + 2 * h0) * W1 * W2;
-      float* dst = smem + tile_offset(G);
-      const elem_t* src = p.g[G] + p.org[G];
-      for (int i = threadIdx.y * RT_TB2 + threadIdx.x; i < n; i += kThreads) {
-        const int gx = x0 - h0 + i / (W1 * W2);
-        const int gy = y0 - h1 + (i / W2) % W1;
-        const int gz = z0 - h2 + i % W2;
-        if (gx < p.R0 + h0 && gy < p.R1 + h1 && gz < p.R2 + h2)
-          dst[i] = ld_elem(src + gx * p.sx[G] + gy * p.sy[G] + gz);
-      }
-    }
-    stage<G + 1>(p, smem, x0, y0, z0);
-  }
-}
-
-struct TileReader {
-  const Params& p;
-  const float* smem;
-  int t, ty, tz;          // position of the point in the tile
-  long long idx[RT_NG];   // element index of this point in each grid
-  template <int G>
-  __device__ __forceinline__ float at(int dx, int dy, int dz) const {
-    if constexpr (grid_ring(G) != 0) {
-      constexpr int h0 = grid_h0(G), h1 = grid_h1(G), h2 = grid_h2(G);
-      constexpr int W1 = RT_TB1 + 2 * h1, W2 = RT_TB2 + 2 * h2;
-      return smem[tile_offset(G) + ((t + h0 + dx) * W1 + ty + h1 + dy) * W2 + tz + h2 + dz];
-    } else {
-      return ld_elem(p.g[G] + idx[G]);  // center-only grid
-    }
-  }
-};
-#endif
 
 __global__ void __launch_bounds__(kThreads) map_step_kernel(const Params p) {
   const int tz = threadIdx.x, ty = threadIdx.y;
@@ -165,18 +117,9 @@ __global__ void __launch_bounds__(kThreads) map_step_kernel(const Params p) {
   const int x0 = blockIdx.z * RT_TB0;
   const int z = z0 + tz, y = y0 + ty;
   const int x1 = min(x0 + RT_TB0, p.R0);
-#if RT_MAP_T == 2
-  extern __shared__ float smem[];
-  stage<0>(p, smem, x0, y0, z0);
-  __syncthreads();
-#endif
   if (z >= p.R2 || y >= p.R1) return;   // outside the box: keep
   for (int x = x0; x < x1; ++x) {
-#if RT_MAP_T == 0
     GmemReader rd{p, {}};
-#else
-    TileReader rd{p, smem, x - x0, ty, tz, {}};
-#endif
 #pragma unroll
     for (int g = 0; g < RT_NG; ++g) rd.idx[g] = p.org[g] + x * p.sx[g] + y * p.sy[g] + z;
     float out[RT_NO];
@@ -187,21 +130,13 @@ __global__ void __launch_bounds__(kThreads) map_step_kernel(const Params p) {
 }
 #endif
 
+#if RT_MAP_T != 2
 extern "C" int rt_map_step(const void* meta, const void* scal, void* stream) {
   const Params p = rt_params(meta, scal);
-  size_t smem_bytes = 0;
-#if RT_MAP_T == 2
-  smem_bytes = sizeof(float) * (kTileFloats > 0 ? kTileFloats : 1);
-  if (smem_bytes > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        map_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem_bytes));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-#endif
   const dim3 threads(RT_MAP_T == 1 ? RT_TB2 / 4 : RT_TB2, RT_TB1, 1);
   const dim3 blocks((p.R2 + RT_TB2 - 1) / RT_TB2, (p.R1 + RT_TB1 - 1) / RT_TB1,
                     (p.R0 + RT_TB0 - 1) / RT_TB0);
-  map_step_kernel<<<blocks, threads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(p);
+  map_step_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
+#endif

@@ -12,8 +12,9 @@ where ``rd.template at<G>(dx, dy, dz)`` reads operand grid ``G`` at a tap
 offset (2D kernels map ``(dx, dy)`` to ``(dx, 0, dy)``: see
 ``CudaPlan``), ``s`` holds the f32 scalars in signature order and
 ``out[o]`` receives the new value of output grid ``o``.  K1, K2, K3 and
-K4 call it, each with its own reader; K4's f4 template reads whole tap
-rows instead, as ``rd.template at<r, dz>()`` (``f4_functions``).
+K4 call it, each with its own reader; K4's f4 template reads its tap
+rows from register queues instead, as ``rd.template at<f, dx, dz>()``
+(``f4_functions``).
 
 The semi-stencil kernel K5 calls the scatter ``semi_scatter<O, D>(rd, s,
 acc)`` instead.  Each term's coefficient is split into a number κ and a
@@ -39,7 +40,7 @@ double.  Nothing here mutates.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -153,7 +154,7 @@ def point_function(kernel: ir.StencilIR, opnd_grids: Sequence[str],
          "  (void)s;"] + lines + ["}"])
 
 
-def _table(name: str, vals, arg: str = "g") -> str:
+def int_table(name: str, vals, arg: str = "g") -> str:
     """A ``constexpr int name(int arg)`` returning ``vals[arg]`` (0 past
     the end)."""
     cases = " : ".join(f"{arg} == {i} ? {v}" for i, v in enumerate(vals))
@@ -173,7 +174,6 @@ def header(kernel: ir.StencilIR, opnd_grids: Sequence[str],
     (``point``, default ``point_function``'s)."""
     ng, no = len(opnd_grids), len(out_grids)
     ns = len(kernel.scalar_params)
-    table = _table
     h = [halo3[g] for g in opnd_grids]
     oidx = [list(opnd_grids).index(g) for g in out_grids]
     return "\n".join([
@@ -184,11 +184,11 @@ def header(kernel: ir.StencilIR, opnd_grids: Sequence[str],
         f"#define RT_TB0 {block3[0]}",
         f"#define RT_TB1 {block3[1]}",
         f"#define RT_TB2 {block3[2]}",
-        table("grid_h0", [x[0] for x in h]),
-        table("grid_h1", [x[1] for x in h]),
-        table("grid_h2", [x[2] for x in h]),
-        table("grid_ring", [int(any(x)) for x in h]),
-        table("out_grid", oidx, "o"),
+        int_table("grid_h0", [x[0] for x in h]),
+        int_table("grid_h1", [x[1] for x in h]),
+        int_table("grid_h2", [x[2] for x in h]),
+        int_table("grid_ring", [int(any(x)) for x in h]),
+        int_table("out_grid", oidx, "o"),
         point or point_function(kernel, opnd_grids, out_grids),
         "",
     ])
@@ -196,41 +196,102 @@ def header(kernel: ir.StencilIR, opnd_grids: Sequence[str],
 
 def f4_rows(kernel: ir.StencilIR, opnd_grids: Sequence[str],
             out_grids: Sequence[str]) -> List[Tuple[str, int, int, int, int]]:
-    """The f4 template's tap rows ``(grid, dx, dy, lo, hi)`` in
-    ``f4_functions``' order (``lo``/``hi``: the range of the row's ``dz``
-    taps)."""
+    """The f4 template's tap rows ``(grid, dx, dy, lo, hi)`` in the order
+    the point function first reads them (``lo``/``hi``: the range of the
+    row's ``dz`` taps).  A center read of a grid an earlier statement
+    wrote is served from the new value and makes no row."""
     rows: Dict[Tuple[str, int, int], List[int]] = {}
     _f4_point(kernel, opnd_grids, out_grids, rows)
     return [(g, dx, dy, min(dzs), max(dzs)) for (g, dx, dy), dzs in rows.items()]
 
 
 def _f4_point(kernel, opnd_grids, out_grids, rows) -> str:
+    """The point function reading tap ``dz`` of the rows of family ``f``
+    (the ``(grid, dy)`` pairs, in first-read order) at axis-0 offset ``dx``
+    as ``rd.template at<f, dx, dz>()``; fills ``rows``."""
     def tap(t):
         dx, dy, dz = offsets3(t.offsets)
         rows.setdefault((t.grid, dx, dy), []).append(dz)
-        return f"rd.template at<{list(rows).index((t.grid, dx, dy))}, {dz}>()"
+        fams = list(dict.fromkeys((g, y) for g, _, y in rows))
+        return f"rd.template at<{fams.index((t.grid, dy))}, {dx}, {dz}>()"
     return point_function(kernel, opnd_grids, out_grids, tap)
 
 
+class F4Piece(NamedTuple):
+    """A run of cells of one family that one queue carries: cells
+    ``[c0, c1]`` relative to the group's first point ``z0``, needed by the
+    rows at axis-0 offsets ``[a, b]``; ``off`` is the cell ``c0``'s place
+    in its aligned vector of 4 when the plan fixes it (the aligned path),
+    None where the kernel finds it at run time."""
+    fam: int
+    c0: int
+    c1: int
+    a: int
+    b: int
+    off: Optional[int]
+
+
+def f4_pieces(rows, org_mod4: Dict[str, Optional[int]]):
+    """The f4 template's families and queue pieces for ``rows``
+    (``f4_rows``): families ``[(grid, dy, hi)]`` (``hi``: the largest
+    ``dz`` of their rows) and ``[F4Piece]``.  A point ``j`` (0..3) of a
+    group reads cell ``dz + j`` of the row at ``dx``, so the row at ``dx``
+    needs cells ``[lo, hi + 3]``; cells needed by the same range of ``dx``
+    form a piece.  The row of plane ``x + dx`` is the row of plane ``x``
+    at offset ``dx`` one plane later, so a piece is one queue of
+    ``b - a + 1`` slots along the thread's column, and each plane loads
+    only its leading slot (plane ``x + b``).  ``org_mod4`` maps a grid to
+    the place of its region's first cell in an aligned vector of 4 when
+    both pitches are multiples of 4 cells (then every row of a group that
+    starts at a multiple of 4 has that place), else to None."""
+    fams: Dict[Tuple[str, int], List[Tuple[int, int, int]]] = {}
+    for g, dx, dy, lo, hi in rows:
+        fams.setdefault((g, dy), []).append((dx, lo, hi))
+    families, pieces = [], []
+    for f, ((g, dy), rs) in enumerate(fams.items()):
+        families.append((g, dy, max(hi for _, _, hi in rs)))
+        runs: List[list] = []          # [c0, c1, (a, b)]
+        for c in range(min(lo for _, lo, _ in rs), max(hi for _, _, hi in rs) + 4):
+            dxs = [dx for dx, lo, hi in rs if lo <= c <= hi + 3]
+            if not dxs:
+                continue
+            rng = (min(dxs), max(dxs))
+            if runs and runs[-1][2] == rng and runs[-1][1] == c - 1:
+                runs[-1][1] = c
+            else:
+                runs.append([c, c, rng])
+        off = org_mod4[g]
+        pieces += [F4Piece(f, c0, c1, a, b, None if off is None else (off + c0) % 4)
+                   for c0, c1, (a, b) in runs]
+    return families, pieces
+
+
 def f4_functions(kernel: ir.StencilIR, opnd_grids: Sequence[str],
-                 out_grids: Sequence[str]) -> str:
+                 out_grids: Sequence[str],
+                 org_mod4: Dict[str, Optional[int]]) -> str:
     """The f4 template's generated part (K4, ``csrc/f4_rows.cuh``): the
-    tap rows the point function reads through the reader, in the order it
-    first reads them (row ``r``: grid, ``(dx, dy)`` and the range of its
-    ``dz`` taps), and ``stencil_point`` reading tap ``dz`` of row ``r`` as
-    ``rd.template at<r, dz>()``.  A center read of a grid an earlier
-    statement wrote is served from the new value and makes no row."""
+    families (grid, ``dy``, largest ``dz``) and queue pieces of
+    ``f4_pieces`` (``f4_piece_off`` -1 where the kernel aligns at run
+    time), and ``stencil_point`` reading tap ``dz`` of family ``f`` at
+    axis-0 offset ``dx`` as ``rd.template at<f, dx, dz>()``."""
     gidx = {g: i for i, g in enumerate(opnd_grids)}
     rows: Dict[Tuple[str, int, int], List[int]] = {}
     point = _f4_point(kernel, opnd_grids, out_grids, rows)
-    keys = list(rows)
+    families, pieces = f4_pieces(
+        [(g, dx, dy, min(d), max(d)) for (g, dx, dy), d in rows.items()],
+        org_mod4)
     return "\n".join([
-        f"#define RT_F4_ROWS {len(keys)}",
-        _table("f4_row_grid", [gidx[g] for g, _, _ in keys], "r"),
-        _table("f4_row_dx", [dx for _, dx, _ in keys], "r"),
-        _table("f4_row_dy", [dy for _, _, dy in keys], "r"),
-        _table("f4_row_lo", [min(rows[k]) for k in keys], "r"),
-        _table("f4_row_hi", [max(rows[k]) for k in keys], "r"),
+        f"#define RT_F4_FAMS {len(families)}",
+        int_table("f4_fam_grid", [gidx[g] for g, _, _ in families], "f"),
+        int_table("f4_fam_dy", [dy for _, dy, _ in families], "f"),
+        int_table("f4_fam_hi", [hi for _, _, hi in families], "f"),
+        f"#define RT_F4_PIECES {len(pieces)}",
+        int_table("f4_piece_fam", [p.fam for p in pieces], "p"),
+        int_table("f4_piece_c0", [p.c0 for p in pieces], "p"),
+        int_table("f4_piece_c1", [p.c1 for p in pieces], "p"),
+        int_table("f4_piece_a", [p.a for p in pieces], "p"),
+        int_table("f4_piece_b", [p.b for p in pieces], "p"),
+        int_table("f4_piece_off", [-1 if p.off is None else p.off for p in pieces], "p"),
         point,
         "",
     ])

@@ -4,22 +4,30 @@ smem) and its plain version.
 Replaces the JAX package's ``kernels/stencil/codegen.py`` ``lower_pallas``
 with ``_make_body_blocked`` (gmem/f4: taps concatenated from neighbour
 blocks; smem: the halo'd tile pasted into VMEM scratch).  CUDA source:
-``csrc/map_step.cuh`` (f4's rows: ``csrc/f4_rows.cuh``): a thread block
-covers a ``b0 × b1 × b2`` tile of the region and each thread walks its
-column's ``b0`` points; gmem reads taps from device memory, f4 computes 4
-consecutive points along axis 2 from tap rows loaded as aligned float4s,
-smem stages the halo'd tile of each grid with an off-center tap in shared
-memory.  The gmem body, built without a destination, is also K1
-(``fused_step``).  Bound: device-memory bytes (each input grid read once,
-each output written once per application).
+``csrc/map_step.cuh``.  gmem: a thread block covers a ``b0 × b1 × b2``
+tile of the region and each thread walks its column's ``b0`` points,
+reading taps from device memory.  f4 (``csrc/f4_rows.cuh``): each thread
+walks a column of groups of 4 points along axis 2, its tap rows loaded as
+aligned vectors of 4 cells and carried along axis 0 in register queues
+(``emit.f4_pieces``), each row's place in its vector fixed by the plan
+where the pitches allow (``MapPlan.f4_org_mod4``).  smem
+(``csrc/map_smem.cuh``): persistent blocks stage each tile's halo'd box by
+TMA or 4-byte ``cp.async`` (``MapPlan.smem_tma``) into one of two stages
+while they evaluate the other.  The gmem body, built without a
+destination, is also K1 (``fused_step``).  Bound: device-memory bytes
+(each input grid read once, each output written once per application).
 
 The plain version walks the same chunks of ``b0`` planes, with one tile
-spanning the whole plane: gmem reads the grids, smem the staged tile (the
-grid's cells within the tap reach), f4 the rows of each group of 4 points
-gathered as the kernel loads them (aligned down to a multiple of 4
-elements, float4s past the needed cells left 0, realigned by the row's
-offset; cells past the tensor's end, which only points past the region's
-end read, are taken from its last cell).  The CPU tests thus exercise the kernel's index arithmetic.
+spanning the whole plane: gmem reads the grids; smem the staged box of
+each chunk in the grids' own type (planes ``[x0 - h0, x0 + b0 + h0)``;
+cells outside the tap reach are NaN, so a read of one would show), and the
+column's axis-0 taps from its centre as the register queue holds them;
+f4 each queue piece of each plane loaded once as the kernel loads it (from
+the plan's fixed place, or aligned down at run time; vectors past the
+family's last needed cell left 0; cells past the tensor's end, which only
+points past the region's end read, taken from its last cell) and read at
+each axis-0 offset from the queue's slot.  The CPU tests thus exercise the
+kernel's index arithmetic.
 
 Both versions read f32 or bf16 grids, compute in f32 and round once, when
 they store an output cell.
@@ -38,49 +46,84 @@ from repro_torch.core import lowering
 from repro_torch.core.dsl import scalar_tensors
 
 from .. import _build
-from .emit import f4_rows, offsets3
+from .emit import f4_pieces, f4_rows, offsets3
 
 
 def _f4_taps(plan, bufs, x0: int, x1: int):
-    """Tap reader of the f4 groups of planes ``[x0, x1)``: each row's cells
-    gathered as the kernel loads them, then read per point."""
+    """Tap reader of the f4 groups of planes ``[x0, x1)``: each queue piece
+    (``emit.f4_pieces``) of every plane in ``[x0 + a, x1 - 1 + b]`` loaded
+    once, as the kernel loads a queue's leading slot, then read at axis-0
+    offset ``dx`` from slot ``(x + dx) - (x0 + a)``."""
     R1, R2 = plan.R3[1], plan.R3[2]
     ngrp = -(-R2 // 4)
     dev = bufs[plan.opnd_grids[0]].device
-    x = torch.arange(x0, x1, device=dev).view(-1, 1, 1)
     y = torch.arange(R1, device=dev).view(1, -1, 1)
     z0 = 4 * torch.arange(ngrp, device=dev).view(1, 1, -1)
     m = torch.clamp(R2 - z0, max=4)
-    rows = {}
-    for g, dx, dy, lo, hi in f4_rows(plan.kernel, plan.opnd_grids,
-                                     plan.out_grids):
-        b, o = plan.buf3(bufs[g]), plan.org3[g]
+    families, pieces = f4_pieces(
+        f4_rows(plan.kernel, plan.opnd_grids, plan.out_grids),
+        plan.f4_org_mod4())
+    fam_of = {(g, dy): f for f, (g, dy, _) in enumerate(families)}
+    loaded = []
+    for pc in pieces:
+        g, dy, hi = families[pc.fam]
+        b = plan.buf3(bufs[g])
         sx, sy = b.stride(0), b.stride(1)
         flat = b.reshape(-1)
-        first = (o[0] * sx + o[1] * sy + o[2] + (x + dx) * sx + (y + dy) * sy
-                 + z0 + lo)
-        end = first + m + hi - lo             # one past the last needed cell
-        a = first - first % 4                 # aligned down
-        width = 4 + hi - lo
-        nv = (width + 6) // 4
-        k4 = 4 * torch.arange(nv, device=dev)
-        start = a.unsqueeze(-1) + k4          # each float4's first element
+        o = plan.org3[g]
+        xp = torch.arange(x0 + pc.a, x1 + pc.b, device=dev).view(-1, 1, 1)
+        row = o[0] * sx + o[1] * sy + o[2] + xp * sx + (y + dy) * sy + z0
+        first = row + pc.c0
+        last = row + m - 1 + hi          # the last cell the family may need
+        width = pc.c1 - pc.c0 + 1
+        if pc.off is None:               # aligned down at run time
+            a = first - first % 4
+            nv = (width + 6) // 4
+        else:                            # the plan's fixed place
+            a = first - pc.off
+            nv = (pc.off + width + 3) // 4
+            assert bool((a % 4 == 0).all()), "f4: a row's place differs from the plan's"
+        start = a.unsqueeze(-1) + 4 * torch.arange(nv, device=dev)
         idx = (start.unsqueeze(-1) + torch.arange(4, device=dev)).flatten(-2)
-        # a loaded float4 may end past the tensor: those cells feed only
+        # a loaded vector may end past the tensor: those cells feed only
         # points past the region's end, so any value serves
         w = flat[idx.clamp(max=flat.numel() - 1)]
-        w = torch.where((start < end.unsqueeze(-1)).repeat_interleave(4, -1),
+        w = torch.where((start <= last.unsqueeze(-1)).repeat_interleave(4, -1),
                         w, w.new_zeros(()))
         off = (first - a).unsqueeze(-1) + torch.arange(width, device=dev)
-        rows[(g, dx, dy)] = (torch.gather(w, -1, off.expand(*w.shape[:-1], width))
-                             .float(), lo)
+        loaded.append(torch.gather(w, -1, off.expand(*w.shape[:-1], width))
+                      .float())
+
+    def piece_of(f, c):
+        return next(i for i, pc in enumerate(pieces)
+                    if pc.fam == f and pc.c0 <= c <= pc.c1)
 
     def tap_read(g, offs):
         dx, dy, dz = offsets3(offs)
-        v, lo = rows[(g, dx, dy)]
-        pts = torch.stack([v[..., j + dz - lo] for j in range(4)], dim=-1)
-        return pts.flatten(-2)[..., :R2]
+        f = fam_of[(g, dy)]
+        pts = []
+        for j in range(4):
+            p = piece_of(f, dz + j)
+            s0 = dx - pieces[p].a
+            pts.append(loaded[p][s0:s0 + x1 - x0, ..., dz + j - pieces[p].c0])
+        return torch.stack(pts, dim=-1).flatten(-2)[..., :R2]
     return tap_read
+
+
+def _smem_tile(plan, t: torch.Tensor, g: str, x0: int) -> torch.Tensor:
+    """The smem kernel's staged box of grid ``g`` (3D buffer ``t``) for the
+    chunk at plane ``x0``: planes ``[x0 - h0, x0 + b0 + h0)`` with the tap
+    halo along axes 1 and 2 (one tile spanning the whole plane), in the
+    grid's own type.  Cells outside the tap reach ``[-h, R + h)`` (the
+    chunk's box runs past the region's last plane) are NaN: a point of the
+    region never reads them."""
+    h, o, R = plan.gh3[g], plan.org3[g], plan.R3
+    tile = t.new_full((plan.B3[0] + 2 * h[0], R[1] + 2 * h[1], R[2] + 2 * h[2]),
+                      float("nan"))
+    n = min(plan.B3[0] + 2 * h[0], R[0] + h[0] - (x0 - h[0]))
+    tile[:n] = t[o[0] + x0 - h[0]:o[0] + x0 - h[0] + n,
+                 o[1] - h[1]:o[1] + R[1] + h[1], o[2] - h[2]:o[2] + R[2] + h[2]]
+    return tile
 
 
 def map_step_plain(plan, bufs: Dict[str, torch.Tensor],
@@ -104,9 +147,7 @@ def map_step_plain(plan, bufs: Dict[str, torch.Tensor],
         if plan.template == "f4":
             tap_read = _f4_taps(plan, bufs, x0, x1)
         elif plan.template == "smem":
-            # the staged tile: every cell of it lies within the tap reach
-            tiles = {g: box(grids[g], plan.org3[g], x0, x1, (0, 0, 0),
-                            plan.gh3[g]).float()
+            tiles = {g: _smem_tile(plan, grids[g], g, x0)
                      for g in plan.opnd_grids if any(plan.gh3[g])}
 
             def tap_read(g, offs, x0=x0, x1=x1, tiles=tiles):
@@ -114,9 +155,13 @@ def map_step_plain(plan, bufs: Dict[str, torch.Tensor],
                 if g not in tiles:                 # center-only grid
                     return box(grids[g], plan.org3[g], x0, x1, d).float()
                 h = plan.gh3[g]
+                if d[1] == 0 and d[2] == 0:
+                    # the register queue: the column's centre, a plane a step
+                    t = tiles[g][:, h[1]:h[1] + R1, h[2]:h[2] + R2]
+                    return t[h[0] + d[0]:h[0] + d[0] + x1 - x0].float()
                 return tiles[g][h[0] + d[0]:h[0] + d[0] + x1 - x0,
                                 h[1] + d[1]:h[1] + d[1] + R1,
-                                h[2] + d[2]:h[2] + d[2] + R2]
+                                h[2] + d[2]:h[2] + d[2] + R2].float()
         else:
             def tap_read(g, offs, x0=x0, x1=x1):
                 return box(grids[g], plan.org3[g], x0, x1,

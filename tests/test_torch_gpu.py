@@ -342,6 +342,116 @@ def test_map_on_the_card_matches_torch(cuda, template):
         _check(out[1][n].data, out[0][n].data, n)
 
 
+# ---- K4 f4's load paths and smem's staging paths --------------------------------
+# (shape, region, f4 aligned, smem by TMA): pitches that are multiples of 4
+# cells (f4 fixes each row's place at plan time) and of 16 bytes (smem's
+# TMA), at the region's first cell 0 or 3 mod 4 (at 3, smem's boxes would
+# start off a 16-byte boundary: granules); the ragged 61 x 70 x 133 (rows
+# of 141 cells: f4 aligns at run time, smem copies 4-byte granules) and its
+# sub-region whose z-start is not a multiple of 4
+PATH_CASES = [((64, 64, 64), None, True, True),
+              ((64, 64, 64), ((1, 40), (0, 64), (8, 60)), True, True),
+              ((64, 64, 64), ((1, 40), (0, 64), (7, 60)), True, False),
+              ((61, 70, 133), None, False, False),
+              ((61, 70, 133), ((5, 50), (3, 61), (10, 127)), False, False)]
+
+
+def _path_plan(name, shape, region, template):
+    k, _, _ = _kernel(name)
+    halos = {g: (k.info.order,) * 3 for g in k.ir.grid_params}
+    return codegen.lower_hopper(k.ir, halos, shape, region,
+                                st.hopper(template=template))
+
+
+@pytest.fixture(scope="module")
+def paths_built():
+    """Every source of the path cases, built in parallel (one nvcc each)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    _build.build_many([_path_plan(n, s, r, t).source(d)
+                       for n in ("star3d4r", "acoustic")
+                       for s, r, _, _ in PATH_CASES for t in ("f4", "smem")
+                       for d in (torch.float32, torch.bfloat16)])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("template", ["f4", "smem"])
+@pytest.mark.parametrize("name", ["star3d4r", "acoustic"])
+@pytest.mark.parametrize("case", PATH_CASES,
+                         ids=["64", "64-region8", "64-region7", "ragged",
+                              "ragged-region"])
+def test_map_paths_match_plain(cuda, paths_built, case, name, template, dtype):
+    """Each load path of f4 and staging path of smem against its plain
+    version: f32 within 2e-5 x max(1, |plain|), bf16 within one bf16 ulp."""
+    shape, region, aligned, tma = case
+    k, _, scal = _kernel(name)
+    plan = _path_plan(name, shape, region, template)
+    if template == "f4":
+        assert all((o is not None) == aligned
+                   for o in plan.f4_org_mod4().values())
+    else:
+        assert set(plan.smem_tma(dtype).values()) == {tma}
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    bufs = {g: torch.randn(plan.full_shapes[g], generator=gen, device=cuda)
+            for g in plan.opnd_grids}
+    if name == "acoustic":       # coefficients in their physical ranges
+        bufs["vp2"] = 0.5 + 1.5 * bufs["vp2"].abs().clamp(max=1)
+        bufs["damp"] = 0.2 * bufs["damp"].abs().clamp(max=1)
+    bufs = {g: t.to(dtype) for g, t in bufs.items()}
+    ref = {g: t.clone() for g, t in bufs.items()}
+    n = map_step.launches
+    map_step(plan, bufs, scal, None)
+    map_step_plain(plan, ref, scal, None)
+    torch.cuda.synchronize()
+    assert map_step.launches == n + 1
+    for g in plan.out_grids:
+        if dtype == torch.float32:
+            _check(bufs[g], ref[g], f"{case}/{name}/{template}/{g}")
+        else:
+            scale = max(1.0, float(ref[g].float().abs().max()))
+            err = float((bufs[g].float() - ref[g].float()).abs().max())
+            assert err <= _bf16_ulp(scale), (case, name, template, g, err)
+
+
+@st.kernel
+def _two_ring(u: st.grid, c: st.grid, v: st.grid):
+    v.at(0, 0, 0).set(0.5 * u.at(0, 0, 0)
+                      + 0.1 * (u.at(-1, 0, 0) + u.at(0, 1, 0) + u.at(0, 0, 1))
+                      + 0.2 * c.at(1, 0, 0) * c.at(0, 0, -1))
+
+
+@pytest.mark.parametrize("case", ["2d", "2d-bf16", "mixed"])
+def test_smem_tma_in_2d_and_beside_granules(cuda, case):
+    """smem's TMA path in 2D (a block whose box fits a TMA box), and one
+    kernel staging one grid by TMA and another by granules (rows of 66
+    cells), against the plain version."""
+    if case == "mixed":
+        k, shape = _two_ring, (30, 30, 62)
+        halos = {"u": (5,) * 3, "c": (2,) * 3, "v": (0,) * 3}
+        block, dtype, want = None, torch.float32, {"u": True, "c": False}
+    else:
+        k, shape = suite.get_kernel("star2d4r"), (64, 120)
+        halos = {"u": (4, 4), "v": (4, 4)}
+        block, want = (16, 128), {"u": True}
+        dtype = torch.bfloat16 if case == "2d-bf16" else torch.float32
+    plan = codegen.lower_hopper(k.ir, halos, shape, None,
+                                st.hopper(template="smem", block=block))
+    assert plan.smem_tma(dtype) == want
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    bufs = {g: torch.randn(plan.full_shapes[g], generator=gen,
+                           device=cuda).to(dtype) for g in plan.opnd_grids}
+    ref = {g: t.clone() for g, t in bufs.items()}
+    map_step(plan, bufs, {}, None)
+    map_step_plain(plan, ref, {}, None)
+    torch.cuda.synchronize()
+    for g in plan.out_grids:
+        scale = max(1.0, float(ref[g].float().abs().max()))
+        err = float((bufs[g].float() - ref[g].float()).abs().max())
+        tol = RTOL * scale if dtype == torch.float32 else _bf16_ulp(scale)
+        assert err <= tol, (case, g, err)
+
+
 # ---- K6 (causal conv1d) and K7 (flash decode attention) ------------------------
 # at the shapes of the CPU parity tests (tests/test_torch_conv1d.py,
 # tests/test_torch_decode_attn.py), held against their plain versions on

@@ -490,10 +490,13 @@ def test_map_plan_geometry():
     # the fused plan's model: u read over its reach, v written once
     assert gmem.hbm_bytes_per_step() == 4 * (72 ** 3 + 64 ** 3)
     f4 = codegen.lower_hopper(k.ir, halos, R, None, st.hopper(template="f4"))
-    assert f4.B == (4, 8, 128)
+    assert f4.B == (16, 8, 128)
     smem = codegen.lower_hopper(k.ir, halos, R, ((1, 40), (0, 64), (3, 64)),
                                 st.hopper(template="smem"))
-    assert smem.smem_bytes == 4 * 12 * 16 * 40
+    # two stages of the halo'd (8, 16, 64) tile, rows of 72 cells, with the
+    # slack to align the base to 128 bytes and two mbarriers
+    assert smem.B == (8, 16, 64)
+    assert smem.smem_bytes == 128 + 2 * 4 * 16 * 24 * 72 + 16
     assert smem.org3["u"] == (5, 4, 7)
     assert smem.R3 == (39, 64, 61)
     for t, kind in (("shift", "stream"), ("unroll", "stream"), ("semi", "semi")):
@@ -528,7 +531,8 @@ _HARNESS = r"""
 struct HostLoad {
   void operator()(const float* p, float* out) const { std::memcpy(out, p, 16); }
 };
-// every group of 4 points as one thread of the f4 kernel computes it
+// every column of groups of 4 points, in the kernel's chunks of RT_TB0
+// planes, as one thread of the f4 kernel walks it through its queues
 extern "C" void host_f4(const long long* m, const float* s) {
   float* g[RT_NG]; long long sx[RT_NG], sy[RT_NG], org[RT_NG];
   for (int i = 0; i < RT_NG; ++i) {
@@ -537,18 +541,18 @@ extern "C" void host_f4(const long long* m, const float* s) {
   }
   const int R0 = m[4 * RT_NG], R1 = m[4 * RT_NG + 1], R2 = m[4 * RT_NG + 2];
   const long long* d = m + 4 * RT_NG + 3;
-  for (int x = 0; x < R0; ++x)
+  for (int x0 = 0; x0 < R0; x0 += RT_TB0)
     for (int y = 0; y < R1; ++y)
       for (int z0 = 0; z0 < R2; z0 += 4) {
         const int n = R2 - z0 < 4 ? R2 - z0 : 4;
-        F4Rows rows;
-        f4_fill_rows<0>(g, sx, sy, org, rows, x, y, z0, n, HostLoad{});
-        float out[4][RT_NO];
-        f4_points<0>(rows, s, out);
-        for (int j = 0; j < n; ++j)
-          for (int o = 0; o < RT_NO; ++o)
-            reinterpret_cast<float*>(d[o])[d[3 * RT_NO + o] + x * d[RT_NO + o] +
-                                           y * d[2 * RT_NO + o] + z0 + j] = out[j][o];
+        const int x1 = x0 + RT_TB0 < R0 ? x0 + RT_TB0 : R0;
+        f4_column(g, sx, sy, org, s, x0, x1, y, z0, n, HostLoad{},
+                  [&](int x, const float (&out)[4][RT_NO]) {
+          for (int j = 0; j < n; ++j)
+            for (int o = 0; o < RT_NO; ++o)
+              reinterpret_cast<float*>(d[o])[d[3 * RT_NO + o] + x * d[RT_NO + o] +
+                                             y * d[2 * RT_NO + o] + z0 + j] = out[j][o];
+        });
       }
 }
 """
@@ -563,15 +567,34 @@ def _slack(a):
     return t
 
 
-@pytest.mark.parametrize("name,interior,region", [
-    ("star3d4r", (9, 10, 13), ((1, 9), (0, 10), (3, 13))),
-    ("box2d2r", (10, 23), None),
-    ("wave", (7, 8, 11), ((0, 7), (2, 8), (1, 10))),
-    ("two_out", (10, 13), None),
-    ("jacobi", (9, 14), ((2, 9), (1, 13))),
-    ("acoustic", (8, 9, 14), None),
-])
-def test_f4_rows_compile_and_match(name, interior, region, tmp_path):
+# (name, interior, region, block, aligned): ``aligned`` says whether every
+# grid's pitches are multiples of 4 cells (the plan fixes the rows' places)
+# or none's are (the kernel aligns each row at run time); a block with a
+# short b0 walks several chunks, each starting its queues anew
+F4_HARNESS_CASES = [
+    ("star3d4r", (9, 10, 13), ((1, 9), (0, 10), (3, 13)), None, False),
+    ("box2d2r", (10, 23), None, None, False),
+    ("wave", (7, 8, 11), ((0, 7), (2, 8), (1, 10)), None, False),
+    ("two_out", (10, 13), None, None, False),
+    ("jacobi", (9, 14), ((2, 9), (1, 13)), None, None),
+    ("acoustic", (8, 9, 14), None, None, False),
+    ("star3d4r", (9, 8, 12), None, (3, 4, 8), True),
+    ("star3d4r", (9, 8, 12), ((1, 9), (0, 8), (3, 12)), (4, 2, 8), True),
+    ("box2d2r", (10, 24), ((1, 10), (2, 23)), (3, 16), True),
+    ("acoustic", (8, 8, 16), None, (3, 8, 16), True),
+    ("acoustic", (11, 9, 14), None, (4, 8, 16), False),
+]
+
+
+@pytest.mark.parametrize("name,interior,region,block,aligned", F4_HARNESS_CASES,
+                         ids=[f"{c[0]}-{'aligned' if c[4] else 'runtime' if c[4] is False else 'mixed'}"
+                              f"{'-region' if c[2] else ''}{'-chunks' if c[3] else ''}"
+                              for c in F4_HARNESS_CASES])
+def test_f4_rows_compile_and_match(name, interior, region, block, aligned,
+                                   tmp_path):
+    """``csrc/f4_rows.cuh`` and the emitted f4 point function compiled with
+    ``g++`` walk every column as the kernel's threads do (queues, aligned
+    and run-time loads), and match the plain version to 1e-6."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("g++ not available")
@@ -583,7 +606,9 @@ def test_f4_rows_compile_and_match(name, interior, region, tmp_path):
     if name == "acoustic":
         arrays["vp2"] = np.abs(arrays["vp2"]) + 1.0
     plan = codegen.lower_hopper(k.ir, halos, interior, region,
-                                st.hopper(template="f4"))
+                                st.hopper(template="f4", block=block))
+    paths = {o is not None for o in plan.f4_org_mod4().values()}
+    assert paths == ({True, False} if aligned is None else {aligned})
     header = plan.source().rsplit("#include", 1)[0]
     cpp = tmp_path / "harness.cpp"
     cpp.write_text(_HARNESS % header)
