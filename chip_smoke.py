@@ -192,8 +192,6 @@ MAP_BF16_ALL = ("f4", "smem")
 # star's coefficients) are rounded to bf16, each to 2^-9 of itself, and its
 # output once; the JAX package's bf16 tolerance, 3e-2 of the magnitude
 LIBRARY_BF16_TOL = 3e-2
-# the source named in the kernels line where it is not the plan kind's
-MAP_SOURCES = {"smem": "map_smem.cuh"}
 
 
 def bf16_ulp(scale: float) -> float:
@@ -1161,7 +1159,7 @@ def main(argv=None) -> int:
                         entries[key] = {
                             "name": key, "route": "cuda",
                             "source": "src/repro_torch/kernels/stencil/csrc/"
-                                      + codegen.KERNEL_FILES[plan.kind],
+                                      + plan.source_file,
                             "replaces": REPLACES[kname], "launches": None,
                             "max_abs_err": None, "ms": ms,
                             "plain_ms": plain_ms, "bound_ms": bound,
@@ -1206,8 +1204,7 @@ def main(argv=None) -> int:
                     entries[key] = {
                         "name": key, "route": "cuda",
                         "source": "src/repro_torch/kernels/stencil/csrc/"
-                                  + MAP_SOURCES.get(template,
-                                                    codegen.KERNEL_FILES[plan.kind]),
+                                  + plan.source_file,
                         "replaces": REPLACES[ename], "launches": None,
                         "max_abs_err": None, "ms": ms, "plain_ms": plain_ms,
                         "bound_ms": bound, "bound_by": bound_by,

@@ -258,6 +258,12 @@ class _Plan:
     form), ``in_grids``, ``out_grids``, ``opnd_grids``, ``time_block``,
     ``swap``, ``step_out_grids`` and ``H``."""
 
+    @property
+    def source_file(self) -> str:
+        """The hand-written header under ``csrc/`` that holds this plan's
+        kernel."""
+        return KERNEL_FILES[self.kind]
+
     def buf3(self, t: torch.Tensor) -> torch.Tensor:
         """A buffer in the kernels' 3D form (a view)."""
         return t if self.ndim == 3 else t.unsqueeze(1)
@@ -701,6 +707,12 @@ class MapPlan(_Plan):
         self.smem_bytes = smem
         self.scal_names = [n for n, _ in kernel.scalar_params]
         self._sources: Dict[torch.dtype, str] = {}
+
+    @property
+    def source_file(self) -> str:
+        """The hand-written header that holds this plan's kernel: smem's is
+        ``map_smem.cuh``, which ``map_step.cuh`` includes."""
+        return "map_smem.cuh" if self.template == "smem" else KERNEL_FILES[self.kind]
 
     def hbm_bytes_per_step(self, itemsize: int = 4) -> float:
         """The fused plan's model of the kernel's traffic (``_Plan``) plus,

@@ -49,6 +49,8 @@
 // re-read, mostly from L2 (the tiles that run together are neighbours).
 #include <cuda.h>
 
+#include <mutex>
+
 #include "smem_tile.cuh"
 
 // each ring grid's queue of axis-0 taps at the column's centre
@@ -84,13 +86,19 @@ __device__ __forceinline__ void mbar_expect_tx(unsigned long long* bar, unsigned
                "r"(bytes)
                : "memory");
 }
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
 // wait for the phase of parity `parity` to complete; a copy that never
-// arrives traps (after ~2 s) instead of hanging the card
+// arrives traps (after 10 s of wall time, far past any healthy copy even on
+// a time-sliced card) instead of hanging the card
 __device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
   unsigned done = 0;
-  const long long t0 = clock64();
+  const unsigned long long t0 = global_ns();
   while (!done) {
-    if (clock64() - t0 > (1LL << 32)) __trap();
+    if (global_ns() - t0 > 10000000000ULL) __trap();
     asm volatile(
         "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
         " selp.u32 %0, 1, 0, p;\n}\n"
@@ -311,6 +319,10 @@ map_step_kernel(const Params p, const __grid_constant__ SmemArgs args) {
   if constexpr (kAnyGranule) cp_async_wait<0>();
 }
 
+// guards the host state below (the driver entry point, the TMA map cache,
+// the per-device launch shape) against host threads calling at once
+static std::mutex host_state_mutex;
+
 // cuTensorMapEncodeTiled, a CUDA driver API function, reached through the
 // runtime (the build links no libcuda)
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -335,7 +347,7 @@ static EncodeTiled encode_tiled() {
 
 // The TMA map of grid g's tensor at ptr (its extents n0 x n1 x n2, pitches
 // sx, sy in cells), cached by (grid, pointer, shape): encoding is host work
-// on every st.map otherwise.
+// on every st.map otherwise.  The caller holds host_state_mutex.
 static CUresult tma_map(int g, void* ptr, long long n0, long long sx, long long sy,
                         CUtensorMap* out) {
   struct Entry {
@@ -381,7 +393,8 @@ static CUresult tma_map(int g, void* ptr, long long n0, long long sx, long long 
 extern "C" int rt_map_step(const void* meta, const void* scal, void* stream) {
   const Params p = rt_params(meta, scal);
   const long long* n0 = static_cast<const long long*>(meta) + 4 * RT_NG + 3 + 4 * RT_NO;
-  static SmemArgs args;       // kernel parameters (copied at the launch)
+  SmemArgs args{};            // kernel parameters (copied at the launch)
+  std::unique_lock<std::mutex> lock(host_state_mutex);
   for (int g = 0; g < RT_NG; ++g) {
     args.ox[g] = static_cast<int>(p.org[g] / p.sx[g]);
     args.oy[g] = static_cast<int>(p.org[g] % p.sx[g] / p.sy[g]);
@@ -413,6 +426,7 @@ extern "C" int rt_map_step(const void* meta, const void* scal, void* stream) {
   const long long n_tiles = static_cast<long long>((p.R0 + RT_TB0 - 1) / RT_TB0) *
                             ((p.R1 + RT_TB1 - 1) / RT_TB1) * ((p.R2 + RT_TB2 - 1) / RT_TB2);
   const long long fit = static_cast<long long>(sms[dev]) * per_sm[dev];
+  lock.unlock();
   const dim3 threads(RT_TB2, RT_TB1, 1);
   const dim3 blocks(static_cast<unsigned>(n_tiles < fit ? n_tiles : fit), 1, 1);
   map_step_kernel<<<blocks, threads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(p, args);

@@ -186,6 +186,18 @@ def test_smem_launch_args_check_the_tma_base():
                          "v": torch.zeros(10, 10, 10)}, {})
 
 
+@pytest.mark.parametrize("template,want", [
+    ("gmem", "map_step.cuh"), ("f4", "map_step.cuh"), ("smem", "map_smem.cuh"),
+    ("shift", "stream_step.cuh"), ("semi", "semi_step.cuh")])
+def test_plan_names_the_header_of_its_kernel(template, want):
+    """A plan names the hand-written header that holds its kernel's body
+    (smem's is included by ``map_step.cuh``, which the source includes)."""
+    plan = _plan("star3d4r", (16, 16, 16), template)
+    assert plan.source_file == want
+    assert (_build.STENCIL_CSRC / want).is_file()
+    assert f'#include "{codegen.KERNEL_FILES[plan.kind]}"' in plan.source()
+
+
 _SMEM_HARNESS = r"""
 struct __nv_bfloat16 { unsigned short x; };
 %s
