@@ -17,15 +17,20 @@ Phases, each of which exits non-zero when it fails:
    f4, since f4's load path and smem's staging path follow from the grids'
    pitches and the region), their bf16 builds (K3 at k=2), K6 (causal
    conv1d) and K7 (flash decode attention: its split and combine passes),
-   built from ``src`` with one ``nvcc`` per source, all started together;
-   for every f4 and smem build its path (f4: each grid's rows aligned at
-   plan time or at run time; smem: each staged grid copied by TMA or by
-   4-byte ``cp.async`` granules) and its ``ptxas`` registers and spills;
+   built from ``src`` with one ``nvcc`` per source, all started together
+   (K2's and K3's sources depend on the buffers' pitches, their staging
+   path: one for every shape and type they run at, and K2's 512³ builds
+   again with granules in place of the TMA); for every f4, smem, K2 and K3
+   build its path (f4: each grid's rows aligned at plan time or at run
+   time; smem, K2, K3: each staged grid copied by TMA or by 4-byte
+   ``cp.async`` granules), its tile, shared bytes and ``ptxas`` registers
+   and spills;
 3. kernels — each kernel against its plain PyTorch version on the card,
    after one launch (K3: k=2 and k=3, both reading buffers left intact),
    at a block-multiple shape (64³), a ragged one (61×70×133) and the
    main-path shape (512³, K3 at k=2 only); time per step of kernel and
-   plain version at 512³ (CUDA events; K3's launch time divided by k),
+   plain version at 512³ (CUDA events; K3's launch time divided by k,
+   and the launch time),
    and for ``star3d4r`` of the one library call that computes the same
    update (``conv3d`` in f32 with the star as a dense 9³ weight); then
    each per-application kernel against its plain version after one
@@ -33,10 +38,12 @@ Phases, each of which exits non-zero when it fails:
    multiple of 4, and for the Jacobi kernel (outputs into a destination
    buffer), with its time per application at 512³; every stencil source
    built for bf16 grids against its plain version at the two small shapes
-   (within one bf16 ulp of max(1, |plain|)), K4 f4 and smem also at the
-   sub-region and 512³, and K1 (gmem), K2 (shift) and K4 f4/smem in bf16
-   at 512³ with their times (and ``conv3d`` on bf16 grids for
-   ``star3d4r``); K6 in bf16 and f32 at
+   (within one bf16 ulp of max(1, |plain|); K3 at k=2 and k=3), K4 f4,
+   smem and shift also at the sub-region and 512³, and K1 (gmem), K2
+   (shift), K3 (k=2: per step and per launch) and K4 f4/smem/shift in
+   bf16 at 512³ with their times (and ``conv3d`` on bf16 grids for
+   ``star3d4r``); K2's TMA and granule builds at 512³, f32 and bf16,
+   against each other and timed in turns; K6 in bf16 and f32 at
    the serving decode shape ``[4, 4, 4096]``, a prefill-sized
    ``[4, 2048, 4096]`` and a ragged ``[3, 1001, 4100]``, each at widths 1
    and 4, and K7 in bf16 at RecurrentGemma's decode shape (B=8, H=16, K=1,
@@ -183,11 +190,14 @@ END_TO_END_RTOL = 2e-5
 # bf16 kernels vs their plain versions: both compute in f32 and round once,
 # so an output cell may differ by one rounding, one bf16 ulp of the
 # magnitude
-BF16_TIMED = ("fused_step", "stream_step")
+BF16_TIMED = ("fused_step", "stream_step", "temporal_step")
 # per-application kernels held against their plain versions in bf16 at
 # every shape and the sub-region, and timed at 512³ (the others: bf16 at
 # the small shapes)
-MAP_BF16_ALL = ("f4", "smem")
+MAP_BF16_ALL = ("f4", "smem", "shift")
+# K2's two staging forks timed side by side at 512³ (TMA, granules,
+# granules, TMA, ...): rounds, and launches timed per turn after warm-up
+FORK_ROUNDS, FORK_REPS = 3, 30
 # conv3d in bf16 vs the plain version on bf16 grids: its weights (the
 # star's coefficients) are rounded to bf16, each to 2^-9 of itself, and its
 # output once; the JAX package's bf16 tolerance, 3e-2 of the magnitude
@@ -343,8 +353,8 @@ def map_cases(w, jacobi, shapes):
 
 def map_dtypes(torch, template, shape, region):
     """Grid types a per-application case runs in: f32 everywhere, bf16 at
-    the small shapes, and for f4 and smem (``MAP_BF16_ALL``) at 512³ and
-    the sub-region too."""
+    the small shapes, and for f4, smem and shift (``MAP_BF16_ALL``) at 512³
+    and the sub-region too."""
     if template in MAP_BF16_ALL or (shape in SMALL_SHAPES and region is None):
         return (torch.float32, torch.bfloat16)
     return (torch.float32,)
@@ -352,8 +362,17 @@ def map_dtypes(torch, template, shape, region):
 
 def path_of(plan, dtype):
     """The load path of an f4 build (per grid: aligned at plan time, or at
-    run time) or the staging path of an smem build (TMA or 4-byte
-    granules)."""
+    run time) or the staging path of an smem, K2 or K3 build (TMA or 4-byte
+    granules; K2/K3 with the TMA box's lead)."""
+    if plan.kind in ("stream", "temporal"):
+        lay = plan.ring_layout(dtype)
+        rings = ({plan.swap[1]: lay.planes[-1]} if plan.kind == "temporal"
+                 else lay.planes)
+        return {"path": f"{plan.kind} " + ", ".join(
+            f"{g}: {f'TMA (lead {pl.lead})' if pl.tma else 'cp.async granules'}"
+            for g, pl in rings.items()),
+            "stream_tma": {g: pl.tma for g, pl in rings.items()},
+            "smem_bytes": lay.smem}
     if plan.template == "f4":
         org = plan.f4_org_mod4()
         return {"path": "f4 " + ", ".join(
@@ -365,13 +384,72 @@ def path_of(plan, dtype):
         "smem_tma": tma}
 
 
-def ptxas_usage(log: str):
-    """Registers and spill bytes of the kernel ``map_step_kernel`` in an
-    ``nvcc -Xptxas -v`` log (None where the log does not say)."""
+def fused_depths(kname, shape):
+    """The depths phase 3 runs a fused kernel at: K3 at k=2 and k=3 at the
+    small shapes and k=2 at 512³, the others one step."""
+    if kname != "temporal_step":
+        return (KERNELS[kname][1],)
+    return TEMPORAL_SMALL_DEPTHS if shape in SMALL_SHAPES else (KERNELS[kname][1],)
+
+
+def granule_plan(plan):
+    """``plan`` with K2's staging forced to 4-byte granules (the TMA path's
+    alternative), before its first source."""
+    plan.allow_tma = False
+    return plan
+
+
+def stream_forks(torch, codegen, stream_step, forks):
+    """K2's two staging paths side by side at 512³ for each (workload,
+    dtype) of ``forks``: the plan's TMA build and the same kernel on 4-byte
+    granules, checked against each other after one launch (f32: 2e-5 of
+    the magnitude; bf16: one ulp), then timed in turns (TMA, granules,
+    granules, TMA; ``FORK_ROUNDS`` rounds of ``FORK_REPS`` launches).
+    Returns the rows."""
+    rows = []
+    for w, dtype in forks:
+        plans = {"tma": w.plan(codegen, MAIN_SHAPE, "shift"),
+                 "granules": granule_plan(w.plan(codegen, MAIN_SHAPE, "shift"))}
+        name = str(dtype).split(".")[1]
+        key = f"stream_step[{w.name}] {name} forks"
+        for fork, plan in plans.items():
+            if set(plan.stream_tma(dtype).values()) != {fork == "tma"}:
+                fail(f"{key}: the {fork} build stages {plan.stream_tma(dtype)}")
+        arrays = w.arrays(torch, MAIN_SHAPE, seed=12, dtype=dtype)
+        runs, outs = {}, {}
+        for fork, plan in plans.items():
+            padded = plan.to_padded({g: t.clone() for g, t in arrays.items()})
+            stream_step(plan, padded, w.scalars)
+            outs[fork] = {g: padded[g].clone() for g in plan.out_grids}
+            runs[fork] = (lambda plan=plan, padded=padded:
+                          stream_step(plan, padded, w.scalars))
+        torch.cuda.synchronize()
+        err = check_out(torch, f"{key}: granules vs TMA", outs["granules"],
+                        outs["tma"], bf16_ulp if dtype == torch.bfloat16 else rel_tol)
+        ms = {fork: [] for fork in runs}
+        for _ in range(FORK_ROUNDS):
+            for fork in ("tma", "granules", "granules", "tma"):
+                ms[fork].append(time_ms(torch, runs[fork], FORK_REPS, 5))
+        row = {"kernel": f"stream_step[{w.name}]", "dtype": name,
+               "max_abs_diff": err, **{f"{f}_ms": v for f, v in ms.items()}}
+        rows.append(row)
+        med = {f: sorted(v)[len(v) // 2] for f, v in ms.items()}
+        say(f"fork {key}: TMA {med['tma']:.4f} ms (min {min(ms['tma']):.4f}, max "
+            f"{max(ms['tma']):.4f}), granules {med['granules']:.4f} ms (min "
+            f"{min(ms['granules']):.4f}, max {max(ms['granules']):.4f}); |diff| "
+            f"{err:.3g}")
+        del arrays, runs, outs
+        torch.cuda.empty_cache()
+    return rows
+
+
+def ptxas_usage(log: str, kernel: str = "map_step_kernel"):
+    """Registers and spill bytes of ``kernel`` in an ``nvcc -Xptxas -v``
+    log (None where the log does not say)."""
     out = {"registers": None, "spill_stores": None, "spill_loads": None}
     lines = log.splitlines()
     for i, line in enumerate(lines):
-        if "Compiling entry function" in line and "map_step_kernel" in line:
+        if "Compiling entry function" in line and kernel in line:
             for nxt in lines[i + 1:i + 6]:
                 m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", nxt)
                 if m:
@@ -1052,11 +1130,22 @@ def main(argv=None) -> int:
     # -- 2. build ------------------------------------------------------------
     shapes = SMALL_SHAPES if args.quick else SMALL_SHAPES + (MAIN_SHAPE,)
     t0 = time.perf_counter()
-    sources = [w.plan(codegen, MAIN_SHAPE, t, k).source()
-               for w in workloads for t, k in KERNELS.values()]
-    sources += [w.plan(codegen, MAIN_SHAPE, KERNELS["temporal_step"][0],
-                       k).source()
-                for w in workloads for k in TEMPORAL_SMALL_DEPTHS]
+    # K2's and K3's sources depend on the buffers' pitches (their staging
+    # path): one for every shape, depth and type phase 3 runs them at
+    fused_builds = [(w, kname, shape, k, dtype)
+                    for w in workloads for kname in KERNELS
+                    for shape in shapes for k in fused_depths(kname, shape)
+                    for dtype in (torch.float32, torch.bfloat16)
+                    if dtype == torch.float32 or shape != MAIN_SHAPE
+                    or kname in BF16_TIMED]
+    sources = [w.plan(codegen, shape, KERNELS[kname][0], k).source(dtype)
+               for w, kname, shape, k, dtype in fused_builds]
+    # K2's fork at 512³: the same kernels with granules in place of the TMA
+    forks = ([] if args.quick else
+             [(w, dtype) for w in workloads
+              for dtype in (torch.float32, torch.bfloat16)])
+    sources += [granule_plan(w.plan(codegen, MAIN_SHAPE, "shift")).source(dtype)
+                for w, dtype in forks]
     # a map plan's source depends on the grids' pitches and the region
     # (f4's load paths, smem's staging paths): one for every case run below
     map_builds = [(w, t, shape, region, dtype)
@@ -1066,9 +1155,6 @@ def main(argv=None) -> int:
                                 else map_dtypes(torch, t, shape, region))]
     sources += [w.map_plan(codegen, shape, t, region).source(dtype)
                 for w, t, shape, region, dtype in map_builds]
-    # the bf16 builds of every stencil source (K3 at k=2)
-    sources += [w.plan(codegen, MAIN_SHAPE, t, k).source(torch.bfloat16)
-                for w in workloads for t, k in KERNELS.values()]
     # phase 7's seven regions under f4 (each region's first cell has its
     # place in an aligned vector of 4)
     sources += [codegen.lower_hopper(
@@ -1095,17 +1181,28 @@ def main(argv=None) -> int:
     # the load (f4) or staging (smem) path of every f4/smem build, with its
     # registers and spills
     record["paths"] = []
-    for w, t, shape, region, dtype in map_builds:
-        if t not in ("f4", "smem"):
-            continue
-        plan = w.map_plan(codegen, shape, t, region)
-        row = {"kernel": f"map_step.{t}[{w.name}]", "shape": list(shape),
+    paths = [(w.map_plan(codegen, shape, t, region), w.name, shape, region,
+              dtype) for w, t, shape, region, dtype in map_builds
+             if t in ("f4", "smem", "shift")]
+    paths += [(w.plan(codegen, shape, KERNELS[kname][0], k), w.name, shape,
+               None, dtype) for w, kname, shape, k, dtype in fused_builds
+              if kname in ("stream_step", "temporal_step")]
+    for plan, wname, shape, region, dtype in paths:
+        entry = {"map": "map_step", "stream": "stream_step",
+                 "temporal": "temporal_step"}[plan.kind]
+        name = (f"{entry}.{plan.template}" if plan.kind == "map" else
+                f"{entry}{'.map' if hasattr(plan, 'region') else ''}"
+                f"{f' k={plan.time_block}' if plan.time_block > 1 else ''}")
+        row = {"kernel": f"{name}[{wname}]", "shape": list(shape),
                "region": region, "dtype": str(dtype).split(".")[1],
                "block": list(plan.B), **path_of(plan, dtype),
-               **ptxas_usage(_build.ptxas_log(plan.source(dtype)))}
+               **ptxas_usage(_build.ptxas_log(plan.source(dtype)),
+                             f"{entry}_kernel")}
         record["paths"].append(row)
+        smem = row.get("smem_bytes")
         say(f"path {row['kernel']} {row['dtype']} at {shape} region {region}: "
-            f"{row['path']}, block {plan.B}; ptxas {row['registers']} "
+            f"{row['path']}, block {plan.B}"
+            f"{f', {smem} B shared' if smem else ''}; ptxas {row['registers']} "
             f"registers, {row['spill_stores']} B spill stores, "
             f"{row['spill_loads']} B spill loads")
 
@@ -1118,9 +1215,7 @@ def main(argv=None) -> int:
             key = f"{kname}[{w.name}]"
             worst = 0.0
             for shape in shapes:
-                depths = ((k_main,) if kname != "temporal_step"
-                          or shape == MAIN_SHAPE else TEMPORAL_SMALL_DEPTHS)
-                for k in depths:
+                for k in fused_depths(kname, shape):
                     plan = w.plan(codegen, shape, template, k)
                     got, ref, run_kern, run_plain = one_launch(
                         torch, kname, kern, plain, plan,
@@ -1164,11 +1259,11 @@ def main(argv=None) -> int:
                             "max_abs_err": None, "ms": ms,
                             "plain_ms": plain_ms, "bound_ms": bound,
                             "bound_by": bound_by, "library_ms": lib,
-                            "time_block": k,
+                            "time_block": k, "launch_ms": ms * k,
                             "modeled_bytes_per_step": plan.hbm_bytes_per_step()}
-                        say(f"time {key} {shape}: {ms:.4f} ms/step "
-                            f"(plain {plain_ms:.2f} ms, bound {bound} ms, "
-                            f"library {lib} ms)")
+                        say(f"time {key} {shape}: {ms:.4f} ms/step, "
+                            f"{ms * k:.4f} ms/launch (plain {plain_ms:.2f} "
+                            f"ms, bound {bound} ms, library {lib} ms)")
                     del plan, got, ref, run_kern, run_plain
                     torch.cuda.empty_cache()
             if key in entries:
@@ -1224,10 +1319,12 @@ def main(argv=None) -> int:
     bf16 = torch.bfloat16
     library_bf16 = {}   # workload -> ms of conv3d on bf16 grids
     for w in workloads:
-        for kname, (template, k) in KERNELS.items():
+        for kname, (template, _) in KERNELS.items():
             kern, plain = wrappers[kname]
             timed = kname in BF16_TIMED and not args.quick
-            for shape in SMALL_SHAPES + ((MAIN_SHAPE,) if timed else ()):
+            for shape, k in [(shape, k) for shape in SMALL_SHAPES + (
+                    (MAIN_SHAPE,) if timed else ())
+                    for k in fused_depths(kname, shape)]:
                 key = f"{kname}[{w.name}] bf16 k={k} {shape}"
                 plan = w.plan(codegen, shape, template, k)
                 got, ref, run_kern, run_plain = one_launch(
@@ -1244,7 +1341,7 @@ def main(argv=None) -> int:
                     info = w.kernel.info
                     bound, bound_by = bound_of(
                         rates, 2 * n * (len(info.input_grids)
-                                        + len(plan.step_out_grids)),
+                                        + len(plan.step_out_grids)) / k,
                         info.flops_per_point * n)
                     if w.name == "star3d4r" and w.name not in library_bf16:
                         lib_ms, lib_err = star_conv(torch, w, codegen,
@@ -1253,10 +1350,12 @@ def main(argv=None) -> int:
                         say(f"library conv3d[star3d4r] bf16 {shape}: "
                             f"{lib_ms:.4f} ms, max abs err vs plain "
                             f"{lib_err:.3g}")
-                    row.update(ms=time_ms(torch, run_kern, 50, 10),
-                               plain_ms=time_ms(torch, run_plain, 1),
+                    launch = time_ms(torch, run_kern, 50, 10)
+                    row.update(ms=launch / k, launch_ms=launch, time_block=k,
+                               plain_ms=time_ms(torch, run_plain, 1) / k,
                                bound_ms=bound, bound_by=bound_by,
-                               library_ms=library_bf16.get(w.name),
+                               library_ms=(library_bf16.get(w.name)
+                                           if k == 1 else None),
                                modeled_bytes_per_step=plan.hbm_bytes_per_step(2))
                     msg += (f"; {row['ms']:.4f} ms/step (plain "
                             f"{row['plain_ms']:.2f} ms, bound {bound} ms, "
@@ -1298,6 +1397,7 @@ def main(argv=None) -> int:
                 del plan, run_kern, run_plain
                 torch.cuda.empty_cache()
     record["bf16"] = bf16_rows
+    record["stream_forks"] = stream_forks(torch, codegen, stream_step, forks)
     conv_entry, conv_rows = conv_phase(torch, rates, conv, conv_ref, args.quick)
     attn_entries, attn_rows = attn_phase(torch, rates, attn, attn_ref,
                                          args.quick)

@@ -57,7 +57,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -68,19 +68,35 @@ from . import emit
 # threads cover b1 x b2 points; the streaming kernels walk b0 planes, and
 # the one-step kernels' threads (K1, K4 gmem) b0 points of a column; K5's
 # threads walk two columns along axis 1 with f32 grids (csrc/semi_step.cuh
-# kCols), so its tile is twice K2's.  K4 f4's threads walk a column of
+# kCols).  K2's threads walk two columns along axis 1 of an 8 x 64 tile
+# (csrc/stream_ring.cuh), three blocks an SM: at a halo of 4 a staged
+# plane is 16 x 72 cells, 2.25 a point (16 x 64 stages 1.69, but holds one
+# block an SM, and acoustic's center-only loads then wait;
+# tools/stream_tiles_ab.py times both).  K4 f4's threads walk a column of
 # groups of 4 points along axis 2, long enough to amortise the prologue of
 # their axis-0 register queue (csrc/f4_rows.cuh).  K4 smem's persistent
 # blocks stage two halo'd tiles of b0 x b1 x b2 (csrc/map_smem.cuh): its
 # default is the first of SMEM_BLOCKS whose two stages fit in shared
-# memory, (8, 16, 64) in 3D for one staged grid at a halo of 4.
+# memory, (8, 16, 64) in 3D for one staged grid at a halo of 4.  K3's
+# default is the first of TEMPORAL_BLOCKS whose rings fit
+# (csrc/temporal_ring.cuh): 16 x 64 at k=2, 16 x 32 at k=3 for a halo of 4,
+# chunks of 128 planes (a chunk re-evaluates 2(k-1)h0 planes of sub-step 0).
 DEFAULT_BLOCK = {"step": {2: (4, 256), 3: (4, 8, 32)},
-                 "stream": {2: (64, 256), 3: (64, 8, 32)},
+                 "stream": {2: (64, 128), 3: (64, 8, 64)},
                  "semi": {2: (64, 256), 3: (64, 16, 32)},
                  "f4": {2: (16, 512), 3: (16, 8, 128)}}
 SMEM_BLOCKS = {2: ((32, 256), (16, 128), (8, 64), (4, 32)),
                3: ((8, 16, 64), (4, 16, 64), (4, 8, 64), (4, 8, 32),
                    (2, 4, 32))}
+TEMPORAL_BLOCKS = {2: ((128, 128), (128, 64), (64, 32)),
+                   3: ((128, 16, 64), (128, 16, 32), (64, 8, 32), (64, 4, 32),
+                       (32, 4, 16))}
+# planes each staged ring copies ahead of the plane it evaluates: K2's
+# rings (RT_PRE, csrc/stream_ring.cuh) and K3's input ring
+STREAM_PREFETCH = 4
+TEMPORAL_PREFETCH = 2
+# K3's threads: at most this many, each owning fixed cells of every stage
+TEMPORAL_THREADS = 1024
 STREAM_TEMPLATES = ("shift", "unroll", "semi")
 # RT_MAP_T of K4's blocked templates (csrc/map_step.cuh)
 MAP_TEMPLATES = {"gmem": 0, "f4": 1, "smem": 2}
@@ -114,19 +130,18 @@ def to3(t, fill: int) -> Tuple[int, int, int]:
 
 
 def choose_block(user_block, template: str, ndim: int,
-                 time_block: int = 1,
                  per_application: bool = False) -> Tuple[int, ...]:
     """The tile in points (the port's own defaults, see ``DEFAULT_BLOCK``;
-    K3 walks chunks of planes like the streaming kernels, K5 a tile twice
-    as tall; K4's f4, ``per_application``, takes a longer, wider tile;
-    K4 smem's default is ``MapPlan``'s, from ``SMEM_BLOCKS``)."""
+    K5 a tile twice as tall as K2's; K4's f4, ``per_application``, takes a
+    longer, wider tile; K4 smem's default is ``MapPlan``'s, from
+    ``SMEM_BLOCKS``, and K3's ``CudaPlan``'s, from ``TEMPORAL_BLOCKS``)."""
     if user_block is not None:
         if len(user_block) != ndim:
             raise ValueError(f"block must have {ndim} dims")
         return tuple(int(b) for b in user_block)
-    if template == "semi" and time_block == 1:
+    if template == "semi":
         kind = "semi"
-    elif template in STREAM_TEMPLATES or time_block > 1:
+    elif template in STREAM_TEMPLATES:
         kind = "stream"
     elif per_application and template == "f4":
         kind = "f4"
@@ -215,28 +230,102 @@ def smem_layout(B3, gh3, itemsize: int = 4):
     return out, off
 
 
-def _smem_bytes(kind: str, B3, gh3, time_block: int = 1, h_swap=None) -> int:
+class RingPlane(NamedTuple):
+    """One staged plane of a ring (``csrc/stream_ring.cuh``,
+    ``csrc/temporal_ring.cuh``): the tile widened by ``e·h`` per side in
+    y/z, ``w1`` rows of ``w2`` cells that lie ``pitch`` cells apart, the
+    row's first cell ``lead`` cells after the start of its staged row,
+    copied by the TMA (``tma``) or in 4-byte granules, ``nbytes`` a plane
+    (a multiple of 128: a TMA destination)."""
+    w1: int
+    w2: int
+    pitch: int
+    lead: int
+    tma: bool
+    nbytes: int
+
+
+def ring_plane(B3, h3, e: int, itemsize: int, org_z: int, pitches,
+               allow_tma: bool = True) -> RingPlane:
+    """The staged plane of a grid with tap halo ``h3`` over tile ``B3``
+    widened by ``e·h``, in a buffer of pitches ``(sx, sy)`` cells whose
+    computed box starts at cell ``org_z`` of its rows.  The TMA copies it
+    where both pitches and the tile's extent along axis 2 are multiples of
+    16 bytes and the box fits a TMA box (at most 256 cells an axis); its
+    box then starts ``lead`` cells before the plane's first cell, on a
+    16-byte boundary (the card refuses other inner starts).  Else the
+    threads copy 4-byte granules; a row's granules start at the one holding
+    its first cell, found at run time (bf16).  ``allow_tma=False`` takes
+    the granules."""
+    gran, vec = 4 // itemsize, 16 // itemsize
+    w1, w2 = B3[1] + 2 * e * h3[1], B3[2] + 2 * e * h3[2]
+    lead = (org_z - e * h3[2]) % vec
+    pitch = -(-(lead + w2 + gran - 1) // vec) * vec
+    tma = (allow_tma and all(x * itemsize % 16 == 0 for x in pitches)
+           and B3[2] * itemsize % 16 == 0
+           and pitch <= TMA_BOX_MAX and w1 <= TMA_BOX_MAX)
+    if not tma:
+        lead = 0
+        pitch = -(-(w2 + gran - 1) // vec) * vec
+    nbytes = -(-w1 * pitch * itemsize // SMEM_TILE_ALIGN) * SMEM_TILE_ALIGN
+    return RingPlane(w1, w2, pitch, lead, tma, nbytes)
+
+
+class RingLayout(NamedTuple):
+    """A kernel's staged rings in shared memory: each ring's plane, slots
+    and byte offset; the slots of the mbarriers (one a slot of the TMA-fed
+    ring); the block's dynamic shared memory (slack to align the base to
+    128 bytes, the rings, 8 bytes a barrier)."""
+    planes: Dict[object, RingPlane]
+    slots: Dict[object, int]
+    offsets: Dict[object, int]
+    barriers: int
+    smem: int
+
+
+def _ring_layout(planes, slots, barriers) -> RingLayout:
+    offsets, off = {}, 0
+    for r, pl in planes.items():
+        offsets[r] = off
+        off += slots[r] * pl.nbytes
+    return RingLayout(planes, slots, offsets, barriers,
+                      SMEM_TILE_ALIGN + off + 8 * barriers)
+
+
+def _smem_bytes(kind: str, B3, gh3) -> int:
     """Shared memory one block of ``kind`` takes with f32 grids (bf16 ones
-    take no more): K2's rings of ``2h0+1`` halo'd planes, K5's ring of
-    ``SEMI_STAGES`` staged planes, K3's ``k`` plane rings, K4 smem's two
-    stages of halo'd tiles (``smem_layout``) with their alignment slack
-    and mbarriers, of every grid with an off-center tap."""
+    take no more): K5's ring of ``SEMI_STAGES`` staged planes, K4 smem's
+    two stages of halo'd tiles (``smem_layout``) with their alignment slack
+    and mbarriers, of every grid with an off-center tap.  K2's and K3's
+    rings: ``_Plan.ring_layout``."""
     ring = [h for h in gh3.values() if any(h)]
-    if kind == "stream":
-        return 4 * sum((2 * h[0] + 1) * (B3[1] + 2 * h[1]) * (B3[2] + 2 * h[2])
-                       for h in ring)
     if kind == "semi":
         return 4 * SEMI_STAGES * sum((B3[1] + 2 * h[1]) * (B3[2] + 2 * h[2])
                                      for h in ring)
-    if kind == "temporal":
-        h, k = h_swap, time_block
-        return 4 * (2 * h[0] + 1) * sum(
-            (B3[1] + 2 * (k - 1 - r) * h[1]) * (B3[2] + 2 * (k - 1 - r) * h[2])
-            for r in range(-1, k - 1))
     if kind == "smem":
         stage = smem_layout(B3, gh3)[1]
         return SMEM_TILE_ALIGN + 2 * stage + SMEM_BARRIER_BYTES
     return 0
+
+
+def temporal_threads(B3, h3, k: int) -> Tuple[int, int]:
+    """K3's threads and the cells each owns (``csrc/temporal_ring.cuh``):
+    the cells of sub-step 0's tile (``B3`` widened by ``(k-1)·h``) in
+    units of two cells adjacent along axis 1 (one where the tile has an odd
+    number of rows or ``h1`` is odd), unit ``i`` (row-major) to thread ``i
+    mod threads``."""
+    w1 = B3[1] + 2 * (k - 1) * h3[1]
+    w2 = B3[2] + 2 * (k - 1) * h3[2]
+    pair = 2 if w1 % 2 == 0 and h3[1] % 2 == 0 else 1
+    units = w1 * w2 // pair
+    threads = min(TEMPORAL_THREADS, -(-units // 32) * 32)
+    return threads, pair * -(-units // threads)
+
+
+def _pitches(shape) -> Tuple[int, int]:
+    """The pitches ``(sx, sy)`` in cells of a contiguous tensor of
+    ``shape`` in the kernels' 3D form (2D: ``(R0, 1, R1)``)."""
+    return (shape[1] * shape[2], shape[2]) if len(shape) == 3 else (shape[1], shape[1])
 
 
 def check_dtype(what: str, t: torch.Tensor, dtype) -> None:
@@ -285,6 +374,90 @@ class _Plan:
             return self.interior3(g, bufs[g], x)
         b = self.buf3(dst[g])
         return b if x is None else b[x]
+
+    # K2's and K3's staging path: the TMA where ``ring_plane`` allows it,
+    # else granules; False forces granules (a measurement of the two paths
+    # sets it before the plan's first ``source``)
+    allow_tma = True
+
+    def ring_grids(self):
+        """The grids K2 stages in plane rings: those with an off-center
+        tap."""
+        return [g for g in self.opnd_grids if any(self.gh3[g])]
+
+    def temporal_dlo(self) -> int:
+        """The lowest axis-0 offset (at most 0) of a tap of the grid K3's
+        sub-steps read off-center that leaves the column (dy or dz not 0):
+        its rings of sub-step values keep planes ``x + dlo .. x + h0``."""
+        go = self.swap[1]
+        return min([0] + [emit.offsets3(t.offsets)[0]
+                          for t in self.kernel.taps() if t.grid == go
+                          and any(emit.offsets3(t.offsets)[1:])])
+
+    def ring_layout(self, dtype=torch.float32) -> RingLayout:
+        """The staged rings of K2 or K3 on grids of ``dtype``
+        (``csrc/stream_ring.cuh``, ``csrc/temporal_ring.cuh``).  K2: every
+        grid with an off-center tap keeps ``2H + 1 + STREAM_PREFETCH``
+        planes (H the largest axis-0 halo; one mbarrier a slot) of the tile
+        widened by its halo, in its own type.  K3: ring -1 keeps ``2h0 + 1
+        + TEMPORAL_PREFETCH`` planes of the read swap buffer over the tile
+        widened by ``k·h`` (its own type, one mbarrier a slot), ring ``j``
+        (0 .. k-2) ``h0 - dlo + 1`` planes of sub-step ``j`` over the tile
+        widened by ``(k-1-j)·h``, in f32, rows unpadded."""
+        es = ELEM_BYTES[dtype]
+        if self.kind == "temporal":
+            k, go = self.time_block, self.swap[1]
+            h = self.gh3[go]
+            planes = {-1: ring_plane(self.B3, h, k, es, self.org3[go][2],
+                                     self.pitch3[go], self.allow_tma)}
+            slots = {-1: 2 * h[0] + 1 + TEMPORAL_PREFETCH}
+            for j in range(k - 1):
+                w1 = self.B3[1] + 2 * (k - 1 - j) * h[1]
+                w2 = self.B3[2] + 2 * (k - 1 - j) * h[2]
+                planes[j] = RingPlane(w1, w2, w2, 0, False, -(-w1 * w2 * 4 // 16) * 16)
+                slots[j] = h[0] - self.temporal_dlo() + 1
+            return _ring_layout(planes, slots, slots[-1])
+        ring = self.ring_grids()
+        n = 2 * max((self.gh3[g][0] for g in ring), default=0) + 1 + STREAM_PREFETCH
+        planes = {g: ring_plane(self.B3, self.gh3[g], 1, es, self.org3[g][2],
+                                self.pitch3[g], self.allow_tma) for g in ring}
+        return _ring_layout(planes, {g: n for g in planes}, n)
+
+    def stream_tma(self, dtype=torch.float32) -> Dict[str, bool]:
+        """K2's and K3's staging path of each ring grid (K3: the read swap
+        buffer) on grids of ``dtype``: the TMA or 4-byte ``cp.async``
+        granules (``ring_plane``); the wrapper checks that a TMA grid's base
+        is 16-byte aligned."""
+        lay = self.ring_layout(dtype)
+        if self.kind == "temporal":
+            return {self.swap[1]: lay.planes[-1].tma}
+        return {g: pl.tma for g, pl in lay.planes.items()}
+
+    def ring_source(self, dtype) -> str:
+        """The generated tables of K2's and K3's staged rings on grids of
+        ``dtype``: each grid's staging path (``grid_tma``) and box lead
+        (``grid_lead``), whether a tap reads it (``grid_read``), the planes
+        copied ahead (``RT_PRE``); K3 also ``RT_DLO`` (``temporal_dlo``)
+        and its thread count ``RT_THREADS``.  Part of the source, so of the
+        build key."""
+        lay = self.ring_layout(dtype)
+        if self.kind == "temporal":
+            planes = {self.swap[1]: lay.planes[-1]}
+            pre = TEMPORAL_PREFETCH
+        else:
+            planes, pre = lay.planes, STREAM_PREFETCH
+        g_of = self.opnd_grids
+        lines = [
+            emit.int_table("grid_tma", [int(g in planes and planes[g].tma) for g in g_of]),
+            emit.int_table("grid_lead", [planes[g].lead if g in planes else 0 for g in g_of]),
+            emit.int_table("grid_read", [int(g in self.in_grids) for g in g_of]),
+            f"#define RT_PRE {pre}"]
+        if self.kind == "temporal":
+            threads, _ = temporal_threads(self.B3, self.gh3[self.swap[1]],
+                                          self.time_block)
+            lines += [f"#define RT_DLO ({self.temporal_dlo()})",
+                      f"#define RT_THREADS {threads}"]
+        return "\n".join(lines + [""])
 
     # -- traffic model -----------------------------------------------------
     def hbm_bytes_per_step(self, itemsize: int = 4) -> float:
@@ -400,11 +573,6 @@ class CudaPlan(_Plan):
                     raise ValueError(
                         f"grid '{g}' halo {halos[g][ax]} too small for "
                         f"layout halo {hw[g][ax]} on axis {ax}")
-        B = choose_block(backend.block, template, ndim, k)
-        B3 = to3(B, 1)
-        if min(B3) < 1 or B3[1] * B3[2] > 1024:
-            raise ValueError(f"block {B}: a thread block covers b1·b2 points "
-                             "(1 to 1024)")
         # the semi template needs a kernel linear in its taps, also when
         # K3 runs the steps (as in the JAX package)
         lin, H = semi_linearize(kernel) if template == "semi" else (None, 0)
@@ -415,22 +583,11 @@ class CudaPlan(_Plan):
         else:
             kind = "stream" if template in STREAM_TEMPLATES else "fused"
         R3 = to3(R, 1)
-        if kind == "fused" and (-(-R3[0] // B3[0]) > 65535
-                                or -(-R3[1] // B3[1]) > 65535):
-            raise ValueError(f"block {B}: more than 65535 blocks along axis "
-                             f"0 or 1 of the interior {R}")
         gh3 = {g: to3(gh[g], 0) for g in opnd_grids}
-        smem = _smem_bytes(kind, B3, gh3, k, gh3[swap[1]] if k > 1 else None)
-        if smem > SMEM_LIMIT:
-            what = (f"time_block={k}: the {k} plane rings of block {B} need"
-                    if kind == "temporal" else f"{kind} tile of block {B} needs")
-            raise ValueError(f"{what} {smem} B of shared memory "
-                             f"(> {SMEM_LIMIT}); reduce block or time_block")
 
         self.kernel, self.info, self.backend = kernel, info, backend
         self.template, self.kind, self.time_block = template, kind, k
-        self.ndim, self.R, self.B = ndim, R, B
-        self.R3, self.B3 = R3, B3
+        self.ndim, self.R, self.R3 = ndim, R, R3
         self.halos = {g: tuple(halos[g]) for g in opnd_grids}
         self.gh, self.hw, self.swap = gh, hw, swap
         self.gh3 = gh3
@@ -441,14 +598,46 @@ class CudaPlan(_Plan):
         # the buffers one launch writes: with k > 1 both swap buffers
         self.step_out_grids = tuple(swap) if k > 1 else tuple(out_grids)
         self.lin, self.H = lin, H
-        self.smem_bytes = smem
         self.scal_names = [n for n, _ in kernel.scalar_params]
         self.padded_shapes = {g: tuple(R[ax] + 2 * hw[g][ax]
                                        for ax in range(ndim))
                               for g in opnd_grids}
+        self.pitch3 = {g: _pitches(f) for g, f in self.padded_shapes.items()}
+
+        if k > 1 and backend.block is None:
+            # the largest default tile whose rings fit
+            B = next((b for b in TEMPORAL_BLOCKS[ndim]
+                      if self._fit(b)[0] <= SMEM_LIMIT),
+                     TEMPORAL_BLOCKS[ndim][-1])
+        else:
+            B = choose_block(backend.block, template, ndim)
+        B3 = to3(B, 1)
+        if min(B3) < 1 or B3[1] * B3[2] > 1024:
+            raise ValueError(f"block {B}: a thread block covers b1·b2 points "
+                             "(1 to 1024)")
+        if kind == "fused" and (-(-R3[0] // B3[0]) > 65535
+                                or -(-R3[1] // B3[1]) > 65535):
+            raise ValueError(f"block {B}: more than 65535 blocks along axis "
+                             f"0 or 1 of the interior {R}")
+        smem, B3 = self._fit(B)
+        if smem > SMEM_LIMIT:
+            what = (f"time_block={k}: the {k} plane rings of block {B} need"
+                    if kind == "temporal" else f"{kind} tile of block {B} needs")
+            raise ValueError(f"{what} {smem} B of shared memory "
+                             f"(> {SMEM_LIMIT}); reduce block or time_block")
+        self.B, self.B3 = B, B3
+        self.smem_bytes = smem
         self.touched = tuple(g for g in opnd_grids
                              if g in set(out_grids) | set(swap or ()))
         self._sources: Dict[torch.dtype, str] = {}
+
+    def _fit(self, B):
+        """(shared memory of a block of tile ``B`` with f32 grids, ``B`` in
+        3D form)."""
+        self.B3 = to3(B, 1)
+        if self.kind in ("stream", "temporal"):
+            return self.ring_layout().smem, self.B3
+        return _smem_bytes(self.kind, self.B3, self.gh3), self.B3
 
     def count_window(self, steps: int) -> None:
         """Accumulate the modeled grid reads/writes of a fusion window of
@@ -500,6 +689,8 @@ class CudaPlan(_Plan):
                 src += (f"#define RT_K {self.time_block}\n"
                         f"#define RT_GW {self.opnd_grids.index(self.swap[0])}\n"
                         f"#define RT_GO {self.opnd_grids.index(self.swap[1])}\n")
+            if self.kind in ("stream", "temporal"):
+                src += self.ring_source(dtype)
             src = self._sources[dtype] = \
                 src + f'#include "{KERNEL_FILES[self.kind]}"\n'
         return src
@@ -513,6 +704,8 @@ class CudaPlan(_Plan):
         ptrs, sx, sy, org = [], [], [], []
         t0 = padded[self.opnd_grids[0]]
         device = t0.device
+        tma = (self.stream_tma(t0.dtype) if self.kind in ("stream", "temporal")
+               and t0.dtype in ELEM_BYTES else {})
 
         def check(g, t):
             if t.device != device:
@@ -521,9 +714,13 @@ class CudaPlan(_Plan):
             if tuple(t.shape) != self.padded_shapes[g] or not t.is_contiguous():
                 raise ValueError(f"grid '{g}': expected a contiguous layout "
                                  f"buffer of shape {self.padded_shapes[g]}")
-            if self.kind == "semi" and t.data_ptr() % 4:
-                raise ValueError(f"grid '{g}': the semi kernel copies 4-byte "
-                                 "granules and needs a 4-byte aligned buffer")
+            # K2, K3 and K5 copy 4-byte granules, and the TMA needs a
+            # 16-byte aligned base
+            align = 16 if tma.get(g) else 4
+            if self.kind in ("semi", "stream", "temporal") and t.data_ptr() % align:
+                raise ValueError(f"grid '{g}': the {self.kind} kernel copies "
+                                 f"{align}-byte units and needs a {align}-byte "
+                                 "aligned buffer")
 
         for g in self.opnd_grids:
             t = padded[g]
@@ -544,8 +741,11 @@ class CudaPlan(_Plan):
         if self.kind == "fused":
             i = [self.opnd_grids.index(g) for g in self.out_grids]
             dst = [v[j] for v in (ptrs, sx, sy, org) for j in i]
-        meta = (ctypes.c_longlong * (4 * len(ptrs) + 3 + len(dst)))(
-            *ptrs, *sx, *sy, *org, *self.R3, *dst)
+        # K2's and K3's TMA maps need each buffer's extent along axis 0
+        n0 = ([padded[g].shape[0] for g in self.opnd_grids]
+              if self.kind in ("stream", "temporal") else [])
+        meta = (ctypes.c_longlong * (4 * len(ptrs) + 3 + len(dst) + len(n0)))(
+            *ptrs, *sx, *sy, *org, *self.R3, *dst, *n0)
         vals = [float(scalars[n]) for n in self.scal_names] or [0.0]
         scal = (ctypes.c_float * len(vals))(*vals)
         return meta, scal
@@ -679,10 +879,6 @@ class MapPlan(_Plan):
             kind = "semi"
         else:
             kind = "stream" if template in STREAM_TEMPLATES else "map"
-        smem = _smem_bytes("smem" if template == "smem" else kind, B3, gh3)
-        if smem > SMEM_LIMIT:
-            raise ValueError(f"{template} tile of block {B} needs {smem} B of "
-                             f"shared memory (> {SMEM_LIMIT}); reduce block")
 
         self.kernel, self.info, self.backend = kernel, info, backend
         self.template, self.kind, self.time_block = template, kind, 1
@@ -697,13 +893,17 @@ class MapPlan(_Plan):
                                      for ax, n in enumerate(interior))
                             for g in opnd_grids}
         # the pitches (sx, sy) of each contiguous full tensor in 3D form
-        self.pitch3 = {g: ((f[1] * f[2], f[2]) if ndim == 3 else (f[1], f[1]))
-                       for g, f in self.full_shapes.items()}
+        self.pitch3 = {g: _pitches(f) for g, f in self.full_shapes.items()}
         self.in_grids, self.out_grids = in_grids, out_grids
         self.opnd_grids = opnd_grids
         self.step_out_grids = tuple(out_grids)
         self.in_place = not any(any(gh[g]) for g in out_grids)
         self.lin, self.H = lin, H
+        smem = (self.ring_layout().smem if kind == "stream" else
+                _smem_bytes("smem" if template == "smem" else kind, B3, gh3))
+        if smem > SMEM_LIMIT:
+            raise ValueError(f"{template} tile of block {B} needs {smem} B of "
+                             f"shared memory (> {SMEM_LIMIT}); reduce block")
         self.smem_bytes = smem
         self.scal_names = [n for n, _ in kernel.scalar_params]
         self._sources: Dict[torch.dtype, str] = {}
@@ -784,6 +984,8 @@ class MapPlan(_Plan):
             if self.kind == "semi":
                 src += emit.semi_functions(self.kernel, self.opnd_grids,
                                            self.out_grids, self.lin, self.H)
+            if self.kind == "stream":
+                src += self.ring_source(dtype)
             src = self._sources[dtype] = \
                 src + f'#include "{KERNEL_FILES[self.kind]}"\n'
         return src
@@ -811,9 +1013,10 @@ class MapPlan(_Plan):
         align = 1
         if self.kind == "map" and self.template == "f4":
             align = 4 * t0.element_size()
-        elif self.kind == "semi" or self.template == "smem":
+        elif self.kind in ("semi", "stream") or self.template == "smem":
             align = 4
-        tma = self.smem_tma(t0.dtype) if self.template == "smem" else {}
+        tma = (self.smem_tma(t0.dtype) if self.template == "smem" else
+               self.stream_tma(t0.dtype) if self.kind == "stream" else {})
 
         def check(what, t, shape, align=align):
             if t.device != device:
@@ -863,9 +1066,9 @@ class MapPlan(_Plan):
             dsx.append(b.stride(0))
             dsy.append(b.stride(1))
             dorg.append(0)
-        # smem's TMA maps need each grid's extent along axis 0
+        # smem's and K2's TMA maps need each grid's extent along axis 0
         n0 = ([bufs[g].shape[0] for g in self.opnd_grids]
-              if self.template == "smem" else [])
+              if self.template == "smem" or self.kind == "stream" else [])
         meta = (ctypes.c_longlong * (4 * len(ptrs) + 3 + 4 * len(d) + len(n0)))(
             *ptrs, *sx, *sy, *org, *self.R3, *d, *dsx, *dsy, *dorg, *n0)
         vals = [float(scalars[n]) for n in self.scal_names] or [0.0]

@@ -47,11 +47,8 @@
 // Bound: device-memory bytes, as K1: each input grid read once and each
 // output written once; halo cells a neighbouring tile also stages are
 // re-read, mostly from L2 (the tiles that run together are neighbours).
-#include <cuda.h>
-
-#include <mutex>
-
 #include "smem_tile.cuh"
+#include "tma_copy.cuh"
 
 // each ring grid's queue of axis-0 taps at the column's centre
 __host__ __device__ constexpr int queue_len(int g) { return grid_ring(g) ? 2 * grid_h0(g) + 1 : 0; }
@@ -66,56 +63,6 @@ struct SmemArgs {
   CUtensorMap map[RT_NG];
   int ox[RT_NG], oy[RT_NG], oz[RT_NG];
 };
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)), "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(unsigned long long* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ unsigned long long global_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
-// wait for the phase of parity `parity` to complete; a copy that never
-// arrives traps (after 10 s of wall time, far past any healthy copy even on
-// a time-sliced card) instead of hanging the card
-__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
-  unsigned done = 0;
-  const unsigned long long t0 = global_ns();
-  while (!done) {
-    if (global_ns() - t0 > 10000000000ULL) __trap();
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  }
-}
-__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
-                                            unsigned long long* bar, int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<unsigned long long>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1),
-      "r"(c2)
-      : "memory");
-}
 
 // Issue the copies of tile (x0, y0, z0) of every ring grid into stage st:
 // TMA grids by thread 0, the others by every thread (one cp.async group).
@@ -156,7 +103,7 @@ __device__ __forceinline__ void stage_tile(const Params& p, const SmemArgs& args
   if constexpr (kAnyTma) {
     if (tid == 0) {
       // the stage was last read through the generic proxy
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      fence_proxy_async();
       mbar_expect_tx(bar, kTmaBytes);
     }
   }
@@ -295,7 +242,7 @@ map_step_kernel(const Params p, const __grid_constant__ SmemArgs args) {
     if (tid == 0) {
       mbar_init(&bar[0]);
       mbar_init(&bar[1]);
-      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      mbar_init_fence();
     }
   }
   __syncthreads();
@@ -319,74 +266,6 @@ map_step_kernel(const Params p, const __grid_constant__ SmemArgs args) {
   if constexpr (kAnyGranule) cp_async_wait<0>();
 }
 
-// guards the host state below (the driver entry point, the TMA map cache,
-// the per-device launch shape) against host threads calling at once
-static std::mutex host_state_mutex;
-
-// cuTensorMapEncodeTiled, a CUDA driver API function, reached through the
-// runtime (the build links no libcuda)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-static EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-// The TMA map of grid g's tensor at ptr (its extents n0 x n1 x n2, pitches
-// sx, sy in cells), cached by (grid, pointer, shape): encoding is host work
-// on every st.map otherwise.  The caller holds host_state_mutex.
-static CUresult tma_map(int g, void* ptr, long long n0, long long sx, long long sy,
-                        CUtensorMap* out) {
-  struct Entry {
-    int g;
-    void* ptr;
-    long long n0, sx, sy;
-    CUtensorMap map;
-  };
-  constexpr int kCache = 32;
-  static Entry cache[kCache];
-  static int used = 0, next = 0;
-  for (int i = 0; i < used; ++i) {
-    const Entry& e = cache[i];
-    if (e.g == g && e.ptr == ptr && e.n0 == n0 && e.sx == sx && e.sy == sy) {
-      *out = e.map;
-      return CUDA_SUCCESS;
-    }
-  }
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return CUDA_ERROR_NOT_FOUND;
-  constexpr cuuint64_t es = sizeof(elem_t);
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(sy), static_cast<cuuint64_t>(sx / sy),
-                              static_cast<cuuint64_t>(n0)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(sy) * es, static_cast<cuuint64_t>(sx) * es};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(tile_p2(g)), static_cast<cuuint32_t>(tile_t1(g)),
-                             static_cast<cuuint32_t>(tile_t0(g))};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  CUtensorMap map;
-  const CUresult r = encode(
-      &map, sizeof(elem_t) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-      3, ptr, dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  if (r != CUDA_SUCCESS) return r;
-  Entry& e = used < kCache ? cache[used++] : cache[next++ % kCache];
-  e = Entry{g, ptr, n0, sx, sy, map};
-  *out = map;
-  return CUDA_SUCCESS;
-}
-
 // meta as in common.cuh (RT_MAP), followed by each grid's extent along
 // axis 0.  Returns a cudaError_t, or 10000 + a CUresult when a TMA map
 // cannot be encoded.
@@ -400,7 +279,8 @@ extern "C" int rt_map_step(const void* meta, const void* scal, void* stream) {
     args.oy[g] = static_cast<int>(p.org[g] % p.sx[g] / p.sy[g]);
     args.oz[g] = static_cast<int>(p.org[g] % p.sy[g]);
     if (grid_ring(g) && grid_tma(g)) {
-      const CUresult r = tma_map(g, p.g[g], n0[g], p.sx[g], p.sy[g], &args.map[g]);
+      const CUresult r = tma_map(g, p.g[g], n0[g], p.sx[g], p.sy[g], tile_p2(g), tile_t1(g),
+                                 tile_t0(g), &args.map[g]);
       if (r != CUDA_SUCCESS) return 10000 + static_cast<int>(r);
     }
   }

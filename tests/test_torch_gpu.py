@@ -631,3 +631,96 @@ def test_decode_attn_split_and_combine_match_plain(cuda, B, S, H, K, hd, dtype):
                 _check(a, b, f"partials {lengths.tolist()}")
         err = float((comb.float() - rcomb.float()).abs().max())
         assert err <= tol * max(1.0, float(rcomb.float().abs().max()))
+
+
+# ---- K2's and K3's staging paths (TMA and granules) -----------------------------
+# K2 fused and with RT_MAP, K3 at k=2 and k=3, f32 and bf16: at 64³ (pitches
+# of 72 cells, the TMA), 61 x 70 x 133 (rows of 141 cells: 4-byte granules)
+# and, for K2's RT_MAP build, a region of 64³ whose z-start is 7 (the TMA
+# box starts 3 cells before the plane; 7 in bf16) and one of the ragged
+# shape (granules)
+STREAM_REGIONS = {(64, 64, 64): ((1, 40), (0, 64), (7, 60)),
+                  (61, 70, 133): ((5, 50), (3, 61), (10, 127))}
+STREAM_CASES = []
+for _n in ("star3d4r", "acoustic"):
+    for _s in STREAM_REGIONS:
+        STREAM_CASES.append(("fused", _n, _s, None, 1))
+        STREAM_CASES += [("map", _n, _s, r, 1) for r in (None, STREAM_REGIONS[_s])]
+        STREAM_CASES += [("fused", _n, _s, None, k) for k in (2, 3)]
+
+
+def _stream_plan(kind, name, shape, region, time_block):
+    k, swap, _ = _kernel(name)
+    halos = {g: (k.info.order,) * 3 for g in k.ir.grid_params}
+    if kind == "map":
+        return codegen.lower_hopper(k.ir, halos, shape, region,
+                                    st.hopper(template="shift"))
+    return codegen.plan_cuda(k.ir, halos, shape,
+                             st.hopper(template="shift", time_block=time_block),
+                             swap=swap)
+
+
+@pytest.fixture(scope="module")
+def stream_built():
+    """Every source of the stream cases, built in parallel (one nvcc each)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    _build.build_many([_stream_plan(*c).source(d) for c in STREAM_CASES
+                       for d in (torch.float32, torch.bfloat16)])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", STREAM_CASES,
+                         ids=[f"{c[0]}-{c[1]}-{'x'.join(map(str, c[2]))}"
+                              f"{'-region' if c[3] else ''}-k{c[4]}"
+                              for c in STREAM_CASES])
+def test_stream_paths_match_plain(cuda, stream_built, case, dtype):
+    """K2 (fused, RT_MAP) and K3 on each staging path against their plain
+    versions: f32 within 2e-5 x max(1, |plain|), bf16 within one bf16 ulp
+    (both compute in f32 and round once)."""
+    kind, name, shape, region, time_block = case
+    k, _, scal = _kernel(name)
+    plan = _stream_plan(*case)
+    assert set(plan.stream_tma(dtype).values()) == {shape == (64, 64, 64)}
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    full = {g: torch.randn(tuple(s + 2 * k.info.order for s in shape), generator=gen,
+                           device=cuda) for g in k.ir.grid_params}
+    if name == "acoustic":       # coefficients in their physical ranges
+        full["vp2"] = 0.5 + 1.5 * full["vp2"].abs().clamp(max=1)
+        full["damp"] = 0.2 * full["damp"].abs().clamp(max=1)
+    full = {g: t.to(dtype) for g, t in full.items()}
+    if kind == "map":
+        bufs = {g: full[g] for g in plan.opnd_grids}
+        ref = {g: t.clone() for g, t in bufs.items()}
+        n = stream_step.launches
+        stream_step(plan, bufs, scal, None)
+        stream_step_plain(plan, ref, scal, None)
+        got, want, outs = bufs, ref, plan.out_grids
+        assert stream_step.launches == n + 1
+    else:
+        padded = plan.to_padded(full)
+        if time_block > 1:
+            before = {g: t.clone() for g, t in padded.items()}
+            got, want = plan.make_spares(padded), plan.make_spares(padded)
+            n = temporal_step.launches
+            temporal_step(plan, padded, got, scal)
+            temporal_step_plain(plan, padded, want, scal)
+            torch.cuda.synchronize()
+            assert temporal_step.launches == n + 1
+            for g, t in padded.items():
+                assert torch.equal(t, before[g]), f"wrote its read buffer {g}"
+        else:
+            want = {g: t.clone() for g, t in padded.items()}
+            n = stream_step.launches
+            stream_step(plan, padded, scal)
+            stream_step_plain(plan, want, scal)
+            got = padded
+            assert stream_step.launches == n + 1
+        outs = plan.step_out_grids
+    torch.cuda.synchronize()
+    for g in outs:
+        assert bool(torch.isfinite(got[g]).all())
+        scale = max(1.0, float(want[g].float().abs().max()))
+        err = float((got[g].float() - want[g].float()).abs().max())
+        tol = RTOL * scale if dtype == torch.float32 else _bf16_ulp(scale)
+        assert err <= tol, (case, g, err)

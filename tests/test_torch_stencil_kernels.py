@@ -200,8 +200,9 @@ def test_hbm_bytes_per_step():
     assert fused.hbm_bytes_per_step() == 4 * (72 ** 3 + 64 ** 3)
     stream = codegen.plan_cuda(k.ir, halos, R, st.hopper(template="shift"))
     # per tile/chunk halo'd windows: 1 chunk of 64 planes, 8 tiles of 8
-    # rows, 2 tiles of 32 columns, each with 2·4 halo cells
-    assert stream.hbm_bytes_per_step() == 4 * (72 * (64 + 8 * 8) * (64 + 2 * 8)
+    # rows, 1 tile of 64 columns, each with 2·4 halo cells
+    assert stream.B == (64, 8, 64)
+    assert stream.hbm_bytes_per_step() == 4 * (72 * (64 + 8 * 8) * (64 + 8)
                                                + 64 ** 3)
 
 

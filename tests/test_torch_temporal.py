@@ -243,15 +243,15 @@ def test_temporal_hbm_model():
     R = (512, 512, 512)
     p2 = codegen.plan_cuda(k.ir, halos, R, st.hopper(time_block=2),
                            swap=("v", "u"))
-    assert p2.B == (64, 8, 32) and p2.kind == "temporal"
+    assert p2.B == (128, 16, 64) and p2.kind == "temporal"
     assert p2.step_out_grids == ("v", "u")
     n = 512 ** 3
-    # u's window: per chunk 64 + 2·8 planes, per tile 8 + 16 rows and 32 +
-    # 16 columns, clipped to the reach [-4, 516) at the ends of each axis
-    win = (8 * 80 - 8) * (64 * 24 - 8) * (16 * 48 - 8)
+    # u's window: per chunk 128 + 2·8 planes, per tile 16 + 16 rows and 64
+    # + 16 columns, clipped to the reach [-4, 516) at the ends of each axis
+    win = (4 * 144 - 8) * (32 * 32 - 8) * (8 * 80 - 8)
     # sub-step 0's ring (widened by 4) takes its cells outside the
     # interior from v: the widened window less its interior part
-    ring0 = 8 * 72 * 64 * 16 * 16 * 40 - (8 * 72 - 8) * (64 * 16 - 8) * (16 * 40 - 8)
+    ring0 = 4 * 136 * 32 * 24 * 8 * 72 - (4 * 136 - 8) * (32 * 24 - 8) * (8 * 72 - 8)
     got = p2.hbm_bytes_per_step()
     assert got > 4 * 1.5 * n           # above the compulsory traffic
     assert got == 4 * (win + ring0 + 2 * n) / 2
@@ -287,14 +287,27 @@ def test_time_block_validation_matches_jax():
 
 
 def test_temporal_shared_memory_limit_raises():
+    """K3's default tile is the first of ``TEMPORAL_BLOCKS`` whose rings
+    fit; an explicit tile whose rings do not raises."""
     k = suite.get_kernel("star3d4r")
     halos = {"u": (4, 4, 4), "v": (4, 4, 4)}
     p4 = codegen.plan_cuda(k.ir, halos, (64, 64, 64), st.hopper(time_block=4),
                            swap=("v", "u"))
-    assert p4.smem_bytes == 4 * 9 * (40 * 64 + 32 * 56 + 24 * 48 + 16 * 40)
-    with pytest.raises(ValueError, match=r"time_block=5: .* 345600 B of "
+    # ring -1: 11 planes of 48 x 64 cells (the (16, 32) tile widened by
+    # 4·4); rings 0-2: 5 planes each (a star reads them at dx = 0 only);
+    # the slack to align the base and 11 mbarriers
+    assert p4.B == (128, 16, 32)
+    assert p4.smem_bytes == (128 + 4 * 11 * 48 * 64
+                             + 4 * 5 * (40 * 56 + 32 * 48 + 24 * 40) + 8 * 11)
+    p5 = codegen.plan_cuda(k.ir, halos, (64, 64, 64), st.hopper(time_block=5),
+                           swap=("v", "u"))
+    assert p5.B == codegen.TEMPORAL_BLOCKS[3][-1]
+    assert p5.smem_bytes <= codegen.SMEM_LIMIT
+    with pytest.raises(ValueError, match=r"time_block=5: the 5 plane rings of "
+                                         r"block \(128, 16, 64\) need \d+ B of "
                                          r"shared memory \(> 232448\)"):
-        codegen.plan_cuda(k.ir, halos, (64, 64, 64), st.hopper(time_block=5),
+        codegen.plan_cuda(k.ir, halos, (64, 64, 64),
+                          st.hopper(time_block=5, block=(128, 16, 64)),
                           swap=("v", "u"))
 
 
