@@ -20,11 +20,12 @@ Phases, each of which exits non-zero when it fails:
    built from ``src`` with one ``nvcc`` per source, all started together
    (K2's and K3's sources depend on the buffers' pitches, their staging
    path: one for every shape and type they run at, and K2's 512³ builds
-   again with granules in place of the TMA); for every f4, smem, K2 and K3
-   build its path (f4: each grid's rows aligned at plan time or at run
-   time; smem, K2, K3: each staged grid copied by TMA or by 4-byte
-   ``cp.async`` granules), its tile, shared bytes and ``ptxas`` registers
-   and spills;
+   again with granules in place of the TMA); for every K1, K4 gmem, f4,
+   smem, K2 and K3 build its path (K1/K4 gmem: its build, points a lane
+   and each read grid's pair or single-cell loads; f4: each grid's rows
+   aligned at plan time or at run time; smem, K2, K3: each staged grid
+   copied by TMA or by 4-byte ``cp.async`` granules), its tile, shared
+   bytes and ``ptxas`` registers and spills;
 3. kernels — each kernel against its plain PyTorch version on the card,
    after one launch (K3: k=2 and k=3, both reading buffers left intact),
    at a block-multiple shape (64³), a ragged one (61×70×133) and the
@@ -38,10 +39,10 @@ Phases, each of which exits non-zero when it fails:
    multiple of 4, and for the Jacobi kernel (outputs into a destination
    buffer), with its time per application at 512³; every stencil source
    built for bf16 grids against its plain version at the two small shapes
-   (within one bf16 ulp of max(1, |plain|); K3 at k=2 and k=3), K4 f4,
-   smem and shift also at the sub-region and 512³, and K1 (gmem), K2
-   (shift), K3 (k=2: per step and per launch) and K4 f4/smem/shift in
-   bf16 at 512³ with their times (and ``conv3d`` on bf16 grids for
+   (within one bf16 ulp of max(1, |plain|); K3 at k=2 and k=3), K4 gmem,
+   f4, smem and shift also at the sub-region and 512³, and K1 (gmem), K2
+   (shift), K3 (k=2: per step and per launch) and K4 gmem/f4/smem/shift
+   in bf16 at 512³ with their times (and ``conv3d`` on bf16 grids for
    ``star3d4r``); K2's TMA and granule builds at 512³, f32 and bf16,
    against each other and timed in turns; K6 in bf16 and f32 at
    the serving decode shape ``[4, 4, 4096]``, a prefill-sized
@@ -60,7 +61,9 @@ Phases, each of which exits non-zero when it fails:
    ISO 100 steps with ``fuse_steps=10`` and source injection in
    ``between``; the launch counters must show exactly the path's kernel
    (K3: 50 launches, the others 100), the fields must be finite and
-   match ``st.torch()`` on the card over the same steps;
+   match ``st.torch()`` on the card over the same steps; K1 on acoustic is
+   timed again on the fields its 100 steps left (a wave around the
+   source) beside phase 3's random fields;
 5. absorbing boundary — acoustic ISO as in 4 at 64³, where the wave
    enters the PML within the 100 steps, against ``st.torch()``, plus K3
    with ``fuse_steps=7`` (3 K3 launches and one K2 remainder step a
@@ -194,7 +197,7 @@ BF16_TIMED = ("fused_step", "stream_step", "temporal_step")
 # per-application kernels held against their plain versions in bf16 at
 # every shape and the sub-region, and timed at 512³ (the others: bf16 at
 # the small shapes)
-MAP_BF16_ALL = ("f4", "smem", "shift")
+MAP_BF16_ALL = ("gmem", "f4", "smem", "shift")
 # K2's two staging forks timed side by side at 512³ (TMA, granules,
 # granules, TMA, ...): rounds, and launches timed per turn after warm-up
 FORK_ROUNDS, FORK_REPS = 3, 30
@@ -353,17 +356,25 @@ def map_cases(w, jacobi, shapes):
 
 def map_dtypes(torch, template, shape, region):
     """Grid types a per-application case runs in: f32 everywhere, bf16 at
-    the small shapes, and for f4, smem and shift (``MAP_BF16_ALL``) at 512³
-    and the sub-region too."""
+    the small shapes, and for gmem, f4, smem and shift (``MAP_BF16_ALL``)
+    at 512³ and the sub-region too."""
     if template in MAP_BF16_ALL or (shape in SMALL_SHAPES and region is None):
         return (torch.float32, torch.bfloat16)
     return (torch.float32,)
 
 
 def path_of(plan, dtype):
-    """The load path of an f4 build (per grid: aligned at plan time, or at
-    run time) or the staging path of an smem, K2 or K3 build (TMA or 4-byte
-    granules; K2/K3 with the TMA box's lead)."""
+    """The path of a K1 or K4 gmem build (its lanes, points a lane and each
+    read grid's pair or single-cell loads), the load path of an f4 build
+    (per grid: aligned at plan time, or at run time) or the staging path
+    of an smem, K2 or K3 build (TMA or 4-byte granules; K2/K3 with the TMA
+    box's lead)."""
+    if plan.kind == "fused" or (plan.kind == "map" and plan.template == "gmem"):
+        col = plan.gmem_column(dtype)
+        pairs = {g: v for g, v in plan.gmem_pairs(dtype).items() if g in plan.in_grids}
+        return {"path": f"gmem {plan.gmem_lanes}, {col.cells} points a lane, " + ", ".join(
+            f"{g}: {'pairs' if v else 'cells'}" for g, v in pairs.items()),
+            "gmem_pairs": pairs, "points_a_lane": col.cells}
     if plan.kind in ("stream", "temporal"):
         lay = plan.ring_layout(dtype)
         rings = ({plan.swap[1]: lay.planes[-1]} if plan.kind == "temporal"
@@ -1183,12 +1194,12 @@ def main(argv=None) -> int:
     record["paths"] = []
     paths = [(w.map_plan(codegen, shape, t, region), w.name, shape, region,
               dtype) for w, t, shape, region, dtype in map_builds
-             if t in ("f4", "smem", "shift")]
+             if t in ("gmem", "f4", "smem", "shift")]
     paths += [(w.plan(codegen, shape, KERNELS[kname][0], k), w.name, shape,
                None, dtype) for w, kname, shape, k, dtype in fused_builds
-              if kname in ("stream_step", "temporal_step")]
+              if kname in ("fused_step", "stream_step", "temporal_step")]
     for plan, wname, shape, region, dtype in paths:
-        entry = {"map": "map_step", "stream": "stream_step",
+        entry = {"map": "map_step", "fused": "fused_step", "stream": "stream_step",
                  "temporal": "temporal_step"}[plan.kind]
         name = (f"{entry}.{plan.template}" if plan.kind == "map" else
                 f"{entry}{'.map' if hasattr(plan, 'region') else ''}"
@@ -1197,7 +1208,7 @@ def main(argv=None) -> int:
                "region": region, "dtype": str(dtype).split(".")[1],
                "block": list(plan.B), **path_of(plan, dtype),
                **ptxas_usage(_build.ptxas_log(plan.source(dtype)),
-                             f"{entry}_kernel")}
+                             f"{'map_step' if plan.kind == 'fused' else entry}_kernel")}
         record["paths"].append(row)
         smem = row.get("smem_bytes")
         say(f"path {row['kernel']} {row['dtype']} at {shape} region {region}: "
@@ -1460,6 +1471,20 @@ def main(argv=None) -> int:
                      f"of {kname} and no other")
             entries[key]["launches"] = seen[kname]
             diff, scale = max_diff(torch, key, got, ref)
+            if kname == "fused_step" and w.name == "acoustic_iso":
+                # K1 on the fields after the main path's 100 steps (a wave
+                # around the source, zero elsewhere) beside phase 3's random
+                # fields: the share of the division's slow path
+                plan = w.plan(codegen, MAIN_SHAPE, template)
+                padded = plan.to_padded({g: f.data.clone() for g, f in zip(
+                    w.kernel.ir.grid_params, fields[:4])})
+                ms_fields = time_ms(torch, lambda: fused_step(plan, padded, w.scalars),
+                                    50, 10)
+                entries[key]["ms_main_path_fields"] = ms_fields
+                say(f"time {key} {MAIN_SHAPE} on the main path's fields after {STEPS} "
+                    f"steps: {ms_fields:.4f} ms/step (random fields "
+                    f"{entries[key]['ms']:.4f} ms)")
+                del plan, padded
             n = float(np.prod(MAIN_SHAPE))
             steps_s = STEPS / res.seconds
             nbytes = 4 * n * (len(w.kernel.info.input_grids)

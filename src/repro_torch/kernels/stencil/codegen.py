@@ -66,8 +66,11 @@ from repro_torch.core import analysis, ir
 from . import emit
 
 # threads cover b1 x b2 points; the streaming kernels walk b0 planes, and
-# the one-step kernels' threads (K1, K4 gmem) b0 points of a column; K5's
-# threads walk two columns along axis 1 with f32 grids (csrc/semi_step.cuh
+# the one-step kernels' lanes (K1, K4 gmem) b0 planes of a column, two
+# points a lane along axis 2, with the column's axis-0 taps in register
+# queues (csrc/gmem_column.cuh): 16 x 4 x 64, 128 lanes a block, six
+# blocks an SM at 80 registers (tools/gmem_block_ab.py times the others).
+# K5's threads walk two columns along axis 1 with f32 grids (csrc/semi_step.cuh
 # kCols).  K2's threads walk two columns along axis 1 of an 8 x 64 tile
 # (csrc/stream_ring.cuh), three blocks an SM: at a halo of 4 a staged
 # plane is 16 x 72 cells, 2.25 a point (16 x 64 stages 1.69, but holds one
@@ -81,7 +84,7 @@ from . import emit
 # default is the first of TEMPORAL_BLOCKS whose rings fit
 # (csrc/temporal_ring.cuh): 16 x 64 at k=2, 16 x 32 at k=3 for a halo of 4,
 # chunks of 128 planes (a chunk re-evaluates 2(k-1)h0 planes of sub-step 0).
-DEFAULT_BLOCK = {"step": {2: (4, 256), 3: (4, 8, 32)},
+DEFAULT_BLOCK = {"step": {2: (16, 256), 3: (16, 4, 64)},
                  "stream": {2: (64, 128), 3: (64, 8, 64)},
                  "semi": {2: (64, 256), 3: (64, 16, 32)},
                  "f4": {2: (16, 512), 3: (16, 8, 128)}}
@@ -292,6 +295,68 @@ def _ring_layout(planes, slots, barriers) -> RingLayout:
                       SMEM_TILE_ALIGN + off + 8 * barriers)
 
 
+class GmemColumn(NamedTuple):
+    """K1's and K4 gmem's column walk (``csrc/gmem_column.cuh``): each
+    lane computes ``cells`` points adjacent along axis 2; ``shfl`` (the
+    shuffle build) gives a lane its axis-2 taps from the lanes of its
+    row's segment of ``width`` lanes, the ``edge`` units (of ``cells``
+    cells) past each end loaded by the segment's edge lanes; ``threads``
+    a block; ``queues``: the slots of each read grid's axis-0 register
+    queue, ``2h0 + 1``."""
+    cells: int
+    width: int
+    shfl: bool
+    edge: int
+    threads: int
+    queues: Dict[str, int]
+
+
+# K1's and K4 gmem's builds (csrc/gmem_column.cuh): "loads", two points a
+# lane, taps off the lane's own cells loaded (aligned pairs where the
+# rows allow), or "shuffles", axis-2 taps from neighbouring lanes
+GMEM_LANES = ("loads", "shuffles")
+GMEM_POINTS = 2
+
+
+def _seg_width(lanes: int) -> int:
+    """Lanes of a row's segment for a row of ``lanes`` lanes: a warp's 32
+    where ``lanes`` is a multiple of 32, all of them where it is a power of
+    two below 32, else 0 (no segment)."""
+    if lanes % 32 == 0:
+        return 32
+    return lanes if lanes < 32 and lanes & (lanes - 1) == 0 else 0
+
+
+def gmem_column(B3, gh3, read_grids, itemsize: int = 4,
+                lanes: str = "loads") -> GmemColumn:
+    """The column walk of tile ``B3`` for the grids ``read_grids`` (each
+    with tap halo ``gh3[g]``) on grids of ``itemsize`` bytes, in the build
+    ``lanes`` (``GMEM_LANES``).  Loads: ``GMEM_POINTS`` points a lane
+    where ``b2`` is a multiple of it, else one.  Shuffles: the cells of a
+    4-byte granule (one f32, two bf16) where the rows of lanes have
+    segments (``_seg_width``) at least twice the halo's units, else one
+    cell, and without a segment no shuffles (the taps are loads)."""
+    if lanes not in GMEM_LANES:
+        raise ValueError(f"gmem lanes {lanes!r}: one of {GMEM_LANES}")
+    h2 = max((gh3[g][2] for g in read_grids), default=0)
+
+    def lanes_ok(P):
+        W = _seg_width(B3[2] // P) if B3[2] % P == 0 else 0
+        return W > 0 and 2 * -(-h2 // P) <= W
+
+    if lanes == "loads":
+        P = GMEM_POINTS if B3[2] % GMEM_POINTS == 0 else 1
+        shfl = False
+    else:
+        gran = 4 // itemsize
+        P = gran if gran > 1 and lanes_ok(gran) else 1
+        shfl = lanes_ok(P)
+    W = _seg_width(B3[2] // P) if shfl else 1
+    return GmemColumn(P, W, shfl, -(-h2 // P) if shfl else 0,
+                      B3[1] * (B3[2] // P),
+                      {g: 2 * gh3[g][0] + 1 for g in read_grids})
+
+
 def _smem_bytes(kind: str, B3, gh3) -> int:
     """Shared memory one block of ``kind`` takes with f32 grids (bf16 ones
     take no more): K5's ring of ``SEMI_STAGES`` staged planes, K4 smem's
@@ -458,6 +523,52 @@ class _Plan:
             lines += [f"#define RT_DLO ({self.temporal_dlo()})",
                       f"#define RT_THREADS {threads}"]
         return "\n".join(lines + [""])
+
+    # K1's and K4 gmem's build (GMEM_LANES); a measurement of the two sets
+    # it before the plan's first source
+    gmem_lanes = "loads"
+
+    def gmem_column(self, dtype=torch.float32) -> GmemColumn:
+        """The column walk of K1 and K4 gmem on grids of ``dtype``
+        (``gmem_column``)."""
+        return gmem_column(self.B3, self.gh3, self.in_grids, ELEM_BYTES[dtype],
+                           self.gmem_lanes)
+
+    def gmem_pairs(self, dtype=torch.float32, bufs=None) -> Dict[str, bool]:
+        """Whether the load build reads each grid's units and loaded taps as
+        aligned pairs of cells: two points a lane, both pitches even and
+        the region's first cell at an even element index (so every lane's
+        first cell is), and, given the buffers, the grid's base aligned to
+        a pair.  Else each cell is its own load."""
+        P = self.gmem_column(dtype).cells
+        es = ELEM_BYTES[dtype]
+        out = {}
+        for g in self.opnd_grids:
+            sx, sy = self.pitch3[g]
+            o = self.org3[g]
+            out[g] = (self.gmem_lanes == "loads" and P == 2
+                      and sx % 2 == 0 and sy % 2 == 0
+                      and (o[0] * sx + o[1] * sy + o[2]) % 2 == 0
+                      and (bufs is None or bufs[g].data_ptr() % (2 * es) == 0))
+        return out
+
+    def gmem_source(self, dtype, pairs) -> str:
+        """The generated part of K1's and K4 gmem's build: its lanes
+        (``RT_GMEM_P``, ``RT_GMEM_SHFL``), whether a tap reads each grid
+        (``grid_read``), each grid's pitches (``grid_sx``, ``grid_sy``: the
+        taps' offsets are constants of the code; the launch refuses buffers
+        of other pitches) and its pair loads (``grid_vec``,
+        ``gmem_pairs``)."""
+        col = self.gmem_column(dtype)
+        g_of = self.opnd_grids
+        return "\n".join([
+            f"#define RT_GMEM_P {col.cells}",
+            f"#define RT_GMEM_SHFL {int(self.gmem_lanes == 'shuffles')}",
+            emit.int_table("grid_read", [int(g in self.in_grids) for g in g_of]),
+            emit.int_table("grid_sx", [self.pitch3[g][0] for g in g_of]),
+            emit.int_table("grid_sy", [self.pitch3[g][1] for g in g_of]),
+            emit.int_table("grid_vec", [int(pairs[g]) for g in g_of]),
+            ""])
 
     # -- traffic model -----------------------------------------------------
     def hbm_bytes_per_step(self, itemsize: int = 4) -> float:
@@ -629,7 +740,7 @@ class CudaPlan(_Plan):
         self.smem_bytes = smem
         self.touched = tuple(g for g in opnd_grids
                              if g in set(out_grids) | set(swap or ()))
-        self._sources: Dict[torch.dtype, str] = {}
+        self._sources: Dict[tuple, str] = {}
 
     def _fit(self, B):
         """(shared memory of a block of tile ``B`` with f32 grids, ``B`` in
@@ -671,17 +782,24 @@ class CudaPlan(_Plan):
         return {g: padded[g].clone() for g in self.step_out_grids}
 
     # -- kernel stage ------------------------------------------------------
-    def source(self, dtype=torch.float32) -> str:
+    def source(self, dtype=torch.float32, bufs=None) -> str:
         """Full CUDA source of this plan's kernel on grids of ``dtype``: the
-        generated header and the hand-written template it includes."""
-        src = self._sources.get(dtype)
+        generated header and the hand-written template it includes (K1: its
+        pair loads follow from the buffers' alignment when ``bufs`` are
+        given, else from the plan alone, ``gmem_pairs``)."""
+        pairs = (tuple(self.gmem_pairs(dtype, bufs).items())
+                 if self.kind == "fused" else ())
+        src = self._sources.get((dtype, pairs))
         if src is None:
+            point = (emit.gmem_functions(self.kernel, self.opnd_grids, self.out_grids)
+                     if self.kind == "fused" else None)
             src = emit.header(self.kernel, self.opnd_grids, self.out_grids,
-                              self.gh3, self.B3, elem=ELEM_TYPES[dtype])
+                              self.gh3, self.B3, point, ELEM_TYPES[dtype])
             if self.kind == "fused":
                 # K4 gmem's build, its destinations the grids themselves
                 src = ("#define RT_MAP 1\n"
-                       f"#define RT_MAP_T {MAP_TEMPLATES['gmem']}\n" + src)
+                       f"#define RT_MAP_T {MAP_TEMPLATES['gmem']}\n" + src
+                       + self.gmem_source(dtype, dict(pairs)))
             elif self.kind == "semi":
                 src += emit.semi_functions(self.kernel, self.opnd_grids,
                                            self.out_grids, self.lin, self.H)
@@ -691,7 +809,7 @@ class CudaPlan(_Plan):
                         f"#define RT_GO {self.opnd_grids.index(self.swap[1])}\n")
             if self.kind in ("stream", "temporal"):
                 src += self.ring_source(dtype)
-            src = self._sources[dtype] = \
+            src = self._sources[(dtype, pairs)] = \
                 src + f'#include "{KERNEL_FILES[self.kind]}"\n'
         return src
 
@@ -906,7 +1024,7 @@ class MapPlan(_Plan):
                              f"shared memory (> {SMEM_LIMIT}); reduce block")
         self.smem_bytes = smem
         self.scal_names = [n for n, _ in kernel.scalar_params]
-        self._sources: Dict[torch.dtype, str] = {}
+        self._sources: Dict[tuple, str] = {}
 
     @property
     def source_file(self) -> str:
@@ -952,16 +1070,20 @@ class MapPlan(_Plan):
                 and max(box[0], box[1], pitch) <= TMA_BOX_MAX
                 for g, (box, pitch, _) in layout.items()}
 
-    def source(self, dtype=torch.float32) -> str:
+    def source(self, dtype=torch.float32, bufs=None) -> str:
         """Full CUDA source of this plan's kernel on grids of ``dtype``:
         ``RT_MAP``, the generated header (f4: the families and queue pieces
         of its tap rows, with the load path each grid's pitches allow, and
         their point function; smem: each grid's staging path, and whether
-        a tap reads it, so that an output none reads is not loaded) and
+        a tap reads it, so that an output none reads is not loaded; gmem:
+        its lanes, pitches and pair loads, ``gmem_source``, the pair loads
+        following from the grids' alignment when ``bufs`` are given) and
         the hand-written template it includes.  The paths follow from the
         grids' full shapes and the region, so they are part of the build
         key."""
-        src = self._sources.get(dtype)
+        gmem = self.kind == "map" and self.template == "gmem"
+        pairs = tuple(self.gmem_pairs(dtype, bufs).items()) if gmem else ()
+        src = self._sources.get((dtype, pairs))
         if src is None:
             src = "#define RT_MAP 1\n"
             point = None
@@ -971,6 +1093,9 @@ class MapPlan(_Plan):
                     point = emit.f4_functions(self.kernel, self.opnd_grids,
                                               self.out_grids,
                                               self.f4_org_mod4())
+                elif gmem:
+                    point = emit.gmem_functions(self.kernel, self.opnd_grids,
+                                                self.out_grids)
             src += emit.header(self.kernel, self.opnd_grids, self.out_grids,
                                self.gh3, self.B3, point, ELEM_TYPES[dtype])
             if self.template == "smem":
@@ -981,12 +1106,14 @@ class MapPlan(_Plan):
                     emit.int_table("grid_read", [int(g in self.in_grids)
                                                  for g in self.opnd_grids]),
                     ""])
+            if gmem:
+                src += self.gmem_source(dtype, dict(pairs))
             if self.kind == "semi":
                 src += emit.semi_functions(self.kernel, self.opnd_grids,
                                            self.out_grids, self.lin, self.H)
             if self.kind == "stream":
                 src += self.ring_source(dtype)
-            src = self._sources[dtype] = \
+            src = self._sources[(dtype, pairs)] = \
                 src + f'#include "{KERNEL_FILES[self.kind]}"\n'
         return src
 

@@ -20,21 +20,38 @@
 // destinations are its output grids' own buffers: legal because CudaPlan
 // admits only output grids with center-only taps, so no thread reads a
 // point another thread writes.  The pass-through outside the interior is
-// threads that do nothing.
+// cells no lane stores.
 //
-// gmem and f4: a thread block covers an RT_TB0 x RT_TB1 x RT_TB2 tile of
-// the box; its threads cover the RT_TB1 x RT_TB2 face (f4: RT_TB2 / 4
-// groups of 4) and each walks the RT_TB0 points of its column.
-//   gmem: taps through __ldg from device memory; threads run along the
-//         dense axis 2, so a warp's taps at one offset are one coalesced
-//         128-byte line, and a thread's axis-0 taps of consecutive points
-//         fall on the lines its previous points loaded.
-//   f4:   each thread computes 4 consecutive points along axis 2 from tap
-//         rows loaded as aligned vectors of 4 cells and carried along its
-//         column in register queues (f4_rows.cuh): the TPU's lane-aligned
-//         blocks become 16-byte loads (8-byte ones of 4 bf16 cells), each
-//         loaded once a column; where the grids' pitches are multiples of 4
-//         cells the rows' alignment is fixed when the plan is made.
+// gmem: a thread block covers an RT_TB0 x RT_TB1 x RT_TB2 tile of the box;
+// its lanes (gmem_column.cuh) cover the RT_TB1 x RT_TB2 face, kP points a
+// lane along axis 2 (two bf16 cells, one 4-byte granule, where the block
+// allows; else one), and each walks the RT_TB0 planes of its column.  Taps
+// come from device memory through the read-only path, with no staging, so
+// the build takes any pitch, region origin, 2D shape and destination:
+//   axis 0: each grid a tap reads keeps its 2h0 + 1 centre-column values in
+//           a register queue (a prologue of 2h0 loads, then one load a
+//           plane; center-only grids: one slot), the plane loop unrolled
+//           by the longest queue;
+//   axis 2: a tap (0, 0, dz) is the centre of the lane dz cells away, taken
+//           by __shfl_sync within the row's segment of lanes (a warp, or
+//           a power-of-two row of fewer lanes: shfl's width); the 2h2
+//           cells past a segment's ends are loaded by its edge lanes.  A
+//           bf16 row that starts on an odd cell takes each lane's second
+//           cell from the next lane's granule;
+//   other taps (axis 1, off-axis) are __ldg loads.
+//   Each queue's new plane and the edge cells of plane x + 1 are loaded
+//   before plane x's arithmetic.  Shuffles need every lane of a segment,
+//   so lanes past the box load clamped cells and do not store.  A thread
+//   reads ahead only cells of its own column, so writing in place stays
+//   legal (output grids have center-only taps).  star3d4r: 9 loads a point
+//   (the queue's 1, axis 1's 8, a quarter of a load for the edges) and 8
+//   shuffles, against 25 loads when every tap was one.
+// f4: each thread computes 4 consecutive points along axis 2 from tap rows
+//   loaded as aligned vectors of 4 cells and carried along its column in
+//   register queues (f4_rows.cuh): the TPU's lane-aligned blocks become
+//   16-byte loads (8-byte ones of 4 bf16 cells), each loaded once a
+//   column; where the grids' pitches are multiples of 4 cells the rows'
+//   alignment is fixed when the plan is made.
 // smem: persistent blocks stage each tile's halo'd box by TMA or cp.async
 // into one of two stages while they evaluate the other (map_smem.cuh).
 //
@@ -42,14 +59,15 @@
 // once and write each output once: star3d4r at 512^3 moves 2 x 512^3 x 4 B
 // = 1.07 GB, 0.321 ms at 3.35 TB/s; acoustic ISO five grid passes, 0.801
 // ms (bf16 grids: half the bytes).  The 2h+1 taps along each axis are
-// re-read from L1/L2 (gmem), from registers (f4: along axes 0 and 2) or
-// from shared memory (smem, and registers along axis 0); the designs
-// differ only in where those re-reads are served.
+// re-read from L1/L2 (gmem: axes 1 and off-axis), from registers (gmem
+// along axes 0 and 2, f4) or from shared memory (smem, and registers along
+// axis 0); the designs differ only in where those re-reads are served.
 #include "common.cuh"
 
 #if RT_MAP_T == 1
 #include "f4_rows.cuh"
-constexpr int kThreads = RT_TB1 * RT_TB2 / 4;
+constexpr int kRowThreads = RT_TB2 / 4;
+constexpr int kThreads = RT_TB1 * kRowThreads;
 
 // the aligned vector of 4 cells at ptr, as f32
 struct DevLoad {
@@ -100,32 +118,261 @@ __global__ void __launch_bounds__(kThreads) map_step_kernel(const Params p) {
 #include "map_smem.cuh"
 
 #else
-constexpr int kThreads = RT_TB1 * RT_TB2;
+#include "gmem_column.cuh"
+constexpr int kRowThreads = RT_TB2 / kP;
+// blocks an SM the registers are budgeted for: three of 256 threads
+constexpr int kMinBlocks = kThreads < 768 ? 768 / kThreads : 1;
 
-struct GmemReader {
+// a lane's kP cells of one row of a grid, as f32
+struct Unit {
+  float v[kP];
+};
+// A lane's unit as loaded, a plane before it is used.  Shuffle build: the
+// granule holding the lane's first cell and, with two cells a lane, the
+// granule lane 0 loads for its segment's last cell, and whether the first
+// cell is its granule's high half (a row that starts on an odd cell).
+// Load build: the cells.
+struct Raw {
+  unsigned a, b;
+  int odd;
+  float f[kP];
+};
+// the thread's place: its first point along axis 2, its segment's first
+// point, its lane in the segment, the shuffle mask of its warp
+struct Lane {
+  int zl, zs, lane;
+  unsigned mask;
+};
+
+// the 4-byte granule holding the cell at ptr (it never leaves the
+// allocation that holds the cell)
+__device__ __forceinline__ unsigned ld_granule(const elem_t* ptr) {
+  return __ldg(reinterpret_cast<const unsigned*>(reinterpret_cast<unsigned long long>(ptr) &
+                                                 ~3ULL));
+}
+// the aligned pair of cells at ptr, as f32 (one 8-byte or 4-byte load)
+__device__ __forceinline__ void ld_pair(const float* ptr, float* out) {
+  const float2 v = __ldg(reinterpret_cast<const float2*>(ptr));
+  out[0] = v.x;
+  out[1] = v.y;
+}
+__device__ __forceinline__ void ld_pair(const __nv_bfloat16* ptr, float* out) {
+  const unsigned v = __ldg(reinterpret_cast<const unsigned*>(ptr));
+  out[0] = __uint_as_float(v << 16);
+  out[1] = __uint_as_float(v & 0xffff0000u);
+}
+
+// Grid G's cell (DX, DY, DZ) from `base` (a lane's cell of plane 0 of its
+// row) at plane xp: the pitches are the plan's (grid_sx, grid_sy), so the
+// tap's offset is a constant of the load.
+template <int G, int DX = 0, int DY = 0, int DZ = 0>
+__device__ __forceinline__ const elem_t* cell(const elem_t* base, int xp) {
+  return base + static_cast<long long>(xp) * grid_sx(G) +
+         (static_cast<long long>(DX) * grid_sx(G) + static_cast<long long>(DY) * grid_sy(G) + DZ);
+}
+
+// Grid G's unit of plane xp at the lane's column (`row`: the grid's row at
+// plane 0), its cells clamped to the grid's reach along axis 2 (a lane
+// past the region's end loads cells no stored point reads).
+template <int G>
+__device__ __forceinline__ Raw load_lead(const Params& p, const elem_t* const* row, int xp,
+                                         const Lane& ln) {
+  const int zhi = p.R2 - 1 + grid_h2(G);
+  Raw r{0u, 0u, 0, {}};
+  if constexpr (kShfl && kP > 1) {
+    const elem_t* c = cell<G>(row[G] + min(ln.zl, zhi), xp);
+    r.a = ld_granule(c);
+    if (ln.lane == 0) r.b = ld_granule(cell<G>(row[G] + min(ln.zs + kP * kW, zhi), xp));
+    r.odd = static_cast<int>(reinterpret_cast<unsigned long long>(c) >> 1) & 1;
+  } else if constexpr (kP == 2 && grid_vec(G)) {
+    ld_pair(cell<G>(row[G] + min(ln.zl, zhi & ~1), xp), r.f);
+  } else {
+#pragma unroll
+    for (int j = 0; j < kP; ++j) r.f[j] = ld_elem(cell<G>(row[G] + min(ln.zl + j, zhi), xp));
+  }
+  return r;
+}
+
+// The unit from what was loaded.  Shuffle build, two cells a lane: a row
+// that starts on an odd cell takes a lane's second cell from the next
+// lane's granule (lane kW - 1's from lane 0's second granule); every lane
+// of the segment takes part.
+__device__ __forceinline__ Unit assemble(const Raw& r, const Lane& ln) {
+  Unit u;
+  if constexpr (kShfl && kP > 1) {
+    const unsigned nb =
+        __shfl_sync(ln.mask, ln.lane == 0 ? r.b : r.a, (ln.lane + 1) & (kW - 1), kW);
+    const unsigned first = r.odd ? r.a >> 16 : r.a & 0xffffu;
+    const unsigned second = r.odd ? nb & 0xffffu : r.a >> 16;
+    u.v[0] = __uint_as_float(first << 16);
+    u.v[1] = __uint_as_float(second << 16);
+  } else {
+#pragma unroll
+    for (int j = 0; j < kP; ++j) u.v[j] = r.f[j];
+  }
+  return u;
+}
+
+// Shuffle build: grid G's edge unit of plane xp, loaded by the segment's
+// edge lanes.
+template <int G>
+__device__ __forceinline__ Unit load_edge(const Params& p, const elem_t* const* row, int xp,
+                                          const Lane& ln) {
+  Unit u{};
+  if constexpr (kShfl && grid_h2(G) > 0) {
+    if (edge_lane(ln.lane)) {
+      constexpr int h2 = grid_h2(G);
+      const int z = ln.zs + kP * edge_unit(ln.lane);
+#pragma unroll
+      for (int c = 0; c < kP; ++c)
+        u.v[c] = ld_elem(cell<G>(row[G] + min(max(z + c, -h2), p.R2 - 1 + h2), xp));
+    }
+  }
+  return u;
+}
+
+// Before the column's first plane x0: each queue's planes x0 - h0 ..
+// x0 + h0 - 1 (loaded together, then assembled), the lead of plane x0 +
+// h0 and the edges of plane x0.
+template <int G>
+__device__ __forceinline__ void prologue(const Params& p, const elem_t* const* row,
+                                         const Lane& ln, int x0, Unit* q, Raw* lead,
+                                         Unit* enext) {
+  if constexpr (G < RT_NG) {
+    if constexpr (grid_read(G) != 0) {
+      constexpr int n = prologue_planes(G);
+      Raw pro[n > 0 ? n : 1];
+#pragma unroll
+      for (int s = 0; s < n; ++s) pro[s] = load_lead<G>(p, row, x0 - grid_h0(G) + s, ln);
+      lead[G] = load_lead<G>(p, row, x0 + grid_h0(G), ln);
+      enext[G] = load_edge<G>(p, row, x0, ln);
+#pragma unroll
+      for (int s = 0; s < n; ++s) q[queue_offset(G) + s] = assemble(pro[s], ln);
+    }
+    prologue<G + 1>(p, row, ln, x0, q, lead, enext);
+  }
+}
+
+// At plane x: the lead (plane x + h0) into the queue's last slot, the
+// edges of plane x in use.
+template <int G>
+__device__ __forceinline__ void advance(Unit* q, const Raw* lead, Unit* edge, const Unit* enext,
+                                        const Lane& ln) {
+  if constexpr (G < RT_NG) {
+    if constexpr (grid_read(G) != 0) {
+      q[queue_offset(G) + 2 * grid_h0(G)] = assemble(lead[G], ln);
+      edge[G] = enext[G];
+    }
+    advance<G + 1>(q, lead, edge, enext, ln);
+  }
+}
+
+// The loads of plane x1 = x + 1, issued before plane x's arithmetic: each
+// queue's lead (plane x1 + h0) and the edges.
+template <int G>
+__device__ __forceinline__ void issue(const Params& p, const elem_t* const* row, const Lane& ln,
+                                      int x1, Raw* lead, Unit* enext) {
+  if constexpr (G < RT_NG) {
+    if constexpr (grid_read(G) != 0) {
+      lead[G] = load_lead<G>(p, row, x1 + grid_h0(G), ln);
+      enext[G] = load_edge<G>(p, row, x1, ln);
+    }
+    issue<G + 1>(p, row, ln, x1, lead, enext);
+  }
+}
+
+// every queue one slot on, for the next plane
+template <int G>
+__device__ __forceinline__ void shift(Unit* q) {
+  if constexpr (G < RT_NG) {
+#pragma unroll
+    for (int i = 0; i + 1 < queue_len(G); ++i) q[queue_offset(G) + i] = q[queue_offset(G) + i + 1];
+    shift<G + 1>(q);
+  }
+}
+
+// The tap reader of the lane's point J at plane x (zp: the point along
+// axis 2, clamped to the region, for the taps that are loads).
+template <int J>
+struct ColumnReader {
   const Params& p;
-  long long idx[RT_NG];   // element index of this point in each buffer
-  template <int G>
-  __device__ __forceinline__ float at(int dx, int dy, int dz) const {
-    return ld_elem(p.g[G] + idx[G] + dx * p.sx[G] + dy * p.sy[G] + dz);
+  const Unit* q;
+  const Unit* edge;
+  const elem_t* const* row;
+  const Lane& ln;
+  int x, zp;
+  template <int G, int DX, int DY, int DZ>
+  __device__ __forceinline__ float at() const {
+    constexpr int du = lane_of(J + DZ), c = cell_of(J + DZ);
+    if constexpr (DY == 0 && DZ == 0) {
+      return q[tap_slot(G, DX)].v[J];
+    } else if constexpr (DX == 0 && DY == 0 && du == 0) {
+      return q[tap_slot(G, 0)].v[c];           // a cell of the lane's own unit
+    } else if constexpr (kShfl && DX == 0 && DY == 0) {
+      const float own = q[tap_slot(G, 0)].v[c];
+      const float send = sends_edge(ln.lane, du) ? edge[G].v[c] : own;
+      return __shfl_sync(ln.mask, send, (ln.lane + du) & (kW - 1), kW);
+    } else if constexpr (kP == 2 && grid_vec(G)) {
+      // the aligned pair holding the cell, its start clamped to the tap's
+      // reach (a no-op for a point in the region)
+      constexpr int e = (J + DZ) & ~1;
+      float v[2];
+      ld_pair(cell<G, DX, DY, e>(row[G] + min(ln.zl, ((p.R2 - 1 + DZ) & ~1) - e), x), v);
+      return v[J + DZ - e];
+    } else {
+      return ld_elem(cell<G, DX, DY, DZ>(row[G] + zp, x));
+    }
   }
 };
 
-__global__ void __launch_bounds__(kThreads) map_step_kernel(const Params p) {
-  const int tz = threadIdx.x, ty = threadIdx.y;
-  const int z0 = blockIdx.x * RT_TB2, y0 = blockIdx.y * RT_TB1;
+template <int J>
+__device__ __forceinline__ void points(const Params& p, const Unit* q, const Unit* edge,
+                                       const elem_t* const* row, const Lane& ln, int x,
+                                       float (&out)[kP][RT_NO]) {
+  if constexpr (J < kP) {
+    const ColumnReader<J> rd{p, q, edge, row, ln, x, min(ln.zl + J, p.R2 - 1)};
+    stencil_point(rd, p.s, out[J]);
+    points<J + 1>(p, q, edge, row, ln, x, out);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks) map_step_kernel(const Params p) {
+  const int tid = threadIdx.y * kRowThreads + threadIdx.x;
+  const int in_warp = min(32, kThreads - (tid & ~31));
+  Lane ln;
+  ln.lane = threadIdx.x & (kW - 1);
+  ln.mask = in_warp == 32 ? 0xffffffffu : (1u << in_warp) - 1u;
+  ln.zl = blockIdx.x * RT_TB2 + kP * threadIdx.x;
+  ln.zs = ln.zl - kP * ln.lane;
+  const int y = blockIdx.y * RT_TB1 + threadIdx.y;
   const int x0 = blockIdx.z * RT_TB0;
-  const int z = z0 + tz, y = y0 + ty;
-  const int x1 = min(x0 + RT_TB0, p.R0);
-  if (z >= p.R2 || y >= p.R1) return;   // outside the box: keep
-  for (int x = x0; x < x1; ++x) {
-    GmemReader rd{p, {}};
+  const int nx = min(x0 + RT_TB0, p.R0) - x0;
+  // each grid's row at plane 0 (rows past the region's end: its last row,
+  // whose points are not stored)
+  const elem_t* row[RT_NG];
 #pragma unroll
-    for (int g = 0; g < RT_NG; ++g) rd.idx[g] = p.org[g] + x * p.sx[g] + y * p.sy[g] + z;
-    float out[RT_NO];
-    stencil_point(rd, p.s, out);
+  for (int g = 0; g < RT_NG; ++g)
+    row[g] = p.g[g] + p.org[g] + static_cast<long long>(min(y, p.R1 - 1)) * grid_sy(g);
+  Unit q[kQueue];
+  Raw lead[RT_NG];
+  Unit edge[RT_NG], enext[RT_NG];
+  prologue<0>(p, row, ln, x0, q, lead, enext);
+  for (int t = 0; t < nx; ++t) {
+    const int x = x0 + t;
+    advance<0>(q, lead, edge, enext, ln);
+    if (t + 1 < nx) issue<0>(p, row, ln, x + 1, lead, enext);   // the same for the block
+    float out[kP][RT_NO];
+    points<0>(p, q, edge, row, ln, x, out);
+    if (y < p.R1) {
 #pragma unroll
-    for (int o = 0; o < RT_NO; ++o) store_out(p, o, x, y, z, out[o]);
+      for (int j = 0; j < kP; ++j) {
+        if (ln.zl + j < p.R2) {
+#pragma unroll
+          for (int o = 0; o < RT_NO; ++o) store_out(p, o, x, y, ln.zl + j, out[j][o]);
+        }
+      }
+    }
+    shift<0>(q);
   }
 }
 #endif
@@ -133,7 +380,13 @@ __global__ void __launch_bounds__(kThreads) map_step_kernel(const Params p) {
 #if RT_MAP_T != 2
 extern "C" int rt_map_step(const void* meta, const void* scal, void* stream) {
   const Params p = rt_params(meta, scal);
-  const dim3 threads(RT_MAP_T == 1 ? RT_TB2 / 4 : RT_TB2, RT_TB1, 1);
+#if RT_MAP_T == 0
+  // the build's pitches are the plan's: buffers of another shape are refused
+  for (int g = 0; g < RT_NG; ++g)
+    if (p.sx[g] != grid_sx(g) || p.sy[g] != grid_sy(g))
+      return static_cast<int>(cudaErrorInvalidValue);
+#endif
+  const dim3 threads(kRowThreads, RT_TB1, 1);
   const dim3 blocks((p.R2 + RT_TB2 - 1) / RT_TB2, (p.R1 + RT_TB1 - 1) / RT_TB1,
                     (p.R0 + RT_TB0 - 1) / RT_TB0);
   map_step_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(p);

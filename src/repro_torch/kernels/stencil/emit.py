@@ -11,10 +11,11 @@ function is
 where ``rd.template at<G>(dx, dy, dz)`` reads operand grid ``G`` at a tap
 offset (2D kernels map ``(dx, dy)`` to ``(dx, 0, dy)``: see
 ``CudaPlan``), ``s`` holds the f32 scalars in signature order and
-``out[o]`` receives the new value of output grid ``o``.  K1, K2, K3 and
-K4 call it, each with its own reader; K4's f4 template reads its tap
-rows from register queues instead, as ``rd.template at<f, dx, dz>()``
-(``f4_functions``).
+``out[o]`` receives the new value of output grid ``o``.  K2, K3 and K4
+smem call it, each with its own reader; K1 and K4 gmem read each tap at
+compile-time offsets, as ``rd.template at<G, dx, dy, dz>()``
+(``gmem_functions``), and K4's f4 template reads its tap rows from
+register queues, as ``rd.template at<f, dx, dz>()`` (``f4_functions``).
 
 The semi-stencil kernel K5 calls the scatter ``semi_scatter<O, D>(rd, s,
 acc)`` instead.  Each term's coefficient is split into a number κ and a
@@ -192,6 +193,20 @@ def header(kernel: ir.StencilIR, opnd_grids: Sequence[str],
         point or point_function(kernel, opnd_grids, out_grids),
         "",
     ])
+
+
+def gmem_functions(kernel: ir.StencilIR, opnd_grids: Sequence[str],
+                   out_grids: Sequence[str]) -> str:
+    """K1's and K4 gmem's point function (``csrc/gmem_column.cuh``): it
+    reads tap ``(dx, dy, dz)`` of grid ``G`` as ``rd.template at<G, dx, dy,
+    dz>()``, so the kernel resolves each tap (queue slot, own cell,
+    shuffle or load at a constant offset) when it is compiled."""
+    gidx = {g: i for i, g in enumerate(opnd_grids)}
+
+    def tap(t):
+        dx, dy, dz = offsets3(t.offsets)
+        return f"rd.template at<{gidx[t.grid]}, {dx}, {dy}, {dz}>()"
+    return point_function(kernel, opnd_grids, out_grids, tap)
 
 
 def f4_rows(kernel: ir.StencilIR, opnd_grids: Sequence[str],

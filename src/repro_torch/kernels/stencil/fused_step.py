@@ -3,12 +3,18 @@
 Replaces the JAX package's ``kernels/stencil/codegen.py``
 ``_make_body_fused`` tap branch (``PallasPlan._call_for`` with
 ``time_block=1``).  CUDA source: K4 gmem's body, ``csrc/map_step.cuh``
-(``RT_MAP_T 0``), its destinations the output grids' own layout buffers
-(the same build as ``map_step``'s gmem in place): a thread block covers a
-``b0 × b1 × b2`` tile of the interior, each thread walks its column's
-``b0`` points, taps from global memory, outputs in place.  Bound: device
-memory bytes (each operand grid read once, each output written once per
-step).
+(``RT_MAP_T 0``, lanes and queues in ``csrc/gmem_column.cuh``), its
+destinations the output grids' own layout buffers (the same build as
+``map_step``'s gmem in place): a thread block covers a ``b0 × b1 × b2``
+tile of the interior, each lane walks its column's ``b0`` planes, two
+points adjacent along axis 2 where the block allows, with the column's
+axis-0 taps in register queues, the axis-2 taps in its own cells from
+there too and the other taps loaded from device memory at constant
+offsets (aligned pairs where the rows allow), outputs in place.  Bound: device memory bytes (each operand grid
+read once, each output written once per step).
+
+The plain version walks the same chunks of ``b0`` planes and reads each
+tap where the kernel does (``map_step.gmem_taps``).
 
 Both versions read f32 or bf16 buffers, compute in f32 and round once,
 when they store an output cell.
@@ -27,28 +33,23 @@ from repro_torch.core import lowering
 from repro_torch.core.dsl import scalar_tensors
 
 from .. import _build
-from .emit import offsets3
+from .map_step import gmem_taps
 
 
 def fused_step_plain(plan, padded: Dict[str, torch.Tensor],
                      scalars: Dict[str, float]) -> None:
-    """K1's plain PyTorch version: the same per-point update, evaluated
-    over the whole interior at once with shifted slices of the layout
-    buffers."""
+    """K1's plain PyTorch version: the same per-point update, chunk by
+    chunk of ``b0`` planes as the kernel's lanes walk them, outputs
+    written into the layout buffers' interiors."""
     R0, R1, R2 = plan.R3
     device = padded[plan.out_grids[0]].device
-
-    def tap_read(g, offs):
-        d, w = offsets3(offs), plan.hw3[g]
-        b = plan.buf3(padded[g])
-        return b[w[0] + d[0]:w[0] + d[0] + R0, w[1] + d[1]:w[1] + d[1] + R1,
-                 w[2] + d[2]:w[2] + d[2] + R2].float()
-
-    env = lowering.exec_statements(plan.kernel, tap_read,
-                                   scalar_tensors(scalars, device),
-                                   plan.R3, torch.float32, device)
-    for g in plan.out_grids:
-        plan.interior3(g, padded[g]).copy_(env[g])
+    scal = scalar_tensors(scalars, device)
+    for x0 in range(0, R0, plan.B3[0]):
+        x1 = min(x0 + plan.B3[0], R0)
+        env = lowering.exec_statements(plan.kernel, gmem_taps(plan, padded, x0, x1),
+                                       scal, (x1 - x0, R1, R2), torch.float32, device)
+        for g in plan.out_grids:
+            plan.interior3(g, padded[g])[x0:x1].copy_(env[g])
 
 
 def fused_step(plan, padded: Dict[str, torch.Tensor],
@@ -63,7 +64,7 @@ def fused_step(plan, padded: Dict[str, torch.Tensor],
     if device.type != "cuda":
         raise ValueError(f"fused_step: unsupported device {device}")
     meta, scal = plan.launch_args(padded, scalars)
-    fn = _build.load(plan.source(padded[plan.out_grids[0]].dtype), "rt_map_step")
+    fn = _build.load(plan.source(padded[plan.out_grids[0]].dtype, padded), "rt_map_step")
     with torch.cuda.device(device):
         err = fn(ctypes.addressof(meta), ctypes.addressof(scal),
                  torch.cuda.current_stream(device).cuda_stream)

@@ -4,9 +4,16 @@ smem) and its plain version.
 Replaces the JAX package's ``kernels/stencil/codegen.py`` ``lower_pallas``
 with ``_make_body_blocked`` (gmem/f4: taps concatenated from neighbour
 blocks; smem: the halo'd tile pasted into VMEM scratch).  CUDA source:
-``csrc/map_step.cuh``.  gmem: a thread block covers a ``b0 × b1 × b2``
-tile of the region and each thread walks its column's ``b0`` points,
-reading taps from device memory.  f4 (``csrc/f4_rows.cuh``): each thread
+``csrc/map_step.cuh``.  gmem (``csrc/gmem_column.cuh``): a thread block
+covers a ``b0 × b1 × b2`` tile of the region and each lane walks its
+column's ``b0`` planes, two points adjacent along axis 2 a plane where the
+block allows, reading taps from device memory: its axis-0 taps from
+register queues, its axis-2 taps in its own cells from there too, the
+others as loads at constant offsets (of aligned pairs of cells where the
+grid's rows allow, ``MapPlan.gmem_pairs``).  The plan may take the
+shuffle build instead (``gmem_lanes``): axis-2 taps from neighbouring
+lanes by warp shuffles, the cells past a segment's ends loaded by its
+edge lanes.  f4 (``csrc/f4_rows.cuh``): each thread
 walks a column of groups of 4 points along axis 2, its tap rows loaded as
 aligned vectors of 4 cells and carried along axis 0 in register queues
 (``emit.f4_pieces``), each row's place in its vector fixed by the plan
@@ -18,7 +25,14 @@ destination, is also K1 (``fused_step``).  Bound: device-memory bytes
 (each input grid read once, each output written once per application).
 
 The plain version walks the same chunks of ``b0`` planes, with one tile
-spanning the whole plane: gmem reads the grids; smem the staged box of
+spanning the whole plane: gmem (``gmem_taps``) reads each axis-0 tap from
+the queue slot the kernel reads and each axis-2 tap in the lane's own
+cells from its queue; in the shuffle build each lane's unit assembled as
+the kernel assembles it (in bf16 from 4-byte granules, a row that starts
+on an odd cell taking its second cell from the next lane's), each other
+axis-2 tap from the lane and the cell the shuffle reads, edge units where
+the kernel's edge lanes load them; the other taps from the grids; smem
+the staged box of
 each chunk in the grids' own type (planes ``[x0 - h0, x0 + b0 + h0)``;
 cells outside the tap reach are NaN, so a read of one would show), and the
 column's axis-0 taps from its centre as the register queue holds them;
@@ -110,6 +124,102 @@ def _f4_taps(plan, bufs, x0: int, x1: int):
     return tap_read
 
 
+def gmem_taps(plan, bufs: Dict[str, torch.Tensor], x0: int, x1: int):
+    """Tap reader of K1's and K4 gmem's planes ``[x0, x1)`` over the whole
+    region, lane by lane as ``csrc/gmem_column.cuh`` lays them out (every
+    lane of a block row, those past the region's end too, with their
+    cells clamped to the grid's reach)."""
+    R0, R1, R2 = plan.R3
+    t0 = bufs[plan.opnd_grids[0]]
+    dev = t0.device
+    col = plan.gmem_column(t0.dtype)
+    P, W, hp = col.cells, col.width, col.edge
+    nz = -(-R2 // plan.B3[2]) * plan.B3[2]
+    pos = torch.arange(nz, device=dev)          # every lane's cells
+    zl = pos - pos % P                          # its lane's first point
+    lane = pos % (P * W) // P                   # the lane in its segment
+    zs = pos - pos % (P * W)                    # the segment's first point
+    rows = torch.arange(R1, device=dev)
+    grids = {g: plan.buf3(bufs[g]) for g in plan.opnd_grids}
+    memo = {}
+
+    def elem(g, xs, z):
+        """Element indices of cells ``(xs, y, z)`` of grid ``g``, ``y`` the
+        region's rows."""
+        b, o = grids[g], plan.org3[g]
+        return ((o[0] + xs).view(-1, 1, 1) * b.stride(0)
+                + (o[1] + rows).view(1, -1, 1) * b.stride(1)
+                + (o[2] + z).view(1, 1, -1))
+
+    def unit(g, slot):
+        """Queue slot ``slot`` of grid ``g`` at each plane: every lane's
+        unit of plane ``x - h0 + slot``, as the kernel loads it."""
+        key = ("unit", g, slot)
+        if key not in memo:
+            h0, zhi = plan.gh3[g][0], R2 - 1 + plan.gh3[g][2]
+            xs = torch.arange(x0 - h0 + slot, x1 - h0 + slot, device=dev)
+            flat = grids[g].reshape(-1)
+            if col.shfl and P == 2:
+                # the granule holding the first cell; a row that starts on
+                # an odd cell takes the second cell from the next lane's
+                # granule (the last lane's from lane 0's second one: the
+                # granule holding cell P·W of the segment)
+                e0 = elem(g, xs, zl.clamp(max=zhi))
+                low = bufs[g].data_ptr() // 2
+                e2 = elem(g, xs, (zl + 2).clamp(max=zhi))
+                nxt = flat[e2 - (e2 + low) % 2]
+                own = flat[(e0 + 1).clamp(max=flat.numel() - 1)]
+                v = torch.where(pos % 2 == 0, flat[e0],
+                                torch.where((e0 + low) % 2 == 1, nxt, own))
+            else:
+                v = flat[elem(g, xs, pos.clamp(max=zhi))]
+            memo[key] = v.float()
+        return memo[key]
+
+    def edge(g):
+        """Every lane's edge unit of grid ``g`` at each plane (0 where the
+        lane is no edge lane)."""
+        key = ("edge", g)
+        if key not in memo:
+            h2 = plan.gh3[g][2]
+            m = torch.where(lane < hp, W + lane, lane - W)
+            z = (zs + P * m + pos % P).clamp(-h2, R2 - 1 + h2)
+            v = grids[g].reshape(-1)[elem(g, torch.arange(x0, x1, device=dev), z)]
+            memo[key] = torch.where((lane < hp) | (lane >= W - hp), v.float(),
+                                    v.new_zeros((), dtype=torch.float32))
+        return memo[key]
+
+    def load(g, dx, dy, dz):
+        b, o = grids[g], plan.org3[g]
+        return b[o[0] + x0 + dx:o[0] + x1 + dx, o[1] + dy:o[1] + dy + R1,
+                 o[2] + dz:o[2] + dz + R2].float()
+
+    def lane_tap(g, dz):
+        """Tap ``(0, 0, dz)``: cell ``j + dz`` of each point ``j`` of a lane,
+        from the lane's own unit; else (shuffle build) from the lane and
+        cell the shuffle reads, the edge unit where the source lane sends
+        it, or (load build) a load."""
+        z = torch.arange(R2, device=dev)
+        k = z % P + dz
+        du = torch.div(k, P, rounding_mode="floor")
+        src = (z % (P * W) // P + du) % W
+        idx = z - z % (P * W) + P * src + k - P * du
+        centre = unit(g, plan.gh3[g][0])[..., idx]
+        if not col.shfl:
+            return torch.where(du == 0, centre, load(g, 0, 0, dz))
+        wrap = ((du > 0) & (src < du)) | ((du < 0) & (src >= W + du))
+        return torch.where(wrap, edge(g)[..., idx], centre)
+
+    def tap_read(g, offs):
+        dx, dy, dz = offsets3(offs)
+        if dy == 0 and dz == 0:
+            return unit(g, plan.gh3[g][0] + dx)[..., :R2]
+        if dx == 0 and dy == 0:
+            return lane_tap(g, dz)
+        return load(g, dx, dy, dz)
+    return tap_read
+
+
 def _smem_tile(plan, t: torch.Tensor, g: str, x0: int) -> torch.Tensor:
     """The smem kernel's staged box of grid ``g`` (3D buffer ``t``) for the
     chunk at plane ``x0``: planes ``[x0 - h0, x0 + b0 + h0)`` with the tap
@@ -135,12 +245,10 @@ def map_step_plain(plan, bufs: Dict[str, torch.Tensor],
     scal = scalar_tensors(scalars, device)
     grids = {g: plan.buf3(bufs[g]) for g in plan.opnd_grids}
 
-    def box(t, o, x0, x1, d, e=(0, 0, 0)):
-        """Planes ``[x0, x1)`` of ``t`` at origin ``o`` shifted by ``d`` and
-        widened by ``e`` per side."""
-        return t[o[0] + d[0] + x0 - e[0]:o[0] + d[0] + x1 + e[0],
-                 o[1] + d[1] - e[1]:o[1] + d[1] + R1 + e[1],
-                 o[2] + d[2] - e[2]:o[2] + d[2] + R2 + e[2]]
+    def box(t, o, x0, x1, d):
+        """Planes ``[x0, x1)`` of ``t`` at origin ``o`` shifted by ``d``."""
+        return t[o[0] + d[0] + x0:o[0] + d[0] + x1, o[1] + d[1]:o[1] + d[1] + R1,
+                 o[2] + d[2]:o[2] + d[2] + R2]
 
     for x0 in range(0, R0, plan.B3[0]):
         x1 = min(x0 + plan.B3[0], R0)
@@ -163,9 +271,7 @@ def map_step_plain(plan, bufs: Dict[str, torch.Tensor],
                                 h[1] + d[1]:h[1] + d[1] + R1,
                                 h[2] + d[2]:h[2] + d[2] + R2].float()
         else:
-            def tap_read(g, offs, x0=x0, x1=x1):
-                return box(grids[g], plan.org3[g], x0, x1,
-                           offsets3(offs)).float()
+            tap_read = gmem_taps(plan, bufs, x0, x1)
         env = lowering.exec_statements(plan.kernel, tap_read, scal,
                                        (x1 - x0, R1, R2), torch.float32,
                                        device)
@@ -187,7 +293,7 @@ def map_step(plan, bufs: Dict[str, torch.Tensor], scalars: Dict[str, float],
     if device.type != "cuda":
         raise ValueError(f"map_step: unsupported device {device}")
     meta, scal = plan.launch_args(bufs, scalars, dst)
-    fn = _build.load(plan.source(bufs[plan.opnd_grids[0]].dtype), "rt_map_step")
+    fn = _build.load(plan.source(bufs[plan.opnd_grids[0]].dtype, bufs), "rt_map_step")
     with torch.cuda.device(device):
         err = fn(ctypes.addressof(meta), ctypes.addressof(scal),
                  torch.cuda.current_stream(device).cuda_stream)

@@ -20,6 +20,7 @@ Every test needs a CUDA device and skips without one:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 """
+import ctypes
 import math
 
 import numpy as np
@@ -186,18 +187,52 @@ def test_single_step_kernels_2d_match_plain(cuda, template, name):
         _check(padded[g], ref[g], f"{name}/{template}/{g}")
 
 
-@pytest.mark.parametrize("name,shape,block", [
-    ("star2d4r", (61, 133), (5, 64)),
-    ("tapped_coef", (45, 77), (3, 32)),
-    ("star3d4r", (61, 70, 133), (3, 4, 32)),
-    ("box3d1r", (21, 30, 47), (8, 2, 16)),
-])
-def test_fused_step_column_walk_matches_plain(cuda, name, shape, block):
-    """K1's threads walk ``b0`` points of a column, in place: a ragged last
-    column along axis 0 and outputs read at their center."""
+# (name, interior, block, dtype, build): user blocks whose b0 does not
+# divide R0, rows of 16 lanes (shuffles of width 16; bf16 8), a row of 24
+# lanes (no segment: axis-2 taps are loads), an odd b2 (one point a lane),
+# and the default block on ragged shapes (rows of 141 cells: bf16 rows that
+# start on an odd cell, no pair loads), 2D, off-axis taps, in both builds
+FUSED_WALK_CASES = [
+    ("star2d4r", (61, 133), (5, 64), torch.float32, "loads"),
+    ("tapped_coef", (45, 77), (3, 32), torch.float32, "loads"),
+    ("star3d4r", (61, 70, 133), (3, 4, 32), torch.float32, "loads"),
+    ("box3d1r", (21, 30, 47), (8, 2, 16), torch.float32, "shuffles"),
+    ("box3d1r", (21, 30, 47), (8, 2, 16), torch.bfloat16, "shuffles"),
+    ("box3d1r", (21, 30, 47), (8, 2, 15), torch.bfloat16, "loads"),
+    ("star3d4r", (37, 21, 100), (8, 3, 24), torch.float32, "shuffles"),
+    ("star3d4r", (64, 64, 64), None, torch.float32, "loads"),
+    ("star3d4r", (64, 64, 64), None, torch.bfloat16, "loads"),
+    ("star3d4r", (61, 70, 133), None, torch.float32, "loads"),
+    ("star3d4r", (61, 70, 133), None, torch.bfloat16, "loads"),
+    ("star3d4r", (61, 70, 133), None, torch.float32, "shuffles"),
+    ("star3d4r", (61, 70, 133), None, torch.bfloat16, "shuffles"),
+    ("acoustic", (61, 70, 133), None, torch.float32, "loads"),
+    ("acoustic", (64, 64, 64), None, torch.bfloat16, "loads"),
+    ("acoustic", (61, 70, 133), None, torch.bfloat16, "shuffles"),
+    ("star2d4r", (61, 133), None, torch.bfloat16, "loads"),
+    ("star2d4r", (64, 128), None, torch.float32, "shuffles"),
+    ("box3d2r", (21, 30, 47), None, torch.bfloat16, "loads"),
+    ("box3d2r", (20, 30, 48), None, torch.float32, "loads"),
+]
+
+
+@pytest.mark.parametrize("name,shape,block,dtype,lanes", FUSED_WALK_CASES,
+                         ids=[f"{c[0]}-{'x'.join(map(str, c[1]))}-"
+                              f"{'x'.join(map(str, c[2])) if c[2] else 'default'}-"
+                              f"{str(c[3])[6:]}-{c[4]}" for c in FUSED_WALK_CASES])
+def test_fused_step_column_walk_matches_plain(cuda, name, shape, block, dtype, lanes):
+    """K1's lanes walk ``b0`` planes of a column, in place: a ragged last
+    column along axis 0 and ragged lanes along axis 2, outputs read at
+    their center; f32 within 2e-5 x max(1, |plain|), bf16 within one bf16
+    ulp (both compute in f32 and round once)."""
     k, _, scal = _kernel(name)
     arrays, halos = _layout(k, shape, cuda, 6)
+    if name == "acoustic":       # coefficients in their physical ranges
+        arrays["vp2"] = 0.5 + 1.5 * arrays["vp2"].abs().clamp(max=1)
+        arrays["damp"] = 0.2 * arrays["damp"].abs().clamp(max=1)
+    arrays = {g: t.to(dtype) for g, t in arrays.items()}
     plan = codegen.plan_cuda(k.ir, halos, shape, st.hopper(block=block))
+    plan.gmem_lanes = lanes
     padded = plan.to_padded(arrays)
     ref = {g: t.clone() for g, t in padded.items()}
     n = fused_step.launches
@@ -206,7 +241,46 @@ def test_fused_step_column_walk_matches_plain(cuda, name, shape, block):
     torch.cuda.synchronize()
     assert fused_step.launches == n + 1
     for g in plan.opnd_grids:
-        _check(padded[g], ref[g], f"{name}/{g}")
+        if dtype == torch.float32:
+            _check(padded[g], ref[g], f"{name}/{g}")
+        else:
+            scale = max(1.0, float(ref[g].float().abs().max()))
+            err = float((padded[g].float() - ref[g].float()).abs().max())
+            assert err <= _bf16_ulp(scale), (name, g, err)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("lanes", ["loads", "shuffles"])
+def test_gmem_off_an_aligned_base_and_other_pitches(cuda, lanes, dtype):
+    """K4 gmem on grids whose base is one cell off a pair (the load build
+    then loads single cells) and into a destination whose region starts
+    on an odd cell; a build refuses buffers of pitches other than its
+    own."""
+    k, _, scal = _kernel("star3d4r")
+    shape, region = (40, 30, 64), ((2, 38), (1, 29), (3, 61))
+    halos = {g: (4, 4, 4) for g in k.ir.grid_params}
+    plan = codegen.lower_hopper(k.ir, halos, shape, region, st.hopper())
+    plan.gmem_lanes = lanes
+    full = plan.full_shapes["u"]
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    store = torch.randn(math.prod(full) + 1, generator=gen, device=cuda).to(dtype)
+    bufs = {"u": store[1:].view(full),
+            "v": torch.randn(full, generator=gen, device=cuda).to(dtype)}
+    assert not plan.gmem_pairs(dtype, bufs)["u"]
+    ref = {g: t.clone() for g, t in bufs.items()}
+    map_step(plan, bufs, scal, None)
+    map_step_plain(plan, ref, scal, None)
+    torch.cuda.synchronize()
+    scale = max(1.0, float(ref["v"].float().abs().max()))
+    err = float((bufs["v"].float() - ref["v"].float()).abs().max())
+    assert err <= (RTOL * scale if dtype == torch.float32 else _bf16_ulp(scale)), err
+    other = codegen.lower_hopper(k.ir, halos, (40, 30, 66), region, st.hopper())
+    fn = _build.load(plan.source(dtype, bufs), "rt_map_step")
+    wide = {g: torch.zeros(other.full_shapes[g], device=cuda, dtype=dtype)
+            for g in ("u", "v")}
+    meta, sc = other.launch_args(wide, scal)
+    assert fn(ctypes.addressof(meta), ctypes.addressof(sc),
+              torch.cuda.current_stream().cuda_stream) != 0
 
 
 @pytest.mark.parametrize("template,time_block", [
@@ -270,6 +344,23 @@ MAP_CASES += [
 ]
 MAP_CASES += [(f"mem-{mt}-{t}", "box3d1r", (21, 30, 47), None, t, None, mt)
               for t in ("gmem", "shift") for mt in ("registers", "vmem")]
+# K4 gmem's lanes: a region whose first cell is not on a warp boundary, on
+# the ragged shape, under the default block and one whose b0 does not
+# divide the region; rows of 16 lanes (shuffles of width 16); a row of 24
+# lanes (no segment); acoustic (three center-only grids); Jacobi into a
+# destination at an unaligned region, its queue on the output grid
+MAP_CASES += [
+    ("gmem-region", "star3d4r", (61, 70, 133), ((5, 50), (3, 61), (10, 127)),
+     "gmem", None, None),
+    ("gmem-region-b0", "star3d4r", (61, 70, 133), ((5, 50), (3, 61), (10, 127)),
+     "gmem", (7, 4, 64), None),
+    ("gmem-width16", "star3d4r", (21, 30, 47), ((0, 21), (1, 30), (5, 47)),
+     "gmem", (4, 2, 16), None),
+    ("gmem-no-segment", "box3d2r", (21, 30, 47), None, "gmem", (4, 3, 24), None),
+    ("gmem-acoustic", "acoustic", (61, 70, 133), None, "gmem", None, None),
+    ("gmem-jacobi-region", "jacobi3", (61, 70, 133), ((5, 50), (3, 61), (10, 127)),
+     "gmem", None, None),
+]
 
 
 def _map_plan(name, shape, region, template, block, mem_type):
@@ -297,6 +388,9 @@ def test_map_kernel_matches_plain(cuda, map_built, case):
     gen = torch.Generator(device=cuda).manual_seed(5)
     bufs = {g: torch.randn(plan.full_shapes[g], generator=gen, device=cuda)
             for g in plan.opnd_grids}
+    if name == "acoustic":       # coefficients in their physical ranges
+        bufs["vp2"] = 0.5 + 1.5 * bufs["vp2"].abs().clamp(max=1)
+        bufs["damp"] = 0.2 * bufs["damp"].abs().clamp(max=1)
     ref = {g: t.clone() for g, t in bufs.items()}
     dst, rdst = plan.make_dst(bufs), plan.make_dst(ref)
     kern, plain = MAP_WRAPPERS[plan.kind]
@@ -528,8 +622,10 @@ BF16_CASES = [("fused", "gmem", 1, None), ("fused", "shift", 1, None),
               ("fused", "shift", 2, None), ("fused", "semi", 1, None)]
 BF16_CASES += [("map", t, 1, None) for t in MAP_TEMPLATES]
 # a region whose rows start at odd element indices (K5 stages bf16 rows
-# from the granule below) and whose z-start is not a multiple of 4 (f4)
-BF16_CASES += [("map", t, 1, ((1, 20), (2, 29), (3, 46))) for t in ("semi", "f4")]
+# from the granule below, K4 gmem's lanes take their second cell from the
+# next lane's granule) and whose z-start is not a multiple of 4 (f4)
+BF16_CASES += [("map", t, 1, ((1, 20), (2, 29), (3, 46)))
+               for t in ("semi", "f4", "gmem")]
 BF16_SHAPE = (21, 30, 47)
 
 

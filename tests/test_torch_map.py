@@ -486,7 +486,7 @@ def test_map_plan_geometry():
     halos = {"u": (4, 4, 4), "v": (4, 4, 4)}
     R = (64, 64, 64)
     gmem = codegen.lower_hopper(k.ir, halos, R, None, st.hopper())
-    assert (gmem.kind, gmem.B, gmem.in_place) == ("map", (4, 8, 32), True)
+    assert (gmem.kind, gmem.B, gmem.in_place) == ("map", (16, 4, 64), True)
     # the fused plan's model: u read over its reach, v written once
     assert gmem.hbm_bytes_per_step() == 4 * (72 ** 3 + 64 ** 3)
     f4 = codegen.lower_hopper(k.ir, halos, R, None, st.hopper(template="f4"))

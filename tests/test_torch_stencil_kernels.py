@@ -280,8 +280,8 @@ _HARNESS = r"""
 %s
 struct HostReader {
   float* const* g; const long long* sx; const long long* sy; long long idx[RT_NG];
-  template <int G> float at(int dx, int dy, int dz) const {
-    return g[G][idx[G] + dx * sx[G] + dy * sy[G] + dz];
+  template <int G, int DX, int DY, int DZ> float at() const {
+    return g[G][idx[G] + DX * sx[G] + DY * sy[G] + DZ];
   }
 };
 extern "C" void host_step(const long long* m, const float* s) {
