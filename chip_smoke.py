@@ -21,8 +21,8 @@ Phases, each of which exits non-zero when it fails:
    (K2's and K3's sources depend on the buffers' pitches, their staging
    path: one for every shape and type they run at, and K2's 512³ builds
    again with granules in place of the TMA); for every K1, K4 gmem, f4,
-   smem, K2 and K3 build its path (K1/K4 gmem: its build, points a lane
-   and each read grid's pair or single-cell loads; f4: each grid's rows
+   smem, K2 and K3 build its path (K1/K4 gmem: its points a lane and each
+   read grid's pair or single-cell loads; f4: each grid's rows
    aligned at plan time or at run time; smem, K2, K3: each staged grid
    copied by TMA or by 4-byte ``cp.async`` granules), its tile, shared
    bytes and ``ptxas`` registers and spills;
@@ -364,17 +364,17 @@ def map_dtypes(torch, template, shape, region):
 
 
 def path_of(plan, dtype):
-    """The path of a K1 or K4 gmem build (its lanes, points a lane and each
-    read grid's pair or single-cell loads), the load path of an f4 build
+    """The path of a K1 or K4 gmem build (its points a lane and each read
+    grid's pair or single-cell loads), the load path of an f4 build
     (per grid: aligned at plan time, or at run time) or the staging path
     of an smem, K2 or K3 build (TMA or 4-byte granules; K2/K3 with the TMA
     box's lead)."""
     if plan.kind == "fused" or (plan.kind == "map" and plan.template == "gmem"):
-        col = plan.gmem_column(dtype)
+        cells = plan.gmem_column().cells
         pairs = {g: v for g, v in plan.gmem_pairs(dtype).items() if g in plan.in_grids}
-        return {"path": f"gmem {plan.gmem_lanes}, {col.cells} points a lane, " + ", ".join(
+        return {"path": f"gmem, {cells} points a lane, " + ", ".join(
             f"{g}: {'pairs' if v else 'cells'}" for g, v in pairs.items()),
-            "gmem_pairs": pairs, "points_a_lane": col.cells}
+            "gmem_pairs": pairs, "points_a_lane": cells}
     if plan.kind in ("stream", "temporal"):
         lay = plan.ring_layout(dtype)
         rings = ({plan.swap[1]: lay.planes[-1]} if plan.kind == "temporal"

@@ -297,63 +297,24 @@ def _ring_layout(planes, slots, barriers) -> RingLayout:
 
 class GmemColumn(NamedTuple):
     """K1's and K4 gmem's column walk (``csrc/gmem_column.cuh``): each
-    lane computes ``cells`` points adjacent along axis 2; ``shfl`` (the
-    shuffle build) gives a lane its axis-2 taps from the lanes of its
-    row's segment of ``width`` lanes, the ``edge`` units (of ``cells``
-    cells) past each end loaded by the segment's edge lanes; ``threads``
-    a block; ``queues``: the slots of each read grid's axis-0 register
+    lane computes ``cells`` points adjacent along axis 2; ``threads`` a
+    block; ``queues``: the slots of each read grid's axis-0 register
     queue, ``2h0 + 1``."""
     cells: int
-    width: int
-    shfl: bool
-    edge: int
     threads: int
     queues: Dict[str, int]
 
 
-# K1's and K4 gmem's builds (csrc/gmem_column.cuh): "loads", two points a
-# lane, taps off the lane's own cells loaded (aligned pairs where the
-# rows allow), or "shuffles", axis-2 taps from neighbouring lanes
-GMEM_LANES = ("loads", "shuffles")
+# points a lane of K1 and K4 gmem computes along axis 2, where the block's
+# rows hold a multiple of them (csrc/gmem_column.cuh)
 GMEM_POINTS = 2
 
 
-def _seg_width(lanes: int) -> int:
-    """Lanes of a row's segment for a row of ``lanes`` lanes: a warp's 32
-    where ``lanes`` is a multiple of 32, all of them where it is a power of
-    two below 32, else 0 (no segment)."""
-    if lanes % 32 == 0:
-        return 32
-    return lanes if lanes < 32 and lanes & (lanes - 1) == 0 else 0
-
-
-def gmem_column(B3, gh3, read_grids, itemsize: int = 4,
-                lanes: str = "loads") -> GmemColumn:
-    """The column walk of tile ``B3`` for the grids ``read_grids`` (each
-    with tap halo ``gh3[g]``) on grids of ``itemsize`` bytes, in the build
-    ``lanes`` (``GMEM_LANES``).  Loads: ``GMEM_POINTS`` points a lane
-    where ``b2`` is a multiple of it, else one.  Shuffles: the cells of a
-    4-byte granule (one f32, two bf16) where the rows of lanes have
-    segments (``_seg_width``) at least twice the halo's units, else one
-    cell, and without a segment no shuffles (the taps are loads)."""
-    if lanes not in GMEM_LANES:
-        raise ValueError(f"gmem lanes {lanes!r}: one of {GMEM_LANES}")
-    h2 = max((gh3[g][2] for g in read_grids), default=0)
-
-    def lanes_ok(P):
-        W = _seg_width(B3[2] // P) if B3[2] % P == 0 else 0
-        return W > 0 and 2 * -(-h2 // P) <= W
-
-    if lanes == "loads":
-        P = GMEM_POINTS if B3[2] % GMEM_POINTS == 0 else 1
-        shfl = False
-    else:
-        gran = 4 // itemsize
-        P = gran if gran > 1 and lanes_ok(gran) else 1
-        shfl = lanes_ok(P)
-    W = _seg_width(B3[2] // P) if shfl else 1
-    return GmemColumn(P, W, shfl, -(-h2 // P) if shfl else 0,
-                      B3[1] * (B3[2] // P),
+def gmem_column(B3, gh3, read_grids) -> GmemColumn:
+    """The column walk of tile ``B3`` for the grids ``read_grids``, each
+    with tap halo ``gh3[g]``."""
+    P = GMEM_POINTS if B3[2] % GMEM_POINTS == 0 else 1
+    return GmemColumn(P, B3[1] * (B3[2] // P),
                       {g: 2 * gh3[g][0] + 1 for g in read_grids})
 
 
@@ -524,46 +485,37 @@ class _Plan:
                       f"#define RT_THREADS {threads}"]
         return "\n".join(lines + [""])
 
-    # K1's and K4 gmem's build (GMEM_LANES); a measurement of the two sets
-    # it before the plan's first source
-    gmem_lanes = "loads"
-
-    def gmem_column(self, dtype=torch.float32) -> GmemColumn:
-        """The column walk of K1 and K4 gmem on grids of ``dtype``
-        (``gmem_column``)."""
-        return gmem_column(self.B3, self.gh3, self.in_grids, ELEM_BYTES[dtype],
-                           self.gmem_lanes)
+    def gmem_column(self) -> GmemColumn:
+        """The column walk of K1 and K4 gmem (``gmem_column``)."""
+        return gmem_column(self.B3, self.gh3, self.in_grids)
 
     def gmem_pairs(self, dtype=torch.float32, bufs=None) -> Dict[str, bool]:
-        """Whether the load build reads each grid's units and loaded taps as
+        """Whether K1 and K4 gmem read each grid's units and loaded taps as
         aligned pairs of cells: two points a lane, both pitches even and
         the region's first cell at an even element index (so every lane's
         first cell is), and, given the buffers, the grid's base aligned to
         a pair.  Else each cell is its own load."""
-        P = self.gmem_column(dtype).cells
+        P = self.gmem_column().cells
         es = ELEM_BYTES[dtype]
         out = {}
         for g in self.opnd_grids:
             sx, sy = self.pitch3[g]
             o = self.org3[g]
-            out[g] = (self.gmem_lanes == "loads" and P == 2
-                      and sx % 2 == 0 and sy % 2 == 0
+            out[g] = (P == 2 and sx % 2 == 0 and sy % 2 == 0
                       and (o[0] * sx + o[1] * sy + o[2]) % 2 == 0
                       and (bufs is None or bufs[g].data_ptr() % (2 * es) == 0))
         return out
 
-    def gmem_source(self, dtype, pairs) -> str:
-        """The generated part of K1's and K4 gmem's build: its lanes
-        (``RT_GMEM_P``, ``RT_GMEM_SHFL``), whether a tap reads each grid
+    def gmem_source(self, pairs) -> str:
+        """The generated part of K1's and K4 gmem's build: the points a lane
+        computes (``RT_GMEM_P``), whether a tap reads each grid
         (``grid_read``), each grid's pitches (``grid_sx``, ``grid_sy``: the
         taps' offsets are constants of the code; the launch refuses buffers
         of other pitches) and its pair loads (``grid_vec``,
         ``gmem_pairs``)."""
-        col = self.gmem_column(dtype)
         g_of = self.opnd_grids
         return "\n".join([
-            f"#define RT_GMEM_P {col.cells}",
-            f"#define RT_GMEM_SHFL {int(self.gmem_lanes == 'shuffles')}",
+            f"#define RT_GMEM_P {self.gmem_column().cells}",
             emit.int_table("grid_read", [int(g in self.in_grids) for g in g_of]),
             emit.int_table("grid_sx", [self.pitch3[g][0] for g in g_of]),
             emit.int_table("grid_sy", [self.pitch3[g][1] for g in g_of]),
@@ -799,7 +751,7 @@ class CudaPlan(_Plan):
                 # K4 gmem's build, its destinations the grids themselves
                 src = ("#define RT_MAP 1\n"
                        f"#define RT_MAP_T {MAP_TEMPLATES['gmem']}\n" + src
-                       + self.gmem_source(dtype, dict(pairs)))
+                       + self.gmem_source(dict(pairs)))
             elif self.kind == "semi":
                 src += emit.semi_functions(self.kernel, self.opnd_grids,
                                            self.out_grids, self.lin, self.H)
@@ -1107,7 +1059,7 @@ class MapPlan(_Plan):
                                                  for g in self.opnd_grids]),
                     ""])
             if gmem:
-                src += self.gmem_source(dtype, dict(pairs))
+                src += self.gmem_source(dict(pairs))
             if self.kind == "semi":
                 src += emit.semi_functions(self.kernel, self.opnd_grids,
                                            self.out_grids, self.lin, self.H)

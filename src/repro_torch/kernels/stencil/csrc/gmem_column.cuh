@@ -1,30 +1,21 @@
 // K1's and K4 gmem's column walk (map_step.cuh, RT_MAP_T 0): the points a
-// lane computes along axis 2, the segments and edge lanes of the shuffle
-// build, and the register queues along axis 0.  Shared by the kernel and
-// host code that checks the geometry: nothing here touches CUDA's
-// runtime.  The includer defines elem_t and the generated header (RT_NG,
-// RT_TB0/1/2, the per-grid tables grid_h0/1/2 and grid_read, and the
-// plan's choices RT_GMEM_P and RT_GMEM_SHFL).
+// lane computes along axis 2 and the register queues along axis 0.
+// Shared by the kernel and host code that checks the geometry: nothing
+// here touches CUDA's runtime.  The includer defines elem_t and the
+// generated header (RT_NG, RT_TB0/1/2, the per-grid tables grid_h0/1/2 and
+// grid_read, and RT_GMEM_P).
 //
 // Lanes.  A thread (a lane) computes kP = RT_GMEM_P points adjacent along
-// axis 2, its unit of cells; the lanes of a block row lie along axis 2.
-// A tap (0, 0, dz) of the lane's point j is cell k = j + dz of its row, in
-// the unit lane_of(k) units from its own, at cell cell_of(k) of it.  The
-// plan takes one of two builds:
-//   loads (RT_GMEM_SHFL 0, the default): two points a lane where the
-//     block's rows allow; a tap in the lane's own unit comes from its
-//     queue, every other tap is a load (of an aligned pair of cells where
-//     the grid's rows start on even cells, grid_vec).
-//   shuffles (RT_GMEM_SHFL 1): one f32 cell or two bf16 cells (one 4-byte
-//     granule) a lane.  A row's lanes split into segments of kW lanes (a
-//     warp's 32, or the whole row where it has a power of two below 32
-//     lanes), the width of the warp shuffles that give a lane the axis-2
-//     taps its neighbours hold: unit u of a segment is lane u's, and the
-//     kHP units a side past its ends are loaded by its edge lanes (lane l <
-//     kHP holds unit kW + l, lane l >= kW - kHP unit l - kW).  A shuffle
-//     takes cell k from lane (l + lane_of(k)) mod kW, which sends its edge
-//     unit where the requesting lane is past the segment's end
-//     (sends_edge).
+// axis 2, its unit of cells: two where the block's rows hold an even
+// number of points, else one.  The lanes of a block row lie along axis 2,
+// so a warp's loads of one tap are one run of adjacent cells.  A tap
+// (0, 0, dz) of the lane's point j is cell k = j + dz of its row, in the
+// unit lane_of(k) units from the lane's own, at cell cell_of(k) of it: a
+// cell of the lane's own unit comes from its queue, any other tap is a
+// load at a constant offset.  Loads, not warp shuffles, for the taps of
+// the neighbouring lanes: on the H100 a shuffle took a SHFL, a select and
+// convergence checks where a load at a constant offset is one LDG, and a
+// build that shuffled ran 1.1-1.6x slower (PERF.md, Findings).
 //
 // Queues.  Each grid a tap reads keeps its 2 h0 + 1 centre-column units,
 // planes x - h0 .. x + h0, slot h0 + dx holding plane x + dx: before the
@@ -33,37 +24,12 @@
 // plane, so every slot index is a constant of the code.
 #pragma once
 
-// the largest axis-2 halo of a grid a tap reads
-__host__ __device__ constexpr int max_read_h2(int g) {
-  return g <= 0 ? 0
-                : (grid_read(g - 1) && grid_h2(g - 1) > max_read_h2(g - 1) ? grid_h2(g - 1)
-                                                                           : max_read_h2(g - 1));
-}
-constexpr int kH2 = max_read_h2(RT_NG);
-
-// lanes of a row's segment, for a row of `lanes` lanes (0: no segment)
-__host__ __device__ constexpr int seg_width(int lanes) {
-  return lanes % 32 == 0 ? 32 : (lanes < 32 && (lanes & (lanes - 1)) == 0 ? lanes : 0);
-}
-// whether rows of lanes of P cells have segments wide enough for the halo
-__host__ __device__ constexpr bool lanes_ok(int P) {
-  return RT_TB2 % P == 0 && seg_width(RT_TB2 / P) > 0 &&
-         2 * ((kH2 + P - 1) / P) <= seg_width(RT_TB2 / P);
-}
 constexpr int kP = RT_GMEM_P;
-constexpr bool kShfl = RT_GMEM_SHFL != 0 && lanes_ok(kP);
-constexpr int kW = kShfl ? seg_width(RT_TB2 / kP) : 1;
-constexpr int kHP = kShfl ? (kH2 + kP - 1) / kP : 0;
 constexpr int kThreads = RT_TB1 * (RT_TB2 / kP);
 
 // unit offset and cell of cell k (from a lane's first cell)
 __host__ __device__ constexpr int lane_of(int k) { return k >= 0 ? k / kP : -((kP - 1 - k) / kP); }
 __host__ __device__ constexpr int cell_of(int k) { return k - kP * lane_of(k); }
-// whether lane l of a segment loads an edge unit, and which
-__host__ __device__ constexpr bool edge_lane(int l) { return l < kHP || l >= kW - kHP; }
-__host__ __device__ constexpr int edge_unit(int l) { return l < kHP ? kW + l : l - kW; }
-// whether source lane l sends its edge unit in a shuffle of unit offset q
-__host__ __device__ constexpr bool sends_edge(int l, int q) { return q > 0 ? l < q : l >= kW + q; }
 
 // each read grid's queue: its length, its first slot, the slot of tap dx
 __host__ __device__ constexpr int queue_len(int g) { return grid_read(g) ? 2 * grid_h0(g) + 1 : 0; }

@@ -23,29 +23,26 @@
 // cells no lane stores.
 //
 // gmem: a thread block covers an RT_TB0 x RT_TB1 x RT_TB2 tile of the box;
-// its lanes (gmem_column.cuh) cover the RT_TB1 x RT_TB2 face, kP points a
-// lane along axis 2 (two bf16 cells, one 4-byte granule, where the block
-// allows; else one), and each walks the RT_TB0 planes of its column.  Taps
-// come from device memory through the read-only path, with no staging, so
-// the build takes any pitch, region origin, 2D shape and destination:
-//   axis 0: each grid a tap reads keeps its 2h0 + 1 centre-column values in
+// its lanes (gmem_column.cuh) cover the RT_TB1 x RT_TB2 face, two points
+// adjacent along axis 2 a lane where the block allows, and each walks the
+// RT_TB0 planes of its column.  Taps come from device memory through the
+// read-only path, with no staging, so the build takes any pitch, region
+// origin, 2D shape and destination:
+//   axis 0: each grid a tap reads keeps its 2h0 + 1 centre-column units in
 //           a register queue (a prologue of 2h0 loads, then one load a
-//           plane; center-only grids: one slot), the plane loop unrolled
-//           by the longest queue;
-//   axis 2: a tap (0, 0, dz) is the centre of the lane dz cells away, taken
-//           by __shfl_sync within the row's segment of lanes (a warp, or
-//           a power-of-two row of fewer lanes: shfl's width); the 2h2
-//           cells past a segment's ends are loaded by its edge lanes.  A
-//           bf16 row that starts on an odd cell takes each lane's second
-//           cell from the next lane's granule;
-//   other taps (axis 1, off-axis) are __ldg loads.
-//   Each queue's new plane and the edge cells of plane x + 1 are loaded
-//   before plane x's arithmetic.  Shuffles need every lane of a segment,
-//   so lanes past the box load clamped cells and do not store.  A thread
+//           plane, issued a plane ahead; center-only grids: one slot);
+//   axis 2: taps in the lane's own cells come from the queue too;
+//   other taps are loads at constant offsets: the plan's pitches are part
+//   of the source (grid_sx, grid_sy; the launch refuses others).  Where a
+//   grid's rows start on even cells (grid_vec, _Plan.gmem_pairs) every
+//   load of it reads the aligned pair of cells that holds its tap (8 bytes
+//   f32, 4 bf16), so a warp's row of 64 cells is 2 (f32) or 1 (bf16) lines
+//   for one load instruction.
+//   Lanes past the box load clamped cells and do not store.  A thread
 //   reads ahead only cells of its own column, so writing in place stays
-//   legal (output grids have center-only taps).  star3d4r: 9 loads a point
-//   (the queue's 1, axis 1's 8, a quarter of a load for the edges) and 8
-//   shuffles, against 25 loads when every tap was one.
+//   legal (output grids have center-only taps).  star3d4r: 13 loads a
+//   lane for its 2 points (the queue's 1, axis 1's 8, axis 2's 4 pairs),
+//   against 50 when every tap was a load.
 // f4: each thread computes 4 consecutive points along axis 2 from tap rows
 //   loaded as aligned vectors of 4 cells and carried along its column in
 //   register queues (f4_rows.cuh): the TPU's lane-aligned blocks become
@@ -127,29 +124,7 @@ constexpr int kMinBlocks = kThreads < 768 ? 768 / kThreads : 1;
 struct Unit {
   float v[kP];
 };
-// A lane's unit as loaded, a plane before it is used.  Shuffle build: the
-// granule holding the lane's first cell and, with two cells a lane, the
-// granule lane 0 loads for its segment's last cell, and whether the first
-// cell is its granule's high half (a row that starts on an odd cell).
-// Load build: the cells.
-struct Raw {
-  unsigned a, b;
-  int odd;
-  float f[kP];
-};
-// the thread's place: its first point along axis 2, its segment's first
-// point, its lane in the segment, the shuffle mask of its warp
-struct Lane {
-  int zl, zs, lane;
-  unsigned mask;
-};
 
-// the 4-byte granule holding the cell at ptr (it never leaves the
-// allocation that holds the cell)
-__device__ __forceinline__ unsigned ld_granule(const elem_t* ptr) {
-  return __ldg(reinterpret_cast<const unsigned*>(reinterpret_cast<unsigned long long>(ptr) &
-                                                 ~3ULL));
-}
 // the aligned pair of cells at ptr, as f32 (one 8-byte or 4-byte load)
 __device__ __forceinline__ void ld_pair(const float* ptr, float* out) {
   const float2 v = __ldg(reinterpret_cast<const float2*>(ptr));
@@ -172,112 +147,56 @@ __device__ __forceinline__ const elem_t* cell(const elem_t* base, int xp) {
 }
 
 // Grid G's unit of plane xp at the lane's column (`row`: the grid's row at
-// plane 0), its cells clamped to the grid's reach along axis 2 (a lane
-// past the region's end loads cells no stored point reads).
+// plane 0; zl: the lane's first point), its cells clamped to the grid's
+// reach along axis 2 (a lane past the region's end loads cells no stored
+// point reads): an aligned pair where the grid's rows start on even cells.
 template <int G>
-__device__ __forceinline__ Raw load_lead(const Params& p, const elem_t* const* row, int xp,
-                                         const Lane& ln) {
+__device__ __forceinline__ Unit load_unit(const Params& p, const elem_t* const* row, int xp,
+                                          int zl) {
   const int zhi = p.R2 - 1 + grid_h2(G);
-  Raw r{0u, 0u, 0, {}};
-  if constexpr (kShfl && kP > 1) {
-    const elem_t* c = cell<G>(row[G] + min(ln.zl, zhi), xp);
-    r.a = ld_granule(c);
-    if (ln.lane == 0) r.b = ld_granule(cell<G>(row[G] + min(ln.zs + kP * kW, zhi), xp));
-    r.odd = static_cast<int>(reinterpret_cast<unsigned long long>(c) >> 1) & 1;
-  } else if constexpr (kP == 2 && grid_vec(G)) {
-    ld_pair(cell<G>(row[G] + min(ln.zl, zhi & ~1), xp), r.f);
-  } else {
-#pragma unroll
-    for (int j = 0; j < kP; ++j) r.f[j] = ld_elem(cell<G>(row[G] + min(ln.zl + j, zhi), xp));
-  }
-  return r;
-}
-
-// The unit from what was loaded.  Shuffle build, two cells a lane: a row
-// that starts on an odd cell takes a lane's second cell from the next
-// lane's granule (lane kW - 1's from lane 0's second granule); every lane
-// of the segment takes part.
-__device__ __forceinline__ Unit assemble(const Raw& r, const Lane& ln) {
   Unit u;
-  if constexpr (kShfl && kP > 1) {
-    const unsigned nb =
-        __shfl_sync(ln.mask, ln.lane == 0 ? r.b : r.a, (ln.lane + 1) & (kW - 1), kW);
-    const unsigned first = r.odd ? r.a >> 16 : r.a & 0xffffu;
-    const unsigned second = r.odd ? nb & 0xffffu : r.a >> 16;
-    u.v[0] = __uint_as_float(first << 16);
-    u.v[1] = __uint_as_float(second << 16);
+  if constexpr (kP == 2 && grid_vec(G)) {
+    ld_pair(cell<G>(row[G] + min(zl, zhi & ~1), xp), u.v);
   } else {
 #pragma unroll
-    for (int j = 0; j < kP; ++j) u.v[j] = r.f[j];
-  }
-  return u;
-}
-
-// Shuffle build: grid G's edge unit of plane xp, loaded by the segment's
-// edge lanes.
-template <int G>
-__device__ __forceinline__ Unit load_edge(const Params& p, const elem_t* const* row, int xp,
-                                          const Lane& ln) {
-  Unit u{};
-  if constexpr (kShfl && grid_h2(G) > 0) {
-    if (edge_lane(ln.lane)) {
-      constexpr int h2 = grid_h2(G);
-      const int z = ln.zs + kP * edge_unit(ln.lane);
-#pragma unroll
-      for (int c = 0; c < kP; ++c)
-        u.v[c] = ld_elem(cell<G>(row[G] + min(max(z + c, -h2), p.R2 - 1 + h2), xp));
-    }
+    for (int j = 0; j < kP; ++j) u.v[j] = ld_elem(cell<G>(row[G] + min(zl + j, zhi), xp));
   }
   return u;
 }
 
 // Before the column's first plane x0: each queue's planes x0 - h0 ..
-// x0 + h0 - 1 (loaded together, then assembled), the lead of plane x0 +
-// h0 and the edges of plane x0.
+// x0 + h0 - 1 and the lead, plane x0 + h0.
 template <int G>
-__device__ __forceinline__ void prologue(const Params& p, const elem_t* const* row,
-                                         const Lane& ln, int x0, Unit* q, Raw* lead,
-                                         Unit* enext) {
+__device__ __forceinline__ void prologue(const Params& p, const elem_t* const* row, int zl,
+                                         int x0, Unit* q, Unit* lead) {
   if constexpr (G < RT_NG) {
     if constexpr (grid_read(G) != 0) {
-      constexpr int n = prologue_planes(G);
-      Raw pro[n > 0 ? n : 1];
 #pragma unroll
-      for (int s = 0; s < n; ++s) pro[s] = load_lead<G>(p, row, x0 - grid_h0(G) + s, ln);
-      lead[G] = load_lead<G>(p, row, x0 + grid_h0(G), ln);
-      enext[G] = load_edge<G>(p, row, x0, ln);
-#pragma unroll
-      for (int s = 0; s < n; ++s) q[queue_offset(G) + s] = assemble(pro[s], ln);
+      for (int s = 0; s < prologue_planes(G); ++s)
+        q[queue_offset(G) + s] = load_unit<G>(p, row, x0 - grid_h0(G) + s, zl);
+      lead[G] = load_unit<G>(p, row, x0 + grid_h0(G), zl);
     }
-    prologue<G + 1>(p, row, ln, x0, q, lead, enext);
+    prologue<G + 1>(p, row, zl, x0, q, lead);
   }
 }
 
-// At plane x: the lead (plane x + h0) into the queue's last slot, the
-// edges of plane x in use.
+// At plane x: the lead (plane x + h0) into the queue's last slot.
 template <int G>
-__device__ __forceinline__ void advance(Unit* q, const Raw* lead, Unit* edge, const Unit* enext,
-                                        const Lane& ln) {
+__device__ __forceinline__ void advance(Unit* q, const Unit* lead) {
   if constexpr (G < RT_NG) {
-    if constexpr (grid_read(G) != 0) {
-      q[queue_offset(G) + 2 * grid_h0(G)] = assemble(lead[G], ln);
-      edge[G] = enext[G];
-    }
-    advance<G + 1>(q, lead, edge, enext, ln);
+    if constexpr (grid_read(G) != 0) q[queue_offset(G) + 2 * grid_h0(G)] = lead[G];
+    advance<G + 1>(q, lead);
   }
 }
 
-// The loads of plane x1 = x + 1, issued before plane x's arithmetic: each
-// queue's lead (plane x1 + h0) and the edges.
+// The lead of plane x1 = x + 1 (plane x1 + h0), loaded before plane x's
+// arithmetic.
 template <int G>
-__device__ __forceinline__ void issue(const Params& p, const elem_t* const* row, const Lane& ln,
-                                      int x1, Raw* lead, Unit* enext) {
+__device__ __forceinline__ void issue(const Params& p, const elem_t* const* row, int zl, int x1,
+                                      Unit* lead) {
   if constexpr (G < RT_NG) {
-    if constexpr (grid_read(G) != 0) {
-      lead[G] = load_lead<G>(p, row, x1 + grid_h0(G), ln);
-      enext[G] = load_edge<G>(p, row, x1, ln);
-    }
-    issue<G + 1>(p, row, ln, x1, lead, enext);
+    if constexpr (grid_read(G) != 0) lead[G] = load_unit<G>(p, row, x1 + grid_h0(G), zl);
+    issue<G + 1>(p, row, zl, x1, lead);
   }
 }
 
@@ -291,33 +210,26 @@ __device__ __forceinline__ void shift(Unit* q) {
   }
 }
 
-// The tap reader of the lane's point J at plane x (zp: the point along
-// axis 2, clamped to the region, for the taps that are loads).
+// The tap reader of the lane's point J at plane x (zl: the lane's first
+// point; zp: the point along axis 2, clamped to the region).
 template <int J>
 struct ColumnReader {
   const Params& p;
   const Unit* q;
-  const Unit* edge;
   const elem_t* const* row;
-  const Lane& ln;
-  int x, zp;
+  int x, zl, zp;
   template <int G, int DX, int DY, int DZ>
   __device__ __forceinline__ float at() const {
-    constexpr int du = lane_of(J + DZ), c = cell_of(J + DZ);
     if constexpr (DY == 0 && DZ == 0) {
       return q[tap_slot(G, DX)].v[J];
-    } else if constexpr (DX == 0 && DY == 0 && du == 0) {
-      return q[tap_slot(G, 0)].v[c];           // a cell of the lane's own unit
-    } else if constexpr (kShfl && DX == 0 && DY == 0) {
-      const float own = q[tap_slot(G, 0)].v[c];
-      const float send = sends_edge(ln.lane, du) ? edge[G].v[c] : own;
-      return __shfl_sync(ln.mask, send, (ln.lane + du) & (kW - 1), kW);
+    } else if constexpr (DX == 0 && DY == 0 && lane_of(J + DZ) == 0) {
+      return q[tap_slot(G, 0)].v[cell_of(J + DZ)];     // a cell of the lane's own unit
     } else if constexpr (kP == 2 && grid_vec(G)) {
       // the aligned pair holding the cell, its start clamped to the tap's
       // reach (a no-op for a point in the region)
       constexpr int e = (J + DZ) & ~1;
       float v[2];
-      ld_pair(cell<G, DX, DY, e>(row[G] + min(ln.zl, ((p.R2 - 1 + DZ) & ~1) - e), x), v);
+      ld_pair(cell<G, DX, DY, e>(row[G] + min(zl, ((p.R2 - 1 + DZ) & ~1) - e), x), v);
       return v[J + DZ - e];
     } else {
       return ld_elem(cell<G, DX, DY, DZ>(row[G] + zp, x));
@@ -326,24 +238,17 @@ struct ColumnReader {
 };
 
 template <int J>
-__device__ __forceinline__ void points(const Params& p, const Unit* q, const Unit* edge,
-                                       const elem_t* const* row, const Lane& ln, int x,
-                                       float (&out)[kP][RT_NO]) {
+__device__ __forceinline__ void points(const Params& p, const Unit* q, const elem_t* const* row,
+                                       int x, int zl, float (&out)[kP][RT_NO]) {
   if constexpr (J < kP) {
-    const ColumnReader<J> rd{p, q, edge, row, ln, x, min(ln.zl + J, p.R2 - 1)};
+    const ColumnReader<J> rd{p, q, row, x, zl, min(zl + J, p.R2 - 1)};
     stencil_point(rd, p.s, out[J]);
-    points<J + 1>(p, q, edge, row, ln, x, out);
+    points<J + 1>(p, q, row, x, zl, out);
   }
 }
 
 __global__ void __launch_bounds__(kThreads, kMinBlocks) map_step_kernel(const Params p) {
-  const int tid = threadIdx.y * kRowThreads + threadIdx.x;
-  const int in_warp = min(32, kThreads - (tid & ~31));
-  Lane ln;
-  ln.lane = threadIdx.x & (kW - 1);
-  ln.mask = in_warp == 32 ? 0xffffffffu : (1u << in_warp) - 1u;
-  ln.zl = blockIdx.x * RT_TB2 + kP * threadIdx.x;
-  ln.zs = ln.zl - kP * ln.lane;
+  const int zl = blockIdx.x * RT_TB2 + kP * threadIdx.x;
   const int y = blockIdx.y * RT_TB1 + threadIdx.y;
   const int x0 = blockIdx.z * RT_TB0;
   const int nx = min(x0 + RT_TB0, p.R0) - x0;
@@ -353,22 +258,20 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) map_step_kernel(const Pa
 #pragma unroll
   for (int g = 0; g < RT_NG; ++g)
     row[g] = p.g[g] + p.org[g] + static_cast<long long>(min(y, p.R1 - 1)) * grid_sy(g);
-  Unit q[kQueue];
-  Raw lead[RT_NG];
-  Unit edge[RT_NG], enext[RT_NG];
-  prologue<0>(p, row, ln, x0, q, lead, enext);
+  Unit q[kQueue], lead[RT_NG];
+  prologue<0>(p, row, zl, x0, q, lead);
   for (int t = 0; t < nx; ++t) {
     const int x = x0 + t;
-    advance<0>(q, lead, edge, enext, ln);
-    if (t + 1 < nx) issue<0>(p, row, ln, x + 1, lead, enext);   // the same for the block
+    advance<0>(q, lead);
+    if (t + 1 < nx) issue<0>(p, row, zl, x + 1, lead);   // the same for the block
     float out[kP][RT_NO];
-    points<0>(p, q, edge, row, ln, x, out);
+    points<0>(p, q, row, x, zl, out);
     if (y < p.R1) {
 #pragma unroll
       for (int j = 0; j < kP; ++j) {
-        if (ln.zl + j < p.R2) {
+        if (zl + j < p.R2) {
 #pragma unroll
-          for (int o = 0; o < RT_NO; ++o) store_out(p, o, x, y, ln.zl + j, out[j][o]);
+          for (int o = 0; o < RT_NO; ++o) store_out(p, o, x, y, zl + j, out[j][o]);
         }
       }
     }

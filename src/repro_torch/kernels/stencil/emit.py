@@ -199,8 +199,9 @@ def gmem_functions(kernel: ir.StencilIR, opnd_grids: Sequence[str],
                    out_grids: Sequence[str]) -> str:
     """K1's and K4 gmem's point function (``csrc/gmem_column.cuh``): it
     reads tap ``(dx, dy, dz)`` of grid ``G`` as ``rd.template at<G, dx, dy,
-    dz>()``, so the kernel resolves each tap (queue slot, own cell,
-    shuffle or load at a constant offset) when it is compiled."""
+    dz>()``, so the kernel resolves each tap (a queue slot, a cell of the
+    lane's own unit or a load at a constant offset) when it is
+    compiled."""
     gidx = {g: i for i, g in enumerate(opnd_grids)}
 
     def tap(t):

@@ -10,10 +10,7 @@ column's ``b0`` planes, two points adjacent along axis 2 a plane where the
 block allows, reading taps from device memory: its axis-0 taps from
 register queues, its axis-2 taps in its own cells from there too, the
 others as loads at constant offsets (of aligned pairs of cells where the
-grid's rows allow, ``MapPlan.gmem_pairs``).  The plan may take the
-shuffle build instead (``gmem_lanes``): axis-2 taps from neighbouring
-lanes by warp shuffles, the cells past a segment's ends loaded by its
-edge lanes.  f4 (``csrc/f4_rows.cuh``): each thread
+grid's rows allow, ``MapPlan.gmem_pairs``).  f4 (``csrc/f4_rows.cuh``): each thread
 walks a column of groups of 4 points along axis 2, its tap rows loaded as
 aligned vectors of 4 cells and carried along axis 0 in register queues
 (``emit.f4_pieces``), each row's place in its vector fixed by the plan
@@ -27,12 +24,8 @@ destination, is also K1 (``fused_step``).  Bound: device-memory bytes
 The plain version walks the same chunks of ``b0`` planes, with one tile
 spanning the whole plane: gmem (``gmem_taps``) reads each axis-0 tap from
 the queue slot the kernel reads and each axis-2 tap in the lane's own
-cells from its queue; in the shuffle build each lane's unit assembled as
-the kernel assembles it (in bf16 from 4-byte granules, a row that starts
-on an odd cell taking its second cell from the next lane's), each other
-axis-2 tap from the lane and the cell the shuffle reads, edge units where
-the kernel's edge lanes load them; the other taps from the grids; smem
-the staged box of
+cells from its queue, the other taps from the grids; smem the staged
+box of
 each chunk in the grids' own type (planes ``[x0 - h0, x0 + b0 + h0)``;
 cells outside the tap reach are NaN, so a read of one would show), and the
 column's axis-0 taps from its centre as the register queue holds them;
@@ -126,96 +119,48 @@ def _f4_taps(plan, bufs, x0: int, x1: int):
 
 def gmem_taps(plan, bufs: Dict[str, torch.Tensor], x0: int, x1: int):
     """Tap reader of K1's and K4 gmem's planes ``[x0, x1)`` over the whole
-    region, lane by lane as ``csrc/gmem_column.cuh`` lays them out (every
-    lane of a block row, those past the region's end too, with their
-    cells clamped to the grid's reach)."""
+    region: each axis-0 tap from the queue slot the kernel reads, every
+    lane's unit loaded as the kernel loads it (the lanes past the region's
+    end too, their cells clamped to the grid's reach), each axis-2 tap in
+    the lane's own cells from its queue, every other tap from the grid."""
     R0, R1, R2 = plan.R3
-    t0 = bufs[plan.opnd_grids[0]]
-    dev = t0.device
-    col = plan.gmem_column(t0.dtype)
-    P, W, hp = col.cells, col.width, col.edge
+    dev = bufs[plan.opnd_grids[0]].device
+    P = plan.gmem_column().cells
     nz = -(-R2 // plan.B3[2]) * plan.B3[2]
     pos = torch.arange(nz, device=dev)          # every lane's cells
-    zl = pos - pos % P                          # its lane's first point
-    lane = pos % (P * W) // P                   # the lane in its segment
-    zs = pos - pos % (P * W)                    # the segment's first point
     rows = torch.arange(R1, device=dev)
     grids = {g: plan.buf3(bufs[g]) for g in plan.opnd_grids}
     memo = {}
 
-    def elem(g, xs, z):
-        """Element indices of cells ``(xs, y, z)`` of grid ``g``, ``y`` the
-        region's rows."""
-        b, o = grids[g], plan.org3[g]
-        return ((o[0] + xs).view(-1, 1, 1) * b.stride(0)
-                + (o[1] + rows).view(1, -1, 1) * b.stride(1)
-                + (o[2] + z).view(1, 1, -1))
-
     def unit(g, slot):
         """Queue slot ``slot`` of grid ``g`` at each plane: every lane's
-        unit of plane ``x - h0 + slot``, as the kernel loads it."""
-        key = ("unit", g, slot)
-        if key not in memo:
-            h0, zhi = plan.gh3[g][0], R2 - 1 + plan.gh3[g][2]
-            xs = torch.arange(x0 - h0 + slot, x1 - h0 + slot, device=dev)
-            flat = grids[g].reshape(-1)
-            if col.shfl and P == 2:
-                # the granule holding the first cell; a row that starts on
-                # an odd cell takes the second cell from the next lane's
-                # granule (the last lane's from lane 0's second one: the
-                # granule holding cell P·W of the segment)
-                e0 = elem(g, xs, zl.clamp(max=zhi))
-                low = bufs[g].data_ptr() // 2
-                e2 = elem(g, xs, (zl + 2).clamp(max=zhi))
-                nxt = flat[e2 - (e2 + low) % 2]
-                own = flat[(e0 + 1).clamp(max=flat.numel() - 1)]
-                v = torch.where(pos % 2 == 0, flat[e0],
-                                torch.where((e0 + low) % 2 == 1, nxt, own))
-            else:
-                v = flat[elem(g, xs, pos.clamp(max=zhi))]
-            memo[key] = v.float()
-        return memo[key]
-
-    def edge(g):
-        """Every lane's edge unit of grid ``g`` at each plane (0 where the
-        lane is no edge lane)."""
-        key = ("edge", g)
-        if key not in memo:
-            h2 = plan.gh3[g][2]
-            m = torch.where(lane < hp, W + lane, lane - W)
-            z = (zs + P * m + pos % P).clamp(-h2, R2 - 1 + h2)
-            v = grids[g].reshape(-1)[elem(g, torch.arange(x0, x1, device=dev), z)]
-            memo[key] = torch.where((lane < hp) | (lane >= W - hp), v.float(),
-                                    v.new_zeros((), dtype=torch.float32))
-        return memo[key]
+        unit of plane ``x - h0 + slot``."""
+        if (g, slot) not in memo:
+            b, o, h = grids[g], plan.org3[g], plan.gh3[g]
+            xs = torch.arange(x0 - h[0] + slot, x1 - h[0] + slot, device=dev)
+            idx = ((o[0] + xs).view(-1, 1, 1) * b.stride(0)
+                   + (o[1] + rows).view(1, -1, 1) * b.stride(1)
+                   + (o[2] + pos.clamp(max=R2 - 1 + h[2])).view(1, 1, -1))
+            memo[(g, slot)] = b.reshape(-1)[idx].float()
+        return memo[(g, slot)]
 
     def load(g, dx, dy, dz):
         b, o = grids[g], plan.org3[g]
         return b[o[0] + x0 + dx:o[0] + x1 + dx, o[1] + dy:o[1] + dy + R1,
                  o[2] + dz:o[2] + dz + R2].float()
 
-    def lane_tap(g, dz):
-        """Tap ``(0, 0, dz)``: cell ``j + dz`` of each point ``j`` of a lane,
-        from the lane's own unit; else (shuffle build) from the lane and
-        cell the shuffle reads, the edge unit where the source lane sends
-        it, or (load build) a load."""
-        z = torch.arange(R2, device=dev)
-        k = z % P + dz
-        du = torch.div(k, P, rounding_mode="floor")
-        src = (z % (P * W) // P + du) % W
-        idx = z - z % (P * W) + P * src + k - P * du
-        centre = unit(g, plan.gh3[g][0])[..., idx]
-        if not col.shfl:
-            return torch.where(du == 0, centre, load(g, 0, 0, dz))
-        wrap = ((du > 0) & (src < du)) | ((du < 0) & (src >= W + du))
-        return torch.where(wrap, edge(g)[..., idx], centre)
-
     def tap_read(g, offs):
         dx, dy, dz = offsets3(offs)
+        h0 = plan.gh3[g][0]
         if dy == 0 and dz == 0:
-            return unit(g, plan.gh3[g][0] + dx)[..., :R2]
+            return unit(g, h0 + dx)[..., :R2]
         if dx == 0 and dy == 0:
-            return lane_tap(g, dz)
+            # cell j + dz of point j of a lane, in the lane's own unit
+            z = torch.arange(R2, device=dev)
+            k = z % P + dz
+            own = (k >= 0) & (k < P)
+            return torch.where(own, unit(g, h0)[..., (z + dz).clamp(0, nz - 1)],
+                               load(g, 0, 0, dz))
         return load(g, dx, dy, dz)
     return tap_read
 

@@ -3,28 +3,24 @@ gmem): the one-step gmem build's column walk and its plain versions.
 
 The build (``csrc/map_step.cuh``, ``RT_MAP_T 0``) has each lane walk
 ``b0`` planes of a column, each grid a tap reads keeping its ``2h0 + 1``
-centre-column units in a register queue.  In the plan's default, the load
-build, a lane computes two points adjacent along axis 2 and loads every
-tap outside its own cells (aligned pairs where both pitches are even and
-the region's first cell is at an even element index,
-``_Plan.gmem_pairs``).  In the shuffle build a tap ``(0, 0, dz)`` comes
-from the lane ``dz`` cells away by a warp shuffle within the row's segment
-of lanes (the cells past a segment's ends loaded by its edge lanes); in
-bf16 a lane holds two cells, one 4-byte granule, and a row that starts on
-an odd cell takes a lane's second cell from the next lane's granule.  The
-geometry (``csrc/gmem_column.cuh``) is compiled here with ``g++`` and held
-against the plan (``_Plan.gmem_column``), and against what a shuffle must
-deliver.
+centre-column units in a register queue.  A lane computes two points
+adjacent along axis 2 where the block's rows hold an even number of
+points; a tap in the lane's own cells comes from its queue, every other
+tap is a load, of the aligned pair of cells that holds it where both
+pitches are even and the region's first cell is at an even element index
+(``_Plan.gmem_pairs``).  The geometry (``csrc/gmem_column.cuh``) is
+compiled here with ``g++`` and held against the plan
+(``_Plan.gmem_column``).
 
 The plain versions (``fused_step_plain``, ``map_step_plain``) read every
-tap where the kernel reads it (``map_step.gmem_taps``) and are held, in
-both builds, against the JAX package: K1 against its xla window (its
-fused Pallas path fails under JAX 0.9.0), K4 gmem against
-``ops.stencil_apply(..., interpret=True)``.  Tolerance: f32 atol 1e-5 (the
-same expression tree, another summation order), 1e-4 of the field's max
-for acoustic over several steps; bf16 atol 1e-1 (the port computes in f32
-and rounds once, the JAX package rounds every operation).  The CUDA code
-runs only on the card (``tests/test_torch_gpu.py``, ``chip_smoke.py``).
+tap where the kernel reads it (``map_step.gmem_taps``) and are held
+against the JAX package: K1 against its xla window (its fused Pallas path
+fails under JAX 0.9.0), K4 gmem against ``ops.stencil_apply(...,
+interpret=True)``.  Tolerance: f32 atol 1e-5 (the same expression tree,
+another summation order), 1e-4 of the field's max for acoustic over
+several steps; bf16 atol 1e-1 (the port computes in f32 and rounds once,
+the JAX package rounds every operation).  The CUDA code runs only on the
+card (``tests/test_torch_gpu.py``, ``chip_smoke.py``).
 """
 import ctypes
 import functools
@@ -123,71 +119,35 @@ def _map_plan(name, interior, region=None, block=None):
 
 
 # ---- the column walk's geometry ---------------------------------------------------
-# (id, plan, dtype, build, (cells, width, shfl, edge, threads)).  The load
-# build: two points a lane where b2 is even, else one.  The shuffle build:
-# the default block (f32: one cell a lane, warps of 32; bf16: two, a warp's
-# row of 64 cells); rows of 16 lanes (shuffles of width 16; bf16 8); a row
-# of 24 lanes (no segment: axis-2 taps are loads, one cell a lane); a halo
-# wider than half a segment; 2D
+# (id, plan, (cells, threads)): two points a lane where b2 is even, else
+# one; 2D runs as (R0, 1, R1)
 GEOMETRY = [
-    ("loads-star", lambda: _fused_plan("star3d4r", (64, 64, 64)), torch.float32,
-     "loads", (2, 1, False, 0, 128)),
-    ("loads-star-bf16", lambda: _fused_plan("star3d4r", (64, 64, 64)), torch.bfloat16,
-     "loads", (2, 1, False, 0, 128)),
-    ("loads-b24", lambda: _fused_plan("star3d4r", (37, 21, 100), (8, 3, 24)),
-     torch.float32, "loads", (2, 1, False, 0, 36)),
-    ("loads-odd-b2", lambda: _fused_plan("box3d1r", (21, 30, 47), (8, 2, 15)),
-     torch.bfloat16, "loads", (1, 1, False, 0, 30)),
-    ("loads-2d", lambda: _fused_plan("star2d4r", (61, 133)), torch.float32,
-     "loads", (2, 1, False, 0, 128)),
-    ("shfl-star", lambda: _fused_plan("star3d4r", (64, 64, 64)), torch.float32,
-     "shuffles", (1, 32, True, 4, 256)),
-    ("shfl-star-bf16", lambda: _fused_plan("star3d4r", (64, 64, 64)), torch.bfloat16,
-     "shuffles", (2, 32, True, 2, 128)),
-    ("shfl-acoustic", lambda: _map_plan("acoustic", RAGGED), torch.float32,
-     "shuffles", (1, 32, True, 4, 256)),
-    ("shfl-width16", lambda: _fused_plan("box3d1r", (21, 30, 47), (8, 2, 16)),
-     torch.float32, "shuffles", (1, 16, True, 1, 32)),
-    ("shfl-width8-bf16", lambda: _fused_plan("box3d1r", (21, 30, 47), (8, 2, 16)),
-     torch.bfloat16, "shuffles", (2, 8, True, 1, 16)),
-    ("shfl-no-segment", lambda: _fused_plan("star3d4r", (37, 21, 100), (8, 3, 24)),
-     torch.bfloat16, "shuffles", (1, 1, False, 0, 72)),
-    ("shfl-halo-wider", lambda: _map_plan("star3d4r", (20, 20, 20), block=(4, 4, 4)),
-     torch.float32, "shuffles", (1, 1, False, 0, 16)),
-    ("shfl-halo-half-bf16", lambda: _map_plan("star3d4r", (20, 20, 20), block=(4, 4, 8)),
-     torch.bfloat16, "shuffles", (2, 4, True, 2, 16)),
-    ("shfl-2d", lambda: _fused_plan("star2d4r", (61, 133)), torch.float32,
-     "shuffles", (1, 32, True, 4, 256)),
+    ("star", lambda: _fused_plan("star3d4r", (64, 64, 64)), (2, 128)),
+    ("acoustic", lambda: _map_plan("acoustic", RAGGED), (2, 128)),
+    ("b24", lambda: _fused_plan("star3d4r", (37, 21, 100), (8, 3, 24)), (2, 36)),
+    ("odd-b2", lambda: _fused_plan("box3d1r", (21, 30, 47), (8, 2, 15)), (1, 30)),
+    ("narrow", lambda: _map_plan("star3d4r", (20, 20, 20), block=(4, 4, 4)), (2, 8)),
+    ("2d", lambda: _fused_plan("star2d4r", (61, 133)), (2, 128)),
+    ("jacobi", lambda: _map_plan("jacobi3", RAGGED, SUB_REGION), (2, 128)),
 ]
 
 
-def _built(make, lanes):
-    plan = make()
-    plan.gmem_lanes = lanes          # before the plan's first source
-    return plan
-
-
-@pytest.mark.parametrize("make,dtype,lanes,want", [g[1:] for g in GEOMETRY],
+@pytest.mark.parametrize("make,want", [g[1:] for g in GEOMETRY],
                          ids=[g[0] for g in GEOMETRY])
-def test_gmem_column_from_the_block(make, dtype, lanes, want):
-    plan = _built(make, lanes)
-    col = plan.gmem_column(dtype)
-    assert (col.cells, col.width, col.shfl, col.edge, col.threads) == want
+def test_gmem_column_from_the_block(make, want):
+    plan = make()
+    col = plan.gmem_column()
+    assert (col.cells, col.threads) == want
     assert col.queues == {g: 2 * plan.gh3[g][0] + 1 for g in plan.in_grids}
-    # every block is taken: without a segment the taps are loads
-    src = plan.source(dtype)
-    assert f"#define RT_GMEM_P {col.cells}" in src
-    assert f"#define RT_GMEM_SHFL {int(lanes == 'shuffles')}" in src
+    for dtype in codegen.ELEM_TYPES:
+        assert f"#define RT_GMEM_P {col.cells}" in plan.source(dtype)
 
 
 def test_default_block():
     assert codegen.DEFAULT_BLOCK["step"] == {2: (16, 256), 3: (16, 4, 64)}
-    plan = _fused_plan("star3d4r", (64, 64, 64))
-    assert plan.B == (16, 4, 64) and plan.gmem_lanes == "loads"
+    assert _fused_plan("star3d4r", (64, 64, 64)).B == (16, 4, 64)
     # 2D runs as (R0, 1, R1): a block row is one row of lanes
     assert _fused_plan("star2d4r", (61, 133)).B3 == (16, 1, 256)
-    with pytest.raises(ValueError, match="gmem lanes"):
-        codegen.gmem_column(plan.B3, plan.gh3, plan.in_grids, 4, "warps")
 
 
 @pytest.mark.parametrize("make,dtype,want", [
@@ -224,80 +184,52 @@ def test_pair_loads_follow_the_rows(make, dtype, want):
 
 
 _HARNESS = r"""
-struct __nv_bfloat16 { unsigned short x; };
 %s
 typedef RT_ELEM elem_t;
 #include "gmem_column.cuh"
 extern "C" int cells() { return kP; }
-extern "C" int width() { return kW; }
-extern "C" int shfl() { return kShfl; }
-extern "C" int edge() { return kHP; }
 extern "C" int threads() { return kThreads; }
 extern "C" int queue(int g) { return queue_len(g); }
 extern "C" int prologue(int g) { return prologue_planes(g); }
 extern "C" int slot(int g, int dx) { return tap_slot(g, dx); }
 extern "C" int lane(int k) { return lane_of(k); }
 extern "C" int cell(int k) { return cell_of(k); }
-extern "C" int is_edge(int l) { return edge_lane(l); }
-extern "C" int unit(int l) { return edge_unit(l); }
-extern "C" int sends(int l, int q) { return sends_edge(l, q); }
 """
 
 
-@pytest.mark.parametrize("make,dtype,lanes", [g[1:4] for g in GEOMETRY],
-                         ids=[g[0] for g in GEOMETRY])
-def test_gmem_column_header_matches_plan(make, dtype, lanes, tmp_path):
-    """``csrc/gmem_column.cuh`` compiled with ``g++``: its lanes, segments,
-    edges, queues, prologue and slots equal the plan's, and every axis-2
-    tap of every lane comes from the lane and unit that hold its cell."""
+@pytest.mark.parametrize("make,dtype", [(g[1], d) for g in GEOMETRY
+                                        for d in (torch.float32, torch.bfloat16)],
+                         ids=[f"{g[0]}-{d}" for g in GEOMETRY for d in ("f32", "bf16")])
+def test_gmem_column_header_matches_plan(make, dtype, tmp_path):
+    """``csrc/gmem_column.cuh`` compiled with ``g++``: its points a lane,
+    threads, queues, prologue and slots equal the plan's, and a tap's
+    cell ``k`` lies in unit ``floor(k / P)`` at cell ``k mod P``."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("g++ not available")
-    plan = _built(make, lanes)
+    plan = make()
     header = plan.source(dtype).rsplit("#include", 1)[0]
     cpp = tmp_path / "column.cpp"
-    cpp.write_text(_HARNESS % header)
+    cpp.write_text("struct __nv_bfloat16 { unsigned short x; };\n" + _HARNESS % header)
     so = tmp_path / "libcolumn.so"
     subprocess.run([gxx, "-std=c++17", "-O1", "-shared", "-fPIC",
                     "-D__host__=", "-D__device__=", "-I", str(_build.STENCIL_CSRC),
                     "-o", str(so), str(cpp)], check=True, capture_output=True)
     lib = ctypes.CDLL(str(so))
-    col = plan.gmem_column(dtype)
-    assert (lib.cells(), lib.width(), bool(lib.shfl()), lib.edge(),
-            lib.threads()) == (col.cells, col.width, col.shfl, col.edge, col.threads)
+    col = plan.gmem_column()
+    assert (lib.cells(), lib.threads()) == (col.cells, col.threads)
     first = 0
     for i, g in enumerate(plan.opnd_grids):
         n = col.queues.get(g, 0)
         h0 = plan.gh3[g][0]
-        assert lib.queue(i) == n
-        assert lib.prologue(i) == (2 * h0 if n else 0)
+        assert (lib.queue(i), lib.prologue(i)) == (n, 2 * h0 if n else 0)
         for dx in range(-h0, h0 + 1) if n else ():
             assert lib.slot(i, dx) == first + h0 + dx
         first += n
-    P, W, hp = col.cells, col.width, col.edge
+    P = col.cells
     h2 = max(plan.gh3[g][2] for g in plan.in_grids)
     for k in range(-h2 - P, h2 + P):
         assert (lib.lane(k), lib.cell(k)) == (k // P, k % P)
-    if not col.shfl:
-        return
-    # the unit each lane holds: its own, and an edge lane's edge unit
-    for lane in range(W):
-        assert bool(lib.is_edge(lane)) == (lane < hp or lane >= W - hp)
-    for lane in range(W):
-        for j in range(P):
-            for dz in range(-h2, h2 + 1):
-                k = j + dz
-                du, c = k // P, k % P
-                if du == 0:
-                    continue
-                src = (lane + du) % W
-                if lib.sends(src, du):
-                    assert lib.is_edge(src)
-                    u = lib.unit(src)
-                else:
-                    u = src
-                # the cell the shuffle delivers is cell k of this lane
-                assert P * u + c == P * lane + k, (lane, j, dz)
 
 
 # ---- the plain versions against the JAX package ---------------------------------
@@ -332,12 +264,9 @@ def _xla_pair(name, interior, steps, block=None, bf16=False, seed=0):
     ("acoustic", (19, 21, 70), 2, None, True),
 ], ids=["star-64", "acoustic-64", "star-ragged", "2d", "box", "no-segment",
         "star-ragged-bf16", "acoustic-bf16"])
-@pytest.mark.parametrize("lanes", codegen.GMEM_LANES)
-def test_k1_plain_matches_xla_window(name, interior, steps, block, bf16, lanes,
-                                     monkeypatch):
-    """K1's plain version under each build (``st.timeloop`` on CPU grids)
-    against the JAX package's xla window."""
-    monkeypatch.setattr(codegen._Plan, "gmem_lanes", lanes)
+def test_k1_plain_matches_xla_window(name, interior, steps, block, bf16):
+    """K1's plain version (``st.timeloop`` on CPU grids) against the JAX
+    package's xla window."""
     want, got = _xla_pair(name, interior, steps, block, bf16)
     scale = max(np.abs(w).max() for w in want.values()) if name == "acoustic" else 1.0
     atol = BF16_ATOL if bf16 else (1e-4 * scale if name == "acoustic" else ATOL)
@@ -373,15 +302,12 @@ def _pallas(name, interior, region, bf16):
 ], ids=["star-64", "acoustic-64", "star-ragged", "star-region", "star-region-b0",
         "2d-region", "j3d27pt", "box-width16", "jacobi-destination",
         "star-region-bf16", "acoustic-region-bf16"])
-@pytest.mark.parametrize("lanes", codegen.GMEM_LANES)
-def test_k4_gmem_plain_matches_pallas_interpret(name, interior, region, block, bf16,
-                                                lanes, monkeypatch):
+def test_k4_gmem_plain_matches_pallas_interpret(name, interior, region, block, bf16):
     """K4 gmem's plain version (``st.map`` on CPU tensors) against the JAX
     package's gmem kernel in interpret mode, on the same region: its taps
     read the real neighbouring cells and every cell outside the region
     keeps its value; the Jacobi sweep reads its output grid off-center (a
     destination buffer, its queue on the output grid)."""
-    monkeypatch.setattr(codegen._Plan, "gmem_lanes", lanes)
     k, jk = _kernels(name)
     arrays, halos = _random(name, interior, 3, bf16)
     scal = _scal(name)
@@ -398,23 +324,23 @@ def test_k4_gmem_plain_matches_pallas_interpret(name, interior, region, block, b
                                    atol=BF16_ATOL if bf16 else ATOL, rtol=0, err_msg=g)
 
 
-def test_odd_rows_take_the_next_lanes_granule():
-    """Shuffle build, bf16 rows that start on an odd cell: each lane's second cell comes
-    from the next lane's granule (the last lane's from lane 0's second);
-    the plain version reads exactly the grid's cells there, also for a
-    tensor whose first cell is the high half of its granule."""
-    plan = _built(lambda: _map_plan("star3d4r", RAGGED, SUB_REGION), "shuffles")
-    assert plan.gmem_column(torch.bfloat16).cells == 2
+@pytest.mark.parametrize("shift", (0, 1), ids=("even-base", "odd-base"))
+def test_plain_taps_read_the_kernels_cells(shift):
+    """The plain version's taps are the grid's cells: from the queue (the
+    lane's unit, axis 0 and its own cells along axis 2) and from loads,
+    at a region of rows that start on odd cells, on a bf16 grid whose
+    first cell is a pair's first or second half."""
+    plan = _map_plan("star3d4r", RAGGED, SUB_REGION)
     arrays, _ = _random("star3d4r", RAGGED, 9, bf16=True)
     store = torch.empty(arrays["u"].size + 1, dtype=torch.bfloat16)
-    bufs = {}
-    for shift in (0, 1):        # the grid starting on an even, then odd cell
-        u = store[shift:shift + arrays["u"].size].view(arrays["u"].shape)
-        u.copy_(torch.tensor(arrays["u"]))
-        bufs = {"u": u, "v": torch.tensor(arrays["v"]).bfloat16()}
-        taps = gmem_taps(plan, bufs, 0, 7)
-        o = plan.org3["u"]
-        R = plan.R3
-        for dx, dz in ((0, 0), (2, 0), (0, 3), (0, -4)):
-            want = u[o[0] + dx:o[0] + dx + 7, o[1]:o[1] + R[1], o[2] + dz:o[2] + dz + R[2]]
-            assert torch.equal(taps("u", (dx, 0, dz)), want.float()), (shift, dx, dz)
+    u = store[shift:shift + arrays["u"].size].view(arrays["u"].shape)
+    u.copy_(torch.tensor(arrays["u"]))
+    bufs = {"u": u, "v": torch.tensor(arrays["v"]).bfloat16()}
+    assert not plan.gmem_pairs(torch.bfloat16, bufs)["u"]
+    taps = gmem_taps(plan, bufs, 0, 7)
+    o, R = plan.org3["u"], plan.R3
+    for dx, dy, dz in ((0, 0, 0), (2, 0, 0), (-4, 0, 0), (0, 0, 1), (0, 0, -1),
+                       (0, 0, 4), (0, 0, -3), (0, 3, 0)):
+        want = u[o[0] + dx:o[0] + dx + 7, o[1] + dy:o[1] + dy + R[1],
+                 o[2] + dz:o[2] + dz + R[2]]
+        assert torch.equal(taps("u", (dx, dy, dz)), want.float()), (dx, dy, dz)

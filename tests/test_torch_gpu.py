@@ -187,40 +187,37 @@ def test_single_step_kernels_2d_match_plain(cuda, template, name):
         _check(padded[g], ref[g], f"{name}/{template}/{g}")
 
 
-# (name, interior, block, dtype, build): user blocks whose b0 does not
-# divide R0, rows of 16 lanes (shuffles of width 16; bf16 8), a row of 24
-# lanes (no segment: axis-2 taps are loads), an odd b2 (one point a lane),
-# and the default block on ragged shapes (rows of 141 cells: bf16 rows that
-# start on an odd cell, no pair loads), 2D, off-axis taps, in both builds
+# (name, interior, block, dtype): user blocks whose b0 does not divide R0,
+# rows of 16 and 24 lanes, an odd b2 (one point a lane), and the default
+# block at 64³ (pair loads) and on ragged shapes (rows of 141 cells: bf16
+# rows that start on odd cells, single-cell loads), 2D, off-axis taps
 FUSED_WALK_CASES = [
-    ("star2d4r", (61, 133), (5, 64), torch.float32, "loads"),
-    ("tapped_coef", (45, 77), (3, 32), torch.float32, "loads"),
-    ("star3d4r", (61, 70, 133), (3, 4, 32), torch.float32, "loads"),
-    ("box3d1r", (21, 30, 47), (8, 2, 16), torch.float32, "shuffles"),
-    ("box3d1r", (21, 30, 47), (8, 2, 16), torch.bfloat16, "shuffles"),
-    ("box3d1r", (21, 30, 47), (8, 2, 15), torch.bfloat16, "loads"),
-    ("star3d4r", (37, 21, 100), (8, 3, 24), torch.float32, "shuffles"),
-    ("star3d4r", (64, 64, 64), None, torch.float32, "loads"),
-    ("star3d4r", (64, 64, 64), None, torch.bfloat16, "loads"),
-    ("star3d4r", (61, 70, 133), None, torch.float32, "loads"),
-    ("star3d4r", (61, 70, 133), None, torch.bfloat16, "loads"),
-    ("star3d4r", (61, 70, 133), None, torch.float32, "shuffles"),
-    ("star3d4r", (61, 70, 133), None, torch.bfloat16, "shuffles"),
-    ("acoustic", (61, 70, 133), None, torch.float32, "loads"),
-    ("acoustic", (64, 64, 64), None, torch.bfloat16, "loads"),
-    ("acoustic", (61, 70, 133), None, torch.bfloat16, "shuffles"),
-    ("star2d4r", (61, 133), None, torch.bfloat16, "loads"),
-    ("star2d4r", (64, 128), None, torch.float32, "shuffles"),
-    ("box3d2r", (21, 30, 47), None, torch.bfloat16, "loads"),
-    ("box3d2r", (20, 30, 48), None, torch.float32, "loads"),
+    ("star2d4r", (61, 133), (5, 64), torch.float32),
+    ("tapped_coef", (45, 77), (3, 32), torch.float32),
+    ("star3d4r", (61, 70, 133), (3, 4, 32), torch.float32),
+    ("box3d1r", (21, 30, 47), (8, 2, 16), torch.float32),
+    ("box3d1r", (21, 30, 47), (8, 2, 16), torch.bfloat16),
+    ("box3d1r", (21, 30, 47), (8, 2, 15), torch.bfloat16),
+    ("star3d4r", (37, 21, 100), (8, 3, 24), torch.float32),
+    ("star3d4r", (64, 64, 64), None, torch.float32),
+    ("star3d4r", (64, 64, 64), None, torch.bfloat16),
+    ("star3d4r", (61, 70, 133), None, torch.float32),
+    ("star3d4r", (61, 70, 133), None, torch.bfloat16),
+    ("acoustic", (61, 70, 133), None, torch.float32),
+    ("acoustic", (64, 64, 64), None, torch.bfloat16),
+    ("acoustic", (61, 70, 133), None, torch.bfloat16),
+    ("star2d4r", (61, 133), None, torch.bfloat16),
+    ("star2d4r", (64, 128), None, torch.float32),
+    ("box3d2r", (21, 30, 47), None, torch.bfloat16),
+    ("box3d2r", (20, 30, 48), None, torch.float32),
 ]
 
 
-@pytest.mark.parametrize("name,shape,block,dtype,lanes", FUSED_WALK_CASES,
+@pytest.mark.parametrize("name,shape,block,dtype", FUSED_WALK_CASES,
                          ids=[f"{c[0]}-{'x'.join(map(str, c[1]))}-"
                               f"{'x'.join(map(str, c[2])) if c[2] else 'default'}-"
-                              f"{str(c[3])[6:]}-{c[4]}" for c in FUSED_WALK_CASES])
-def test_fused_step_column_walk_matches_plain(cuda, name, shape, block, dtype, lanes):
+                              f"{str(c[3])[6:]}" for c in FUSED_WALK_CASES])
+def test_fused_step_column_walk_matches_plain(cuda, name, shape, block, dtype):
     """K1's lanes walk ``b0`` planes of a column, in place: a ragged last
     column along axis 0 and ragged lanes along axis 2, outputs read at
     their center; f32 within 2e-5 x max(1, |plain|), bf16 within one bf16
@@ -232,7 +229,6 @@ def test_fused_step_column_walk_matches_plain(cuda, name, shape, block, dtype, l
         arrays["damp"] = 0.2 * arrays["damp"].abs().clamp(max=1)
     arrays = {g: t.to(dtype) for g, t in arrays.items()}
     plan = codegen.plan_cuda(k.ir, halos, shape, st.hopper(block=block))
-    plan.gmem_lanes = lanes
     padded = plan.to_padded(arrays)
     ref = {g: t.clone() for g, t in padded.items()}
     n = fused_step.launches
@@ -250,17 +246,14 @@ def test_fused_step_column_walk_matches_plain(cuda, name, shape, block, dtype, l
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("lanes", ["loads", "shuffles"])
-def test_gmem_off_an_aligned_base_and_other_pitches(cuda, lanes, dtype):
-    """K4 gmem on grids whose base is one cell off a pair (the load build
-    then loads single cells) and into a destination whose region starts
-    on an odd cell; a build refuses buffers of pitches other than its
-    own."""
+def test_gmem_off_an_aligned_base_and_other_pitches(cuda, dtype):
+    """K4 gmem on a grid whose base is one cell off a pair (its loads then
+    read single cells) at a region that starts on an odd cell; a build
+    refuses buffers of pitches other than its own."""
     k, _, scal = _kernel("star3d4r")
     shape, region = (40, 30, 64), ((2, 38), (1, 29), (3, 61))
     halos = {g: (4, 4, 4) for g in k.ir.grid_params}
     plan = codegen.lower_hopper(k.ir, halos, shape, region, st.hopper())
-    plan.gmem_lanes = lanes
     full = plan.full_shapes["u"]
     gen = torch.Generator(device=cuda).manual_seed(9)
     store = torch.randn(math.prod(full) + 1, generator=gen, device=cuda).to(dtype)
@@ -346,17 +339,17 @@ MAP_CASES += [(f"mem-{mt}-{t}", "box3d1r", (21, 30, 47), None, t, None, mt)
               for t in ("gmem", "shift") for mt in ("registers", "vmem")]
 # K4 gmem's lanes: a region whose first cell is not on a warp boundary, on
 # the ragged shape, under the default block and one whose b0 does not
-# divide the region; rows of 16 lanes (shuffles of width 16); a row of 24
-# lanes (no segment); acoustic (three center-only grids); Jacobi into a
-# destination at an unaligned region, its queue on the output grid
+# divide the region; rows of 8 and 12 lanes; acoustic (three center-only
+# grids); Jacobi into a destination at an unaligned region, its queue on
+# the output grid
 MAP_CASES += [
     ("gmem-region", "star3d4r", (61, 70, 133), ((5, 50), (3, 61), (10, 127)),
      "gmem", None, None),
     ("gmem-region-b0", "star3d4r", (61, 70, 133), ((5, 50), (3, 61), (10, 127)),
      "gmem", (7, 4, 64), None),
-    ("gmem-width16", "star3d4r", (21, 30, 47), ((0, 21), (1, 30), (5, 47)),
+    ("gmem-rows16", "star3d4r", (21, 30, 47), ((0, 21), (1, 30), (5, 47)),
      "gmem", (4, 2, 16), None),
-    ("gmem-no-segment", "box3d2r", (21, 30, 47), None, "gmem", (4, 3, 24), None),
+    ("gmem-rows24", "box3d2r", (21, 30, 47), None, "gmem", (4, 3, 24), None),
     ("gmem-acoustic", "acoustic", (61, 70, 133), None, "gmem", None, None),
     ("gmem-jacobi-region", "jacobi3", (61, 70, 133), ((5, 50), (3, 61), (10, 127)),
      "gmem", None, None),
@@ -622,8 +615,8 @@ BF16_CASES = [("fused", "gmem", 1, None), ("fused", "shift", 1, None),
               ("fused", "shift", 2, None), ("fused", "semi", 1, None)]
 BF16_CASES += [("map", t, 1, None) for t in MAP_TEMPLATES]
 # a region whose rows start at odd element indices (K5 stages bf16 rows
-# from the granule below, K4 gmem's lanes take their second cell from the
-# next lane's granule) and whose z-start is not a multiple of 4 (f4)
+# from the granule below, K4 gmem loads single cells) and whose z-start is
+# not a multiple of 4 (f4)
 BF16_CASES += [("map", t, 1, ((1, 20), (2, 29), (3, 46)))
                for t in ("semi", "f4", "gmem")]
 BF16_SHAPE = (21, 30, 47)

@@ -1,28 +1,24 @@
-"""Time K1's builds and tiles (the one-step gmem build, ``csrc/map_step.cuh``
-with ``RT_MAP_T 0``) at 512^3 on the card, side by side.
+"""Time K1's tiles (the one-step gmem build, ``csrc/map_step.cuh`` with
+``RT_MAP_T 0``) at 512^3 on the card, side by side.
 
 K1 and K4 gmem share one build: each lane walks ``b0`` planes of a column
-with its axis-0 taps in register queues.  The plan's default, the load
-build, gives a lane two points along axis 2 and loads every tap outside
-its own cells (aligned pairs where the rows allow); the shuffle build
-(``gmem_lanes = "shuffles"``) takes the axis-2 taps from neighbouring
-lanes by warp shuffles, one f32 or two bf16 cells a lane.  ``b0``
-amortises the queues' prologue of 2h0 planes; the face ``b1 x b2`` sets
-the rows a block loads for its axis-1 taps.  This script builds K1 for
-each build of ``--lanes`` and each block of ``GMEM_BLOCKS_AB`` (or only
-the default with ``--blocks default``), checks that each agrees with the
-first (f32: 2e-5 of the magnitude, bf16: one ulp), and times them in
-turns (in order, then in reverse, ``--rounds`` times) with CUDA events,
-for star3d4r and acoustic in f32 and bf16, with each build's ``ptxas``
-registers and spills.
+with its axis-0 taps in register queues, two points along axis 2, every
+tap outside its own cells a load (aligned pairs where the rows allow).
+``b0`` amortises the queues' prologue of 2h0 planes; the face ``b1 x b2``
+sets the rows a block loads for its axis-1 taps.  This script builds K1
+for each block of ``GMEM_BLOCKS_AB`` (or only the default with
+``--blocks default``), checks that each agrees with the first (f32: 2e-5
+of the magnitude, bf16: one ulp), and times them in turns (in order, then
+in reverse, ``--rounds`` times) with CUDA events, for star3d4r and
+acoustic in f32 and bf16, with each build's ``ptxas`` registers and
+spills.
 
     PYTHONPATH=src python3 tools/gmem_block_ab.py [--blocks all|default]
-        [--lanes loads shuffles] [--src DIR] [--shape 512 512 512]
-        [--rounds 2] [--json PATH]
+        [--src DIR] [--shape 512 512 512] [--rounds 2] [--json PATH]
 
 ``--src`` times the port of another checkout (its ``src`` directory, for
-example the parent commit's, unpacked under ``build/``; one build there)
-with the same fields and timer.  Needs a CUDA card; prints the card's
+example the parent commit's, unpacked under ``build/``) with the same
+fields and timer.  Needs a CUDA card; prints the card's
 name and power limit, one line per case, and the whole record as JSON on
 its last line.
 """
@@ -43,7 +39,6 @@ GMEM_BLOCKS_AB = ((16, 4, 64), (32, 4, 64), (64, 4, 64), (16, 8, 64),
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--blocks", choices=("all", "default"), default="all")
-    ap.add_argument("--lanes", nargs="+", default=["loads"])
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--shape", type=int, nargs=3, default=(512, 512, 512))
     ap.add_argument("--rounds", type=int, default=2)
@@ -72,52 +67,45 @@ def main(argv=None) -> int:
     mods = {"st": st, "suite": suite, "acoustic": acoustic}
     workloads = [cs.Workload("star3d4r", mods), cs.Workload("acoustic_iso", mods)]
     blocks = (None,) if args.blocks == "default" else GMEM_BLOCKS_AB
-    # a checkout before the two builds has one
-    lanes = args.lanes if hasattr(codegen, "GMEM_LANES") else ["one build"]
 
-    def plan(w, block, lane):
+    def plan(w, block):
         halos = {g: (w.halo,) * 3 for g in w.kernel.ir.grid_params}
-        p = codegen.plan_cuda(w.kernel.ir, halos, shape,
-                              st.hopper(template="gmem", block=block), swap=w.swap)
-        if lane != "one build":
-            p.gmem_lanes = lane
-        return p
+        return codegen.plan_cuda(w.kernel.ir, halos, shape,
+                                 st.hopper(template="gmem", block=block), swap=w.swap)
 
     dtypes = (torch.float32, torch.bfloat16)
-    cases = [(w, d, [(lane, plan(w, b, lane)) for lane in lanes for b in blocks])
-             for w in workloads for d in dtypes]
-    _build.build_many([p.source(d) for w, d, ps in cases for _, p in ps])
+    cases = [(w, d, [plan(w, b) for b in blocks]) for w in workloads for d in dtypes]
+    _build.build_many([p.source(d) for w, d, ps in cases for p in ps])
 
     record = {"card": smi, "shape": list(shape), "src": args.src, "cases": []}
     for w, dtype, plans in cases:
         dname = str(dtype).split(".")[1]
         arrays = w.arrays(torch, shape, seed=2, dtype=dtype)
         runs, outs = [], []
-        for _, p in plans:
+        for p in plans:
             padded = p.to_padded({g: t.clone() for g, t in arrays.items()})
             run = (lambda p=p, padded=padded: fused_step(p, padded, w.scalars))
             run()
             outs.append({g: padded[g].clone() for g in p.out_grids})
             runs.append(run)
         tol = cs.bf16_ulp if dtype == torch.bfloat16 else cs.rel_tol
-        first = f"{plans[0][0]} {plans[0][1].B}"
-        errs = [cs.check_out(torch, f"fused_step[{w.name}] {dname} {lane} {p.B} vs {first}",
-                             o, outs[0], tol) for (lane, p), o in zip(plans, outs)]
+        errs = [cs.check_out(torch, f"fused_step[{w.name}] {dname} {p.B} vs {plans[0].B}",
+                             o, outs[0], tol) for p, o in zip(plans, outs)]
         ms = [[] for _ in plans]
         order = list(range(len(plans)))
         for _ in range(args.rounds):
             for i in order + order[::-1]:
                 ms[i].append(cs.time_ms(torch, runs[i], args.reps, 5))
-        for (lane, p), t, err in zip(plans, ms, errs):
+        for p, t, err in zip(plans, ms, errs):
             use = cs.ptxas_usage(_build.ptxas_log(p.source(dtype)))
             row = {"kernel": "fused_step", "workload": w.name, "dtype": dname,
-                   "lanes": lane, "block": list(p.B), "max_abs_diff_vs_first": err,
+                   "block": list(p.B), "max_abs_diff_vs_first": err,
                    "ms": t, "median_ms": statistics.median(t), **use}
             record["cases"].append(row)
-            print(f"fused_step[{w.name}] {dname} {lane} block {p.B}: "
+            print(f"fused_step[{w.name}] {dname} block {p.B}: "
                   f"{row['median_ms']:.4f} ms (min {min(t):.4f}, max {max(t):.4f}); "
                   f"ptxas {use['registers']} registers, {use['spill_stores']} B spill "
-                  f"stores; |diff| vs {first} {err:.3g}", flush=True)
+                  f"stores; |diff| vs {plans[0].B} {err:.3g}", flush=True)
         del arrays, runs, outs
         torch.cuda.empty_cache()
     if args.json:
