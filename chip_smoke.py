@@ -46,8 +46,15 @@ Phases, each of which exits non-zero when it fails:
    ``star3d4r``); K2's TMA and granule builds at 512³, f32 and bf16,
    against each other and timed in turns; K6 in bf16 and f32 at
    the serving decode shape ``[4, 4, 4096]``, a prefill-sized
-   ``[4, 2048, 4096]`` and a ragged ``[3, 1001, 4100]``, each at widths 1
-   and 4, and K7 in bf16 at RecurrentGemma's decode shape (B=8, H=16, K=1,
+   ``[4, 2048, 4096]``, the training path's ``[2, 4099, 4096]`` and a
+   ragged ``[3, 1001, 4100]``, each at widths 1 and 4 and in every build
+   that takes the tensors (the vector build where ``build_of`` picks it,
+   the lane build everywhere), bit for bit, timed in the build
+   ``build_of`` picks (bf16 at every shape, f32 at the prefill and
+   training shapes); K6's gradient (``CausalConv1dFn``: K6 on the
+   reversed cotangent, the flips, the dw reduction) at the training shape
+   in bf16 against ``torch.autograd.grad`` of its plain version and
+   ``aten.convolution_backward``, each piece timed; and K7 in bf16 at RecurrentGemma's decode shape (B=8, H=16, K=1,
    hd=256, S=2048), at B=1 and at a GQA one (H=8, K=2, hd=128, S=1000),
    with random lengths and with lengths 0, 1, S and one past a split
    boundary, each against its plain version after one call (its split
@@ -93,14 +100,28 @@ Phases, each of which exits non-zero when it fails:
    local-attention cache with ``lengths = min(pos + 1, Sc)`` (K7 is
    standalone, as in the JAX package: nothing on the serving path calls
    it); last, 4 decode steps under ``torch.profiler``: the kernels' device
-   time a step and K6's share of it.
+   time a step and K6's share of it;
+9. training — ``recurrentgemma-9b`` at its published widths (d_model 4096,
+   rnn 4096, d_ff 12288, vocab 256000, 16 heads of 256, local window 2048,
+   ``attn_chunk`` 1024, ``logits_chunk`` 256, remat "full"), depth cut to
+   3 layers (one rec, rec, attn cycle), f32 parameters from a seed on the
+   card, batch 2 x seq 4096 of ``train/data.py`` tokens: the first step's
+   loss and ``conv_w`` gradients with K6 and with its plain version
+   (loss within 1e-3 of it, gradients within 3e-2 of their max), then 4
+   AdamW steps of ``train_loop.make_train_step`` as the main path (K6
+   exactly 3 launches a recurrent layer a step: forward, recompute, dx;
+   nothing else; finite losses, params and moments), ms a step, tokens/s,
+   peak memory; one more step under ``torch.profiler``: device time, K6's
+   and the flips', the kernels that take the most.
 
 It prints the kernels line ``{"kernels": [...]}`` and then, last,
 ``{"ok": true, "device": {...}}``.  ``--quick`` runs phases 1–3 at the two
-small shapes only (K6 and K7 at all of theirs) and prints no result
-line.  Phases 4 and 5 read the launch counts of the fused path, 6 and 7
-those of ``st.map``, 8 those of serving: each sets the counts to 0 just
-before its run and reads them just after.  The script imports neither
+small shapes only (K6 and K7 at all of theirs, untimed) and prints no
+result line.  Phases 4 and 5 read the launch counts of the fused path, 6
+and 7 those of ``st.map``, 8 those of serving, 9 those of training: each
+sets the counts to 0 just before its run and reads them just after; the
+kernels line lists K6 once a path (``causal_conv1d``: serving, at the
+decode shape; ``causal_conv1d.train``: training, at its shape).  The script imports neither
 JAX nor the JAX package, and needs nothing outside the checkout.
 """
 from __future__ import annotations
@@ -153,8 +174,8 @@ TEMPORAL_SMALL_DEPTHS = (2, 3)
 # of the card the bounds were derived for, from NVIDIA's data sheet (H100
 # SXM); another card gets no bound
 CARD_RATES = {"NVIDIA H100 80GB HBM3": (3.35e12, 67e12)}
-# K6 and K7: the TPU kernels they replace, their shapes in phase 3 and
-# the served model of phase 8
+# K6 and K7: the TPU kernels they replace, their shapes in phase 3, the
+# served model of phase 8 and the trained one of phase 9
 REPLACES.update({
     "causal_conv1d": "src/repro/kernels/conv1d/conv1d.py:50",
     "decode_attention": "src/repro/kernels/decode_attn/decode_attn.py:84",
@@ -163,9 +184,21 @@ SERVE_ARCH = "recurrentgemma-9b"
 SERVE_REQUESTS, SERVE_BATCH, SERVE_MAX_NEW = 8, 4, 8
 SERVE_PROMPT_LEN = (4, 16)
 SERVE_CHECK_STEPS = 4
+# the training path (phase 9): recurrentgemma-9b at its published widths,
+# depth cut to one (rec, rec, attn) cycle, batch 2, train_4k's sequence
+TRAIN_ARCH, TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = "recurrentgemma-9b", 3, 2, 4096
+TRAIN_STEPS = 4
+# the first step's loss with K6 against it with K6's plain version
+# (relative), and conv_w's gradient (of its max magnitude: the JAX
+# package's bf16 tolerance, the cotangents being bf16)
+TRAIN_LOSS_RTOL = 1e-3
+TRAIN_GRAD_TOL = 3e-2
 # K6 at decode (T = cw = 4 rows: the conv state and the new token), at a
-# prefill-sized and at a ragged shape; the decode shape is the main path's
+# prefill-sized shape, at the training path's (the sequence and its cw - 1
+# rows of zero history) and at a ragged shape; decode and training are
+# the main paths'
 CONV_SHAPES = {"decode": (SERVE_BATCH, 4, 4096), "prefill": (4, 2048, 4096),
+               "train": (TRAIN_BATCH, TRAIN_SEQ + 3, 4096),
                "ragged": (3, 1001, 4100)}
 CONV_WIDTHS = (1, 4)
 # K7: (B, H, K, hd, S) at RecurrentGemma's decode shape and a GQA one
@@ -589,90 +622,178 @@ def one_launch(torch, kname, kern, plain, plan, arrays, scalars):
             lambda: plain(plan, ref, scalars))
 
 
+def conv_entry_of(name, row, path):
+    """A kernels-line entry of K6 from a timed row of ``conv_phase``."""
+    return {"name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/conv1d/csrc/conv1d.cu",
+            "replaces": REPLACES["causal_conv1d"], "launches": None,
+            "max_abs_err": None, "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"], "path": path,
+            "shape": row["shape"], "dtype": row["dtype"], "build": row["build"]}
+
+
 def conv_phase(torch, rates, conv, conv_ref, quick: bool):
     """K6 against its plain version on the card: bf16 and f32 at each of
-    ``CONV_SHAPES`` and ``CONV_WIDTHS``, one launch each; times (CUDA
-    events) of kernel, plain version and ``F.conv1d`` at every shape in
-    bf16 with width 4.  Returns (kernel-line entry, rows)."""
+    ``CONV_SHAPES`` and ``CONV_WIDTHS``, every build that takes the
+    tensors (the vector build where ``build_of`` picks it, the lane build
+    everywhere), one launch each; times (CUDA graphs) of the build
+    ``build_of`` picks, the plain version and ``F.conv1d`` at every shape
+    with width 4 in bf16, and in f32 at the prefill and training shapes.
+    Returns (kernel-line entries of the serving and training paths, rows,
+    worst difference)."""
     F = torch.nn.functional
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(6)
-    worst, rows, entry = 0.0, [], None
+    worst, rows, timed = 0.0, [], {}
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[1]
         for label, (B, T, W) in CONV_SHAPES.items():
             for cw in CONV_WIDTHS:
-                key = f"causal_conv1d {dname} {label} [{B}, {T}, {W}] cw={cw}"
                 x = torch.randn((B, T, W), generator=gen, device="cuda").to(dtype)
                 w = (0.3 * torch.randn((cw, W), generator=gen,
                                        device="cuda")).to(dtype)
-                got = conv.causal_conv1d_cuda(x, w)
                 want = conv_ref.causal_conv1d_ref(x, w)
-                torch.cuda.synchronize()
-                if got.dtype != dtype or got.shape != x.shape \
-                        or not bool(torch.isfinite(got).all()):
-                    fail(f"{key}: output {got.dtype} {tuple(got.shape)}, "
-                         f"finite {bool(torch.isfinite(got).all())}")
-                err = float((got.float() - want.float()).abs().max())
-                scale = max(1.0, float(want.float().abs().max()))
-                if err > CONV_TOL[dname] * scale:
-                    fail(f"{key}: max |kernel - plain| = {err} > "
-                         f"{CONV_TOL[dname]} * {scale}")
-                worst = max(worst, err)
-                row = {"case": key, "max_abs_err": err,
-                       "bit_equal": bool(torch.equal(got, want))}
-                if dtype == torch.bfloat16 and cw == 4 and not quick:
-                    xt = x.transpose(1, 2)            # [B, W, T], a view
-                    wt = w.t().contiguous()[:, None]  # [W, 1, cw]
-
-                    def lib():
-                        return F.conv1d(xt, wt, padding=cw - 1, groups=W)
-                    lib_out = lib()[..., :T].transpose(1, 2)
-                    lib_err = float((lib_out.float() - want.float()).abs().max())
-                    if lib_err > 3e-2 * scale:
-                        fail(f"{key}: F.conv1d differs from plain by {lib_err}")
-                    # device times from CUDA graphs: at the decode shape
-                    # eager back-to-back calls measure the host's overhead
-                    # (kept as eager_ms)
-                    kern_fn = lambda: conv.causal_conv1d_cuda(x, w)  # noqa: E731
-                    plain_fn = lambda: conv_ref.causal_conv1d_ref(x, w)  # noqa: E731
-                    calls = 100 if label == "decode" else 10
-                    ms = graph_ms(torch, kern_fn, calls)
-                    plain_ms = graph_ms(torch, plain_fn, calls)
-                    lib_ms = graph_ms(torch, lib, calls)
-                    eager = {"eager_ms": time_ms(torch, kern_fn, 100, 10),
-                             "eager_plain_ms": time_ms(torch, plain_fn, 20, 2),
-                             "eager_library_ms": time_ms(torch, lib, 100, 10)}
-                    n = float(B * T * W)
-                    bound, bound_by = bound_of(
-                        rates, 2 * n * x.element_size() + w.numel() * w.element_size(),
-                        2 * cw * n)
-                    row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                               bound_ms=bound, bound_by=bound_by,
-                               library_max_abs_err=lib_err, **eager)
-                    say(f"time {key}: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
-                        f"bound {bound} ms, F.conv1d {lib_ms:.4f} ms; eager "
-                        f"calls {eager['eager_ms']:.4f} / "
-                        f"{eager['eager_plain_ms']:.4f} / "
-                        f"{eager['eager_library_ms']:.4f} ms)")
-                    if label == "decode":
-                        entry = {"name": "causal_conv1d", "route": "cuda",
-                                 "source": "src/repro_torch/kernels/conv1d/"
-                                           "csrc/conv1d.cu",
-                                 "replaces": REPLACES["causal_conv1d"],
-                                 "launches": None, "max_abs_err": None,
-                                 "ms": ms, "plain_ms": plain_ms,
-                                 "bound_ms": bound, "bound_by": bound_by,
-                                 "library_ms": lib_ms,
-                                 "shape": [B, T, W], "dtype": dname}
-                say(f"kernel {key}: max abs err {err:.3g}"
-                    f"{' (bit for bit)' if row['bit_equal'] else ''}")
-                rows.append(row)
-                del x, w, got, want
-    if entry is not None:
-        entry["max_abs_err"] = worst
+                chosen = conv.build_of(x, w, want)
+                for build in dict.fromkeys((chosen, "lane")):
+                    key = (f"causal_conv1d {dname} {label} [{B}, {T}, {W}] "
+                           f"cw={cw} {build}")
+                    got = conv.causal_conv1d_cuda(x, w, build=build)
+                    torch.cuda.synchronize()
+                    if got.dtype != dtype or got.shape != x.shape \
+                            or not bool(torch.isfinite(got).all()):
+                        fail(f"{key}: output {got.dtype} {tuple(got.shape)}, "
+                             f"finite {bool(torch.isfinite(got).all())}")
+                    err = float((got.float() - want.float()).abs().max())
+                    scale = max(1.0, float(want.float().abs().max()))
+                    if err > CONV_TOL[dname] * scale:
+                        fail(f"{key}: max |kernel - plain| = {err} > "
+                             f"{CONV_TOL[dname]} * {scale}")
+                    worst = max(worst, err)
+                    row = {"case": key, "shape": [B, T, W], "dtype": dname,
+                           "cw": cw, "build": build, "max_abs_err": err,
+                           "bit_equal": bool(torch.equal(got, want))}
+                    say(f"kernel {key}: max abs err {err:.3g}"
+                        f"{' (bit for bit)' if row['bit_equal'] else ''}")
+                    timed_case = cw == 4 and build == chosen and not quick and (
+                        dtype == torch.bfloat16 or label in ("prefill", "train"))
+                    if timed_case:
+                        row.update(conv_times(torch, F, rates, conv, conv_ref,
+                                              x, w, want, label, key))
+                        timed[(label, dname)] = row
+                    rows.append(row)
+                    del got
+                del x, w, want
+    entries = []
+    if not quick:
+        for path, label in (("serving", "decode"), ("training", "train")):
+            name = "causal_conv1d" + ("" if path == "serving" else ".train")
+            entries.append(conv_entry_of(name, timed[(label, "bfloat16")], path))
     torch.cuda.empty_cache()
-    return entry, rows
+    return entries, rows, worst
+
+
+def conv_times(torch, F, rates, conv, conv_ref, x, w, want, label, key):
+    """Device times (CUDA graphs) of K6's build, its plain version and
+    ``F.conv1d`` on ``x``, ``w``; eager times beside them (at the decode
+    shape back-to-back eager calls measure the host's overhead)."""
+    B, T, W = x.shape
+    cw = w.shape[0]
+    xt = x.transpose(1, 2)            # [B, W, T], a view
+    wt = w.t().contiguous()[:, None]  # [W, 1, cw]
+
+    def lib():
+        return F.conv1d(xt, wt, padding=cw - 1, groups=W)
+    lib_out = lib()[..., :T].transpose(1, 2)
+    scale = max(1.0, float(want.float().abs().max()))
+    lib_err = float((lib_out.float() - want.float()).abs().max())
+    if lib_err > 3e-2 * scale:
+        fail(f"{key}: F.conv1d differs from plain by {lib_err}")
+    kern_fn = lambda: conv.causal_conv1d_cuda(x, w)  # noqa: E731
+    plain_fn = lambda: conv_ref.causal_conv1d_ref(x, w)  # noqa: E731
+    calls = 100 if label == "decode" else 10
+    ms = graph_ms(torch, kern_fn, calls)
+    plain_ms = graph_ms(torch, plain_fn, calls)
+    lib_ms = graph_ms(torch, lib, calls)
+    eager = {"eager_ms": time_ms(torch, kern_fn, 100, 10),
+             "eager_plain_ms": time_ms(torch, plain_fn, 20, 2),
+             "eager_library_ms": time_ms(torch, lib, 100, 10)}
+    n = float(B * T * W)
+    bound, bound_by = bound_of(
+        rates, 2 * n * x.element_size() + w.numel() * w.element_size(),
+        2 * cw * n)
+    say(f"time {key}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound {bound} ms, "
+        f"F.conv1d {lib_ms:.4f} ms; eager calls {eager['eager_ms']:.4f} / "
+        f"{eager['eager_plain_ms']:.4f} / {eager['eager_library_ms']:.4f} ms)")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+                bound_by=bound_by, library_max_abs_err=lib_err, **eager)
+
+
+def conv_backward_phase(torch, rates, conv, conv_ops, conv_ref):
+    """K6's gradient (``ops.CausalConv1dFn``) at the training path's shape
+    in bf16: dx and dw against ``torch.autograd.grad`` of the plain
+    version (dx: the same taps summed in another order, ``CONV_TOL``; dw:
+    B·T products summed in another order, ``CONV_TOL`` of bf16) and
+    against one library call (``aten.convolution_backward`` of the
+    depthwise conv, 3e-2); device times of its pieces (K6 on the reversed
+    cotangent, the two flips, the dw reduction), of the library call, and
+    of the plain version's forward and backward.  Returns the row."""
+    F = torch.nn.functional
+    B, T, W = CONV_SHAPES["train"]
+    cw = 4
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn((B, T, W), generator=gen, device="cuda").bfloat16()
+    w = (0.3 * torch.randn((cw, W), generator=gen, device="cuda")).bfloat16()
+    g = torch.randn((B, T, W), generator=gen, device="cuda").bfloat16()
+    key = f"causal_conv1d backward bfloat16 [{B}, {T}, {W}] cw={cw}"
+    xa, wa = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    dx, dw = torch.autograd.grad(conv_ops.CausalConv1dFn.apply(xa, wa),
+                                 (xa, wa), g)
+    xr, wr = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    rdx, rdw = torch.autograd.grad(conv_ref.causal_conv1d_ref(xr, wr),
+                                   (xr, wr), g)
+    gt = F.pad(g.transpose(1, 2), (0, cw - 1))     # [B, W, T + cw - 1]
+    xt, wt = x.transpose(1, 2), w.t().contiguous()[:, None]
+
+    def lib():
+        return torch.ops.aten.convolution_backward(
+            gt, xt, wt, None, [1], [cw - 1], [1], False, [0], W,
+            [True, True, False])
+    ldx, ldw, _ = lib()
+    torch.cuda.synchronize()
+    errs = {}
+    for name, got, want, tol in (
+            ("dx", dx, rdx, CONV_TOL["bfloat16"]),
+            ("dw", dw, rdw, CONV_TOL["bfloat16"]),
+            ("library dx", ldx.transpose(1, 2), rdx, 3e-2),
+            ("library dw", ldw[:, 0].t(), rdw, 3e-2)):
+        if not bool(torch.isfinite(got).all()):
+            fail(f"{key}: non-finite {name}")
+        e = float((got.float() - want.float()).abs().max())
+        scale = max(1.0, float(want.float().abs().max()))
+        if e > tol * scale:
+            fail(f"{key}: max |{name} - plain| = {e} > {tol} * {scale}")
+        errs[name] = e
+    gf = g.flip(1).contiguous()
+    parts = {"k6_ms": graph_ms(torch, lambda: conv.causal_conv1d_cuda(gf, w), 10),
+             "flips_ms": graph_ms(torch, lambda: g.flip(1).flip(1), 10),
+             "dw_ms": graph_ms(torch, lambda: conv_ops.weight_grad(x, g, cw), 10)}
+    n = float(B * T * W)
+    # dx and dw: x and g read once, dx written once, w read and dw written
+    bound, bound_by = bound_of(rates, 3 * n * 2 + 2 * cw * W * 2, 4 * cw * n)
+    row = {"case": key, "shape": [B, T, W], "dtype": "bfloat16",
+           "max_abs_err": errs, "ms": sum(parts.values()), **parts,
+           "plain_ms": time_ms(torch, lambda: torch.autograd.grad(
+               conv_ref.causal_conv1d_ref(xr, wr), (xr, wr), g), 10, 2),
+           "library_ms": graph_ms(torch, lib, 10),
+           "bound_ms": bound, "bound_by": bound_by}
+    say(f"time {key}: {row['ms']:.4f} ms = K6 {parts['k6_ms']:.4f} + flips "
+        f"{parts['flips_ms']:.4f} + dw {parts['dw_ms']:.4f} (plain forward and "
+        f"backward {row['plain_ms']:.4f} ms eager, convolution_backward "
+        f"{row['library_ms']:.4f} ms, bound {bound} ms); max abs err {errs}")
+    del x, w, g, xa, wa, xr, wr, dx, dw, rdx, rdw, gt, gf
+    torch.cuda.empty_cache()
+    return row
 
 
 def attn_phase(torch, rates, attn, attn_ref, quick: bool):
@@ -1049,6 +1170,190 @@ def serve_phase(torch, np, mods, counters):
     return row
 
 
+def kernel_kind(name: str) -> str:
+    """A device kernel's kind, from its name: K6, matrix products, copies
+    and casts, reductions, other elementwise work."""
+    n = name.lower()
+    if "causal_conv1d" in n:
+        return "K6"
+    if any(k in n for k in ("gemm", "nvjet", "xmma", "cutlass", "cublas")):
+        return "products"
+    if "copy" in n:
+        return "copies and casts"
+    if any(k in n for k in ("reduce", "softmax", "logsumexp", "norm")):
+        return "reductions"
+    if "elementwise" in n:
+        return "elementwise"
+    return "other"
+
+
+def profile_train_step(torch, step_fn, state, batch):
+    """One training step under ``torch.profiler``: the kernels' device
+    time, K6's (its kernels by name: forward, recompute and dx) and the
+    flips' (``aten::flip``, the two copies of each dx), and the kernels
+    that take the most; returns (record, state after the step)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    def dev_us(e, own=True):
+        name = "self_device_time_total" if own else "device_time_total"
+        return float(getattr(e, name, getattr(e, name.replace("device", "cuda"),
+                                               0.0)))
+    avgs = prof.key_averages()
+    events = [e for e in avgs
+              if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0]
+    total = sum(dev_us(e) for e in events)
+    k6 = [e for e in events if "causal_conv1d" in e.key]
+    flips = [e for e in avgs if e.key == "aten::flip"]
+    top = sorted(events, key=dev_us, reverse=True)[:25]
+    by_kind = {}
+    for e in events:
+        k = kernel_kind(e.key)
+        by_kind[k] = by_kind.get(k, 0.0) + dev_us(e) / 1e3
+    rec = {"wall_ms": 1e3 * wall,
+           "device_ms_by_kind": by_kind,
+           "device_ms": total / 1e3 if total else None,
+           "device_busy_share": total / 1e6 / wall if total else None,
+           "k6_device_ms": sum(dev_us(e) for e in k6) / 1e3,
+           "k6_kernel_launches": sum(e.count for e in k6),
+           "flip_device_ms": sum(dev_us(e, own=False) for e in flips) / 1e3,
+           "flip_calls": sum(e.count for e in flips),
+           "loss": float(metrics["loss"]),
+           "top_kernels": [(e.key[:90], dev_us(e) / 1e3, e.count) for e in top]}
+    return rec, state
+
+
+def train_phase(torch, mods, counters):
+    """Phase 9: train ``TRAIN_ARCH`` at its published widths (depth
+    ``TRAIN_LAYERS``, batch ``TRAIN_BATCH``, seq ``TRAIN_SEQ``) on the card:
+    the first step's loss and gradient with K6 and with its plain version
+    (outside the main path's count), then ``TRAIN_STEPS`` AdamW steps of
+    ``make_train_step`` on ``train/data.py`` batches as the main path (K6
+    launched 3 times a recurrent layer a step: forward, recompute, dx;
+    nothing else), one more step under ``torch.profiler``.  Returns the
+    record of the phase."""
+    import dataclasses
+    configs, train_loop, optimizer, data, shapes, griffin, conv_ref = (
+        mods["configs"], mods["train_loop"], mods["optimizer"], mods["data"],
+        mods["shapes"], mods["griffin"], mods["conv_ref"])
+    reset_counts, counts = counters
+    cfg = dataclasses.replace(configs.get(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+    types = griffin.block_types(cfg)
+    n_rec = types.count("rec")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = train_loop.init_state(cfg, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in optimizer.tree_leaves(state["params"]))
+    say(f"training {cfg.name} cut to {cfg.n_layers} layers ({types}): d_model "
+        f"{cfg.d_model}, rnn {cfg.rnn_width}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}, attn_chunk {cfg.attn_chunk}, logits_chunk "
+        f"{cfg.logits_chunk}, remat {cfg.remat_policy if cfg.remat else None};"
+        f" {n_params} parameters (f32 params and AdamW moments, "
+        f"{torch.cuda.memory_allocated() / 1e9:.1f} GB) drawn in {init_s:.1f} s;"
+        f" batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, compute {cfg.dtype}")
+    shape = dataclasses.replace(shapes.SHAPES["train_4k"], seq_len=TRAIN_SEQ,
+                                global_batch=TRAIN_BATCH)
+    batch_fn = data.make_batch_fn(cfg, shape, seed=0)
+
+    # the first step's loss and conv_w gradients, with K6 and with its plain
+    # version (comparison launches: outside the main path's count)
+    dev = optimizer.tree_leaves(state["params"])[0].device
+    b0 = {k: torch.as_tensor(v, device=dev) for k, v in batch_fn(0).items()}
+    rec_layers = [i for i, t in enumerate(types) if t == "rec"]
+    first = {}
+    for flag in (None, False):
+        loss, grads = train_loop.make_loss_and_grad(cfg, flag)(state["params"], b0)
+        first[flag] = (float(loss), [grads["blocks"][i]["mix"]["conv_w"].clone()
+                                     for i in rec_layers])
+        del grads
+    torch.cuda.synchronize()
+    (lk, gk), (lp, gp) = first[None], first[False]
+    if not (math.isfinite(lk) and abs(lk - lp) <= TRAIN_LOSS_RTOL * abs(lp)):
+        fail(f"training: first-step loss with K6 {lk}, with its plain version "
+             f"{lp} (limit {TRAIN_LOSS_RTOL} of it)")
+    grad_err = 0.0
+    for i, a, b in zip(rec_layers, gk, gp):
+        e = float((a - b).abs().max())
+        scale = float(b.abs().max())
+        if not bool(torch.isfinite(a).all()) or e > TRAIN_GRAD_TOL * scale:
+            fail(f"training: layer {i}'s conv_w gradient with K6 differs from "
+                 f"the plain version's by {e} (limit {TRAIN_GRAD_TOL} of {scale})")
+        grad_err = max(grad_err, e / scale)
+    say(f"training: first step, K6 vs its plain version: loss {lk!r} vs {lp!r}"
+        f" (relative {abs(lk - lp) / abs(lp):.3g}); conv_w gradients "
+        f"{grad_err:.3g} of their max apart")
+    del first, gk, gp, b0
+
+    # -- the main path --------------------------------------------------------
+    tc = train_loop.TrainConfig(opt=optimizer.OptConfig(
+        warmup_steps=1, total_steps=TRAIN_STEPS))
+    step_fn = train_loop.make_train_step(cfg, tc)
+    batches = [batch_fn(s) for s in range(TRAIN_STEPS + 1)]
+    torch.cuda.synchronize()
+    reset_counts()
+    conv_ref.causal_conv1d_ref.calls = 0
+    step_s, losses, gnorms = [], [], []
+    for s in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batches[s])
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["grad_norm"]))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    seen = counts()
+    plain_calls = conv_ref.causal_conv1d_ref.calls
+    want = 3 * n_rec * TRAIN_STEPS
+    if seen["causal_conv1d"] != want or plain_calls \
+            or sum(seen.values()) != seen["causal_conv1d"]:
+        fail(f"training: launch counts {seen} and {plain_calls} calls of K6's "
+             f"plain version over {TRAIN_STEPS} steps; expected {want} of "
+             f"causal_conv1d (3 x {n_rec} recurrent layers a step) and "
+             f"nothing else")
+    if not all(math.isfinite(v) for v in losses + gnorms) \
+            or abs(losses[0] - lk) > TRAIN_LOSS_RTOL * abs(lk):
+        fail(f"training: losses {losses} (first step's {lk} before), "
+             f"gradient norms {gnorms}")
+    for name, t in zip(("params", "m", "v"), (state["params"], state["opt"]["m"],
+                                              state["opt"]["v"])):
+        if not all(bool(torch.isfinite(x).all())
+                   for x in optimizer.tree_leaves(t)):
+            fail(f"training: non-finite {name} after {TRAIN_STEPS} steps")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    row = {"arch": cfg.name, "n_layers": cfg.n_layers, "params": n_params,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+           "init_s": init_s, "step_s": step_s, "ms_per_step": 1e3 * steady,
+           "tokens_per_s": tokens / steady, "losses": losses,
+           "grad_norms": gnorms, "launches": seen,
+           "k6_launches": seen["causal_conv1d"],
+           "first_step_loss_kernel": lk, "first_step_loss_plain": lp,
+           "conv_w_grad_rel_diff": grad_err,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    say(f"training main path: {TRAIN_STEPS} steps of {tokens} tokens, "
+        f"{', '.join(f'{1e3 * t:.1f}' for t in step_s)} ms a step (wall); "
+        f"steady {row['ms_per_step']:.1f} ms = {row['tokens_per_s']:.0f} "
+        f"tokens/s; losses {losses}; K6 {seen['causal_conv1d']} launches = 3 x "
+        f"{n_rec} x {TRAIN_STEPS}; peak {row['peak_gb']:.1f} GB")
+    prof, state = profile_train_step(torch, step_fn, state, batches[-1])
+    row["profile"] = prof
+    say(f"training profile (one step): wall {prof['wall_ms']:.1f} ms, device "
+        f"{prof['device_ms']} ms (busy share {prof['device_busy_share']}; by "
+        f"kind {prof['device_ms_by_kind']}); K6 "
+        f"{prof['k6_device_ms']:.4f} ms in {prof['k6_kernel_launches']} "
+        f"launches, flips {prof['flip_device_ms']:.4f} ms in "
+        f"{prof['flip_calls']} calls; top kernels {prof['top_kernels'][:10]}")
+    del state, batches
+    torch.cuda.empty_cache()
+    return row
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -1077,13 +1382,17 @@ def main(argv=None) -> int:
         from repro_torch.kernels.stencil.temporal_step import (
             temporal_step, temporal_step_plain)
         from repro_torch import configs
+        from repro_torch.configs import shapes as lm_shapes
         from repro_torch.kernels.conv1d import conv1d as conv
+        from repro_torch.kernels.conv1d import ops as conv_ops
         from repro_torch.kernels.conv1d import ref as conv_ref
         from repro_torch.kernels.decode_attn import decode_attn as attn
         from repro_torch.kernels.decode_attn import ref as attn_ref
         from repro_torch.models import api, griffin
         from repro_torch.models import layers as lm_layers
         from repro_torch.serving import serve_loop
+        from repro_torch.train import data as train_data
+        from repro_torch.train import optimizer, train_loop
     except ImportError as e:
         fail(f"cannot import the port from {ROOT / 'src'}: {e}")
     wrappers = {"fused_step": (fused_step, fused_step_plain),
@@ -1409,10 +1718,14 @@ def main(argv=None) -> int:
                 torch.cuda.empty_cache()
     record["bf16"] = bf16_rows
     record["stream_forks"] = stream_forks(torch, codegen, stream_step, forks)
-    conv_entry, conv_rows = conv_phase(torch, rates, conv, conv_ref, args.quick)
+    conv_entries, conv_rows, conv_worst = conv_phase(torch, rates, conv,
+                                                     conv_ref, args.quick)
     attn_entries, attn_rows = attn_phase(torch, rates, attn, attn_ref,
                                          args.quick)
     record["lm_kernels"] = conv_rows + attn_rows
+    if not args.quick:
+        record["conv_backward"] = conv_backward_phase(torch, rates, conv,
+                                                      conv_ops, conv_ref)
     if args.quick:
         say("quick: phases 1-3 passed")
         return 0
@@ -1682,13 +1995,22 @@ def main(argv=None) -> int:
                "conv_ref": conv_ref, "attn": attn}
     serve_row = serve_phase(torch, np, lm_mods, (reset_counts, counts))
     record["serving"] = serve_row
-    conv_entry["launches"] = serve_row["k6_launches"]
+
+    # -- 9. training -------------------------------------------------------------
+    train_mods = {"configs": configs, "train_loop": train_loop,
+                  "optimizer": optimizer, "data": train_data,
+                  "shapes": lm_shapes, "griffin": griffin, "conv_ref": conv_ref}
+    train_row = train_phase(torch, train_mods, (reset_counts, counts))
+    record["training"] = train_row
+    for e in conv_entries:
+        row = serve_row if e["path"] == "serving" else train_row
+        e["launches"], e["max_abs_err"] = row["k6_launches"], conv_worst
     for kname, e in attn_entries.items():  # standalone: 0 on the serving path
         e["launches"] = serve_row["launches"][kname]
 
     kernels = [entries[f"{k}[{w.name}]"] for w in workloads
                for k in list(KERNELS) + list(MAP_KERNELS)]
-    kernels += [conv_entry, *attn_entries.values()]
+    kernels += [*conv_entries, *attn_entries.values()]
     record["kernels"], record["main_path"] = kernels, main_rows
     if args.json:
         path = pathlib.Path(args.json)

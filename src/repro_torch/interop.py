@@ -7,10 +7,11 @@ numpy by the caller, e.g. ``np.asarray(g.data)``) and builds the port's
 tensors and ``st.grid``s.  The kernel source itself is shared text that
 both frontends parse, so the kernels need no conversion.
 
-For a Griffin model, ``params_from_jax`` and ``cache_from_jax`` take the
-JAX package's parameter and decode-cache trees (leaves converted to numpy
-by the caller, e.g. ``jax.tree.map(np.asarray, params)``) and unstack them
-into the port's one-dict-per-layer lists.
+For a Griffin model, ``params_from_jax``, ``cache_from_jax`` and
+``state_from_jax`` take the JAX package's parameter, decode-cache and
+train-state trees (leaves converted to numpy by the caller, e.g.
+``jax.tree.map(np.asarray, params)``) and unstack them into the port's
+one-dict-per-layer lists.
 
 Nothing here imports JAX, and the arrays given are copied, never written.
 """
@@ -95,3 +96,13 @@ def cache_from_jax(tree, cfg: ModelConfig, device=None):
     conv = lambda a: _tensor(a, device)  # noqa: E731
     return {"blocks": [_map(b, conv) for b in _unstack(tree, cfg)],
             "pos": int(np.asarray(tree["pos"]))}
+
+
+def state_from_jax(tree, cfg: ModelConfig, device=None):
+    """The port's train state (``{"params", "opt": {"m", "v"}, "step"}``,
+    ``train_loop.init_state``'s layout) from the JAX package's train state
+    of numpy arrays, on ``device`` (None: the card)."""
+    return {"params": params_from_jax(tree["params"], cfg, device),
+            "opt": {k: params_from_jax(tree["opt"][k], cfg, device)
+                    for k in ("m", "v")},
+            "step": int(np.asarray(tree["step"]))}

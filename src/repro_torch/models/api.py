@@ -1,5 +1,5 @@
-"""Family-dispatching model API: init / param count / decode / caches (the
-decode subset of the JAX package's ``models/api.py``).
+"""Family-dispatching model API: init / param count / forward / loss /
+decode / caches (the JAX package's ``models/api.py``).
 
 ``cfg.family`` picks the backbone module; the port runs the ``hybrid``
 family (Griffin / RecurrentGemma).  Entry points run on the card unless
@@ -7,14 +7,17 @@ the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.dsl import not_ported, resolve_device
 
 from . import griffin
+from . import layers as L
 
 _FAMILY = {"hybrid": griffin}
 
@@ -57,6 +60,72 @@ def param_count(cfg: ModelConfig) -> int:
             total += t.numel()
     walk(params)
     return total
+
+
+def stacked_ndims(cfg: ModelConfig, params):
+    """The rank each leaf of ``params`` has in the JAX package's layout
+    (the optimizer's weight-decay rule reads it)."""
+    return module_for(cfg).stacked_ndims(cfg, params)
+
+
+def forward_hidden(cfg: ModelConfig, params, batch: Dict,
+                   use_kernel_conv: Optional[bool] = None):
+    """→ (hidden_for_logits [B, S_tok, D], aux_loss)."""
+    prefix = batch.get("patch_embeds")
+    hid, aux = module_for(cfg).forward(params, batch["tokens"], cfg,
+                                       prefix_embeds=prefix,
+                                       use_kernel_conv=use_kernel_conv)
+    if prefix is not None:
+        hid = hid[:, prefix.shape[1]:]
+    return hid, aux
+
+
+def _ce_from_logits(logits, labels):
+    """Mean token cross-entropy, f32 logsumexp."""
+    lg = logits.float()
+    lse = torch.logsumexp(lg, dim=-1)
+    picked = torch.gather(lg, -1, labels.long()[..., None])[..., 0]
+    return (lse - picked).mean()
+
+
+def loss_fn(cfg: ModelConfig, params, batch: Dict,
+            use_kernel_conv: Optional[bool] = None):
+    """→ (loss, metrics).  Vocab-heavy configs use sequence-chunked CE,
+    each chunk under ``torch.utils.checkpoint``, so the [B,S,V] logits
+    never materialize (cfg.logits_chunk)."""
+    hid, aux = forward_hidden(cfg, params, batch, use_kernel_conv)
+    labels = batch["labels"]
+    embed_p = params["embed"]
+
+    if cfg.logits_chunk:
+        C = cfg.logits_chunk
+        B, S, D = hid.shape
+        pad = (-S) % C
+        if pad:
+            hid = F.pad(hid, (0, 0, 0, pad))
+            labels = F.pad(labels, (0, pad), value=0)
+        n = hid.shape[1] // C
+        valid = (torch.arange(hid.shape[1], device=hid.device) < S).reshape(n, C)
+
+        def chunk_loss(h, y, v):
+            logits = L.unembed(embed_p, h, cfg).float()
+            lse = torch.logsumexp(logits, dim=-1)
+            picked = torch.gather(logits, -1, y.long()[..., None])[..., 0]
+            return ((lse - picked) * v[None]).sum()
+
+        total = torch.zeros((), dtype=torch.float32, device=hid.device)
+        for i in range(n):
+            sl = slice(i * C, (i + 1) * C)
+            total = total + _ckpt.checkpoint(chunk_loss, hid[:, sl],
+                                             labels[:, sl], valid[i],
+                                             use_reentrant=False)
+        ce = total / (B * S)
+    else:
+        logits = L.unembed(embed_p, hid, cfg)
+        ce = _ce_from_logits(logits, labels)
+
+    loss = ce + aux
+    return loss, {"ce": ce, "aux": aux}
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *, device=None):

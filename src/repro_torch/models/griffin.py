@@ -1,21 +1,25 @@
-"""Griffin / RecurrentGemma decode: RG-LRU recurrent blocks + local
-attention, 1:2 (the JAX package's ``models/griffin.py``).
+"""Griffin / RecurrentGemma: RG-LRU recurrent blocks + local attention,
+1:2 (the JAX package's ``models/griffin.py``).
 
 Block pattern (rec, rec, attn) applied cyclically over n_layers (38 for the
 9B config ⇒ 12 full cycles + a trailing (rec, rec)).  The JAX package
 stacks the full cycles' parameters along a leading axis and scans them;
 here ``params["blocks"]`` holds one dict per layer, in layer order
-(``interop.params_from_jax`` unstacks a JAX tree), and the decode loop is
-a Python loop over them.  The temporal conv in the recurrent block is the
-causal width-4 depthwise conv K6 (``kernels/conv1d``): its CUDA kernel on
-the card, its plain version on the CPU.
+(``interop.params_from_jax`` unstacks a JAX tree), and ``forward`` and the
+decode loop are Python loops over them (``forward`` checkpoints each full
+cycle, as the JAX package's scanned body).  The temporal conv in the
+recurrent block is the causal width-4 depthwise conv K6
+(``kernels/conv1d``): its CUDA kernel on the card, its plain version on
+the CPU; under autograd its gradient runs K6 again
+(``ops.CausalConv1dFn``).
 
 Recurrence: r_t = σ(W_a x_t + b_a); i_t = σ(W_x x_t + b_x)
             a_t = exp(c · softplus(Λ) · (−r_t))      (a ∈ (0,1), c = 8)
             h_t = a_t ⊙ h_{t−1} + sqrt(1 − a_t²) ⊙ (i_t ⊙ x_t)
-as a single fused state update at decode time.  The full-sequence path
-(``forward``, ``rg_lru_scan``) belongs to training and prefill and is not
-ported yet (ROADMAP.md queue 1, item 11).
+computed with an associative scan over the sequence (``rg_lru_scan``: the
+JAX package's ``lax.associative_scan``, its odd/even recursion and order
+of combination, O(log S) depth), and as a single fused state update at
+decode time.
 """
 from __future__ import annotations
 
@@ -25,7 +29,6 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.dsl import not_ported
 from repro_torch.kernels.conv1d import ops as conv1d_ops
 from repro_torch.kernels.conv1d import ref as conv1d_ref
 
@@ -98,15 +101,36 @@ def init_params(gen: Optional[torch.Generator], cfg: ModelConfig, device):
             "final_norm": L.init_norm(cfg.d_model, cfg, device)}
 
 
+def stacked_ndims(cfg: ModelConfig, params):
+    """The rank each leaf of ``params`` has in the JAX package's layout,
+    where a full cycle's leaves are stacked on a leading axis (one more
+    than here) and the tail's and the rest are not; the optimizer decays
+    a leaf by that rank."""
+    P = len(pattern_of(cfg))
+    stacked = _cycle_split(cfg)[0] * P
+
+    def ranks(tree, extra):
+        if isinstance(tree, dict):
+            return {k: ranks(v, extra) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [ranks(v, extra) for v in tree]
+        return tree.dim() + extra
+    return {"embed": ranks(params["embed"], 0),
+            "blocks": [ranks(b, int(i < stacked))
+                       for i, b in enumerate(params["blocks"])],
+            "final_norm": ranks(params["final_norm"], 0)}
+
+
 # -- temporal conv (1-D causal stencil) -------------------------------------
 def causal_conv(x, w, b, state: Optional[torch.Tensor] = None,
                 use_kernel: Optional[bool] = None):
     """x: [B,S,W]; w: [cw, W] depthwise.  state: [B, cw-1, W] past inputs.
     Returns (y, new_state).
 
-    ``use_kernel``: None runs K6 (``causal_conv1d``: the kernel on CUDA
-    tensors, its plain version on CPU ones); True the kernel, and raises
-    off the card; False the plain version on any device (for checks)."""
+    ``use_kernel``: None runs K6 (``CausalConv1dFn``: the kernel on CUDA
+    tensors, its plain version on CPU ones; its gradient is K6 again);
+    True the kernel, and raises off the card; False the plain version on
+    any device (for checks; autograd differentiates it)."""
     cw = w.shape[0]
     if state is None:
         xp = F.pad(x, (0, 0, cw - 1, 0))
@@ -121,7 +145,7 @@ def causal_conv(x, w, b, state: Optional[torch.Tensor] = None,
         raise ValueError(f"causal_conv(use_kernel=True): the kernel runs on "
                          f"a CUDA device, not {xp.device}")
     else:
-        y = conv1d_ops.causal_conv1d(xp, wx)
+        y = conv1d_ops.CausalConv1dFn.apply(xp, wx)
     new_state = xp[:, -(cw - 1):] if cw > 1 else None
     return y[:, cw - 1:] + b.to(x.dtype), new_state
 
@@ -138,6 +162,44 @@ def _rg_lru_gates(p, x):
     return a, gated
 
 
+def _associative_scan(combine, elems):
+    """Inclusive scan of ``combine`` over axis 1 of every tensor in
+    ``elems``: the recursion of ``lax.associative_scan`` (combine adjacent
+    pairs, scan the half, fill in the even positions), so the same
+    elements are combined in the same order."""
+    n = elems[0].shape[1]
+    if n < 2:
+        return elems
+    reduced = combine([e[:, 0:-1:2] for e in elems],
+                      [e[:, 1::2] for e in elems])
+    odd = _associative_scan(combine, reduced)
+    if n % 2 == 0:
+        even = combine([e[:, :-1] for e in odd], [e[:, 2::2] for e in elems])
+    else:
+        even = combine(odd, [e[:, 2::2] for e in elems])
+    even = [torch.cat([e[:, :1], r], dim=1) for e, r in zip(elems, even)]
+    out = []
+    for a, b in zip(even, odd):            # a[0], b[0], a[1], b[1], ...
+        nb = b.shape[1]
+        ab = torch.stack([a[:, :nb], b], dim=2).flatten(1, 2)
+        out.append(torch.cat([ab, a[:, nb:]], dim=1) if a.shape[1] > nb else ab)
+    return out
+
+
+def rg_lru_scan(p, x):
+    """x: [B,S,W] → h: [B,S,W] via an associative scan over time in f32,
+    cast to ``x.dtype``."""
+    a, gx = _rg_lru_gates(p, x)
+
+    def combine(l, r):
+        al, bl = l
+        ar, br = r
+        return [al * ar, br + ar * bl]
+
+    _, h = _associative_scan(combine, [a, gx])
+    return h.to(x.dtype)
+
+
 def rg_lru_step(p, x, h):
     """x: [B,1,W], h: [B,W] → (y [B,1,W], h')."""
     a, gx = _rg_lru_gates(p, x[:, 0])
@@ -147,22 +209,26 @@ def rg_lru_step(p, x, h):
 
 def rec_mix(p, x, cfg: ModelConfig, state=None,
             use_kernel_conv: Optional[bool] = None):
-    """The Griffin recurrent mixing block at decode.  state: {'h','conv'}
-    → (x + y, new state)."""
-    if state is None:
-        raise not_ported("griffin.rec_mix without a state (rg_lru_scan, "
-                         "the training and prefill path)",
-                         "queue 1, item 11")
+    """The Griffin recurrent mixing block.  state: {'h','conv'} (decode)
+    or None (the full sequence from zero history: the conv over
+    ``[B, S+cw-1, W]``, then ``rg_lru_scan``) → (x + y, new state or
+    None)."""
     xn = L.norm(p["ln"], x, cfg)
     dt = x.dtype
     gate = F.gelu(torch.einsum("bsd,dw->bsw", xn, p["w_gate"].to(dt)),
                   approximate="tanh")
     u = torch.einsum("bsd,dw->bsw", xn, p["w_x"].to(dt))
-    u, conv_state = causal_conv(u, p["conv_w"], p["conv_b"], state["conv"],
+    u, conv_state = causal_conv(u, p["conv_w"], p["conv_b"],
+                                None if state is None else state["conv"],
                                 use_kernel=use_kernel_conv)
-    h, h_new = rg_lru_step(p, u, state["h"])
+    if state is None:
+        h = rg_lru_scan(p, u)
+        new_state = None
+    else:
+        h, h_new = rg_lru_step(p, u, state["h"])
+        new_state = {"h": h_new, "conv": conv_state}
     y = torch.einsum("bsw,wd->bsd", gate * h, p["w_out"].to(dt))
-    return x + y, {"h": h_new, "conv": conv_state}
+    return x + y, new_state
 
 
 def attn_mix(p, x, cfg: ModelConfig, positions, cache=None):
@@ -177,6 +243,45 @@ def attn_mix(p, x, cfg: ModelConfig, positions, cache=None):
 def ffn_block(p, x, cfg: ModelConfig):
     """The feed-forward block with its residual."""
     return x + L.mlp(p["mlp"], L.norm(p["ln"], x, cfg), cfg)
+
+
+def _block_fwd(bp, x, t, cfg, positions,
+               use_kernel_conv: Optional[bool] = None):
+    if t == "rec":
+        x, _ = rec_mix(bp["mix"], x, cfg, use_kernel_conv=use_kernel_conv)
+    else:
+        x, _ = attn_mix(bp["mix"], x, cfg, positions)
+    return ffn_block(bp["ffn"], x, cfg)
+
+
+def forward(params, tokens, cfg: ModelConfig,
+            prefix_embeds: Optional[torch.Tensor] = None,
+            use_kernel_conv: Optional[bool] = None):
+    """tokens [B, S] → (final-normed hidden [B, S, D], aux loss 0.0 in
+    f32).  Each full cycle runs under ``L.remat_wrap(cfg)``, as the JAX
+    package's scanned cycle body; the tail's blocks run bare.
+    ``prefix_embeds`` is ignored, as there."""
+    x = L.embed(params["embed"], tokens, cfg)
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    pat = pattern_of(cfg)
+    P = len(pat)
+    n_cycles, tail = _cycle_split(cfg)
+
+    def cycle_fwd(cyc, x):
+        for bp, t in zip(cyc, pat):
+            x = _block_fwd(bp, x, t, cfg, positions, use_kernel_conv)
+        return x
+
+    body = L.remat_wrap(cfg)(cycle_fwd)
+    blocks = params["blocks"]
+    for c in range(n_cycles):
+        x = body(blocks[c * P:(c + 1) * P], x)
+    for p in range(tail):
+        x = _block_fwd(blocks[n_cycles * P + p], x, pat[p], cfg, positions,
+                       use_kernel_conv)
+    x = L.norm(params["final_norm"], x, cfg)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 # -- decode -------------------------------------------------------------------

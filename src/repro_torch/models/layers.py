@@ -1,28 +1,55 @@
 """Shared LM layers, functional style (params are plain dicts of tensors):
-the decode subset of the JAX package's ``models/layers.py``.
+the JAX package's ``models/layers.py``.
 
 Conventions, as there:
 
 * Activations run in ``cfg.dtype`` (bf16); params are stored in
   ``cfg.param_dtype`` (f32 master) and cast at use.
-* Attention supports GQA/MQA, causal/bidirectional/sliding-window masks and
-  KV-cache decode (full cache or rolling window buffer).  The cache is
-  updated in place (the JAX package returns a new one).
+* Attention supports GQA/MQA, causal/bidirectional/sliding-window masks,
+  blockwise-KV online softmax (``cfg.attn_chunk``) and KV-cache decode
+  (full cache or rolling window buffer).  The cache is updated in place
+  (the JAX package returns a new one).
+* ``remat_wrap`` is ``torch.utils.checkpoint`` (non-reentrant) where the
+  JAX package uses ``jax.checkpoint``.
 * Every ``init_*`` draws from an explicit ``torch.Generator`` onto an
   explicit device; on the ``meta`` device it draws nothing (shapes only).
 
 Not ported yet: the sharding constraints (``constrain``, ``kv_cache_mode``:
-the identity and ``None`` without a mesh), ``_sdpa_chunked`` and
-``remat_wrap`` (training; ROADMAP.md queue 1, item 11).
+the identity and ``None`` without a mesh; ROADMAP.md queue 1, item 9) and
+cross-attention (the encoder-decoder family, item 11).
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch.configs.base import ModelConfig
+
+# the matmul operators a "dots" policy keeps (einsum lowers to these)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (_ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else _ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_wrap(cfg: ModelConfig):
+    """Layer-body remat transform per cfg: 'full' recomputes everything in
+    the backward pass; 'dots' saves the matmul outputs and recomputes the
+    rest.  Both are non-reentrant ``torch.utils.checkpoint``."""
+    if not cfg.remat:
+        return lambda f: f
+    kw = {"use_reentrant": False}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            _ckpt.create_selective_checkpoint_contexts, _save_dots)
+    return lambda f: functools.partial(_ckpt.checkpoint, f, **kw)
 
 
 def cdtype(cfg: ModelConfig) -> torch.dtype:
@@ -166,6 +193,43 @@ def _sdpa(q, k, v, mask, scale):
     return torch.einsum("bhqs,bshd->bqhd", probs.to(v.dtype), v)
 
 
+def _sdpa_chunked(q, k, v, q_pos, k_pos, mode, window, scale, chunk):
+    """Blockwise-KV online-softmax attention: a loop over KV chunks, peak
+    memory O(Sq·chunk) instead of O(Sq·Sk).  Logits, running max and sum
+    in f32; the accumulator in ``v.dtype``; padded keys (a ragged last
+    chunk) sit at position -1e9, masked with -1e30 as the rest."""
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    k = _expand_kv(k, H)
+    v = _expand_kv(v, H)
+    nch = -(-Sk // chunk)
+    pad = nch * chunk - Sk
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        k_pos = F.pad(k_pos, (0, pad), value=-(10 ** 9))
+    acc = torch.zeros((B, H, Sq, D), dtype=v.dtype, device=q.device)
+    m = torch.full((B, H, Sq), -float("inf"), dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, H, Sq), dtype=torch.float32, device=q.device)
+    for c in range(nch):
+        kb, vb = k[:, c * chunk:(c + 1) * chunk], v[:, c * chunk:(c + 1) * chunk]
+        pb = k_pos[:, c * chunk:(c + 1) * chunk]
+        logits = torch.einsum("bqhd,bshd->bhqs", q, kb).float()
+        logits = logits * scale
+        msk = _mask(q_pos, pb, mode, window)             # [B, Sq, chunk]
+        logits = logits.masked_fill(~msk[:, None], -1e30)
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        p = torch.exp(logits - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        pv = torch.einsum("bhqs,bshd->bhqd", p.to(vb.dtype), vb)
+        acc = acc * corr[..., None].to(acc.dtype) + pv
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None].to(acc.dtype)
+    return out.transpose(1, 2)
+
+
 def cache_abs_pos(pos: int, Sc: int, device) -> torch.Tensor:
     """Absolute position held by each slot of a rolling buffer of ``Sc``
     slots when the next token goes to position ``pos`` (only valid where
@@ -179,7 +243,8 @@ def attention(p, x, cfg: ModelConfig, *,
               window: Optional[int] = None,
               positions: Optional[torch.Tensor] = None,
               cache: Optional[Dict] = None):
-    """Self-attention (the JAX package's cache and full-sequence branches).
+    """Self-attention (the JAX package's cache and full-sequence branches;
+    the full sequence blockwise over KV chunks when ``cfg.attn_chunk``).
 
     ``cache``: {'k','v' [B,Sc,K,D], 'pos' int} decode-time KV cache — writes
     the new tokens at slot ``pos % Sc`` (rolling buffer) in place.
@@ -211,8 +276,12 @@ def attention(p, x, cfg: ModelConfig, *,
     else:                                  # full-sequence self-attention
         k_pos = positions
 
-    msk = _mask(positions, k_pos, mode, window)[:, None]
-    out = _sdpa(q, k.to(dt), v.to(dt), msk, scale)
+    if cfg.attn_chunk and cache is None:
+        out = _sdpa_chunked(q, k.to(dt), v.to(dt), positions, k_pos, mode,
+                            window, scale, cfg.attn_chunk)
+    else:
+        msk = _mask(positions, k_pos, mode, window)[:, None]
+        out = _sdpa(q, k.to(dt), v.to(dt), msk, scale)
     out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt))
     return out, new_cache
 

@@ -1,13 +1,16 @@
-"""Port parity: K6, the causal depthwise conv1d, and the Griffin temporal
-conv that calls it, against the JAX package (its Pallas kernel in
-interpret mode, ``kernels/conv1d/ops.causal_conv1d``, and
-``models/griffin.causal_conv(use_pallas=True)``).
+"""Port parity: K6, the causal depthwise conv1d, its gradient
+(``ops.CausalConv1dFn``) and the Griffin temporal conv that calls it,
+against the JAX package (its Pallas kernel in interpret mode,
+``kernels/conv1d/ops.causal_conv1d``, ``models/griffin.causal_conv(
+use_pallas=True)``, and ``jax.grad`` of the jnp conv its training
+differentiates).
 
 The CUDA kernel runs only on the card (``chip_smoke.py``,
 ``tests/test_torch_gpu.py``); on CPU tensors the entry point runs its plain
 version, which these tests hold against JAX, together with the
-dispatch rules of ``griffin.causal_conv(use_kernel=...)`` and the build
-cache key of the kernel sources.
+dispatch rules of ``griffin.causal_conv(use_kernel=...)``, the choice of
+the kernel's build (``conv1d.build_of``) and the build cache key of the
+kernel sources.
 
 Tolerances: f32 1e-5 as ``tests/test_conv1d_kernel.py`` (the same taps
 in another order of rounding); bf16 3e-2, that file's own: the JAX kernel
@@ -19,6 +22,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
+
+import jax  # noqa: E402
 
 from repro.kernels.conv1d.ops import causal_conv1d as jax_causal_conv1d  # noqa: E402
 from repro.models import griffin as jgriffin  # noqa: E402
@@ -193,3 +198,91 @@ def test_plain_string_is_a_stencil_source():
     text = "// generated\n"
     assert _build.source_hash(text) == \
         _build.source_hash(_build.Source(text, _build.STENCIL_CSRC))
+
+
+def test_entry_rejects_widths_above_the_build():
+    """The kernel's register queue is built for 1 ≤ cw ≤ 8; the entry
+    refuses wider convs on every device, as the card would."""
+    x = torch.zeros((1, 16, 8))
+    ops.causal_conv1d(x, torch.zeros((conv1d.MAX_WIDTH, 8)))
+    with pytest.raises(ValueError, match="cw <= 8"):
+        ops.causal_conv1d(x, torch.zeros((conv1d.MAX_WIDTH + 1, 8)))
+    with pytest.raises(ValueError):
+        ops.causal_conv1d(x, torch.zeros((0, 8)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_build_of(dtype):
+    """The vector build takes widths that fill 16-byte vectors on 16-byte
+    aligned bases; the lane build the rest (a ragged width, a base off
+    the boundary)."""
+    vec = 16 // torch.tensor([], dtype=dtype).element_size()
+    x = torch.zeros((2, 5, 4 * vec), dtype=dtype)
+    w = torch.zeros((4, 4 * vec), dtype=dtype)
+    y = torch.empty_like(x)
+    assert x.data_ptr() % 16 == w.data_ptr() % 16 == y.data_ptr() % 16 == 0
+    assert conv1d.build_of(x, w, y) == "vector"
+    ragged = torch.zeros((2, 5, 4 * vec + 1), dtype=dtype)
+    assert conv1d.build_of(ragged, torch.zeros((4, 4 * vec + 1), dtype=dtype),
+                           torch.empty_like(ragged)) == "lane"
+    flat = torch.zeros(2 * 5 * 4 * vec + 1, dtype=dtype)
+    off = flat[1:].view(2, 5, 4 * vec)            # one element past the base
+    assert off.is_contiguous() and off.data_ptr() % 16 != 0
+    assert conv1d.build_of(off, w, y) == "lane"
+
+
+@pytest.mark.parametrize("cw", [1, 2, 4])
+def test_autograd_fn_gradcheck_f64(cw, monkeypatch):
+    """The gradient of ``CausalConv1dFn`` (dx: the conv of the reversed
+    cotangent, reversed; dw: the f32 reduction) against finite differences
+    in f64, with the plain version in place of the entry (which takes f32
+    and bf16 only)."""
+    monkeypatch.setattr(ops, "causal_conv1d", ref.causal_conv1d_ref)
+    rng = np.random.default_rng(cw)
+    x = torch.tensor(rng.standard_normal((2, 9, 5)), requires_grad=True)
+    w = torch.tensor(rng.standard_normal((cw, 5)), requires_grad=True)
+    assert torch.autograd.gradcheck(ops.CausalConv1dFn.apply, (x, w))
+
+
+def test_weight_grad_is_the_reduction_autograd_takes():
+    rng = np.random.default_rng(8)
+    x = torch.tensor(rng.standard_normal((3, 11, 6)), dtype=torch.float32)
+    w = torch.tensor(rng.standard_normal((4, 6)), dtype=torch.float32,
+                     requires_grad=True)
+    g = torch.tensor(rng.standard_normal((3, 11, 6)), dtype=torch.float32)
+    (want,) = torch.autograd.grad(ref.causal_conv1d_ref(x, w), w, g)
+    torch.testing.assert_close(ops.weight_grad(x, g, 4), want, rtol=1e-6,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_griffin_causal_conv_grad_matches_jax(dtype):
+    """dx, dw and db of the full-sequence temporal conv (``CausalConv1dFn``
+    under autograd) against ``jax.grad`` of the JAX package's jnp conv, on
+    f32 parameters cast to the compute dtype as the model does."""
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((2, 30, 16)).astype(np.float32)
+    w = rng.standard_normal((4, 16)).astype(np.float32)
+    b = rng.standard_normal((16,)).astype(np.float32)
+    ct = rng.standard_normal((2, 30, 16)).astype(np.float32)
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+
+    def jloss(x, w, b):
+        y, _ = jgriffin.causal_conv(x, w, b)
+        return (y.astype(jnp.float32) * ct).sum()
+    want = jax.grad(jloss, argnums=(0, 1, 2))(jnp.asarray(x, jdt),
+                                              jnp.asarray(w), jnp.asarray(b))
+    tx = torch.tensor(x).to(tdt).requires_grad_(True)
+    tw = torch.tensor(w).requires_grad_(True)
+    tb = torch.tensor(b).requires_grad_(True)
+    n = ref.causal_conv1d_ref.calls
+    y, _ = griffin.causal_conv(tx, tw, tb)
+    got = torch.autograd.grad((y.float() * torch.tensor(ct)).sum(), (tx, tw, tb))
+    assert ref.causal_conv1d_ref.calls == n + 2        # forward and dx
+    assert got[0].dtype == tdt and got[1].dtype == torch.float32
+    for g_, w_ in zip(got, want):
+        scale = max(1.0, float(np.abs(np.asarray(w_, np.float32)).max()))
+        tol = 1e-5 if dtype == "float32" else 3e-2
+        assert float(np.abs(_np(g_) - np.asarray(w_, np.float32)).max()) \
+            <= tol * scale

@@ -571,6 +571,129 @@ def test_conv1d_kernel_matches_plain(cuda, B, T, W, cw, dtype):
     assert torch.equal(got, want)
 
 
+# K6's two builds at the serving decode shape, a prefill-sized one and a
+# ragged one (4100 channels: whole f32 vectors, no whole bf16 vector, so
+# bf16 takes the lane build only), cw 1-4, with runs of 1, 3 and 64 rows
+# (a run's halo comes from the run before it); bit for bit against the
+# plain version
+CONV_BUILD_SHAPES = {"decode": (4, 4, 4096), "prefill": (4, 2048, 4096),
+                     "ragged": (3, 1001, 4100)}
+CONV_BUILD_CASES = [(label, build) for label in CONV_BUILD_SHAPES
+                    for build in ("vector", "lane")]
+
+
+@pytest.mark.parametrize("cw", [1, 2, 3, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("label,build", CONV_BUILD_CASES,
+                         ids=[f"{a}-{b}" for a, b in CONV_BUILD_CASES])
+def test_conv1d_builds_match_plain(cuda, label, build, dtype, cw):
+    from repro_torch.kernels.conv1d import conv1d
+    from repro_torch.kernels.conv1d.ref import causal_conv1d_ref
+    B, T, W = CONV_BUILD_SHAPES[label]
+    gen = torch.Generator(device=cuda).manual_seed(cw)
+    x = torch.randn((B, T, W), generator=gen, device=cuda).to(dtype)
+    w = (0.3 * torch.randn((cw, W), generator=gen, device=cuda)).to(dtype)
+    whole = W % (16 // x.element_size()) == 0
+    assert conv1d.build_of(x, w, x) == ("vector" if whole else "lane")
+    if build == "vector" and not whole:
+        with pytest.raises(ValueError, match="does not take"):
+            conv1d.causal_conv1d_cuda(x, w, build=build)
+        return
+    want = causal_conv1d_ref(x, w)
+    for rows in (1, 3, 64):
+        got = conv1d.causal_conv1d_cuda(x, w, rows=rows, build=build)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (rows, float((got.float()
+                                                     - want.float()).abs().max()))
+
+
+def test_conv1d_off_a_16_byte_base_takes_the_lane_build(cuda):
+    from repro_torch.kernels.conv1d import conv1d
+    from repro_torch.kernels.conv1d.ref import causal_conv1d_ref
+    flat = torch.randn(2 * 33 * 64 + 1, device=cuda).bfloat16()
+    x = flat[1:].view(2, 33, 64)
+    w = torch.randn((4, 64), device=cuda).bfloat16()
+    assert conv1d.build_of(x, w, torch.empty_like(x)) == "lane"
+    with pytest.raises(ValueError, match="does not take"):
+        conv1d.causal_conv1d_cuda(x, w, build="vector")
+    got = conv1d.causal_conv1d_cuda(x, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, causal_conv1d_ref(x, w))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(2, 4099, 4096), (3, 37, 100)],
+                         ids=["train", "ragged"])
+def test_conv1d_backward_on_the_card(cuda, shape, dtype):
+    """``CausalConv1dFn`` on the card (K6 forward, K6 on the reversed
+    cotangent for dx, the f32 reduction for dw) against
+    ``torch.autograd.grad`` of the plain version: dx sums the same taps in
+    another order (f32 1e-6, bf16 one rounding, 8e-3 of the magnitude); dw
+    sums B·T products in another order (f32 1e-4, bf16 8e-3)."""
+    from repro_torch.kernels.conv1d import conv1d, ops
+    from repro_torch.kernels.conv1d.ref import causal_conv1d_ref
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    w = (0.3 * torch.randn((4, shape[2]), generator=gen, device=cuda)).to(dtype)
+    g = torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    xa, wa = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    n = conv1d.causal_conv1d_cuda.launches
+    y = ops.CausalConv1dFn.apply(xa, wa)
+    dx, dw = torch.autograd.grad(y, (xa, wa), g)
+    torch.cuda.synchronize()
+    assert conv1d.causal_conv1d_cuda.launches == n + 2
+    xr, wr = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    yr = causal_conv1d_ref(xr, wr)
+    assert torch.equal(y, yr)
+    rdx, rdw = torch.autograd.grad(yr, (xr, wr), g)
+    f32 = dtype == torch.float32
+    for got, want, tol in ((dx, rdx, 1e-6 if f32 else 8e-3),
+                           (dw, rdw, 1e-4 if f32 else 8e-3)):
+        assert got.dtype == want.dtype == dtype
+        scale = max(1.0, float(want.float().abs().max()))
+        assert float((got.float() - want.float()).abs().max()) <= tol * scale
+
+
+def test_tiny_train_step_on_the_card_matches_the_cpu(cuda):
+    """One AdamW step of tiny RecurrentGemma in f32 on the card (K6 in the
+    forward, the recompute and dx) against the same step on the CPU (the
+    plain conv): matmuls sum in another order, 1e-4 of the magnitude."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.kernels.conv1d import conv1d
+    from repro_torch.train import data, optimizer, train_loop
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.models import griffin
+    cfg = dataclasses.replace(configs.tiny(configs.get("recurrentgemma-9b")),
+                              dtype="float32", remat=True, attn_chunk=16)
+    n_rec = griffin.block_types(cfg).count("rec")
+    shape = dataclasses.replace(SHAPES["train_4k"], seq_len=64, global_batch=2)
+    batch = data.make_batch_fn(cfg, shape, seed=0)(0)
+    tc = train_loop.TrainConfig(opt=optimizer.OptConfig(warmup_steps=0))
+    states = {}
+    for dev in ("cpu", "cuda"):
+        st = train_loop.init_state(cfg, device="cpu", seed=1)
+        if dev == "cuda":
+            st = {"params": optimizer.tree_map(lambda t: t.cuda(), st["params"]),
+                  "opt": optimizer.tree_map(lambda t: t.cuda(), st["opt"]),
+                  "step": 0}
+        n = conv1d.causal_conv1d_cuda.launches
+        st, m = train_loop.make_train_step(cfg, tc)(st, batch)
+        torch.cuda.synchronize()
+        launches = conv1d.causal_conv1d_cuda.launches - n
+        # forward, recompute and dx of each recurrent layer
+        assert launches == (0 if dev == "cpu" else 3 * n_rec)
+        states[dev] = (st, float(m["loss"]))
+    (cpu, lc), (gpu, lg) = states["cpu"], states["cuda"]
+    assert abs(lc - lg) <= 1e-4 * abs(lc)
+    for a, b in zip(optimizer.tree_leaves(gpu["opt"]),
+                    optimizer.tree_leaves(cpu["opt"])):
+        scale = max(float(b.abs().max()), 1e-30)
+        assert float((a.cpu() - b).abs().max()) <= 1e-4 * scale
+
+
 @pytest.mark.parametrize("B,S,H,K,hd,bs", ATTN_SHAPES)
 def test_decode_attn_kernel_matches_plain(cuda, B, S, H, K, hd, bs):
     from repro_torch.kernels.decode_attn.decode_attn import decode_attention_cuda

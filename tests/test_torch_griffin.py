@@ -1,9 +1,12 @@
-"""Port parity: the Griffin / RecurrentGemma decode path (``models/layers``,
-``models/griffin``, ``models/api``) against the JAX package, on the JAX
-package's own random parameters carried across by
+"""Port parity: the Griffin / RecurrentGemma decode and full-sequence paths
+(``models/layers``, ``models/griffin``, ``models/api``) against the JAX
+package, on the JAX package's own random parameters carried across by
 ``interop.params_from_jax`` (the decode caches by ``cache_from_jax``).
 
-Each layer function is held against its JAX twin on the same inputs; then
+Each layer function is held against its JAX twin on the same inputs (the
+full-sequence ones too: ``rg_lru_scan``, ``rec_mix`` without a state,
+``_sdpa_chunked``, ``forward``, and the port's decode against its own
+forward); then
 ``decode_step`` runs 20 steps on ``configs.tiny(recurrentgemma-9b)``, so
 that its 16-slot local-attention buffer wraps, comparing logits and every
 layer's cache after each step; and the same for a config with a tail
@@ -227,11 +230,141 @@ def test_rg_lru_step_and_rec_mix_with_state():
     _close(gst["conv"], wst["conv"])
 
 
+def _rec_params(jparams, params, layer=4, seed=9):
+    """Layer ``layer``'s recurrent mix in both layouts, with a non-trivial
+    decay parameter and biases."""
+    rng = np.random.default_rng(seed)
+    c, pos = divmod(layer, 3)
+    jp = jax.tree.map(lambda a: a[c], jparams["cycles"][str(pos)]["mix"])
+    extra = {"lam": rng.uniform(-3, 6, 64).astype(np.float32),
+             "ba": rng.standard_normal(64).astype(np.float32),
+             "conv_b": rng.standard_normal(64).astype(np.float32)}
+    jp = dict(jp, **{k: jnp.asarray(v) for k, v in extra.items()})
+    p = dict(params["blocks"][layer]["mix"],
+             **{k: torch.tensor(v) for k, v in extra.items()})
+    return jp, p
+
+
+@pytest.mark.parametrize("S", [1, 2, 7, 16, 33])
+def test_rg_lru_scan_matches_jax(S):
+    """The associative scan over time, even and odd lengths (the
+    recursion's two branches) and S = 1."""
+    jcfg, cfg, jparams, params = _model()
+    jp, p = _rec_params(jparams, params)
+    x = np.random.default_rng(S).standard_normal((2, S, 64)).astype(np.float32)
+    want = jgriffin.rg_lru_scan(jp, jnp.asarray(x))
+    got = griffin.rg_lru_scan(p, torch.tensor(x))
+    assert got.shape == (2, S, 64) and got.dtype == torch.float32
+    _close(got, want)
+    # the scan is the recurrence h_t = a_t h_{t-1} + b_t from h = 0
+    a, b = griffin._rg_lru_gates(p, torch.tensor(x))
+    h, hs = torch.zeros(2, 64), []
+    for t in range(S):
+        h = a[:, t] * h + b[:, t]
+        hs.append(h)
+    _close(got, torch.stack(hs, dim=1))
+
+
 def test_rec_mix_without_state_is_not_ported():
-    _, cfg, _, params = _model()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        griffin.rec_mix(params["blocks"][0]["mix"], torch.zeros((1, 4, 64)),
-                        cfg)
+    """``rec_mix`` without a state, once not ported, is the full-sequence
+    path: the conv over ``[B, S+cw-1, W]`` and ``rg_lru_scan``, held
+    against the JAX package's (f32; the conv through K6's plain version and
+    through the JAX Pallas kernel in interpret mode)."""
+    jcfg, cfg, jparams, params = _model()
+    jp, p = _rec_params(jparams, params)
+    x = np.random.default_rng(10).standard_normal((2, 19, 64)).astype(np.float32)
+    want, wst = jgriffin.rec_mix(jp, jnp.asarray(x), jcfg,
+                                 use_pallas_conv=True)
+    for use_kernel in (None, False):
+        got, st = griffin.rec_mix(p, torch.tensor(x), cfg,
+                                  use_kernel_conv=use_kernel)
+        assert st is None and wst is None
+        _close(got, want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode,window,Sk,chunk", [
+    ("causal", 16, 20, 8),        # ragged: 4 padded keys in the last chunk
+    ("causal", None, 24, 8),
+    ("bidir", None, 13, 5),
+    ("causal", 6, 16, 16),        # one chunk
+])
+def test_sdpa_chunked_matches_jax(dtype, mode, window, Sk, chunk):
+    rng = np.random.default_rng(Sk + chunk)
+    B, H, K, D = 2, 4, 2, 16
+    q = rng.standard_normal((B, Sk, H, D)).astype(np.float32)
+    k = rng.standard_normal((B, Sk, K, D)).astype(np.float32)
+    v = rng.standard_normal((B, Sk, K, D)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(Sk, dtype=np.int32), (B, Sk))
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    args = (mode, window, D ** -0.5, chunk)
+    want = JL._sdpa_chunked(*(jnp.asarray(a, jdt) for a in (q, k, v)),
+                            jnp.asarray(pos), jnp.asarray(pos), *args)
+    got = L._sdpa_chunked(*(torch.tensor(a).to(tdt) for a in (q, k, v)),
+                          torch.tensor(pos), torch.tensor(pos), *args)
+    assert got.shape == (B, Sk, H, D) and got.dtype == tdt
+    _close(got, want, F32_TOL if dtype == "float32" else 2e-2)
+    if dtype == "float32":          # the same as the unchunked softmax
+        msk = L._mask(torch.tensor(pos), torch.tensor(pos), mode, window)
+        _close(got, L._sdpa(*(torch.tensor(a) for a in (q, k, v)),
+                            msk[:, None], D ** -0.5))
+
+
+def test_attention_chunked_branch_matches_jax():
+    jcfg, cfg, jparams, params = _model()
+    jcfg = dataclasses.replace(jcfg, attn_chunk=8)
+    cfg = dataclasses.replace(cfg, attn_chunk=8)
+    x = np.random.default_rng(11).standard_normal((2, 21, 64)).astype(np.float32)
+    jp = jax.tree.map(lambda a: a[0], jparams["cycles"]["2"]["mix"]["attn"])
+    want, _ = JL.attention(jp, jnp.asarray(x), jcfg, mode="causal",
+                           window=jcfg.local_window)
+    got, _ = L.attention(params["blocks"][2]["mix"]["attn"], torch.tensor(x),
+                         cfg, mode="causal", window=cfg.local_window)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("dtype,n_layers,attn_chunk", [
+    ("float32", None, None), ("float32", 8, 8), ("bfloat16", None, 8)],
+    ids=["f32", "f32-tail-chunked", "bf16-chunked"])
+def test_forward_matches_jax(dtype, n_layers, attn_chunk):
+    """The full-sequence forward (each full cycle checkpointed, as the JAX
+    package's scanned body) on the same parameters and tokens."""
+    jcfg, cfg, jparams, params = _model(dtype, n_layers)
+    jcfg = dataclasses.replace(jcfg, attn_chunk=attn_chunk, remat=True)
+    cfg = dataclasses.replace(cfg, attn_chunk=attn_chunk, remat=True)
+    toks = np.random.default_rng(12).integers(0, 256, (2, 20)).astype(np.int32)
+    want, waux = jgriffin.forward(jparams, jnp.asarray(toks), jcfg)
+    got, aux = griffin.forward(params, torch.tensor(toks), cfg)
+    assert got.dtype == getattr(torch, dtype) and got.shape == (2, 20, 64)
+    assert float(aux) == float(waux) == 0.0
+    if dtype == "float32":
+        _close(got, want)
+    else:
+        g, w = _np(got), _np(want)
+        assert np.abs(g - w).max() <= BF16_REL * max(1.0, np.abs(w).max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_matches_forward(dtype):
+    """Teacher-forced decode over a cache reproduces the full-sequence
+    forward's logits (the JAX package's ``test_decode_matches_forward``:
+    0.15 and argmax agreement over 0.95 in bf16; f32 here to 1e-4)."""
+    _, cfg, _, params = _model(dtype)
+    toks = np.random.default_rng(13).integers(0, 256, (2, 8)).astype(np.int32)
+    hid, _ = api.forward_hidden(cfg, params, {"tokens": torch.tensor(toks)})
+    want = _np(L.unembed(params["embed"], hid, cfg))
+    cache = api.init_cache(cfg, 2, api.decode_cache_len(cfg, 16), device=CPU)
+    got = []
+    for i in range(toks.shape[1]):
+        logits, cache = api.decode_step(cfg, params, cache,
+                                        torch.tensor(toks[:, i:i + 1]))
+        got.append(_np(logits[:, 0]))
+    got = np.stack(got, axis=1)
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    else:
+        np.testing.assert_allclose(got, want, rtol=0.15, atol=0.15)
+        assert (got.argmax(-1) == want.argmax(-1)).mean() > 0.95
 
 
 def _run_decode(dtype, n_layers, steps, B=2, seed=6):

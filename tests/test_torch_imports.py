@@ -15,7 +15,9 @@ from repro_torch.core import acoustic, suite  # noqa: E402
 from repro_torch.core import dsl as st  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.models import api  # noqa: E402
+from repro_torch.train import train_loop  # noqa: E402
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
@@ -72,6 +74,37 @@ def test_serving_modules_are_checked(mod):
     assert path in FILES
 
 
+# the training slice: shapes, optimizer, data, the step, the CLI
+TRAINING_MODULES = (
+    "repro_torch.configs.shapes", "repro_torch.train",
+    "repro_torch.train.optimizer", "repro_torch.train.data",
+    "repro_torch.train.train_loop", "repro_torch.launch.train")
+
+
+@pytest.mark.parametrize("mod", TRAINING_MODULES)
+def test_training_modules_are_checked(mod):
+    path = REPO / "src" / (mod.replace(".", "/") + ".py")
+    if not path.exists():
+        path = path.with_suffix("") / "__init__.py"
+    assert path in FILES
+
+
+def test_training_modules_load_neither_jax_nor_repro():
+    """Importing every module of the training slice in a fresh interpreter
+    leaves ``jax`` and ``repro`` out of ``sys.modules``."""
+    code = ("import sys\n"
+            + "".join(f"import {m}\n" for m in TRAINING_MODULES)
+            + "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+              "('jax', 'jaxlib', 'repro'))\n"
+              "print(bad)\n"
+              "assert not bad\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=str(REPO / "src")),
+                         timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
 def test_serving_modules_load_neither_jax_nor_repro():
     """Importing every module of the serving slice in a fresh interpreter
     leaves ``jax`` and ``repro`` out of ``sys.modules``."""
@@ -101,8 +134,10 @@ def test_forbidden_rule():
     lambda: api.init_params(configs.tiny(configs.get("recurrentgemma-9b"))),
     lambda: api.init_cache(configs.tiny(configs.get("recurrentgemma-9b")), 1, 4),
     lambda: serve.main(["--requests", "1"]),
+    lambda: train_loop.init_state(configs.tiny(configs.get("recurrentgemma-9b"))),
+    lambda: train_cli.main(["--steps", "1"]),
 ], ids=["grid", "make_grids", "make_fields", "acoustic_run", "init_params",
-        "init_cache", "serve_cli"])
+        "init_cache", "serve_cli", "init_state", "train_cli"])
 def test_default_device_is_the_card(make, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
