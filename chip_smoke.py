@@ -112,12 +112,30 @@ Phases, each of which exits non-zero when it fails:
    exactly 3 launches a recurrent layer a step: forward, recompute, dx;
    nothing else; finite losses, params and moments), ms a step, tokens/s,
    peak memory; one more step under ``torch.profiler``: device time, K6's
-   and the flips', the kernels that take the most.
+   and the flips', the kernels that take the most;
+10. autotune — ``star3d4r`` and acoustic ISO at 512³ f32 through
+   ``autotune.tune`` (``steps=16``, ``iters=1``): in two stages
+   (``top_k=3``, with the tune cache ``build/autotune_cache`` emptied
+   first, so cold: the cost model's probes, the shortlist's build wave and
+   its measurements timed apart), then exhaustively (every candidate of
+   ``default_space`` over fuse 1/4/16 and time_block 1/2/4, deduplicated
+   on the builds it launches); each class's calibrated rate, every
+   candidate's predicted and measured seconds in predicted order, both
+   ``rank_error``s and the pruned count; the two-stage winner may take at
+   most 1.15× the exhaustive winner's time; the shortlists one rate for
+   every hopper class and (acoustic) ``star3d4r``'s rates would give, with
+   their best measured time; then each main path of phase 4 (100 steps;
+   acoustic with ``fuse_steps=10`` and its source in ``between``) through
+   ``st.launch(autotune=True, autotune_cache=...)``, an in-process hit,
+   and again after the in-process cache and the cost models are dropped,
+   a disk hit: ``MEASURE_COUNT`` unchanged, exactly the chosen kernel's
+   launches, the fields within 2e-5 of their max of ``st.torch()``,
+   steps/s beside phase 4's best fixed build.
 
 It prints the kernels line ``{"kernels": [...]}`` and then, last,
 ``{"ok": true, "device": {...}}``.  ``--quick`` runs phases 1–3 at the two
 small shapes only (K6 and K7 at all of theirs, untimed) and prints no
-result line.  Phases 4 and 5 read the launch counts of the fused path, 6
+result line.  Phases 4, 5 and 10 read the launch counts of the fused path, 6
 and 7 those of ``st.map``, 8 those of serving, 9 those of training: each
 sets the counts to 0 just before its run and reads them just after; the
 kernels line lists K6 once a path (``causal_conv1d``: serving, at the
@@ -131,6 +149,7 @@ import json
 import math
 import pathlib
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -238,6 +257,15 @@ FORK_ROUNDS, FORK_REPS = 3, 30
 # star's coefficients) are rounded to bf16, each to 2^-9 of itself, and its
 # output once; the JAX package's bf16 tolerance, 3e-2 of the magnitude
 LIBRARY_BF16_TOL = 3e-2
+# phase 10: the tune's steps and shortlist (st.launch's defaults), the
+# bound on the two-stage winner's measured time over the exhaustive
+# winner's, and the tune cache (emptied first: the first tune is cold)
+AUTOTUNE_STEPS, AUTOTUNE_TOP_K = 16, 3
+AUTOTUNE_RATIO = 1.15
+AUTOTUNE_CACHE = ROOT / "build" / "autotune_cache"
+# the kernel wrapper that runs each plan kind
+KIND_WRAPPER = {"fused": "fused_step", "stream": "stream_step",
+                "semi": "semi_step", "temporal": "temporal_step"}
 
 
 def bf16_ulp(scale: float) -> float:
@@ -1228,6 +1256,187 @@ def profile_train_step(torch, step_fn, state, batch):
     return rec, state
 
 
+def describe(b, fuse) -> str:
+    """A tune candidate in one word: template, tile, depth, window."""
+    if b.kind == "torch":
+        return f"torch f{fuse}"
+    tile = "x".join(map(str, b.block)) if b.block else "default"
+    return f"{b.template}[{tile}] k{b.time_block} f{fuse}"
+
+
+def autotune_phase(torch, mods, counters, main_rows):
+    """Phase 10: tune star3d4r and acoustic ISO at 512³ f32, exhaustively
+    and in two stages (top_k=3), each candidate's prediction beside its
+    measured time; with star3d4r's rates, the shortlist acoustic would get;
+    then each main path through ``st.launch(autotune=True)`` (in-process
+    hit), and again after the in-process cache and the cost models are
+    dropped (disk hit: nothing measured).  Returns the phase's record."""
+    st, suite, acoustic = mods["st"], mods["suite"], mods["acoustic"]
+    at, cm, tl = mods["autotune"], mods["cost_model"], mods["timeloop"]
+    reset_counts, counts = counters
+    shutil.rmtree(AUTOTUNE_CACHE, ignore_errors=True)
+    cdir = str(AUTOTUNE_CACHE)
+    at.clear_cache()
+    cm.reset_default_models()
+    rows, star_rates = [], None
+    classes = ("torch", "hopper-K1", "hopper-K2", "hopper-K3", "hopper-K5")
+    for wname in ("star3d4r", "acoustic_iso"):
+        if wname == "star3d4r":
+            k, swap, scal = suite.get_kernel("star3d4r"), ("v", "u"), {}
+
+            def fresh():
+                return suite.make_grids("star3d4r", MAIN_SHAPE, seed=0)
+
+            def launch(grids, **kw):
+                return st.launch(**kw)(lambda u, v: st.timeloop(
+                    STEPS, swap=("v", "u"))(k)(u, v))(grids["u"], grids["v"])
+        else:
+            k, swap = acoustic.acoustic_iso_kernel, ("p0", "p1")
+
+            def fresh():
+                p0, p1, vp2, damp, dt = acoustic.make_fields(MAIN_SHAPE,
+                                                             pml_width=PML_WIDTH)
+                acoustic.inject_source(p1, 0)
+                return {"p0": p0, "p1": p1, "vp2": vp2, "damp": damp, "dt": dt}
+
+            def launch(f, **kw):
+                def between(t, grids):
+                    acoustic.inject_source(grids["p1"], t)
+                return st.launch(fuse_steps=ACOUSTIC_FUSE, **kw)(
+                    acoustic.acoustic_target_fused)(
+                    f["p0"], f["p1"], f["vp2"], f["damp"], f["dt"], STEPS,
+                    between=between)
+        fields = fresh()
+        grids = {g: fields[g] for g in k.ir.grid_params}
+        scal = {n: fields[n] for n, _ in k.ir.scalar_params}
+        tune_kw = dict(iters=1, swap=swap, steps=AUTOTUNE_STEPS, scalars=scal)
+        t0 = time.perf_counter()
+        two = at.tune(k, grids, top_k=AUTOTUNE_TOP_K, cache_dir=cdir, **tune_kw)
+        cold_s = time.perf_counter() - t0
+        model = cm.default_model(cdir, "cuda")
+        ex = at.tune(k, grids, top_k=None, cost_model=model, **tune_kw)
+        probe = cm._Probe(k, grids, swap, scal)
+        rates = {c: model.rate_for(c, torch.float32, probe) for c in classes}
+        for c, r in rates.items():
+            say(f"autotune {wname}: rate {c} {r.bytes_per_s / 1e12:.4f} TB/s, "
+                f"overhead {r.overhead_s * 1e6:.1f} us (probe "
+                f"{model.probe_tag(probe)})")
+        measured = {(b.cache_key(), f): s for b, f, s in ex.trials}
+        shortlist = {(b.cache_key(), f) for b, f, _ in two.trials}
+        order = sorted(range(len(ex.predicted)), key=lambda i: (
+            ex.predicted[i][2], i))
+        cands = []
+        for rank, i in enumerate(order):
+            b, f, p = ex.predicted[i]
+            m = measured[(b.cache_key(), f)]
+            cands.append({"candidate": describe(b, f), "predicted_s": p,
+                          "measured_s": m, "predicted_rank": rank,
+                          "shortlisted": (b.cache_key(), f) in shortlist})
+            say(f"  {'*' if cands[-1]['shortlisted'] else ' '} "
+                f"{describe(b, f):34s} predicted {p:.6f} s, measured {m:.6f} s")
+        ratio = two.seconds / ex.seconds
+        in_ex = measured[(two.backend.cache_key(), two.fuse_steps)] / ex.seconds
+        say(f"autotune {wname} {MAIN_SHAPE}: exhaustive winner "
+            f"{describe(ex.backend, ex.fuse_steps)} {ex.seconds:.6f} s "
+            f"(rank_error {ex.rank_error}, {ex.measured_candidates} measured); "
+            f"two-stage winner {describe(two.backend, two.fuse_steps)} "
+            f"{two.seconds:.6f} s = {ratio:.3f}x ({in_ex:.3f}x in the "
+            f"exhaustive run; rank_error {two.rank_error}, "
+            f"{two.pruned_candidates} pruned); cold two-stage tune "
+            f"{cold_s:.2f} s (calibrate {two.timing['calibrate']:.2f}, "
+            f"predict {two.timing['predict']:.2f}, build "
+            f"{two.timing['build']:.2f}, measure {two.timing['measure']:.2f}); "
+            f"exhaustive build {ex.timing['build']:.2f}, measure "
+            f"{ex.timing['measure']:.2f}")
+        if not ratio <= AUTOTUNE_RATIO:
+            fail(f"autotune {wname}: the two-stage winner takes {ratio:.3f}x "
+                 f"the exhaustive winner's time (limit {AUTOTUNE_RATIO})")
+        row = {"workload": wname, "candidates": cands, "rates": {
+            c: [r.bytes_per_s, r.overhead_s] for c, r in rates.items()},
+               "exhaustive": {"winner": describe(ex.backend, ex.fuse_steps),
+                              "seconds": ex.seconds, "rank_error": ex.rank_error,
+                              "timing": ex.timing},
+               "two_stage": {"winner": describe(two.backend, two.fuse_steps),
+                             "seconds": two.seconds, "ratio": ratio,
+                             "ratio_in_exhaustive": in_ex,
+                             "rank_error": two.rank_error,
+                             "pruned": two.pruned_candidates,
+                             "timing": two.timing, "cold_s": cold_s}}
+        # the shortlists other rates would give: one rate for every hopper
+        # class (K1's), and, for acoustic, the rates probed on star3d4r
+        others = {"one hopper class": {c: rates["hopper-K1"] if c.startswith(
+            "hopper") else r for c, r in rates.items()}}
+        if star_rates is None:
+            star_rates = rates
+        else:
+            others["star3d4r's rates"] = star_rates
+        for label, alt in others.items():
+            cf = cm.CostModel(calibrate=False, device="cuda")
+            cf.rate_for = lambda key, dtype, probe=None, alt=alt: alt[key]
+            preds = [cf.predict(k, grids, b, f, AUTOTUNE_STEPS, swap,
+                                scalars=scal) for b, f, _ in ex.predicted]
+            picked = [ex.predicted[i] for i in
+                      at.shortlist_indices(preds, AUTOTUNE_TOP_K)]
+            best = min(measured[(b.cache_key(), f)] for b, f, _ in picked)
+            row[f"shortlist with {label}"] = {
+                "candidates": [describe(b, f) for b, f, _ in picked],
+                "best_measured_s": best, "ratio": best / ex.seconds}
+            say(f"autotune {wname}: with {label} the shortlist would be "
+                f"{[describe(b, f) for b, f, _ in picked]}, best measured "
+                f"{best:.6f} s = {best / ex.seconds:.3f}x the exhaustive winner")
+        del grids, fields, probe
+        torch.cuda.empty_cache()
+
+        ref = fresh()
+        launch(ref, backend=st.torch())
+        for label in ("in-process", "disk"):
+            if label == "disk":
+                at.clear_cache()
+                cm.reset_default_models()
+            before = dict(at.MEASURE_COUNT)
+            f = fresh()
+            reset_counts()
+            res = launch(f, autotune=True, autotune_cache=cdir)
+            seen = counts()
+            if dict(at.MEASURE_COUNT) != before:
+                fail(f"autotune {wname} {label}: the launch measured "
+                     f"{at.MEASURE_COUNT} (before {before})")
+            be, fuse = two.backend, res.value.fuse_steps
+            want = {}
+            if be.kind == "hopper":
+                halos = {g: f[g].halo for g in k.ir.grid_params}
+                plan, plan1 = tl.hopper_plans(k.ir, halos, MAIN_SHAPE, be, swap)
+                blocked, single, _ = tl.launch_steps(STEPS, fuse, plan.time_block)
+                if blocked:
+                    want[KIND_WRAPPER[plan.kind]] = blocked // plan.time_block
+                if single:
+                    name = KIND_WRAPPER[plan1.kind]
+                    want[name] = want.get(name, 0) + single
+            if {g: c for g, c in seen.items() if c} != want:
+                fail(f"autotune {wname} {label}: launch counts {seen}, "
+                     f"expected {want}")
+            diff, scale = max_diff(torch, f"autotune {wname} {label}",
+                                   {g: f[g] for g in swap},
+                                   {g: ref[g] for g in swap})
+            fixed = max((r for r in main_rows if r["path"].endswith(f"[{wname}]")),
+                        key=lambda r: r["steps_per_s"])
+            row[label] = {"launches": seen, "steps_per_s": res.value.steps_per_s,
+                          "tune_s": res.profile["autotune"],
+                          "max_abs_diff_vs_torch": diff, "field_max": scale,
+                          "best_fixed": [fixed["path"], fixed["steps_per_s"]]}
+            say(f"autotune main path {wname} ({label} hit, tune "
+                f"{res.profile['autotune']:.3f} s): {describe(be, fuse)}, "
+                f"{STEPS} steps at {res.value.steps_per_s:.1f} steps/s (best "
+                f"fixed build in phase 4: {fixed['path']} "
+                f"{fixed['steps_per_s']:.1f}); launches {want}; max |diff| vs "
+                f"st.torch() {diff:.3g} (field max {scale:.3g})")
+            del f
+        del ref
+        torch.cuda.empty_cache()
+        rows.append(row)
+    return rows
+
+
 def train_phase(torch, mods, counters):
     """Phase 9: train ``TRAIN_ARCH`` at its published widths (depth
     ``TRAIN_LAYERS``, batch ``TRAIN_BATCH``, seq ``TRAIN_SEQ``) on the card:
@@ -1368,7 +1577,9 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     try:
         from repro_torch.core import acoustic, regions, suite
+        from repro_torch.core import autotune, cost_model
         from repro_torch.core import dsl as st
+        from repro_torch.core import timeloop
         from repro_torch.kernels import _build
         from repro_torch.kernels.stencil import codegen
         from repro_torch.kernels.stencil.fused_step import (fused_step,
@@ -2002,6 +2213,13 @@ def main(argv=None) -> int:
                   "shapes": lm_shapes, "griffin": griffin, "conv_ref": conv_ref}
     train_row = train_phase(torch, train_mods, (reset_counts, counts))
     record["training"] = train_row
+
+    # -- 10. autotune --------------------------------------------------------------
+    at_mods = {"st": st, "suite": suite, "acoustic": acoustic,
+               "autotune": autotune, "cost_model": cost_model,
+               "timeloop": timeloop}
+    record["autotune"] = autotune_phase(torch, at_mods, (reset_counts, counts),
+                                        main_rows)
     for e in conv_entries:
         row = serve_row if e["path"] == "serving" else train_row
         e["launches"], e["max_abs_err"] = row["k6_launches"], conv_worst

@@ -34,7 +34,7 @@ from __future__ import annotations
 import dataclasses
 import threading
 import time
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch as _torch
@@ -306,6 +306,7 @@ class _Ctx(threading.local):
         self.active = False
         self.fuse_steps: Optional[int] = None
         self.time_block: Optional[int] = None
+        self.autotune: Optional[dict] = None
 
     def add(self, phase: str, dt: float):
         self.profile[phase] = self.profile.get(phase, 0.0) + dt
@@ -318,7 +319,7 @@ _CTX = _Ctx()
 class LaunchResult:
     """What a launched target returns: the target's own return ``value``
     and ``profile``, phase name → accumulated seconds (``codegen``,
-    ``layout``, ``kernel``, ``total``)."""
+    ``layout``, ``kernel``, ``autotune``, ``total``)."""
     value: object
     profile: Dict[str, float]
 
@@ -481,6 +482,26 @@ def _run_timeloop(k: Kernel, args, call: _TimeloopCall) -> TimeloopResult:
     grids, scalars = _bind_args(k, args)
     interior = next(iter(grids.values())).shape
     backend = _CTX.backend if _CTX.active else torch_backend()
+    swap = _tl.normalize_swap(k.ir, call.swap)
+    at_cfg = _CTX.autotune if _CTX.active else None
+    tuned_fuse = None
+    if at_cfg is not None and swap is not None and call.steps > 0:
+        # st.launch(autotune=...): pick the backend (and default fusion
+        # window) by the two-stage search.  The measurement launches inside
+        # tune() run under their own _Launcher, whose autotune=None stops
+        # recursion.
+        from . import autotune as _at
+        t0 = time.perf_counter()
+        tuned = _at.tune(
+            k, grids, iters=at_cfg["iters"], space=at_cfg["space"],
+            swap=swap, steps=min(call.steps, at_cfg["steps"]),
+            fuse_space=at_cfg["fuse_space"],
+            time_block_space=at_cfg["time_block_space"],
+            cache_dir=at_cfg["cache_dir"], top_k=at_cfg["top_k"],
+            cost_model=at_cfg["cost_model"], scalars=scalars)
+        _CTX.add("autotune", time.perf_counter() - t0)
+        backend = tuned.backend
+        tuned_fuse = tuned.fuse_steps
     tb = _CTX.time_block if _CTX.active else None
     if tb is not None:
         # launch-level override of the in-kernel temporal-blocking depth
@@ -491,10 +512,11 @@ def _run_timeloop(k: Kernel, args, call: _TimeloopCall) -> TimeloopResult:
             # the depth is active while measuring the plain fused loop
             raise ValueError(f"time_block={tb} requires a hopper backend; "
                              f"got '{backend.kind}'")
-    swap = _tl.normalize_swap(k.ir, call.swap)
     fuse = call.fuse_steps
     if fuse is None and _CTX.active:
         fuse = _CTX.fuse_steps
+    if fuse is None:
+        fuse = tuned_fuse        # the tuned window, unless overridden
     if fuse is not None:
         fuse = max(1, int(fuse))
 
@@ -540,17 +562,20 @@ def differentiable_timeloop(*args, **kw):
 # --------------------------------------------------------------------------
 class _Launcher:
     def __init__(self, backend: Backend, fuse_steps: Optional[int] = None,
-                 time_block: Optional[int] = None):
+                 time_block: Optional[int] = None,
+                 autotune: Optional[dict] = None):
         self.backend = backend
         self.fuse_steps = fuse_steps
         self.time_block = time_block
+        self.autotune = autotune
 
     def __call__(self, tgt: Callable):
         def run(*args, **kw) -> LaunchResult:
             prev = (_CTX.backend, _CTX.profile, _CTX.active, _CTX.fuse_steps,
-                    _CTX.time_block)
+                    _CTX.time_block, _CTX.autotune)
             _CTX.backend, _CTX.profile, _CTX.active = self.backend, {}, True
             _CTX.fuse_steps, _CTX.time_block = self.fuse_steps, self.time_block
+            _CTX.autotune = self.autotune
             t0 = time.perf_counter()
             try:
                 value = tgt(*args, **kw)
@@ -558,7 +583,7 @@ class _Launcher:
                 prof = _CTX.profile
                 prof["total"] = time.perf_counter() - t0
                 (_CTX.backend, _CTX.profile, _CTX.active,
-                 _CTX.fuse_steps, _CTX.time_block) = prev
+                 _CTX.fuse_steps, _CTX.time_block, _CTX.autotune) = prev
             return LaunchResult(value=value, profile=prof)
         return run
 
@@ -566,18 +591,44 @@ class _Launcher:
 def launch(backend: Backend = None, mesh=None, profile: bool = True,
            fuse_steps: Optional[int] = None,
            time_block: Optional[int] = None,
-           autotune: bool = False, **autotune_kw) -> _Launcher:
+           autotune: bool = False,
+           autotune_space: Optional[List] = None,
+           autotune_cache: Optional[str] = None,
+           autotune_top_k: Optional[int] = 3,
+           autotune_steps: int = 16,
+           autotune_iters: int = 1,
+           autotune_fuse_space: Sequence[int] = (1, 4, 16),
+           autotune_time_block_space: Sequence[int] = (1, 2, 4),
+           autotune_cost_model=None) -> _Launcher:
     """Run a ``@st.target`` under ``backend`` (default ``st.torch()``).
     ``fuse_steps`` sets the default fusion window of every ``st.timeloop``
     inside the target.  ``time_block=k`` replaces the temporal-blocking
     depth of a hopper backend for those time loops; under another backend
     a ``k`` other than 1 raises ``ValueError`` rather than run without
-    blocking.  ``mesh`` and ``autotune`` are not ported yet and raise."""
+    blocking.
+
+    ``autotune=True`` replaces the fixed ``backend`` of each
+    ``st.timeloop`` with a swap pair and steps by the winner of the
+    two-stage search (``core/autotune.py``) over ``autotune_space``
+    (default: ``autotune.default_space``), the kernel's scalars and the
+    grids' device: every candidate is ranked by predicted cost, only the
+    ``autotune_top_k`` cheapest (``None``: all) are measured over
+    ``min(steps, autotune_steps)`` steps, ``autotune_iters`` times each,
+    and the result is cached in-process and, with ``autotune_cache``, on
+    disk.  The tuned fusion window applies unless ``fuse_steps`` (or the
+    time loop's own) overrides it; ``time_block`` still applies on top of
+    the tuned backend.  The tune's seconds are the profile's
+    ``autotune`` phase.  ``mesh`` is not ported yet and raises."""
     del profile
     if mesh is not None:
         raise not_ported("st.launch(mesh=...)", "queue 1, item 9 (distributed)")
-    if autotune or autotune_kw:
-        raise not_ported("st.launch(autotune=...)",
-                         "queue 1, item 5 (cost model + autotuner)")
+    at_cfg = None
+    if autotune:
+        at_cfg = {"space": autotune_space, "cache_dir": autotune_cache,
+                  "top_k": autotune_top_k, "steps": int(autotune_steps),
+                  "iters": int(autotune_iters),
+                  "fuse_space": tuple(autotune_fuse_space),
+                  "time_block_space": tuple(autotune_time_block_space),
+                  "cost_model": autotune_cost_model}
     return _Launcher(backend or torch_backend(), fuse_steps=fuse_steps,
-                     time_block=time_block)
+                     time_block=time_block, autotune=at_cfg)

@@ -74,6 +74,39 @@ def normalize_fuse(fuse_steps: Optional[int], steps: int,
     return fuse
 
 
+def launch_steps(steps: int, fuse_steps: Optional[int], k: int) -> Tuple[int, int, int]:
+    """(steps run by K3 launches, steps run singly, windows) of a loop of
+    ``steps`` in windows of ``fuse_steps`` at temporal depth ``k``: each
+    window of ``kw`` steps is ``kw // k`` K3 launches and ``kw % k``
+    single steps (all single when ``k`` is 1), as ``TimeloopEngine`` runs
+    it."""
+    steps = int(steps)
+    if steps <= 0:
+        return 0, 0, 0
+    fuse = normalize_fuse(fuse_steps, steps)
+    blocked = single = 0
+    for kw, n in ((fuse, steps // fuse), (steps % fuse, 1)):
+        m, r = divmod(kw, k) if k > 1 else (0, kw)
+        blocked += n * m * k
+        single += n * r
+    return blocked, single, -(-steps // fuse)
+
+
+def hopper_plans(kernel: _ir.StencilIR, halos, interior_shape, backend,
+                 swap: Optional[Tuple[str, str]] = None):
+    """The plans a hopper engine runs: the window's plan and the single-step
+    plan that runs a window's remainder (``kw mod k`` steps, on K3's tile
+    and the same layout buffers); both the same plan when ``time_block``
+    is 1.  Raises ``ValueError`` for a geometry the kernels cannot take."""
+    from repro_torch.kernels.stencil import codegen as _codegen
+    plan = _codegen.plan_cuda(kernel, halos, interior_shape, backend, swap=swap)
+    if plan.time_block == 1:
+        return plan, plan
+    be1 = dataclasses.replace(backend, time_block=1, block=plan.B)
+    return plan, _codegen.plan_cuda(kernel, halos, interior_shape, be1,
+                                    swap=swap)
+
+
 def normalize_swap(kernel: _ir.StencilIR,
                    swap: Optional[Tuple[str, str]]) -> Optional[Tuple[str, str]]:
     """Validate and orient a swap pair as (written, other)."""
@@ -126,19 +159,10 @@ class TimeloopEngine:
         self._plan = self._plan1 = None
         self.time_block = 1
         if backend.kind == "hopper":
-            from repro_torch.kernels.stencil import codegen as _codegen
-            self._plan = _codegen.plan_cuda(kernel, self.halos, self.interior,
-                                            backend, swap=self.swap)
+            self._plan, self._plan1 = hopper_plans(kernel, self.halos,
+                                                   self.interior, backend,
+                                                   self.swap)
             self.time_block = self._plan.time_block
-            self._plan1 = self._plan
-            if self.time_block > 1:
-                # single-step plan for the window remainder (kw mod k):
-                # the same layout buffers feed both kernels
-                be1 = dataclasses.replace(backend, time_block=1,
-                                          block=self._plan.B)
-                self._plan1 = _codegen.plan_cuda(kernel, self.halos,
-                                                 self.interior, be1,
-                                                 swap=self.swap)
         elif backend.kind != "torch":
             raise ValueError(f"timeloop: unsupported backend {backend.kind}")
 

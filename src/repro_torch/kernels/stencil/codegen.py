@@ -51,11 +51,20 @@ buffer that no block reads, whose region is then copied into the grid.
 f4's load path and smem's staging path follow from the grids' full shapes
 and the region (``f4_org_mod4``, ``smem_tma``), so they are part of the
 source and of its build key.
+
+What the cost model (``repro_torch.core.cost_model``) reads from a plan,
+without building it: its kernel family (``kernel_class``: K1, K2, K3 or
+K5 for ``CudaPlan``; K4-gmem, K4-f4, K4-smem, K2-map or K5-map for
+``MapPlan``), its modeled bytes a step (``hbm_bytes_per_step``) and a
+window (``layout_bytes_per_window``), and its ``build_identity`` (the
+hash of its source and the box it launches over), on which the autotuner
+tells candidates apart.
 """
 from __future__ import annotations
 
 import collections
 import ctypes
+import hashlib
 import math
 from typing import Dict, NamedTuple, Optional, Tuple
 
@@ -151,6 +160,24 @@ def choose_block(user_block, template: str, ndim: int,
     else:
         kind = "step"
     return DEFAULT_BLOCK[kind][ndim]
+
+
+def kernel_class(template: str, time_block: int = 1, fused: bool = True) -> str:
+    """The kernel family a hopper configuration launches: in ``st.timeloop``
+    (``fused``) K3 for ``time_block > 1``, else K5 (semi), K2 (shift,
+    unroll) or K1 (gmem, smem, f4); in ``st.map`` K4-gmem, K4-f4, K4-smem,
+    K2-map (shift, unroll) or K5-map (semi).  Each family runs at its own
+    share of its bound on the card, so the cost model calibrates one rate
+    for each."""
+    if fused:
+        if int(time_block) > 1:
+            return "K3"
+        if template == "semi":
+            return "K5"
+        return "K2" if template in STREAM_TEMPLATES else "K1"
+    if template == "semi":
+        return "K5-map"
+    return "K2-map" if template in STREAM_TEMPLATES else f"K4-{template}"
 
 
 def semi_linearize(kernel: ir.StencilIR):
@@ -522,6 +549,26 @@ class _Plan:
             emit.int_table("grid_vec", [int(pairs[g]) for g in g_of]),
             ""])
 
+    @property
+    def kernel_class(self) -> str:
+        """The kernel family this plan launches (``kernel_class``)."""
+        return kernel_class(self.template, self.time_block,
+                            isinstance(self, CudaPlan))
+
+    def build_identity(self, dtype=torch.float32) -> Tuple[str, Tuple[int, int, int]]:
+        """What tells this plan's launches apart from another plan's: the
+        hash of the source it would compile on grids of ``dtype`` (its
+        tile, paths and tables are part of the text) and the box ``R3``
+        each launch covers.  Computing it builds nothing."""
+        text = self.source(dtype)
+        return hashlib.sha256(text.encode()).hexdigest()[:16], self.R3
+
+    def layout_bytes_per_window(self, itemsize: int = 4) -> float:
+        """Modeled bytes of the once-a-window stages: none for a plan
+        without a layout stage (``MapPlan``)."""
+        del itemsize
+        return 0.0
+
     # -- traffic model -----------------------------------------------------
     def hbm_bytes_per_step(self, itemsize: int = 4) -> float:
         """Modeled bytes one step moves: the loads the blocks make plus the
@@ -712,6 +759,26 @@ class CudaPlan(_Plan):
         TRAFFIC_COUNT["grid_writes"] += (m * len(self.step_out_grids)
                                          + r * len(self.out_grids))
         TRAFFIC_COUNT["steps"] += int(steps)
+
+    def layout_bytes_per_window(self, itemsize: int = 4) -> float:
+        """Modeled bytes of the once-a-window stages that
+        ``hbm_bytes_per_step`` leaves out (the counterpart of the JAX
+        package's ``PallasPlan.layout_bytes_per_window``): ``to_padded``
+        reads and writes the layout window of each operand grid whose halo
+        is not its layout halo (a buffer that is a view of its grid costs
+        0), ``make_spares`` (K3) copies each buffer a launch writes, and
+        ``from_padded`` reads and writes the interior of each touched grid
+        whose buffer is not a view of it; after K3 the last buffer may be a
+        spare, so a K3 plan charges every touched grid."""
+        view = {g: self.halos[g] == self.hw[g] for g in self.opnd_grids}
+        cells = sum(2 * math.prod(self.padded_shapes[g])
+                    for g in self.opnd_grids if not view[g])
+        if self.time_block > 1:
+            cells += sum(2 * math.prod(self.padded_shapes[g])
+                         for g in self.step_out_grids)
+        cells += sum(2 * math.prod(self.R) for g in self.touched
+                     if self.time_block > 1 or not view[g])
+        return float(cells * itemsize)
 
     # -- layout stage ------------------------------------------------------
     def to_padded(self, arrays: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

@@ -936,3 +936,100 @@ def test_stream_paths_match_plain(cuda, stream_built, case, dtype):
         err = float((got[g].float() - want[g].float()).abs().max())
         tol = RTOL * scale if dtype == torch.float32 else _bf16_ulp(scale)
         assert err <= tol, (case, g, err)
+
+
+# ---- the cost model and the autotuner on the card ------------------------------
+def _autotune_grids(cuda):
+    return suite.make_grids("star3d4r", (64, 64, 64), seed=5, device=cuda)
+
+
+def test_autotune_on_the_card_exhaustive_and_two_stage(cuda, tmp_path):
+    """64³ star3d4r: every candidate of the default space measured once
+    (after one build wave), the two-stage search measuring 3 of them, both
+    winners finite, and the two-stage winner's 20 steps vs ``st.torch()``."""
+    from repro_torch.core import autotune as at, cost_model as cm
+    at.clear_cache()
+    at.reset_measure_count()
+    k = suite.get_kernel("star3d4r")
+    model = cm.CostModel(cache_dir=str(tmp_path), device=cuda)
+    two = at.tune(k, _autotune_grids(cuda), iters=1, swap=("v", "u"),
+                  steps=8, top_k=3, cost_model=model)
+    ex = at.tune(k, _autotune_grids(cuda), iters=1, swap=("v", "u"), steps=8,
+                 top_k=None, cost_model=model)
+    assert two.measured_candidates == 3
+    assert two.pruned_candidates == len(two.predicted) - 3
+    assert ex.measured_candidates == len(ex.predicted) == len(two.predicted)
+    assert math.isfinite(two.seconds) and math.isfinite(ex.seconds)
+    assert two.rank_error is not None and ex.rank_error is not None
+    # the two-stage tune calibrated every class; the exhaustive one reuses
+    assert two.timing["calibrate"] > 0 and ex.timing["calibrate"] < 0.05
+    out = []
+    for be, fuse in ((st.torch(), None), (two.backend, two.fuse_steps)):
+        g = _autotune_grids(cuda)
+        st.launch(backend=be, fuse_steps=fuse)(
+            lambda u, v: st.timeloop(20, swap=("v", "u"))(k)(u, v))(
+            g["u"], g["v"])
+        out.append(g)
+    for n in ("u", "v"):
+        _check(out[1][n].data, out[0][n].data, n)
+    at.clear_cache()
+
+
+def test_probe_writes_and_reloads_the_calibration(cuda, tmp_path):
+    from repro_torch.core import cost_model as cm
+    k = suite.get_kernel("star3d4r")
+    grids = _autotune_grids(cuda)
+    probe = cm._Probe(k, grids, ("v", "u"), {})
+    model = cm.CostModel(cache_dir=str(tmp_path), device=cuda)
+    model.calibrate_classes(probe, ["hopper-K1", "hopper-K2", "torch"])
+    rates = {key: model.rate_for(key, torch.float32, probe)
+             for key in ("hopper-K1", "hopper-K2", "torch")}
+    for r in rates.values():
+        assert 1e9 < r.bytes_per_s < 1e13 and 1e-8 <= r.overhead_s < 1e-1
+    (path,) = tmp_path.glob("roofline-*.json")
+    assert path.name == (f"roofline-v{cm.CALIBRATION_VERSION}-"
+                         f"{cm.device_tag(cuda)}.json")
+    again = cm.CostModel(cache_dir=str(tmp_path), calibrate=False, device=cuda)
+    assert {key: again.rate_for(key, torch.float32, probe)
+            for key in rates} == rates
+
+
+def test_autotune_disk_cache_hit_measures_nothing(cuda, tmp_path):
+    from repro_torch.core import autotune as at, cost_model as cm
+    k = suite.get_kernel("star3d4r")
+    kw = dict(iters=1, swap=("v", "u"), steps=4, fuse_space=(4,),
+              time_block_space=(1,), cache_dir=str(tmp_path),
+              space=[st.hopper(template="gmem"), st.hopper(template="shift")])
+    at.clear_cache()
+    cold = at.tune(k, _autotune_grids(cuda), **kw)
+    at.clear_cache()
+    cm.reset_default_models()
+    at.reset_measure_count()
+    warm = at.tune(k, _autotune_grids(cuda), **kw)
+    assert at.MEASURE_COUNT["measured_candidates"] == 0
+    assert warm.backend == cold.backend and warm.trials == cold.trials
+    at.clear_cache()
+
+
+def test_autotune_per_application_on_the_card(cuda, tmp_path):
+    """Without a swap pair the tuner times single ``st.map`` applications:
+    the K4/K2-map/K5-map classes probed at two sizes, 3 of the default
+    space's candidates measured, the winner's application vs
+    ``st.torch()``."""
+    from repro_torch.core import autotune as at, cost_model as cm
+    at.clear_cache()
+    k = suite.get_kernel("star3d4r")
+    model = cm.CostModel(cache_dir=str(tmp_path), device=cuda)
+    res = at.tune(k, _autotune_grids(cuda), iters=1, top_k=3, cost_model=model)
+    assert res.measured_candidates == 3 and math.isfinite(res.seconds)
+    assert {key.split("@")[0] for key in model._rates} == {
+        "torch-map", "hopper-K4-gmem", "hopper-K4-f4", "hopper-K4-smem",
+        "hopper-K2-map", "hopper-K5-map"}
+    out = []
+    for be in (st.torch(), res.backend):
+        g = _autotune_grids(cuda)
+        st.launch(backend=be)(lambda u, v: st.map(e=u.shape)(k)(u, v))(
+            g["u"], g["v"])
+        out.append(g)
+    _check(out[1]["v"].data, out[0]["v"].data, "v")
+    at.clear_cache()

@@ -11,7 +11,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core import acoustic, suite  # noqa: E402
+from repro_torch.core import acoustic, cost_model, suite  # noqa: E402
 from repro_torch.core import dsl as st  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
@@ -89,6 +89,31 @@ def test_training_modules_are_checked(mod):
     assert path in FILES
 
 
+# the cost model and the autotuner
+AUTOTUNE_MODULES = ("repro_torch.core.cost_model", "repro_torch.core.autotune")
+
+
+@pytest.mark.parametrize("mod", AUTOTUNE_MODULES)
+def test_autotune_modules_are_checked(mod):
+    assert REPO / "src" / (mod.replace(".", "/") + ".py") in FILES
+
+
+def test_autotune_modules_load_neither_jax_nor_repro():
+    """Importing the cost model and the autotuner in a fresh interpreter
+    leaves ``jax`` and ``repro`` out of ``sys.modules``."""
+    code = ("import sys\n"
+            + "".join(f"import {m}\n" for m in AUTOTUNE_MODULES)
+            + "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+              "('jax', 'jaxlib', 'repro'))\n"
+              "print(bad)\n"
+              "assert not bad\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=str(REPO / "src")),
+                         timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
 def test_training_modules_load_neither_jax_nor_repro():
     """Importing every module of the training slice in a fresh interpreter
     leaves ``jax`` and ``repro`` out of ``sys.modules``."""
@@ -136,8 +161,11 @@ def test_forbidden_rule():
     lambda: serve.main(["--requests", "1"]),
     lambda: train_loop.init_state(configs.tiny(configs.get("recurrentgemma-9b"))),
     lambda: train_cli.main(["--steps", "1"]),
+    lambda: cost_model.CostModel(calibrate=False),
+    lambda: cost_model.default_model(),
 ], ids=["grid", "make_grids", "make_fields", "acoustic_run", "init_params",
-        "init_cache", "serve_cli", "init_state", "train_cli"])
+        "init_cache", "serve_cli", "init_state", "train_cli", "cost_model",
+        "default_model"])
 def test_default_device_is_the_card(make, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
