@@ -1319,8 +1319,8 @@ def autotune_phase(torch, mods, counters, main_rows):
         rates = {c: model.rate_for(c, torch.float32, probe) for c in classes}
         for c, r in rates.items():
             say(f"autotune {wname}: rate {c} {r.bytes_per_s / 1e12:.4f} TB/s, "
-                f"overhead {r.overhead_s * 1e6:.1f} us (probe "
-                f"{model.probe_tag(probe)})")
+                f"overhead {r.overhead_s * 1e6:.1f} us (key "
+                f"{cm.rate_key(c, torch.float32, probe)})")
         measured = {(b.cache_key(), f): s for b, f, s in ex.trials}
         shortlist = {(b.cache_key(), f) for b, f, _ in two.trials}
         order = sorted(range(len(ex.predicted)), key=lambda i: (
@@ -1371,8 +1371,8 @@ def autotune_phase(torch, mods, counters, main_rows):
         else:
             others["star3d4r's rates"] = star_rates
         for label, alt in others.items():
-            cf = cm.CostModel(calibrate=False, device="cuda")
-            cf.rate_for = lambda key, dtype, probe=None, alt=alt: alt[key]
+            cf = cm.CostModel(calibrate=False, device="cuda", rates={
+                cm.rate_key(c, torch.float32, probe): r for c, r in alt.items()})
             preds = [cf.predict(k, grids, b, f, AUTOTUNE_STEPS, swap,
                                 scalars=scal) for b, f, _ in ex.predicted]
             picked = [ex.predicted[i] for i in

@@ -51,7 +51,6 @@ import hashlib
 import json
 import os
 import statistics
-import tempfile
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -252,18 +251,7 @@ def _disk_store(cdir: str, digest: str, readable: dict,
                    "rank_error": result.rank_error},
         "timing": dict(result.timing),
     }
-    os.makedirs(cdir, exist_ok=True)
-    # tmp-then-rename: readers never see torn writes
-    fd, tmp = tempfile.mkstemp(dir=cdir, suffix=".tmp")
-    try:
-        with os.fdopen(fd, "w") as f:
-            json.dump(entry, f, indent=1, sort_keys=True)
-        os.replace(tmp, os.path.join(cdir, f"tune-{digest}.json"))
-    except OSError:
-        try:
-            os.unlink(tmp)
-        except OSError:
-            pass
+    _cost._atomic_write_json(os.path.join(cdir, f"tune-{digest}.json"), entry)
 
 
 #: directories already swept by ``purge_stale`` this process (one-shot)

@@ -64,7 +64,8 @@ from . import timeloop as _tl
 
 __all__ = ["CALIBRATION_VERSION", "Rate", "DEFAULT_RATES", "CostModel",
            "default_model", "reset_default_models", "exec_key",
-           "kernel_fingerprint", "device_tag", "torch_step_bytes"]
+           "kernel_fingerprint", "device_tag", "torch_step_bytes",
+           "rate_key"]
 
 #: bump when the prediction formula or the probe protocol changes:
 #: persisted calibrations (and disk tune entries, which key on this via
@@ -188,10 +189,6 @@ def _dtype_name(dtype) -> str:
     return str(dtype).replace("torch.", "")
 
 
-def _rate_key(key: str, dtype, tag: Optional[str] = None) -> str:
-    return f"{key}@{tag}/{_dtype_name(dtype)}" if tag else f"{key}/{_dtype_name(dtype)}"
-
-
 def torch_step_bytes(kernel: _ir.StencilIR, shape, itemsize: int) -> float:
     """Bytes one application of the torch lowering (``lowering.lower_torch``)
     moves over a region of ``shape``, counted from the IR: a tap is a view
@@ -241,6 +238,43 @@ class _Probe(NamedTuple):
     grids: Dict[str, st.grid]
     swap: Optional[Tuple[str, str]]
     scalars: Dict[str, object]
+
+
+def _probe_shape(probe: _Probe) -> Tuple[int, ...]:
+    """The interior a probe runs: the tuned grids' shape, at most
+    ``PROBE`` cells an axis for their device."""
+    g0 = next(iter(probe.grids.values()))
+    cap = PROBE[g0.device.type][len(g0.shape)]
+    return tuple(min(s, c) for s, c in zip(g0.shape, cap))
+
+
+def rate_key(key: str, dtype, probe: Optional[_Probe] = None) -> str:
+    """Where a rate is stored: ``<class>[@<kernel fingerprint>@<probe
+    shape>]/<dtype>``, the part in brackets naming the kernel and geometry
+    ``probe`` runs (a rate of the class alone without it).
+    ``CostModel(rates=...)`` takes rates under these keys."""
+    if probe is None:
+        return f"{key}/{_dtype_name(dtype)}"
+    return (f"{key}@{kernel_fingerprint(probe.kernel)}@"
+            f"{'x'.join(map(str, _probe_shape(probe)))}/{_dtype_name(dtype)}")
+
+
+def _atomic_write_json(path: str, obj) -> None:
+    """Write ``obj`` to ``path`` through a temporary file in its directory
+    and a rename, so readers never see a torn file; an ``OSError`` leaves
+    the old file (or none) in place."""
+    cdir = os.path.dirname(path)
+    os.makedirs(cdir, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=cdir, suffix=".tmp")
+    try:
+        with os.fdopen(fd, "w") as f:
+            json.dump(obj, f, indent=1, sort_keys=True)
+        os.replace(tmp, path)
+    except OSError:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
 
 
 def time_timeloop(kernel, grids, scalars, backend, fuse: int, steps: int,
@@ -295,7 +329,7 @@ class CostModel:
     ``cache_dir`` — persist/load calibrated rates next to the autotune
     disk cache.  ``calibrate=False`` — never probe; use ``rates`` then
     ``DEFAULT_RATES`` (the testing configuration).  ``rates`` — pre-seeded
-    {"class[@tag]/dtype": Rate} overrides.
+    ``{rate_key(...): Rate}``, taken before any stored or probed rate.
     """
 
     def __init__(self, cache_dir: Optional[str] = None,
@@ -412,22 +446,12 @@ class CostModel:
         return seconds
 
     # -- rates -------------------------------------------------------------
-    def probe_tag(self, probe: _Probe) -> str:
-        """The kernel and probe geometry a rate was measured on."""
-        return (f"{kernel_fingerprint(probe.kernel)}@"
-                + "x".join(map(str, self._probe_shape(probe))))
-
-    def _probe_shape(self, probe: _Probe):
-        g0 = next(iter(probe.grids.values()))
-        cap = PROBE[self.device.type][len(g0.shape)]
-        return tuple(min(s, c) for s, c in zip(g0.shape, cap))
-
     def rate_for(self, key: str, dtype, probe: Optional[_Probe] = None) -> Rate:
         """The rate of one execution class × dtype: the stored rate for
         ``probe``'s kernel and geometry (or, without ``probe``, the class
         alone), else a probe of the class when the model calibrates
         (persisted next to the tune cache), else ``DEFAULT_RATES``."""
-        rk = _rate_key(key, dtype, self.probe_tag(probe) if probe else None)
+        rk = rate_key(key, dtype, probe)
         r = self._rates.get(rk)
         if r is not None:
             return r
@@ -444,12 +468,11 @@ class CostModel:
         kernel and geometry yet, their sources built in one ``nvcc`` wave on
         the card, and persist the rates.  Raises when a probe fails."""
         g0 = next(iter(probe.grids.values()))
-        tag = self.probe_tag(probe)
         missing = [k for k in dict.fromkeys(keys)
-                   if _rate_key(k, g0.dtype, tag) not in self._rates]
+                   if rate_key(k, g0.dtype, probe) not in self._rates]
         if not self.calibrate or not missing:
             return
-        big = _crop(probe.grids, self._probe_shape(probe))
+        big = _crop(probe.grids, _probe_shape(probe))
         small = big if probe.swap is not None else _crop(probe.grids, tuple(
             min(s, c) for s, c in zip(g0.shape, PROBE_SMALL[len(g0.shape)])))
         if self.device.type == "cuda":
@@ -461,7 +484,7 @@ class CostModel:
                     sources += [p.source(g0.dtype) for p in plans]
             _build.build_many(sources)
         for k in missing:
-            self._rates[_rate_key(k, g0.dtype, tag)] = self._probe(
+            self._rates[rate_key(k, g0.dtype, probe)] = self._probe(
                 probe, k, big, small)
         if self.cache_dir:
             self._store_rates()
@@ -548,24 +571,13 @@ class CostModel:
                 continue
 
     def _store_rates(self) -> None:
-        entry = {
+        _atomic_write_json(self._cal_path(), {
             "version": CALIBRATION_VERSION,
             "device": self.tag,
             "rates": {rk: {"bytes_per_s": r.bytes_per_s,
                            "overhead_s": r.overhead_s}
                       for rk, r in self._rates.items()},
-        }
-        os.makedirs(self.cache_dir, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(dir=self.cache_dir, suffix=".tmp")
-        try:
-            with os.fdopen(fd, "w") as f:
-                json.dump(entry, f, indent=1, sort_keys=True)
-            os.replace(tmp, self._cal_path())
-        except OSError:
-            try:
-                os.unlink(tmp)
-            except OSError:
-                pass
+        })
 
 
 # -- shared default models (one calibration per process per cache dir) -----

@@ -6,8 +6,9 @@ Equal for equal: ``kernel_fingerprint`` on the suite kernels, and
 same float operations in another order).  The byte accounting is checked
 against the plans and, for the torch lowering, against an independent
 count of the elements each PyTorch operation reads and writes.  Rates are
-``DEFAULT_RATES`` (``calibrate=False``) except where a test probes on the
-CPU at the tiny probe geometry.
+``DEFAULT_RATES`` (``calibrate=False``) except where a test seeds them
+(``CostModel(rates=...)``) or probes on the CPU at the tiny probe
+geometry.
 """
 import json
 import math
@@ -39,6 +40,14 @@ def _grids(name="star2d1r", shape=(16, 16)):
 def _model(**kw):
     """Deterministic model: no probe timing, default rates."""
     return cm.CostModel(calibrate=False, device="cpu", **kw)
+
+
+def _seeded(k, grids, swap, rates):
+    """A deterministic model holding ``rates`` ({class: Rate}) for this
+    kernel and shape."""
+    probe = cm._Probe(k, grids, swap, {})
+    return _model(rates={cm.rate_key(c, F32, probe): r
+                         for c, r in rates.items()})
 
 
 @pytest.fixture(autouse=True)
@@ -102,8 +111,7 @@ def test_predict_formula_matches_jax(label, fuse, steps, monkeypatch):
     be, jbe = _backends(label)
     swap = ("v", "u")
     rate = cm.Rate(bytes_per_s=3.1e11, overhead_s=7.3e-5)
-    port = _model()
-    monkeypatch.setattr(port, "rate_for", lambda *a, **kw: rate)
+    port = _seeded(k, grids, swap, dict.fromkeys(cm.DEFAULT_RATES, rate))
     halos = {n: g.halo for n, g in grids.items()}
     sb = port.step_bytes(k, halos, shape, be, swap, torch.float32)
     jmodel = jcm.CostModel(calibrate=False)
@@ -119,8 +127,7 @@ def test_predict_formula_matches_jax(label, fuse, steps, monkeypatch):
 def test_predict_single_application_matches_jax(monkeypatch):
     k, grids = _grids("star3d4r", (16, 24, 40))
     rate = cm.Rate(2e11, 3e-5)
-    port = _model()
-    monkeypatch.setattr(port, "rate_for", lambda *a, **kw: rate)
+    port = _seeded(k, grids, None, dict.fromkeys(cm.DEFAULT_RATES, rate))
     sb = port.step_bytes(k, {n: g.halo for n, g in grids.items()},
                          (16, 24, 40), st.hopper(template="f4"), None,
                          torch.float32)
@@ -261,13 +268,12 @@ def test_larger_fuse_predicts_cheaper():
     assert p8 < p1  # fewer windows => less layout traffic + overhead
 
 
-def test_window_remainder_runs_the_single_step_class(monkeypatch):
+def test_window_remainder_runs_the_single_step_class():
     """k=2, windows of 3: each window is one K3 launch and one single step
     of the template's kernel, each charged at its own class's rate."""
     k, grids = _grids("star2d1r", (16, 16))
-    model = _model()
-    rates = {"hopper-K3": cm.Rate(1e9, 1e-4), "hopper-K1": cm.Rate(4e9, 2e-4)}
-    monkeypatch.setattr(model, "rate_for", lambda key, *a, **kw: rates[key])
+    model = _seeded(k, grids, ("v", "u"), {"hopper-K3": cm.Rate(1e9, 1e-4),
+                                           "hopper-K1": cm.Rate(4e9, 2e-4)})
     plan, plan1 = model.plans(k, {n: g.halo for n, g in grids.items()},
                               (16, 16), st.hopper(time_block=2), ("v", "u"))
     got = model.predict(k, grids, st.hopper(time_block=2), 3, 9, ("v", "u"))
@@ -395,7 +401,7 @@ def test_probe_solves_the_model(key, k, w, monkeypatch):
     kern, grids = _grids()
     model = cm.CostModel(calibrate=True, device="cpu")
     probe = cm._Probe(kern, grids, ("v", "u"), {})
-    big = cm._crop(grids, model._probe_shape(probe))
+    big = cm._crop(grids, cm._probe_shape(probe))
     b = model._probe_bytes(probe, key, big, 4)
     if key.startswith("hopper"):
         plan = model._probe_plans(probe, key, big)[0]
@@ -451,8 +457,7 @@ def test_cpu_probe_calibrates_persists_and_reloads(tmp_path):
 def test_rates_persist_next_to_cache(tmp_path):
     cdir = str(tmp_path)
     r = cm.Rate(bytes_per_s=3e9, overhead_s=5e-5)
-    m = _model(cache_dir=cdir)
-    m._rates[cm._rate_key("torch", F32)] = r
+    m = _model(cache_dir=cdir, rates={cm.rate_key("torch", F32): r})
     m._store_rates()
     files = [f for f in os.listdir(cdir) if f.startswith("roofline-")]
     assert len(files) == 1
@@ -461,10 +466,29 @@ def test_rates_persist_next_to_cache(tmp_path):
     assert m2.rate_for("torch", F32) == r
 
 
+def test_seeded_rates_come_before_stored_and_default_ones(tmp_path):
+    """``rates=`` holds for its kernel and probe geometry only: a stored
+    rate of the same key is not read over it, and another shape still
+    takes ``DEFAULT_RATES``."""
+    k, grids = _grids("star2d1r", (16, 16))
+    probe = cm._Probe(k, grids, ("v", "u"), {})
+    rk = cm.rate_key("hopper-K1", F32, probe)
+    assert rk == f"hopper-K1@{cm.kernel_fingerprint(k)}@16x16/float32"
+    stored = cm.Rate(1e9, 1e-3)
+    _model(cache_dir=str(tmp_path), rates={rk: stored})._store_rates()
+    seeded = cm.Rate(7e9, 2e-5)
+    m = _model(cache_dir=str(tmp_path), rates={rk: seeded})
+    assert m.rate_for("hopper-K1", F32, probe) == seeded
+    assert m.rate_for("hopper-K2", F32, probe) == cm.DEFAULT_RATES["hopper-K2"]
+    k2, grids2 = _grids("star2d1r", (16, 24))
+    assert (m.rate_for("hopper-K1", F32, cm._Probe(k2, grids2, ("v", "u"), {}))
+            == cm.DEFAULT_RATES["hopper-K1"])
+    assert _model(cache_dir=str(tmp_path)).rate_for("hopper-K1", F32, probe) == stored
+
+
 def test_stale_calibration_version_ignored(tmp_path):
     cdir = str(tmp_path)
-    m = _model(cache_dir=cdir)
-    m._rates[cm._rate_key("torch", F32)] = cm.Rate(3e9, 5e-5)
+    m = _model(cache_dir=cdir, rates={cm.rate_key("torch", F32): cm.Rate(3e9, 5e-5)})
     m._store_rates()
     path = m._cal_path()
     with open(path) as f:
