@@ -130,15 +130,38 @@ Phases, each of which exits non-zero when it fails:
    and again after the in-process cache and the cost models are dropped,
    a disk hit: ``MEASURE_COUNT`` unchanged, exactly the chosen kernel's
    launches, the fields within 2e-5 of their max of ``st.torch()``,
-   steps/s beside phase 4's best fixed build.
+   steps/s beside phase 4's best fixed build;
+11. batched scenarios and the adjoint — (a) acoustic ISO at 512³ f32 with
+   ``batch=4`` shots, each its own source position and model (the
+   background with a slow blob beside its source), 100 steps with
+   ``fuse_steps=10`` and the sources in ``between``, under K1, K2, K3
+   (k=2) and K5: exactly the unbatched path's launches (one launch
+   advances every shot), each shot equal bit for bit to its own unbatched
+   run under the same build and within 2e-5 of its max of the batched
+   ``st.torch()`` run; steps/s and scenario-steps/s beside phase 4's
+   unbatched steps/s; ``star3d4r`` with ``batch=2`` under K2 the same way;
+   per-scenario ``(B, NS)`` scalars (a dt a scenario) at the small shapes,
+   one launch of K1/K2/K3/K5 against its plain version; (b) the gradient
+   of a misfit at 512³ (one shot, 100 steps, the loss the sum of squares
+   of the final ``p1`` minus the one observed on the true model) with
+   respect to p0, p1, vp² and dt through ``st.differentiable_timeloop``
+   under ``st.hopper(template="gmem")``, default schedule (fuse 10, 10
+   checkpoints): ``CHECKPOINT_STATS`` as scheduled, K1 launched exactly
+   200 times (forward and the backward pass's step-by-step replay), the
+   gradients within 1e-3 of their max of the same adjoint under
+   ``st.torch()``, the vp² gradient along the blob within 2e-2 of a
+   central difference; forward seconds, backward seconds split into
+   replay, recompute and VJP, and peak device memory.
 
 It prints the kernels line ``{"kernels": [...]}`` and then, last,
 ``{"ok": true, "device": {...}}``.  ``--quick`` runs phases 1–3 at the two
 small shapes only (K6 and K7 at all of theirs, untimed) and prints no
 result line.  Phases 4, 5 and 10 read the launch counts of the fused path, 6
 and 7 those of ``st.map``, 8 those of serving, 9 those of training: each
-sets the counts to 0 just before its run and reads them just after; the
-kernels line lists K6 once a path (``causal_conv1d``: serving, at the
+sets the counts to 0 just before its run and reads them just after (11:
+each batched run and the gradient); the kernels line gives K1/K2/K3/K5
+their launches in phase 11's batched runs (``batched_launches``) and lists
+K6 once a path (``causal_conv1d``: serving, at the
 decode shape; ``causal_conv1d.train``: training, at its shape).  The script imports neither
 JAX nor the JAX package, and needs nothing outside the checkout.
 """
@@ -263,6 +286,20 @@ LIBRARY_BF16_TOL = 3e-2
 AUTOTUNE_STEPS, AUTOTUNE_TOP_K = 16, 3
 AUTOTUNE_RATIO = 1.15
 AUTOTUNE_CACHE = ROOT / "build" / "autotune_cache"
+# phase 11: batched shots (one source and model a shot; the blob sits
+# BLOB_OFFSET cells beside the source along axis 2, which the wave reaches
+# within the 100 steps), star3d4r's scenarios, and the gradient: its
+# default schedule (fuse = ceil(sqrt(100)) = 10, 10 checkpoints), its
+# tolerance against the torch adjoint (of each gradient's max: the two
+# forward passes differ by f32 rounding) and the central difference along
+# the blob (relative)
+BATCH_SHOTS, STAR_SHOTS = 4, 2
+BATCH_SOURCES = ((256, 256, 176), (256, 256, 224), (256, 256, 272), (256, 256, 320))
+BLOB_OFFSET, BLOB_RADIUS, BLOB_DVP2 = 12, 8, 0.56
+ADJOINT_FUSE = 10
+ADJOINT_TOL = 1e-3
+ADJOINT_EPS = 0.01
+ADJOINT_FD_TOL = 2e-2
 # the kernel wrapper that runs each plan kind
 KIND_WRAPPER = {"fused": "fused_step", "stream": "stream_step",
                 "semi": "semi_step", "temporal": "temporal_step"}
@@ -1563,6 +1600,337 @@ def train_phase(torch, mods, counters):
     return row
 
 
+def shot_models(torch, acoustic, nb: int, device):
+    """Phase 11's shots: each a source position (``BATCH_SOURCES``) and its
+    own model, the background vp² of ``make_fields`` with a slow blob
+    (``BLOB_RADIUS`` cells, vp² lower by ``BLOB_DVP2``) ``BLOB_OFFSET``
+    cells beside its source along axis 2, where the wave reaches it within
+    the run's steps.  Returns (positions, vp² interiors (nb, *MAIN_SHAPE)
+    on ``device``, the blob of shot 0 as a 0/1 mask)."""
+    pos = BATCH_SOURCES[:nb]
+    ax = [torch.arange(n, device=device, dtype=torch.float32) for n in MAIN_SHAPE]
+    vp2 = torch.full((nb,) + MAIN_SHAPE, 1.5 ** 2, device=device)
+    blobs = []
+    for b, (x, y, z) in enumerate(pos):
+        r2 = ((ax[0] - x)[:, None, None] ** 2 + (ax[1] - y)[None, :, None] ** 2
+              + (ax[2] - z - BLOB_OFFSET)[None, None, :] ** 2)
+        blob = (r2 <= BLOB_RADIUS ** 2).float()
+        vp2[b] -= BLOB_DVP2 * blob
+        blobs.append(blob)
+    return pos, vp2, blobs[0]
+
+
+def batch_phase(torch, mods, counters, main_rows, entries, device="cuda"):
+    """Phase 11 (a): batched scenarios at 512³ f32.  Acoustic ISO, B = 4
+    shots (``shot_models``), 100 steps in windows of 10 with each shot's
+    source injected in ``between``, under K1, K2, K3 (k=2) and K5: each
+    shot equal bit for bit to its own unbatched run under the same build,
+    within ``END_TO_END_RTOL`` of its max of the batched ``st.torch()``
+    run, and exactly as many launches as the unbatched path (one launch
+    advances every shot); ``star3d4r`` with B = 2 under K2 the same way;
+    then per-scenario ``(B, NS)`` scalars (a dt a shot) at the small shapes,
+    one launch of each kernel against its plain version.  Returns the
+    phase's record."""
+    st, acoustic, suite, codegen = (mods["st"], mods["acoustic"], mods["suite"],
+                                    mods["codegen"])
+    wrappers = mods["wrappers"]
+    reset_counts, counts = counters
+    nb = BATCH_SHOTS
+    pos, vp2s, _ = shot_models(torch, acoustic, nb, device)
+    unbatched = {r["path"]: r["steps_per_s"] for r in main_rows}
+
+    def shots(n=nb):
+        p0, p1, vp2, damp, dt = acoustic.make_fields(MAIN_SHAPE, pml_width=PML_WIDTH,
+                                                     batch=n, device=device)
+        vp2.interior = vp2s[:n]
+        acoustic.inject_source(p1, 0, pos=pos[:n])
+        return [p0, p1, vp2, damp], dt
+
+    def one_shot(fields, b):
+        out = [st.grid(st.f32, MAIN_SHAPE, acoustic.ORDER, data=f.data[b].clone())
+               for f in fields]
+        return out
+
+    def acoustic_run(backend, fields, dt, positions):
+        def between(t, grids):
+            acoustic.inject_source(grids["p1"], t, pos=positions)
+        return st.launch(backend=backend, fuse_steps=ACOUSTIC_FUSE)(
+            acoustic.acoustic_target_fused)(*fields, dt, STEPS, between=between).value
+
+    rows = []
+    ref_fields, dt = shots()
+    t0 = time.perf_counter()
+    acoustic_run(st.torch(), ref_fields, dt, pos)
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    ref = {"p0": ref_fields[0].data, "p1": ref_fields[1].data}
+    del ref_fields
+    torch.cuda.empty_cache()
+    for kname, (template, k) in KERNELS.items():
+        key = f"{kname}[acoustic_iso]"
+        be = st.hopper(template=template, time_block=k)
+        fields, dt = shots()
+        init = [f.copy() for f in fields]
+        reset_counts()
+        res = acoustic_run(be, fields, dt, pos)
+        seen = counts()
+        if seen[kname] != STEPS // k or sum(seen.values()) != STEPS // k:
+            fail(f"batched {key}: launch counts {seen}, expected {STEPS // k} of "
+                 f"{kname} (the unbatched path's) and no other")
+        entries[key]["batched_launches"] = seen[kname]
+        worst = 0.0
+        for b in range(nb):
+            got = {"p0": fields[0].data[b], "p1": fields[1].data[b]}
+            scale = max(float(r[b].abs().max()) for r in ref.values())
+            diff = max(float((got[g] - ref[g][b]).abs().max()) for g in got)
+            if not all(bool(torch.isfinite(t).all()) for t in got.values()):
+                fail(f"batched {key}: shot {b} not finite")
+            if diff > END_TO_END_RTOL * max(scale, 1e-3):
+                fail(f"batched {key}: shot {b} max |hopper - torch| = {diff} "
+                     f"(field max {scale}, limit {END_TO_END_RTOL} of it)")
+            worst = max(worst, diff / max(scale, 1e-3))
+            one = one_shot(init, b)
+            acoustic_run(be, one, dt, pos[b])
+            for g, f in zip(("p0", "p1"), one[:2]):
+                if not torch.equal(f.data, got[g]):
+                    fail(f"batched {key}: shot {b} grid {g} differs from its "
+                         f"unbatched run (max {float((f.data - got[g]).abs().max())})")
+            del one
+        steps_s = STEPS / res.seconds
+        single = unbatched[key]
+        row = {"path": f"batched {key}", "batch": nb, "template": template,
+               "time_block": k, "steps": STEPS, "fuse_steps": res.fuse_steps,
+               "seconds": res.seconds, "steps_per_s": steps_s,
+               "scenario_steps_per_s": nb * steps_s,
+               "unbatched_steps_per_s": single,
+               "scenario_steps_over_unbatched": nb * steps_s / single,
+               "launches": seen[kname], "bit_equal_to_serial": True,
+               "max_rel_diff_vs_torch": worst, "torch_seconds": ref_s}
+        rows.append(row)
+        say(f"batched {key} B={nb}: {STEPS} steps in {res.seconds:.3f} s = "
+            f"{steps_s:.1f} steps/s, {nb * steps_s:.1f} scenario-steps/s "
+            f"({row['scenario_steps_over_unbatched']:.3f} x the unbatched "
+            f"{single:.1f} steps/s); {seen[kname]} launches; every shot equal to "
+            f"its unbatched run bit for bit, within {worst:.3g} of its max of "
+            f"st.torch() (batched, {ref_s:.1f} s)")
+        del fields, init
+        torch.cuda.empty_cache()
+    del ref
+    torch.cuda.empty_cache()
+
+    # star3d4r, B = 2, under K2
+    k = suite.get_kernel("star3d4r")
+    gen = torch.Generator(device=device).manual_seed(0)
+    init = torch.randn((STAR_SHOTS,) + MAIN_SHAPE, generator=gen, device=device)
+
+    def star_grids():
+        u = st.grid(st.f32, MAIN_SHAPE, 4, batch=STAR_SHOTS, device=device)
+        u.interior = init
+        return {"u": u, "v": st.grid(st.f32, MAIN_SHAPE, 4, batch=STAR_SHOTS,
+                                     device=device)}
+
+    def star_run(backend, grids):
+        return st.launch(backend=backend)(lambda u, v: st.timeloop(
+            STEPS, swap=("v", "u"))(k)(u, v))(grids["u"], grids["v"]).value
+
+    ref = star_grids()
+    star_run(st.torch(), ref)
+    key = "stream_step[star3d4r]"
+    grids = star_grids()
+    first = {g: x.copy() for g, x in grids.items()}
+    reset_counts()
+    res = star_run(st.hopper(template="shift"), grids)
+    seen = counts()
+    if seen["stream_step"] != STEPS or sum(seen.values()) != STEPS:
+        fail(f"batched {key}: launch counts {seen}")
+    entries[key]["batched_launches"] = seen["stream_step"]
+    worst = 0.0
+    for b in range(STAR_SHOTS):
+        scale = max(float(ref[g].data[b].abs().max()) for g in ref)
+        diff = max(float((grids[g].data[b] - ref[g].data[b]).abs().max()) for g in ref)
+        if diff > END_TO_END_RTOL * max(scale, 1e-3):
+            fail(f"batched {key}: scenario {b} max |hopper - torch| = {diff}")
+        worst = max(worst, diff / max(scale, 1e-3))
+        one = {g: st.grid(st.f32, MAIN_SHAPE, 4, data=x.data[b].clone())
+               for g, x in first.items()}
+        star_run(st.hopper(template="shift"), one)
+        if not all(torch.equal(one[g].data, grids[g].data[b]) for g in one):
+            fail(f"batched {key}: scenario {b} differs from its unbatched run")
+    steps_s = STEPS / res.seconds
+    single = unbatched[key]
+    rows.append({"path": f"batched {key}", "batch": STAR_SHOTS, "template": "shift",
+                 "time_block": 1, "steps": STEPS, "seconds": res.seconds,
+                 "steps_per_s": steps_s, "scenario_steps_per_s": STAR_SHOTS * steps_s,
+                 "unbatched_steps_per_s": single,
+                 "scenario_steps_over_unbatched": STAR_SHOTS * steps_s / single,
+                 "launches": seen["stream_step"], "bit_equal_to_serial": True,
+                 "max_rel_diff_vs_torch": worst})
+    say(f"batched {key} B={STAR_SHOTS}: {steps_s:.1f} steps/s, "
+        f"{STAR_SHOTS * steps_s:.1f} scenario-steps/s ({STAR_SHOTS * steps_s / single:.3f}"
+        f" x the unbatched {single:.1f}); equal to the serial runs; within {worst:.3g} "
+        f"of st.torch()")
+    del ref, grids, first
+    torch.cuda.empty_cache()
+
+    # (B, NS) scalars at the small shapes: one launch against the plain
+    # version, a dt a scenario
+    w = mods["acoustic_workload"]
+    dts = torch.tensor([0.2, 0.25, 0.3])
+    scal_rows = []
+    for shape in SMALL_SHAPES:
+        for kname, (template, _) in KERNELS.items():
+            for kb in fused_depths(kname, shape):
+                plan = w.plan(codegen, shape, template, kb)
+                arrays = {g: torch.stack([w.arrays(torch, shape, seed=10 + b)[g]
+                                          for b in range(len(dts))])
+                          for g in w.kernel.ir.grid_params}
+                sc = plan.scenario_scalars({"dt": dts}, len(dts), device)
+                kern, plain = wrappers[kname]
+                reset_counts()
+                got, want, _, _ = one_launch(torch, kname, kern, plain, plan, arrays, sc)
+                if counts()[kname] != 1:
+                    fail(f"{kname} (B, NS) scalars: {counts()[kname]} launches, not one")
+                err = check_out(torch, f"{kname} k={kb} (B, NS) scalars at {shape}",
+                                {g: got[g] for g in plan.step_out_grids},
+                                {g: want[g] for g in plan.step_out_grids}, rel_tol)
+                scal_rows.append({"kernel": kname, "time_block": kb, "shape": list(shape),
+                                  "batch": len(dts), "max_abs_err": err})
+                say(f"kernel {kname} k={kb} {shape} B={len(dts)}, a dt a scenario: "
+                    f"one launch, max abs err {err:.3g} vs plain")
+    return {"rows": rows, "scalars": scal_rows}
+
+
+def adjoint_phase(torch, mods, counters, device="cuda"):
+    """Phase 11 (b): the gradient at 512³ f32.  Acoustic ISO, one shot,
+    100 steps, the source in ``between``: the loss is the sum of squares
+    of the final ``p1`` minus the ``p1`` "observed" with the same
+    propagator on the true model (the background with a slow blob), at the
+    background model.  Its gradient with respect to p0, p1, vp² and dt
+    through ``st.differentiable_timeloop`` under ``st.hopper(template=
+    "gmem")`` (K1) with the default schedule, against the same adjoint
+    under ``st.torch()`` (``ADJOINT_TOL`` of each gradient's max), and the
+    vp² gradient along the blob against a central difference of the loss
+    (``ADJOINT_FD_TOL``).  Returns the phase's record."""
+    st, acoustic, adjoint = mods["st"], mods["acoustic"], mods["adjoint"]
+    reset_counts, counts = counters
+    pos, vp2s, blob = shot_models(torch, acoustic, 1, device)
+    p0, p1, vp2, damp, dt = acoustic.make_fields(MAIN_SHAPE, pml_width=PML_WIDTH,
+                                                 device=device)
+    acoustic.inject_source(p1, 0, pos=pos[0])
+    o = acoustic.ORDER
+    inner = tuple(slice(o, o + n) for n in MAIN_SHAPE)
+    true_vp2 = vp2.data.clone()
+    true_vp2[inner] = vp2s[0]
+    direction = torch.zeros_like(vp2.data)
+    direction[inner] = blob
+
+    def between(t, grids):
+        acoustic.inject_source(grids["p1"], t, pos=pos[0])
+
+    def run_for(backend):
+        return st.differentiable_timeloop(
+            acoustic.acoustic_iso_kernel, p0, p1, vp2, damp, dt, steps=STEPS,
+            swap=("p0", "p1"), between=between, backend=backend)
+
+    fn = run_for(st.hopper(template="gmem"))
+    sched = fn.schedule
+    with torch.no_grad():
+        observed = fn({**fn.arrays, "vp2": true_vp2})["p1"]
+
+    def loss_of(out):
+        return ((out["p1"] - observed).double() ** 2).sum()
+
+    def gradient(fn, label):
+        arrays = {n: (a.detach().clone().requires_grad_() if n != "damp" else a)
+                  for n, a in fn.arrays.items()}
+        d = torch.tensor(float(dt), device=device, requires_grad=True)
+        adjoint.reset_stats()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        loss = loss_of(fn(arrays, {"dt": d}))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        row = {"backend": label, "loss": float(loss.detach()), "forward_s": t1 - t0,
+               "backward_s": t2 - t1, "seconds": dict(adjoint.SECONDS),
+               "checkpoint_stats": dict(adjoint.CHECKPOINT_STATS),
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": counts()}
+        grads = {n: arrays[n].grad for n in ("p0", "p1", "vp2")}
+        grads["dt"] = d.grad
+        for n, g in grads.items():
+            if g is None or not bool(torch.isfinite(g).all()):
+                fail(f"adjoint {label}: gradient of {n} missing or not finite")
+        return row, grads
+
+    try:
+        hrow, hgrads = gradient(fn, "hopper gmem")
+    except torch.cuda.OutOfMemoryError as e:
+        fail(f"adjoint at {MAIN_SHAPE}: the peak does not fit on the card ({e})")
+    want_stats = {"checkpoints": sched["checkpoints"], "replayed_windows": 0,
+                  "vjp_windows": len(sched["windows"])}
+    n_ckpts = -(-STEPS // ADJOINT_FUSE)
+    if (sched["fuse"], sched["checkpoints"]) != (ADJOINT_FUSE, n_ckpts) \
+            or hrow["checkpoint_stats"] != want_stats:
+        fail(f"adjoint schedule {sched}, stats {hrow['checkpoint_stats']}, expected "
+             f"fuse {ADJOINT_FUSE}, {n_ckpts} checkpoints and {want_stats}")
+    # the forward pass and the backward pass's step-by-step replay: one K1
+    # launch a step each, and no other kernel
+    launches = hrow["launches"]
+    if launches["fused_step"] != 2 * STEPS or sum(launches.values()) != 2 * STEPS:
+        fail(f"adjoint launch counts {launches}, expected {2 * STEPS} of fused_step "
+             f"(forward + replay) and no other")
+    say(f"adjoint hopper gmem at {MAIN_SHAPE}, {STEPS} steps, schedule {sched}: "
+        f"loss {hrow['loss']:.6g}; forward {hrow['forward_s']:.3f} s, backward "
+        f"{hrow['backward_s']:.3f} s (replay {hrow['seconds']['replay']:.3f}, "
+        f"recompute {hrow['seconds']['recompute']:.3f}, vjp "
+        f"{hrow['seconds']['vjp']:.3f}); {launches['fused_step']} K1 launches; "
+        f"peak {hrow['peak_gb']:.2f} GB")
+    del fn
+    torch.cuda.empty_cache()
+
+    trow, tgrads = gradient(run_for(st.torch()), "torch")
+    if sum(trow["launches"].values()):
+        fail(f"adjoint st.torch(): kernel launches {trow['launches']}")
+    errs = {}
+    for n, want in tgrads.items():
+        scale = float(want.abs().max())
+        err = float((hgrads[n] - want).abs().max())
+        if not err <= ADJOINT_TOL * scale:
+            fail(f"adjoint gradient of {n}: max |hopper - torch| = {err} > "
+                 f"{ADJOINT_TOL} x {scale}")
+        errs[n] = {"max_abs_diff": err, "max": scale}
+    say(f"adjoint st.torch(): forward {trow['forward_s']:.3f} s, backward "
+        f"{trow['backward_s']:.3f} s; gradients vs hopper: " + ", ".join(
+            f"{n} {e['max_abs_diff']:.3g} of max {e['max']:.3g}" for n, e in errs.items()))
+    del tgrads
+    torch.cuda.empty_cache()
+
+    # the vp² gradient along the blob against a central difference
+    fn = run_for(st.hopper(template="gmem"))
+    with torch.no_grad():
+        hi = float(loss_of(fn({**fn.arrays, "vp2": vp2.data + ADJOINT_EPS * direction})))
+        lo = float(loss_of(fn({**fn.arrays, "vp2": vp2.data - ADJOINT_EPS * direction})))
+    fd = (hi - lo) / (2 * ADJOINT_EPS)
+    gd = float((hgrads["vp2"].double() * direction.double()).sum())
+    rel = abs(fd - gd) / max(abs(gd), 1e-30)
+    if not rel <= ADJOINT_FD_TOL:
+        fail(f"adjoint: <g, d> = {gd} but the central difference (eps "
+             f"{ADJOINT_EPS}) is {fd}: relative error {rel} > {ADJOINT_FD_TOL}")
+    say(f"adjoint: <g_vp2, blob> = {gd:.6g}, central difference (eps {ADJOINT_EPS}) "
+        f"{fd:.6g}, relative error {rel:.3g}; gradient / forward time "
+        f"{hrow['backward_s'] / hrow['forward_s']:.1f}")
+    return {"schedule": {k: list(v) if isinstance(v, tuple) else v
+                         for k, v in sched.items()},
+            "hopper": hrow, "torch": trow, "grad_vs_torch": errs,
+            "directional": {"eps": ADJOINT_EPS, "fd": fd, "g_dot_d": gd,
+                            "relative_error": rel},
+            "backward_over_forward": hrow["backward_s"] / hrow["forward_s"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -1577,7 +1945,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     try:
         from repro_torch.core import acoustic, regions, suite
-        from repro_torch.core import autotune, cost_model
+        from repro_torch.core import adjoint, autotune, cost_model
         from repro_torch.core import dsl as st
         from repro_torch.core import timeloop
         from repro_torch.kernels import _build
@@ -2220,6 +2588,14 @@ def main(argv=None) -> int:
                "timeloop": timeloop}
     record["autotune"] = autotune_phase(torch, at_mods, (reset_counts, counts),
                                         main_rows)
+
+    # -- 11. batched scenarios and the adjoint -------------------------------------
+    b_mods = {"st": st, "acoustic": acoustic, "suite": suite, "codegen": codegen,
+              "wrappers": wrappers, "acoustic_workload": workloads[1],
+              "adjoint": adjoint}
+    record["batch"] = batch_phase(torch, b_mods, (reset_counts, counts), main_rows,
+                                  entries)
+    record["adjoint"] = adjoint_phase(torch, b_mods, (reset_counts, counts))
     for e in conv_entries:
         row = serve_row if e["path"] == "serving" else train_row
         e["launches"], e["max_abs_err"] = row["k6_launches"], conv_worst
@@ -2234,9 +2610,12 @@ def main(argv=None) -> int:
         path = pathlib.Path(args.json)
         path.parent.mkdir(parents=True, exist_ok=True)
         path.write_text(json.dumps(record, indent=1))
-    line = {"kernels": [{k: e[k] for k in (
+    # batched_launches: phase 11's launches of a kernel that advanced every
+    # scenario of a batched loop (None where phase 11 does not run it)
+    line = {"kernels": [{**{k: e[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-        "plain_ms", "bound_ms", "bound_by", "library_ms")} for e in kernels]}
+        "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "batched_launches": e.get("batched_launches")} for e in kernels]}
     say(json.dumps(line))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}))

@@ -12,15 +12,17 @@ regions.py provides the 2/7-region decomposition alternative):
 scaling is folded into vp²·dt²).  The kernel's source text is the JAX
 package's, so both frontends parse the same IR.
 
-In place: ``inject_source`` adds to ``p.data``; the targets advance the
-grids' buffers in place (``st.timeloop``/``st.map``).
+In place: ``inject_source`` adds to ``p.data`` (out of place, rebinding
+``p.data``, when autograd records it: the adjoint's hook); the targets
+advance the grids' buffers in place (``st.timeloop``/``st.map``).
 """
 from __future__ import annotations
 
 import time
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
+import torch
 
 from . import dsl as st
 from . import regions
@@ -59,19 +61,25 @@ def acoustic_iso_kernel(p0: st.grid, p1: st.grid, vp2: st.grid,
 
 def make_fields(shape: Tuple[int, int, int], pml_width: int = 10,
                 vp: float = 1.5, dt: float = 0.3,
-                damp_strength: float = 0.2, device=None):
+                damp_strength: float = 0.2, device=None,
+                batch: Optional[int] = None):
     """Build (p0, p1, vp2, damp) grids for a domain of ``shape`` interior
     points on ``device`` (None: the card), plus ``dt`` as f32.  vp in
-    km/s-ish units; dt chosen CFL-stable for vp=1.5."""
+    km/s-ish units; dt chosen CFL-stable for vp=1.5.  ``batch=B``: B shots,
+    each grid with a leading scenario axis (every shot starts from the same
+    model; give each its own ``vp2`` and source position,
+    ``inject_source(pos=[...])``)."""
     dev = st.resolve_device(device)
     g = lambda: st.grid(dtype=st.f32, shape=shape, order=ORDER,  # noqa: E731
-                        device=dev)
+                        device=dev, batch=batch)
+    lead = (batch,) if batch else ()
     p0, p1 = g(), g()
     vp2 = g()
-    vp2.interior = np.full(shape, vp * vp, np.float32)
+    vp2.interior = np.full(lead + tuple(shape), vp * vp, np.float32)
     damp = g()
-    damp.interior = regions.damping_mask(shape, pml_width,
-                                         strength=damp_strength)
+    damp.interior = np.broadcast_to(
+        regions.damping_mask(shape, pml_width, strength=damp_strength),
+        lead + tuple(shape)).copy()
     return p0, p1, vp2, damp, np.float32(dt)
 
 
@@ -81,15 +89,35 @@ def source_wavelet(t: int, f0: float = 0.015, t0: int = 40) -> float:
     return float((1.0 - 2.0 * a) * np.exp(-a))
 
 
-def inject_source(p: st.grid, t: int, pos: Optional[Tuple[int, ...]] = None,
+def inject_source(p: st.grid, t: int,
+                  pos: Union[None, Tuple[int, ...], Sequence[Tuple[int, ...]]] = None,
                   amp: float = 1.0) -> None:
     """Paper §6.2: 'simulates the source perturbation after each time
-    iteration' — add a wavelet sample at the source point, in place."""
+    iteration' — add a wavelet sample at the source point (default: the
+    centre), in place.  A batched grid takes one position for every shot,
+    or a sequence of one a shot.  Where autograd records the grid (the
+    adjoint's hook) the sum is out of place, ``p.data`` a new tensor, so
+    that it is differentiated as the JAX package's ``.at[].add`` is; the
+    values are the same."""
     if pos is None:
         pos = tuple(s // 2 for s in p.shape)
     o = p.order
-    idx = tuple(o + q for q in pos)
-    p.data[idx] += amp * source_wavelet(t)
+    val = amp * source_wavelet(t)
+    if p.batch:
+        shots = [tuple(pos)] * p.batch if np.ndim(pos) == 1 else [tuple(q) for q in pos]
+        if len(shots) != p.batch:
+            raise ValueError(f"{len(shots)} source positions for {p.batch} shots")
+        idx = (torch.arange(p.batch, device=p.data.device),) + tuple(
+            torch.tensor([o + q[ax] for q in shots], device=p.data.device)
+            for ax in range(len(p.shape)))
+    else:
+        idx = tuple(o + q for q in pos)
+    if torch.is_grad_enabled() and p.data.requires_grad:
+        idx = tuple(torch.as_tensor(i, device=p.data.device) for i in idx)
+        add = torch.full(idx[0].shape, val, dtype=p.dtype, device=p.data.device)
+        p.data = p.data.index_put(idx, add, accumulate=True)
+    else:
+        p.data[idx] += val
 
 
 @st.target

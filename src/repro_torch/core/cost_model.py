@@ -240,6 +240,20 @@ class _Probe(NamedTuple):
     scalars: Dict[str, object]
 
 
+def _scenario0(grids: Dict[str, st.grid], scalars):
+    """Scenario 0 of batched grids as unbatched grids (views), and its
+    scalars: what a calibration of a batched loop probes."""
+    one = {}
+    for n, g in grids.items():
+        v = st.grid.__new__(st.grid)
+        v.shape, v.order, v.dtype, v.batch = g.shape, g.order, g.dtype, None
+        v.data = g.data[0]
+        one[n] = v
+    scal = {n: float(torch.as_tensor(v, dtype=torch.float32).reshape(-1)[0])
+            for n, v in (scalars or {}).items()}
+    return one, scal
+
+
 def _probe_shape(probe: _Probe) -> Tuple[int, ...]:
     """The interior a probe runs: the tuned grids' shape, at most
     ``PROBE`` cells an axis for their device."""
@@ -400,7 +414,9 @@ class CostModel:
         fused time steps (or one application when ``swap`` is None).
         ``None`` — unpredictable backend; ``inf`` — infeasible candidate.
         ``scalars`` are the kernel's, for a calibration the prediction
-        needs."""
+        needs.  Batched grids (``batch=B``) move B times the bytes in the
+        same launches: traffic × B, plus the windows' overheads, as in the
+        JAX package; a calibration probes scenario 0."""
         if mesh is not None:
             raise st.not_ported("cost_model.predict(mesh=...)",
                                 "queue 1, item 9 (distributed)")
@@ -409,6 +425,9 @@ class CostModel:
         g0 = next(iter(grids.values()))
         if g0.device != self.device:
             raise ValueError(f"cost model for {self.device}, grids on {g0.device}")
+        batch = max(1, int(g0.batch or 1))
+        if g0.batch:
+            grids, scalars = _scenario0(grids, scalars)
         interior = tuple(g0.shape)
         halos = {n: g.halo for n, g in grids.items()}
         itemsize = g0.data.element_size()
@@ -418,7 +437,7 @@ class CostModel:
         probe = _Probe(kernel, grids, swap, dict(scalars or {}))
         if not plans:
             rate = self.rate_for(exec_key(backend, swap), g0.dtype, probe)
-            per_step = torch_step_bytes(kernel.ir, interior, itemsize)
+            per_step = batch * torch_step_bytes(kernel.ir, interior, itemsize)
             if swap is None:
                 return per_step / rate.bytes_per_s + rate.overhead_s
             _, _, windows = _tl.launch_steps(steps, fuse, 1)
@@ -437,12 +456,12 @@ class CostModel:
         # the single-step plan where no window holds k steps
         wplan = plan if blocked else plan1
         wrate = self.rate_for(plan_class(wplan), g0.dtype, probe)
-        seconds = windows * (wplan.layout_bytes_per_window(itemsize)
+        seconds = windows * (wplan.layout_bytes_per_window(itemsize, batch)
                              / wrate.bytes_per_s + wrate.overhead_s)
         for p, n in ((plan, blocked), (plan1, single)):
             if n:
                 r = self.rate_for(plan_class(p), g0.dtype, probe)
-                seconds += n * p.hbm_bytes_per_step(itemsize) / r.bytes_per_s
+                seconds += n * p.hbm_bytes_per_step(itemsize, batch) / r.bytes_per_s
         return seconds
 
     # -- rates -------------------------------------------------------------

@@ -25,9 +25,17 @@ default) and ``hopper`` (hand-written CUDA kernels for sm_90a, see
 (``device="cpu"``); on a CPU tensor the hopper backend runs its kernels'
 plain PyTorch versions.
 
+Scenarios: ``st.grid(..., batch=B)`` holds B independent copies of its
+domain along a leading axis, advanced together by ``st.timeloop(...,
+batch=B)`` (on the hopper backend one launch a step advances all B).
+``st.differentiable_timeloop`` is the adjoint: a function of the grids'
+tensors whose gradients autograd computes with O(√steps) checkpoints
+(``core/adjoint.py``).
+
 In place: a grid's ``data`` tensor is updated in place by ``st.map`` and
 ``st.timeloop`` (output grids, and the swap pair's buffers), by
 ``interior = ...`` and by ``randomize``; ``copy()`` clones.
+``st.differentiable_timeloop``'s function writes none of its arguments.
 """
 from __future__ import annotations
 
@@ -103,19 +111,22 @@ class grid:
     on each side of every axis (paper §2.1), held in ``data``, a tensor on
     ``device`` (None: the card).  Also the kernel parameter annotation
     (``u: st.grid``).  ``data`` may be a tensor or an array of the full
-    halo-padded shape; a tensor's device is kept when ``device`` is None."""
+    halo-padded shape; a tensor's device is kept when ``device`` is None.
+
+    ``batch=B`` adds a leading *scenario* axis: the grid holds B independent
+    copies of the (halo-padded) domain, advanced together by
+    ``st.timeloop(..., batch=B)``.  The scenario axis carries no halo."""
 
     def __init__(self, dtype: _DType = f32, shape: Tuple[int, ...] = (),
                  order: int = 0, data=None, batch: Optional[int] = None,
                  device=None):
-        if batch:
-            raise not_ported("st.grid(batch=B)",
-                             "queue 1, item 4 (batch=B scenario axis)")
         self.shape = tuple(shape)
         self.order = int(order)
-        self.batch = None
+        self.batch = int(batch) if batch else None
         self.dtype = dtype.dtype if isinstance(dtype, _DType) else dtype
         full = tuple(s + 2 * self.order for s in self.shape)
+        if self.batch:
+            full = (self.batch,) + full
         if isinstance(data, _torch.Tensor) and device is None:
             device = data.device
         dev = resolve_device(device)
@@ -132,18 +143,21 @@ class grid:
 
     @property
     def halo(self) -> Tuple[int, ...]:
-        """Per-axis halo width, ``(order,) * ndim``."""
+        """Per-axis halo width, ``(order,) * ndim`` (the scenario axis has
+        none)."""
         return (self.order,) * len(self.shape)
 
     @property
     def _interior_idx(self):
         o = self.order
-        return tuple(slice(o, o + s) for s in self.shape)
+        idx = tuple(slice(o, o + s) for s in self.shape)
+        return ((slice(None),) + idx) if self.batch else idx
 
     @property
     def interior(self) -> _torch.Tensor:
-        """View of the halo-free interior; assigning writes into ``data``
-        in place (cast to the grid dtype), leaving the halo untouched."""
+        """View of the halo-free interior, shape ``([batch,] *shape)``;
+        assigning writes into ``data`` in place (cast to the grid dtype),
+        leaving the halo untouched."""
         return self.data[self._interior_idx]
 
     @interior.setter
@@ -156,7 +170,8 @@ class grid:
         ``numpy.random.default_rng(seed)``: bit-identical to the JAX
         package's ``grid.randomize``.  Returns this grid."""
         rng = np.random.default_rng(seed)
-        vals = scale * rng.standard_normal(self.shape)
+        shape = ((self.batch,) + self.shape) if self.batch else self.shape
+        vals = scale * rng.standard_normal(shape)
         self.interior = _torch.from_numpy(
             np.asarray(vals, dtype=_NP_DTYPE.get(self.dtype, np.float32)))
         return self
@@ -166,13 +181,14 @@ class grid:
         the tensor to keep the state for a reference run."""
         g = grid.__new__(grid)
         g.shape, g.order, g.dtype, g.batch = (self.shape, self.order,
-                                              self.dtype, None)
+                                              self.dtype, self.batch)
         g.data = self.data.clone()
         return g
 
     def __repr__(self):
+        b = f", batch={self.batch}" if self.batch else ""
         return (f"st.grid(shape={self.shape}, order={self.order}, "
-                f"dtype={self.dtype}, device={self.data.device})")
+                f"dtype={self.dtype}{b}, device={self.data.device})")
 
 
 # --------------------------------------------------------------------------
@@ -382,19 +398,37 @@ def _bind_args(k: Kernel, args):
             raise ValueError("all grids in one map must share interior shape")
     if len({g.device for g in grids.values()}) > 1:
         raise ValueError("all grids must live on one device")
+    batches = {g.batch for g in grids.values()}
+    if len(batches) > 1:
+        raise ValueError(
+            f"all grids must share the scenario batch dimension "
+            f"(got {sorted(b or 0 for b in batches)})")
     return grids, scalars
 
 
-def scalar_tensors(scalars, device) -> Dict[str, _torch.Tensor]:
-    """Scalars arrive as f32 (0-d tensors on ``device``), as in the JAX
-    package."""
-    return {n: _torch.tensor(float(np.float32(float(v))), dtype=_torch.float32,
-                             device=device)
-            for n, v in scalars.items()}
+def scalar_tensors(scalars, device, batch: int = 0) -> Dict[str, _torch.Tensor]:
+    """Scalars arrive as f32, as in the JAX package: 0-d tensors on
+    ``device``, or under ``batch=B`` ``(B,)`` tensors, each scalar a float
+    (shared by the scenarios) or B values (one a scenario)."""
+    if not batch:
+        return {n: _torch.tensor(float(np.float32(float(v))), dtype=_torch.float32,
+                                 device=device)
+                for n, v in scalars.items()}
+    out = {}
+    for n, v in scalars.items():
+        t = _torch.as_tensor(v, dtype=_torch.float32).reshape(-1)
+        if t.numel() not in (1, batch):
+            raise ValueError(f"scalar '{n}': a float or {batch} values (one a "
+                             f"scenario), got {t.numel()}")
+        out[n] = t.expand(batch).to(device)
+    return out
 
 
 def _apply_kernel(k: Kernel, args, begin, end):
     grids, scalars = _bind_args(k, args)
+    if next(iter(grids.values())).batch:
+        raise ValueError("st.map does not support batched grids; use "
+                         "st.timeloop(..., batch=B)")
     interior = next(iter(grids.values())).shape
     region = None
     if begin is not None:
@@ -449,13 +483,11 @@ class TimeloopResult:
 class _TimeloopCall:
     def __init__(self, steps: int, swap=None, fuse_steps=None, between=None,
                  batch: int = 0):
-        if batch:
-            raise not_ported("st.timeloop(batch=B)",
-                             "queue 1, item 4 (batch=B scenario axis)")
         self.steps = int(steps)
         self.swap = tuple(swap) if swap is not None else None
         self.fuse_steps = fuse_steps
         self.between = between
+        self.batch = int(batch)
 
     def __call__(self, k: Kernel):
         def apply(*args) -> TimeloopResult:
@@ -471,7 +503,15 @@ def timeloop(steps: int, swap=None, fuse_steps: Optional[int] = None,
     ``st.launch(..., fuse_steps=K)``).  The host syncs, and the optional
     ``between(t, grids)`` hook runs, only at window boundaries.  The grids'
     buffers are advanced in place; after the loop each grid's ``data`` is
-    the buffer that holds its name under the rotation convention."""
+    the buffer that holds its name under the rotation convention.
+
+    ``batch=B`` advances B independent scenarios (grids built with
+    ``st.grid(..., batch=B)``, scalar params passed as floats or ``(B,)``
+    values) together: each scenario equals its own unbatched run exactly,
+    and under ``st.hopper`` one launch a step advances all B.  Defaults to
+    the grids' own batch dimension when they carry one.  A batched loop
+    under ``st.launch(autotune=True)`` is not tuned: it runs the launch's
+    backend."""
     return _TimeloopCall(steps, swap=swap, fuse_steps=fuse_steps,
                          between=between, batch=batch)
 
@@ -481,11 +521,21 @@ def _run_timeloop(k: Kernel, args, call: _TimeloopCall) -> TimeloopResult:
 
     grids, scalars = _bind_args(k, args)
     interior = next(iter(grids.values())).shape
+    grid_batch = next(iter(grids.values())).batch or 0
+    if call.batch and grid_batch and call.batch != grid_batch:
+        raise ValueError(
+            f"st.timeloop(batch={call.batch}) but grids carry "
+            f"batch={grid_batch}")
+    if call.batch and not grid_batch:
+        raise ValueError(
+            f"st.timeloop(batch={call.batch}) requires grids built with "
+            f"st.grid(..., batch={call.batch})")
+    batch = call.batch or grid_batch
     backend = _CTX.backend if _CTX.active else torch_backend()
     swap = _tl.normalize_swap(k.ir, call.swap)
     at_cfg = _CTX.autotune if _CTX.active else None
     tuned_fuse = None
-    if at_cfg is not None and swap is not None and call.steps > 0:
+    if at_cfg is not None and swap is not None and not batch and call.steps > 0:
         # st.launch(autotune=...): pick the backend (and default fusion
         # window) by the two-stage search.  The measurement launches inside
         # tune() run under their own _Launcher, whose autotune=None stops
@@ -522,13 +572,14 @@ def _run_timeloop(k: Kernel, args, call: _TimeloopCall) -> TimeloopResult:
 
     key = ("timeloop", backend.cache_key(),
            tuple(sorted((n, g.shape, g.order, str(g.dtype))
-                        for n, g in grids.items())), swap)
+                        for n, g in grids.items())), swap, batch)
     engine = k._cache.get(key)
     if engine is None:
         t0 = time.perf_counter()
         engine = _tl.TimeloopEngine(
             k.ir, {n: g.halo for n, g in grids.items()}, interior, backend,
-            swap=swap, profile_cb=_CTX.add if _CTX.active else None)
+            swap=swap, profile_cb=_CTX.add if _CTX.active else None,
+            batch=batch)
         _CTX.add("codegen", time.perf_counter() - t0)
         k._cache[key] = engine
     fuse = engine.window_for(call.steps, fuse)
@@ -552,9 +603,117 @@ def _run_timeloop(k: Kernel, args, call: _TimeloopCall) -> TimeloopResult:
         seconds=seconds)
 
 
-def differentiable_timeloop(*args, **kw):
-    """Differentiable fused time stepping: not ported yet."""
-    raise not_ported("st.differentiable_timeloop", "queue 1, item 6 (adjoint)")
+def _proxy(g: grid) -> grid:
+    """A grid object of ``g``'s geometry whose ``data`` a hook may rebind
+    without touching ``g``."""
+    p = grid.__new__(grid)
+    p.shape, p.order, p.dtype, p.batch = g.shape, g.order, g.dtype, g.batch
+    p.data = g.data
+    return p
+
+
+def differentiable_timeloop(k: Kernel, *args,
+                            steps: int,
+                            swap=None,
+                            fuse_steps: Optional[int] = None,
+                            between=None,
+                            domain_mask=None,
+                            step_limits=None,
+                            checkpoint_stride: Optional[int] = None,
+                            backend=None,
+                            mesh=None):
+    """Differentiable fused time stepping (the adjoint wave propagator).
+
+    Takes the SAME positional arguments a ``k(u, v, dt, st.timeloop(...))``
+    call would (grids then scalars) and returns a function
+
+        fn(arrays: dict[str, torch.Tensor] | None, scal: dict | None) -> dict
+
+    computing ``steps`` fused applications of the kernel (+ leapfrog
+    ``swap`` rotation and ``between`` hook) exactly like ``st.timeloop``,
+    writing none of its arguments, and differentiable by autograd
+    (``torch.autograd.grad``, ``.backward()``) with O(√steps) checkpointed
+    recomputation instead of O(steps) stored carries (``core/adjoint.py``).
+    Gradients flow to every grid tensor that requires grad (initial
+    wavefields and coefficient grids such as a velocity model) and every
+    scalar given as a floating tensor that requires grad; batched grids
+    differentiate per scenario.
+
+    The positional args fix shapes and types and provide defaults:
+    ``fn.arrays`` / ``fn.scalars`` hold the bound initial values, and
+    ``fn()`` runs them as they are.  ``fn.schedule`` reports the window and
+    checkpoint plan, ``fn.engine`` the engine (built with
+    ``differentiable=True``, cached apart from ``st.timeloop``'s).
+    ``between(t, grids)`` runs at window boundaries on grid objects of its
+    own (the bound grids are not touched) and must compute with torch
+    operations, rebinding ``g.data`` or writing in place only the grids the
+    kernel writes, e.g. ``acoustic.inject_source``; pass ``fuse_steps=1``
+    for a per-step cadence.  The backend comes from ``backend=``, else the
+    enclosing ``st.launch`` (default ``st.torch()``).  Under ``st.hopper``
+    the forward pass and the backward pass's replay run the engine's CUDA
+    kernels; the cotangents run through the torch lowering, one step at a
+    time, by design (the kernels define no backward, as ``pallas_call``
+    defines no VJP in the JAX package).  ``mesh``, ``domain_mask`` and
+    ``step_limits`` are not ported and raise.
+
+    Example::
+
+        fn = st.differentiable_timeloop(k, u, v, c, dt, steps=200,
+                                        swap=("v", "u"), backend=st.hopper())
+        arrays = {n: a.detach().requires_grad_() for n, a in fn.arrays.items()}
+        loss = (fn(arrays)["v"] ** 2).sum()
+        loss.backward()              # arrays["c"].grad: the model's gradient
+    """
+    from . import adjoint as _adj
+    from . import timeloop as _tl
+
+    if mesh is not None:
+        raise not_ported("st.differentiable_timeloop(mesh=...)",
+                         "queue 1, item 9 (distributed)")
+    grids, scalars = _bind_args(k, args)
+    interior = next(iter(grids.values())).shape
+    batch = next(iter(grids.values())).batch or 0
+    if backend is None:
+        backend = _CTX.backend if _CTX.active else torch_backend()
+    swap = _tl.normalize_swap(k.ir, tuple(swap) if swap is not None else None)
+
+    key = ("difftimeloop", backend.cache_key(),
+           tuple(sorted((n, g.shape, g.order, str(g.dtype))
+                        for n, g in grids.items())), swap, batch)
+    engine = k._cache.get(key)
+    if engine is None:
+        engine = _tl.TimeloopEngine(
+            k.ir, {n: g.halo for n, g in grids.items()}, interior, backend,
+            swap=swap, batch=batch, differentiable=True)
+        k._cache[key] = engine
+
+    between_arrays = None
+    if between is not None:
+        views = {n: _proxy(g) for n, g in grids.items()}
+
+        def between_arrays(t, arrays):
+            for n, g in views.items():
+                g.data = arrays[n]
+            between(t, views)
+            return {n: g.data for n, g in views.items()}
+
+    run = _adj.differentiable_run(
+        engine, steps, fuse_steps, between_arrays,
+        domain_mask=domain_mask, step_limits=step_limits,
+        checkpoint_stride_windows=checkpoint_stride)
+
+    def fn(arrays=None, scal=None):
+        if arrays is None:
+            arrays = {n: g.data for n, g in grids.items()}
+        if scal is None:
+            scal = scalars
+        return run(arrays, scal)
+
+    fn.arrays = {n: g.data for n, g in grids.items()}
+    fn.scalars = dict(scalars)
+    fn.schedule = run.schedule
+    fn.engine = engine
+    return fn
 
 
 # --------------------------------------------------------------------------

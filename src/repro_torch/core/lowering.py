@@ -5,11 +5,17 @@ CUDA kernel is held against (``kernels/stencil/ref.py`` re-exports it).  Each
 ``Tap(grid, offsets)`` becomes a slice view of the halo-padded grid tensor and
 the expression tree is evaluated over the whole region at once.
 
+Scenarios (``batch=B``): every grid carries a leading scenario axis, the
+taps index the spatial axes after it, and a ``(B,)`` scalar takes one value
+a scenario (a float or 0-d scalar is shared); each scenario's arithmetic is
+the unbatched lowering's.
+
 In place: ``lower_torch``'s function writes each output grid's region into
 the tensor it was given (the other grids are only read), and
 ``lower_torch_window`` therefore advances the tensors of its ``arrays`` dict
 in place as well; the returned dicts hold the same tensors under the rotated
-names.
+names.  ``lower_torch_window(fresh=True)`` is the exception: it writes new
+tensors and leaves its arguments as they were.
 """
 from __future__ import annotations
 
@@ -101,8 +107,9 @@ def run_statements(kernel: ir.StencilIR,
                    region_shape: Tuple[int, ...],
                    dtype) -> Dict[str, torch.Tensor]:
     """Execute kernel statements sequentially over ``arrays``; ``write``
-    stores each statement's value into its grid's tensor in place, so a
-    later statement reads the new value."""
+    stores each statement's value into its grid's tensor in place (or
+    returns a new tensor that takes the grid's place), so a later statement
+    reads the new value."""
     local_env: Dict[str, torch.Tensor] = {}
     arrays = dict(arrays)
     device = next(iter(arrays.values())).device
@@ -115,8 +122,10 @@ def run_statements(kernel: ir.StencilIR,
             local_env[stmt.name] = eval_expr(stmt.expr, read, scalars, local_env)
         else:
             val = eval_expr(stmt.expr, read, scalars, local_env)
-            write(arrays[stmt.grid], _fill(val, dtype, region_shape, device),
-                  stmt.grid)
+            new = write(arrays[stmt.grid], _fill(val, dtype, region_shape, device),
+                        stmt.grid)
+            if new is not None:
+                arrays[stmt.grid] = new
     return arrays
 
 
@@ -148,32 +157,45 @@ def exec_statements(kernel: ir.StencilIR, tap_read, scalars, shape, dtype,
 def lower_torch(kernel: ir.StencilIR,
                 halos: Mapping[str, Tuple[int, ...]],
                 interior_shape: Tuple[int, ...],
-                region: Optional[Tuple[Tuple[int, int], ...]] = None):
+                region: Optional[Tuple[Tuple[int, int], ...]] = None,
+                batch: int = 0,
+                fresh: bool = False):
     """Build ``fn(arrays: dict, scalars: dict) -> dict`` for this kernel
     (the counterpart of the JAX package's ``lower_jax``).
 
-    ``arrays`` map grid-param name → full (halo-padded) tensor; the function
-    writes the output grids on ``region`` (interior coordinates, default the
-    whole interior) in place and returns the dict.
+    ``arrays`` map grid-param name → full (halo-padded) tensor, with a
+    leading axis of ``batch`` scenarios when it is set; the function writes
+    the output grids on ``region`` (interior coordinates, default the whole
+    interior) in place and returns the dict.  ``fresh``: each write goes to
+    a copy of the grid made once its value is computed, so no tensor given
+    is written and autograd can record the step.
     """
     ndim = kernel.ndim
     if region is None:
         region = tuple((0, s) for s in interior_shape)
-    region_shape = tuple(e - b for b, e in region)
+    region_shape = ((batch,) if batch else ()) + tuple(e - b for b, e in region)
 
     def read_from(arr, g, offs):
         h = halos[g]
-        return arr[tuple(slice(h[ax] + region[ax][0] + offs[ax],
-                               h[ax] + region[ax][1] + offs[ax])
-                         for ax in range(ndim))]
+        return arr[(...,) + tuple(slice(h[ax] + region[ax][0] + offs[ax],
+                                        h[ax] + region[ax][1] + offs[ax])
+                                  for ax in range(ndim))]
 
     def write(arr, val, g):
         h = halos[g]
-        arr[tuple(slice(h[ax] + region[ax][0], h[ax] + region[ax][1])
-                  for ax in range(ndim))] = val
+        if fresh:
+            arr = arr.clone()
+        arr[(...,) + tuple(slice(h[ax] + region[ax][0], h[ax] + region[ax][1])
+                           for ax in range(ndim))] = val
+        return arr if fresh else None
 
     def fn(arrays: Dict[str, torch.Tensor], scalars: Mapping[str, torch.Tensor]):
         dtype = arrays[kernel.output_grids()[0]].dtype
+        if batch:
+            # a (B,) scalar: one value a scenario, broadcast over its grid
+            scalars = {n: (v.reshape((-1,) + (1,) * ndim)
+                           if isinstance(v, torch.Tensor) and v.dim() == 1 else v)
+                       for n, v in scalars.items()}
         return run_statements(kernel, read_from, arrays, scalars, write,
                               region_shape, dtype)
 
@@ -185,13 +207,23 @@ def lower_torch_window(kernel: ir.StencilIR,
                        interior_shape: Tuple[int, ...],
                        region: Optional[Tuple[Tuple[int, int], ...]],
                        swap: Optional[Tuple[str, str]],
-                       steps: int):
+                       steps: int,
+                       batch: int = 0,
+                       fresh: bool = False):
     """Fused time-loop window on the torch backend: ``steps`` applications
     of the kernel plus the leapfrog name rotation of the ``swap`` pair
     (written, other) after each application (the counterpart of
-    ``lower_jax_window``; no ``remat``: the adjoint is not ported yet).
-    Returns ``fn(arrays, scalars) -> arrays``."""
-    step_fn = lower_torch(kernel, halos, interior_shape, region)
+    ``lower_jax_window``), over ``batch`` scenarios when it is set.
+    Returns ``fn(arrays, scalars) -> arrays``.
+
+    ``fresh=True`` is the step the adjoint differentiates
+    (``core/adjoint.py``): each step writes its outputs into new tensors,
+    so the arguments are left as they were and autograd records the step
+    as a function of them.  The adjoint keeps one carry a step and
+    differentiates one step at a time, the counterpart of the JAX
+    package's ``remat=True`` window: a window recorded whole would hold
+    every tap's temporaries for ``steps`` steps."""
+    step_fn = lower_torch(kernel, halos, interior_shape, region, batch, fresh)
 
     def window(arrays: Dict[str, torch.Tensor],
                scalars: Mapping[str, torch.Tensor]):

@@ -21,9 +21,19 @@ only at window boundaries.  Per backend:
             rounded to a multiple of ``k``.  A window is a Python loop of
             kernel launches on the current stream.
 
+Scenarios (``batch=B``): every grid carries a leading axis of B
+independent scenarios, advanced together: the torch window indexes the
+spatial axes after it, and each hopper launch advances all B (the kernels'
+``blockIdx.z`` walks the scenarios' tiles).  Scalars are floats (shared)
+or ``(B,)`` values (one a scenario).
+
 In place: ``run`` advances the tensors of the ``arrays`` dict it is given
 (the output and swap grids' buffers); the returned dict holds those tensors
 under the rotated names.  Callers that need the initial state clone first.
+An engine built with ``differentiable=True`` never writes the caller's
+tensors: each window writes buffers of its own (``window_arrays``, the
+carries of the adjoint, ``core/adjoint.py``), and a grid no window writes
+is passed on as it is.
 """
 from __future__ import annotations
 
@@ -148,12 +158,22 @@ class TimeloopEngine:
                  interior_shape: Tuple[int, ...],
                  backend,
                  swap: Optional[Tuple[str, str]] = None,
-                 profile_cb: Optional[Callable[[str, float], None]] = None):
+                 profile_cb: Optional[Callable[[str, float], None]] = None,
+                 batch: int = 0,
+                 differentiable: bool = False):
         self.kernel = kernel
         self.halos = {g: tuple(h) for g, h in halos.items()}
         self.interior = tuple(interior_shape)
         self.backend = backend
         self.swap = normalize_swap(kernel, swap)
+        self.batch = int(batch)
+        if self.batch < 0:
+            raise ValueError("batch must be >= 0 (0 = unbatched)")
+        self.differentiable = bool(differentiable)
+        # the grids a window writes: outputs, and the swap pair that
+        # trades buffers with them
+        self.touched = tuple(g for g in kernel.grid_params
+                             if g in set(kernel.output_grids()) | set(self.swap or ()))
         self._profile_cb = profile_cb
         self._windows: Dict[int, Callable] = {}
         self._plan = self._plan1 = None
@@ -175,8 +195,49 @@ class TimeloopEngine:
         if fn is None:
             fn = lowering.lower_torch_window(self.kernel, self.halos,
                                              self.interior, None, self.swap,
-                                             kw)
+                                             kw, batch=self.batch)
             self._windows[kw] = fn
+        return fn
+
+    def launch_scalars(self, scalars: Mapping[str, object], device):
+        """``scalars`` in the form a window takes them, rounded to f32 as
+        in the JAX package: 0-d tensors (torch backend) or floats (hopper);
+        under ``batch=B`` each a ``(B,)`` tensor (torch) or one ``(B, NS)``
+        array on the card (hopper: ``CudaPlan.scenario_scalars``), a float
+        or a 0-d value shared by the scenarios."""
+        if self._plan is None:
+            return scalar_tensors(scalars, device, self.batch)
+        if not self.batch:                  # the kernels take f32 by value
+            return {n: float(np.float32(float(v))) for n, v in scalars.items()}
+        scal = scalar_tensors(scalars, "cpu", self.batch)     # checks the counts
+        return self._plan.scenario_scalars(scal, self.batch, device)
+
+    def check_batch(self, arrays: Mapping[str, torch.Tensor]) -> None:
+        """Raise unless every grid carries the engine's scenario axis (none
+        when unbatched)."""
+        nd = len(self.interior)
+        for g, a in arrays.items():
+            if self.batch and (a.dim() != nd + 1 or a.shape[0] != self.batch):
+                raise ValueError(
+                    f"batched timeloop: grid '{g}' must carry a leading "
+                    f"scenario axis of {self.batch} (got {tuple(a.shape)})")
+            if not self.batch and a.dim() != nd:
+                raise ValueError(f"grid '{g}' has {a.dim()} axes; an unbatched "
+                                 f"timeloop of a {nd}D kernel takes {nd}")
+
+    def window_arrays(self, kw: int) -> Callable:
+        """``fn(arrays, scalars) -> arrays``: one fused window of ``kw``
+        steps that leaves its arguments as they were (the grids it writes
+        get buffers of their own; a grid it does not write is passed on),
+        ``scalars`` in ``launch_scalars``'s form.  On the hopper backend the
+        layout round trip and the leapfrog name parity are folded in, so it
+        maps full (grid-halo'd) arrays to full arrays on every backend.
+        The carry surface of the adjoint (``core/adjoint.py``): its forward
+        pass and its replay run these windows on the engine's kernels.
+        Unlike ``run``, no profiling, host sync or traffic count happens
+        here."""
+        def fn(arrays, scal):
+            return self._apply_window(dict(arrays), scal, kw, fresh=True)
         return fn
 
     def window_for(self, steps: int, fuse_steps: Optional[int] = None) -> int:
@@ -191,20 +252,21 @@ class TimeloopEngine:
             between: Optional[Callable] = None) -> Dict[str, torch.Tensor]:
         """Advance the grids ``steps`` applications and return the final
         buffers (same keys as ``arrays``; the tensors are advanced in
-        place).  ``scalars`` are rounded to f32.  ``between(t, arrays) ->
-        arrays`` runs at every window boundary before the last."""
+        place, unless the engine is ``differentiable``).  ``scalars`` are
+        rounded to f32; under ``batch=B`` each is a float (shared) or
+        ``(B,)`` values.  ``between(t, arrays) -> arrays`` runs at every
+        window boundary before the last."""
         fuse = self.window_for(steps, fuse_steps)
         arrays = dict(arrays)
+        self.check_batch(arrays)
         device = next(iter(arrays.values())).device
-        if self._plan is not None:      # the kernels take f32 by value
-            scal = {n: float(np.float32(float(v))) for n, v in scalars.items()}
-        else:
-            scal = scalar_tensors(scalars, device)
+        scal = self.launch_scalars(scalars, device)
         t = 0
         while t < steps:
             kw = min(fuse, steps - t)
             t0 = time.perf_counter()
-            arrays = self._run_window(arrays, scal, kw)
+            arrays = self._apply_window(arrays, scal, kw,
+                                        fresh=self.differentiable, count=True)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             self._add("kernel", time.perf_counter() - t0)
@@ -213,14 +275,22 @@ class TimeloopEngine:
                 arrays = between(t, arrays) or arrays
         return arrays
 
-    def _run_window(self, arrays, scal, kw):
+    def _apply_window(self, arrays, scal, kw, fresh: bool = False,
+                      count: bool = False):
+        """One window of ``kw`` steps.  ``fresh``: the caller's tensors are
+        not written (``window_arrays``); ``count``: profile the layout stage
+        and count the window's traffic (``run``)."""
         if self._plan is None:
+            if fresh:
+                arrays = {g: (a.clone() if g in self.touched else a)
+                          for g, a in arrays.items()}
             return self._window(kw)(arrays, scal)
         plan, swap, k = self._plan, self.swap, self.time_block
         t0 = time.perf_counter()
-        padded = plan.to_padded(arrays)          # ONE layout cut/grid/window
-        self._add("layout", time.perf_counter() - t0)
-        plan.count_window(kw)
+        padded = plan.to_padded(arrays, fresh)   # ONE layout cut/grid/window
+        if count:
+            self._add("layout", time.perf_counter() - t0)
+            plan.count_window(kw, self.batch)
         m, r = divmod(kw, k) if k > 1 else (0, kw)
         if m:
             spares = plan.make_spares(padded)
@@ -244,7 +314,7 @@ class TimeloopEngine:
         # layout interiors back
         if swap and kw % 2:
             arrays = _rotate(arrays, swap)
-        return plan.from_padded(padded, arrays)
+        return plan.from_padded(padded, arrays, fresh)
 
 
 def run_timeloop(kernel: _ir.StencilIR,
@@ -257,7 +327,9 @@ def run_timeloop(kernel: _ir.StencilIR,
                  backend,
                  swap: Optional[Tuple[str, str]] = None,
                  fuse_steps: Optional[int] = None,
-                 between: Optional[Callable] = None) -> Dict[str, torch.Tensor]:
+                 between: Optional[Callable] = None,
+                 batch: int = 0) -> Dict[str, torch.Tensor]:
     """One-shot convenience wrapper (builds a fresh engine)."""
-    eng = TimeloopEngine(kernel, halos, interior_shape, backend, swap=swap)
+    eng = TimeloopEngine(kernel, halos, interior_shape, backend, swap=swap,
+                         batch=batch)
     return eng.run(dict(arrays), scalars, steps, fuse_steps, between)

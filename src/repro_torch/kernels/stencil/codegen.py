@@ -34,6 +34,20 @@ expression (K5: the per-offset scatter) is generated (``emit.py``) and
 compiled at first use (``kernels/_build.py``).  The layout halo stays ``hw`` under
 temporal blocking: K3 clamps its loads to the tap reach ``[-h, R + h)``.
 
+Scenarios (``st.timeloop(batch=B)``): a grid then holds B copies of its
+domain along a leading axis, and so does each layout buffer (``(B,) +
+padded_shapes[g]``, contiguous).  One launch advances every scenario: the
+kernels walk the scenarios' tiles along ``blockIdx.z``, each grid's
+scenario ``b`` ``bs[g]`` elements after scenario 0, and read each
+scenario's scalars from a ``(B, NS)`` f32 array on the card
+(``scenario_scalars``, copied into the build's constant memory before the
+launch); K2's and K3's TMA maps give the scenario a dimension of its own.
+B is a run-time argument of the same build: each kernel is a template on
+whether it has a scenario index, and the unbatched launch runs the
+instantiation without one, its scalars by value in the parameter block
+(``csrc/common.cuh``).  The plain versions run each scenario as its own
+unbatched step.
+
 Grids are f32 or bf16, as the JAX package's Pallas kernels take them; all
 the grids of one launch share one type, which is part of the kernel's
 source (``source(dtype)``, ``ELEM_TYPES``) and so of its build key.  The
@@ -118,6 +132,9 @@ ELEM_TYPES = {torch.float32: "float", torch.bfloat16: "__nv_bfloat16"}
 ELEM_BYTES = {torch.float32: 4, torch.bfloat16: 2}
 # staged planes of K5's ring (csrc/semi_step.cuh kStages)
 SEMI_STAGES = 3
+# scalars a batched launch holds, all its scenarios' (csrc/common.cuh
+# kScenarioScalars: the kernels read them from constant memory)
+SCENARIO_SCALARS = 8192
 
 # layout conversions per grid name: one per grid per fusion window
 PAD_COUNT: collections.Counter = collections.Counter()
@@ -410,6 +427,37 @@ class _Plan:
         """A buffer in the kernels' 3D form (a view)."""
         return t if self.ndim == 3 else t.unsqueeze(1)
 
+    def batch_of(self, t: torch.Tensor) -> int:
+        """The scenarios a buffer holds along its leading axis (0: an
+        unbatched buffer)."""
+        return int(t.shape[0]) if t.dim() == self.ndim + 1 else 0
+
+    def scenarios(self, bufs: Dict[str, torch.Tensor], scalars, *more):
+        """Each scenario of a launch as the unbatched launch's arguments:
+        ``(bufs, scalars, *more)`` with every buffer dict cut to scenario
+        ``b`` (views) and ``scalars`` row ``b`` of the ``(B, NS)`` array as
+        a dict of floats.  An unbatched launch is its one scenario."""
+        nb = self.batch_of(next(iter(bufs.values())))
+        if not nb:
+            yield (bufs, scalars) + more
+            return
+        rows = scalars.tolist()
+        for b in range(nb):
+            scal = dict(zip(self.scal_names, rows[b]))
+            yield ((({g: t[b] for g, t in bufs.items()}), scal)
+                   + tuple(None if m is None else {g: t[b] for g, t in m.items()}
+                           for m in more))
+
+    def scenario_scalars(self, scalars, nb: int, device) -> torch.Tensor:
+        """The ``(B, NS)`` f32 array of a batched launch's scalars, on
+        ``device``: each scalar a float (shared by the scenarios) or ``B``
+        values (one a scenario), rounded to f32 as the kernels take them."""
+        cols = [torch.as_tensor(scalars[n], dtype=torch.float32).reshape(-1)
+                .expand(nb) for n in self.scal_names]
+        out = (torch.stack(cols, 1) if cols
+               else torch.zeros((nb, 0), dtype=torch.float32))
+        return out.to(device).contiguous()
+
     def interior3(self, g: str, t: torch.Tensor, x=None) -> torch.Tensor:
         """View of the box grid ``g``'s kernel computes (the interior, or
         ``MapPlan``'s region) in its 3D buffer (plane ``x`` only, when
@@ -563,14 +611,14 @@ class _Plan:
         text = self.source(dtype)
         return hashlib.sha256(text.encode()).hexdigest()[:16], self.R3
 
-    def layout_bytes_per_window(self, itemsize: int = 4) -> float:
+    def layout_bytes_per_window(self, itemsize: int = 4, batch: int = 0) -> float:
         """Modeled bytes of the once-a-window stages: none for a plan
         without a layout stage (``MapPlan``)."""
-        del itemsize
+        del itemsize, batch
         return 0.0
 
     # -- traffic model -----------------------------------------------------
-    def hbm_bytes_per_step(self, itemsize: int = 4) -> float:
+    def hbm_bytes_per_step(self, itemsize: int = 4, batch: int = 0) -> float:
         """Modeled bytes one step moves: the loads the blocks make plus the
         writes, an upper bound on device-memory traffic where L1/L2 serve
         re-reads (tile halos of neighbouring blocks, chunk overlaps).  The
@@ -590,7 +638,9 @@ class _Plan:
         read per computed point and sub-step of every grid read at the
         point, and one write of each swap buffer.  The spares K3 writes are
         written, not fetched: no destination read (the TPU kernel DMAs its
-        destination blocks in)."""
+        destination blocks in).  ``batch=B`` scenarios move B times the
+        bytes of one."""
+        nb = max(1, int(batch))
         R3, B3, k = self.R3, self.B3, self.time_block
         n = math.prod(R3)
         zero = (0, 0, 0)
@@ -610,7 +660,7 @@ class _Plan:
                     point.append(written)
                 read += len(point) * inner
             write = len(self.step_out_grids) * n
-            return float((read + write) * itemsize) / k
+            return float(nb * (read + write) * itemsize) / k
         if self.kind == "semi":
             # center taps are what the coefficients and constants read
             fields = {t.grid for t in self.kernel.taps() if not any(t.offsets)}
@@ -628,7 +678,7 @@ class _Plan:
                 else:
                     read += math.prod(R3[ax] + 2 * h[ax] for ax in range(3))
         write = len(self.out_grids) * n
-        return float((read + write) * itemsize)
+        return float(nb * (read + write) * itemsize)
 
 
 class CudaPlan(_Plan):
@@ -749,18 +799,21 @@ class CudaPlan(_Plan):
             return self.ring_layout().smem, self.B3
         return _smem_bytes(self.kind, self.B3, self.gh3), self.B3
 
-    def count_window(self, steps: int) -> None:
+    def count_window(self, steps: int, batch: int = 0) -> None:
         """Accumulate the modeled grid reads/writes of a fusion window of
         ``steps`` into ``TRAFFIC_COUNT``: ``steps // k`` K3 launches (each
         reads every operand grid once and writes both swap buffers) plus
-        the remainder as single steps, as the engine runs it."""
+        the remainder as single steps, as the engine runs it.  With
+        ``batch=B`` every grid's traffic scales by B; ``steps`` stay one
+        scenario's time steps (the JAX package's count)."""
         m, r = divmod(int(steps), self.time_block)
-        TRAFFIC_COUNT["grid_reads"] += (m + r) * len(self.opnd_grids)
-        TRAFFIC_COUNT["grid_writes"] += (m * len(self.step_out_grids)
-                                         + r * len(self.out_grids))
+        nb = max(1, int(batch))
+        TRAFFIC_COUNT["grid_reads"] += nb * (m + r) * len(self.opnd_grids)
+        TRAFFIC_COUNT["grid_writes"] += nb * (m * len(self.step_out_grids)
+                                              + r * len(self.out_grids))
         TRAFFIC_COUNT["steps"] += int(steps)
 
-    def layout_bytes_per_window(self, itemsize: int = 4) -> float:
+    def layout_bytes_per_window(self, itemsize: int = 4, batch: int = 0) -> float:
         """Modeled bytes of the once-a-window stages that
         ``hbm_bytes_per_step`` leaves out (the counterpart of the JAX
         package's ``PallasPlan.layout_bytes_per_window``): ``to_padded``
@@ -769,7 +822,8 @@ class CudaPlan(_Plan):
         0), ``make_spares`` (K3) copies each buffer a launch writes, and
         ``from_padded`` reads and writes the interior of each touched grid
         whose buffer is not a view of it; after K3 the last buffer may be a
-        spare, so a K3 plan charges every touched grid."""
+        spare, so a K3 plan charges every touched grid.  ``batch=B``
+        scenarios move B times the bytes of one."""
         view = {g: self.halos[g] == self.hw[g] for g in self.opnd_grids}
         cells = sum(2 * math.prod(self.padded_shapes[g])
                     for g in self.opnd_grids if not view[g])
@@ -778,18 +832,27 @@ class CudaPlan(_Plan):
                          for g in self.step_out_grids)
         cells += sum(2 * math.prod(self.R) for g in self.touched
                      if self.time_block > 1 or not view[g])
-        return float(cells * itemsize)
+        return float(max(1, int(batch)) * cells * itemsize)
 
     # -- layout stage ------------------------------------------------------
-    def to_padded(self, arrays: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    def to_padded(self, arrays: Dict[str, torch.Tensor],
+                  fresh: bool = False) -> Dict[str, torch.Tensor]:
         """Each operand grid cut to its layout halo and made contiguous (a
-        view of the grid itself when its halo is the layout halo)."""
+        view of the grid itself when its halo is the layout halo), with a
+        leading scenario axis when the grids carry one.  ``fresh``: a grid
+        the window writes gets a buffer of its own also then, so the window
+        leaves the caller's tensors as they were (the adjoint's carries);
+        a grid no window writes may stay a view."""
         padded = {}
         for g in self.opnd_grids:
             ha, w = self.halos[g], self.hw[g]
-            sl = tuple(slice(ha[ax] - w[ax], ha[ax] + self.R[ax] + w[ax])
-                       for ax in range(self.ndim))
-            padded[g] = arrays[g][sl].contiguous()
+            sl = (...,) + tuple(slice(ha[ax] - w[ax], ha[ax] + self.R[ax] + w[ax])
+                                for ax in range(self.ndim))
+            t = arrays[g][sl].contiguous()
+            if fresh and g in self.touched and (t.untyped_storage().data_ptr()
+                                                == arrays[g].untyped_storage().data_ptr()):
+                t = t.clone()
+            padded[g] = t
             PAD_COUNT[g] += 1
             PAD_COUNT["total"] += 1
         return padded
@@ -837,10 +900,14 @@ class CudaPlan(_Plan):
         """(meta, scal) ctypes arrays for the C entry (layout in
         ``csrc/common.cuh``; K3 appends its destination pointers, K1 the
         ``RT_MAP`` destinations, which are its output grids' buffers),
-        after checking the buffers."""
-        ptrs, sx, sy, org = [], [], [], []
+        after checking the buffers.  ``scalars``: a dict of floats, or for
+        buffers with a scenario axis the ``(B, NS)`` array of
+        ``scenario_scalars``."""
+        ptrs, sx, sy, org, bs = [], [], [], [], []
         t0 = padded[self.opnd_grids[0]]
         device = t0.device
+        nb = self.batch_of(t0)
+        lead = (nb,) if nb else ()
         tma = (self.stream_tma(t0.dtype) if self.kind in ("stream", "temporal")
                and t0.dtype in ELEM_BYTES else {})
 
@@ -848,9 +915,10 @@ class CudaPlan(_Plan):
             if t.device != device:
                 raise ValueError(f"grid '{g}' is on {t.device}, not {device}")
             check_dtype(f"grid '{g}'", t, t0.dtype)
-            if tuple(t.shape) != self.padded_shapes[g] or not t.is_contiguous():
+            shape = lead + self.padded_shapes[g]
+            if tuple(t.shape) != shape or not t.is_contiguous():
                 raise ValueError(f"grid '{g}': expected a contiguous layout "
-                                 f"buffer of shape {self.padded_shapes[g]}")
+                                 f"buffer of shape {shape}")
             # K2, K3 and K5 copy 4-byte granules, and the TMA needs a
             # 16-byte aligned base
             align = 16 if tma.get(g) else 4
@@ -862,12 +930,13 @@ class CudaPlan(_Plan):
         for g in self.opnd_grids:
             t = padded[g]
             check(g, t)
-            b = self.buf3(t)
+            b = self.buf3(t[0] if nb else t)
             w = self.hw3[g]
             ptrs.append(t.data_ptr())
             sx.append(b.stride(0))
             sy.append(b.stride(1))
             org.append(w[0] * b.stride(0) + w[1] * b.stride(1) + w[2])
+            bs.append(b.numel())
         dst = []
         for g in (self.step_out_grids if spares is not None else ()):
             check(g, spares[g])
@@ -877,13 +946,34 @@ class CudaPlan(_Plan):
             dst.append(spares[g].data_ptr())
         if self.kind == "fused":
             i = [self.opnd_grids.index(g) for g in self.out_grids]
-            dst = [v[j] for v in (ptrs, sx, sy, org) for j in i]
+            dst = [v[j] for v in (ptrs, sx, sy, org, bs) for j in i]
         # K2's and K3's TMA maps need each buffer's extent along axis 0
-        n0 = ([padded[g].shape[0] for g in self.opnd_grids]
+        n0 = ([padded[g].shape[-self.ndim] for g in self.opnd_grids]
               if self.kind in ("stream", "temporal") else [])
-        meta = (ctypes.c_longlong * (4 * len(ptrs) + 3 + len(dst) + len(n0)))(
-            *ptrs, *sx, *sy, *org, *self.R3, *dst, *n0)
-        vals = [float(scalars[n]) for n in self.scal_names] or [0.0]
+        tiles = max(1, nb) * -(-self.R3[0] // self.B3[0])
+        if tiles > 65535:
+            raise ValueError(f"{max(1, nb)} scenarios of {self.R3[0]} planes in "
+                             f"tiles of {self.B3[0]}: {tiles} blocks along z "
+                             "(at most 65535)")
+        sc = 0
+        if nb:
+            # the scenarios' scalars: a (B, NS) f32 array on the card
+            ns = len(self.scal_names)
+            if (not isinstance(scalars, torch.Tensor) or tuple(scalars.shape) != (nb, ns)
+                    or scalars.dtype != torch.float32 or scalars.device != device
+                    or not scalars.is_contiguous()):
+                raise ValueError(f"a launch of {nb} scenarios takes its scalars as "
+                                 f"a contiguous ({nb}, {ns}) float32 tensor on "
+                                 f"{device} (scenario_scalars)")
+            if nb * ns > SCENARIO_SCALARS:
+                raise ValueError(f"{nb} scenarios of {ns} scalars: more than the "
+                                 f"{SCENARIO_SCALARS} a launch holds (csrc/common.cuh)")
+            sc = scalars.data_ptr() if ns else 0
+            vals = [0.0] * max(1, ns)
+        else:
+            vals = [float(scalars[n]) for n in self.scal_names] or [0.0]
+        meta = (ctypes.c_longlong * (5 * len(ptrs) + 5 + len(dst) + len(n0)))(
+            *ptrs, *sx, *sy, *org, *self.R3, max(1, nb), sc, *bs, *dst, *n0)
         scal = (ctypes.c_float * len(vals))(*vals)
         return meta, scal
 
@@ -917,21 +1007,30 @@ class CudaPlan(_Plan):
 
     # -- boundary stage ----------------------------------------------------
     def from_padded(self, padded: Dict[str, torch.Tensor],
-                    arrays: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+                    arrays: Dict[str, torch.Tensor],
+                    fresh: bool = False) -> Dict[str, torch.Tensor]:
         """Write the touched grids' layout interiors back into the full
         (grid-halo'd) arrays, in place; a layout buffer that is a view of
         its grid needs no copy (after K3 the final buffer may be a spare,
-        which is copied)."""
+        which is copied).  ``fresh`` (``to_padded(fresh=True)``'s buffers):
+        the arrays are not written; a touched grid's result is its layout
+        buffer where that is the whole grid, else a copy of the grid with
+        the interior replaced."""
+        out = dict(arrays)
         for g in self.touched:
             ha, w, R = self.halos[g], self.hw[g], self.R
-            dst = arrays[g][tuple(slice(ha[ax], ha[ax] + R[ax])
-                                  for ax in range(self.ndim))]
-            src = padded[g][tuple(slice(w[ax], w[ax] + R[ax])
-                                  for ax in range(self.ndim))]
+            inner = lambda h: (...,) + tuple(slice(h[ax], h[ax] + R[ax])  # noqa: E731
+                                             for ax in range(self.ndim))
+            if fresh:
+                if ha == w:
+                    out[g] = padded[g]
+                    continue
+                out[g] = arrays[g].clone()
+            dst, src = out[g][inner(ha)], padded[g][inner(w)]
             if dst.data_ptr() == src.data_ptr() and dst.stride() == src.stride():
                 continue
             dst.copy_(src)
-        return dict(arrays)
+        return out
 
 
 def plan_cuda(kernel: ir.StencilIR,
@@ -1215,8 +1314,11 @@ class MapPlan(_Plan):
         # smem's and K2's TMA maps need each grid's extent along axis 0
         n0 = ([bufs[g].shape[0] for g in self.opnd_grids]
               if self.template == "smem" or self.kind == "stream" else [])
-        meta = (ctypes.c_longlong * (4 * len(ptrs) + 3 + 4 * len(d) + len(n0)))(
-            *ptrs, *sx, *sy, *org, *self.R3, *d, *dsx, *dsy, *dorg, *n0)
+        # one scenario, scalars by value
+        bs = [bufs[g].numel() for g in self.opnd_grids]
+        meta = (ctypes.c_longlong * (5 * len(ptrs) + 5 + 5 * len(d) + len(n0)))(
+            *ptrs, *sx, *sy, *org, *self.R3, 1, 0, *bs, *d, *dsx, *dsy, *dorg,
+            *([0] * len(d)), *n0)
         vals = [float(scalars[n]) for n in self.scal_names] or [0.0]
         scal = (ctypes.c_float * len(vals))(*vals)
         return meta, scal

@@ -271,7 +271,7 @@ map_step_kernel(const Params p, const __grid_constant__ SmemArgs args) {
 // cannot be encoded.
 extern "C" int rt_map_step(const void* meta, const void* scal, void* stream) {
   const Params p = rt_params(meta, scal);
-  const long long* n0 = static_cast<const long long*>(meta) + 4 * RT_NG + 3 + 4 * RT_NO;
+  const long long* n0 = static_cast<const long long*>(meta) + kMetaLen;
   SmemArgs args{};            // kernel parameters (copied at the launch)
   std::unique_lock<std::mutex> lock(host_state_mutex);
   for (int g = 0; g < RT_NG; ++g) {
@@ -279,8 +279,8 @@ extern "C" int rt_map_step(const void* meta, const void* scal, void* stream) {
     args.oy[g] = static_cast<int>(p.org[g] % p.sx[g] / p.sy[g]);
     args.oz[g] = static_cast<int>(p.org[g] % p.sy[g]);
     if (grid_ring(g) && grid_tma(g)) {
-      const CUresult r = tma_map(g, p.g[g], n0[g], p.sx[g], p.sy[g], tile_p2(g), tile_t1(g),
-                                 tile_t0(g), &args.map[g]);
+      const CUresult r = tma_map(g, p.g[g], n0[g], p.sx[g], p.sy[g], 0, 0, tile_p2(g),
+                                 tile_t1(g), tile_t0(g), &args.map[g]);
       if (r != CUDA_SUCCESS) return 10000 + static_cast<int>(r);
     }
   }

@@ -238,26 +238,32 @@ struct ColumnReader {
 };
 
 template <int J>
-__device__ __forceinline__ void points(const Params& p, const Unit* q, const elem_t* const* row,
-                                       int x, int zl, float (&out)[kP][RT_NO]) {
+__device__ __forceinline__ void points(const Params& p, const float* s, const Unit* q,
+                                       const elem_t* const* row, int x, int zl,
+                                       float (&out)[kP][RT_NO]) {
   if constexpr (J < kP) {
     const ColumnReader<J> rd{p, q, row, x, zl, min(zl + J, p.R2 - 1)};
-    stencil_point(rd, p.s, out[J]);
-    points<J + 1>(p, q, row, x, zl, out);
+    stencil_point(rd, s, out[J]);
+    points<J + 1>(p, s, q, row, x, zl, out);
   }
 }
 
-__global__ void __launch_bounds__(kThreads, kMinBlocks) map_step_kernel(const Params p) {
+template <bool kBatch>
+__global__ void __launch_bounds__(kThreads, kMinBlocks) map_step_kernel(const Params p,
+                                                                        const Scenarios sn) {
   const int zl = blockIdx.x * RT_TB2 + kP * threadIdx.x;
   const int y = blockIdx.y * RT_TB1 + threadIdx.y;
-  const int x0 = blockIdx.z * RT_TB0;
+  int x0;
+  const int b = scenario_of<kBatch>(p, RT_TB0, &x0);
   const int nx = min(x0 + RT_TB0, p.R0) - x0;
+  const float* s = scenario_scalars<kBatch>(p, b);
   // each grid's row at plane 0 (rows past the region's end: its last row,
   // whose points are not stored)
   const elem_t* row[RT_NG];
 #pragma unroll
   for (int g = 0; g < RT_NG; ++g)
-    row[g] = p.g[g] + p.org[g] + static_cast<long long>(min(y, p.R1 - 1)) * grid_sy(g);
+    row[g] = grid_buf<kBatch>(p, sn, g, b) + p.org[g] +
+             static_cast<long long>(min(y, p.R1 - 1)) * grid_sy(g);
   Unit q[kQueue], lead[RT_NG];
   prologue<0>(p, row, zl, x0, q, lead);
   for (int t = 0; t < nx; ++t) {
@@ -265,13 +271,13 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) map_step_kernel(const Pa
     advance<0>(q, lead);
     if (t + 1 < nx) issue<0>(p, row, zl, x + 1, lead);   // the same for the block
     float out[kP][RT_NO];
-    points<0>(p, q, row, x, zl, out);
+    points<0>(p, s, q, row, x, zl, out);
     if (y < p.R1) {
 #pragma unroll
       for (int j = 0; j < kP; ++j) {
         if (zl + j < p.R2) {
 #pragma unroll
-          for (int o = 0; o < RT_NO; ++o) store_out(p, o, x, y, zl + j, out[j][o]);
+          for (int o = 0; o < RT_NO; ++o) store_out<kBatch>(p, sn, o, x, y, zl + j, out[j][o], b);
         }
       }
     }
@@ -283,6 +289,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) map_step_kernel(const Pa
 #if RT_MAP_T != 2
 extern "C" int rt_map_step(const void* meta, const void* scal, void* stream) {
   const Params p = rt_params(meta, scal);
+  const Scenarios sn = rt_scenarios(meta);
 #if RT_MAP_T == 0
   // the build's pitches are the plan's: buffers of another shape are refused
   for (int g = 0; g < RT_NG; ++g)
@@ -290,9 +297,25 @@ extern "C" int rt_map_step(const void* meta, const void* scal, void* stream) {
       return static_cast<int>(cudaErrorInvalidValue);
 #endif
   const dim3 threads(kRowThreads, RT_TB1, 1);
-  const dim3 blocks((p.R2 + RT_TB2 - 1) / RT_TB2, (p.R1 + RT_TB1 - 1) / RT_TB1,
-                    (p.R0 + RT_TB0 - 1) / RT_TB0);
+#if RT_MAP_T == 0
+  // every scenario's axis-0 tiles (one scenario but for K1 under batch=B)
+  const unsigned nz = scenario_blocks(p, sn, RT_TB0);
+  if (nz == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+#else
+  if (batched(sn)) return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned nz = (p.R0 + RT_TB0 - 1) / RT_TB0;
+#endif
+  const dim3 blocks((p.R2 + RT_TB2 - 1) / RT_TB2, (p.R1 + RT_TB1 - 1) / RT_TB1, nz);
+#if RT_MAP_T == 0
+  const cudaError_t e = scenario_scalars_to(sn, static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (batched(sn))
+    map_step_kernel<true><<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(p, sn);
+  else
+    map_step_kernel<false><<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(p, sn);
+#else
   map_step_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(p);
+#endif
   return static_cast<int>(cudaGetLastError());
 }
 #endif

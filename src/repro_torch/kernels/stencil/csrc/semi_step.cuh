@@ -80,9 +80,11 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // element index of the first halo'd cell of row gy of plane xin of grid G
-template <int G>
-__device__ __forceinline__ long long row_start(const Params& p, int xin, int gy, int z0) {
-  return p.org[G] + static_cast<long long>(xin) * p.sx[G] +
+// in scenario b, from scenario 0's buffer (its granules are aligned)
+template <bool kBatch, int G>
+__device__ __forceinline__ long long row_start(const Params& p, const Scenarios& sn, int b,
+                                               int xin, int gy, int z0) {
+  return scenario_offset<kBatch>(sn, G, b) + p.org[G] + static_cast<long long>(xin) * p.sx[G] +
          static_cast<long long>(gy) * p.sy[G] + z0 - grid_h2(G);
 }
 
@@ -90,9 +92,9 @@ __device__ __forceinline__ long long row_start(const Params& p, int xin, int gy,
 // the staged plane buf; planes, rows and cells outside the grid's tap
 // reach [-h, R + h) are skipped (they only feed planes outside [0, R0),
 // which semi_ring.cuh never adds to).
-template <int G>
-__device__ __forceinline__ void stage_plane(const Params& p, elem_t* buf, int xin,
-                                            int y0, int z0) {
+template <bool kBatch, int G>
+__device__ __forceinline__ void stage_plane(const Params& p, const Scenarios& sn, elem_t* buf,
+                                            int b, int xin, int y0, int z0) {
   if constexpr (G < RT_NG) {
     if constexpr (grid_ring(G) != 0) {
       constexpr int h0 = grid_h0(G), h1 = grid_h1(G), h2 = grid_h2(G);
@@ -105,21 +107,23 @@ __device__ __forceinline__ void stage_plane(const Params& p, elem_t* buf, int xi
           const int row = i / GR, k = i - row * GR;
           const int gy = y0 - h1 + row;
           if (gy >= p.R1 + h1) continue;
-          const long long rs = row_start<G>(p, xin, gy, z0);
+          const long long rs = row_start<kBatch, G>(p, sn, b, xin, gy, z0);
           const long long a = rs & ~static_cast<long long>(kAlign - 1);
           if (a + k * kAlign < rs + n)
             cp_async4(dst + row * row_pitch(G) + k * kAlign, p.g[G] + a + k * kAlign);
         }
       }
     }
-    stage_plane<G + 1>(p, buf, xin, y0, z0);
+    stage_plane<kBatch, G + 1>(p, sn, buf, b, xin, y0, z0);
   }
 }
 
+template <bool kBatch>
 struct SemiReader {
   const Params& p;
+  const Scenarios& sn;
   const elem_t* buf;      // the staged input plane xin
-  int xin, y0, z0, ty, tz, y, z;
+  int b, xin, y0, z0, ty, tz, y, z;
   // input plane xin of grid G at (y + dy, z + dz)
   template <int G>
   __device__ __forceinline__ float tap(int dy, int dz) const {
@@ -127,7 +131,7 @@ struct SemiReader {
     int off = 0;          // the row's first cell within its first granule
     if constexpr (kAlign > 1) {
       // low bits of the row's start index (32-bit arithmetic keeps them)
-      const int first = static_cast<int>(row_start<G>(p, xin, y0 - grid_h1(G), z0));
+      const int first = static_cast<int>(row_start<kBatch, G>(p, sn, b, xin, y0 - grid_h1(G), z0));
       off = (first + row * static_cast<int>(p.sy[G])) & (kAlign - 1);
     }
     return to_float(buf[plane_offset(G) + row * row_pitch(G) + off + tz + grid_h2(G) + dz]);
@@ -135,26 +139,29 @@ struct SemiReader {
   // coefficient field G at output plane xin - d, this column
   template <int G>
   __device__ __forceinline__ float cf(int d) const {
-    return ld_elem(p.g[G] + p.org[G] + static_cast<long long>(xin - d) * p.sx[G] +
+    return ld_elem(grid_buf<kBatch>(p, sn, G, b) + p.org[G] + static_cast<long long>(xin - d) * p.sx[G] +
                    static_cast<long long>(y) * p.sy[G] + z);
   }
 };
 
+template <bool kBatch>
 __global__ void __launch_bounds__(kThreads)
-semi_step_kernel(const Params p) {
+semi_step_kernel(const Params p, const Scenarios sn) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   elem_t* smem = reinterpret_cast<elem_t*>(smem_raw);
   const int z0 = blockIdx.x * RT_TB2, y0 = blockIdx.y * RT_TB1;
-  const int x0 = blockIdx.z * RT_TB0;
+  int x0;
+  const int b = scenario_of<kBatch>(p, RT_TB0, &x0);
+  const float* s = scenario_scalars<kBatch>(p, b);
   const int tz = threadIdx.x, ty0 = threadIdx.y * kCols;   // first column's row
   const int z = z0 + tz;
   const int x1 = min(x0 + RT_TB0, p.R0);
   const int n_in = x1 - x0 + 2 * RT_H;
   SemiAcc acc[kCols] = {};
   // the ring's first two planes; plane i + 2 is issued at plane i
-  stage_plane<0>(p, smem, x0 - RT_H, y0, z0);
+  stage_plane<kBatch, 0>(p, sn, smem, b, x0 - RT_H, y0, z0);
   cp_async_commit();
-  if (n_in > 1) stage_plane<0>(p, smem + kPlaneElems, x0 - RT_H + 1, y0, z0);
+  if (n_in > 1) stage_plane<kBatch, 0>(p, sn, smem + kPlaneElems, b, x0 - RT_H + 1, y0, z0);
   cp_async_commit();
   int slot = 0;                               // i mod kStages
   for (int base = 0; base < n_in; base += RT_NR) {
@@ -166,18 +173,19 @@ semi_step_kernel(const Params p) {
       cp_async_wait<1>();                    // this thread's copies of plane i
       __syncthreads();                       // everyone's; plane i-1 done with
       const int next = slot == 0 ? 2 : slot - 1;   // (i + 2) mod kStages
-      if (i + 2 < n_in) stage_plane<0>(p, smem + next * kPlaneElems, xin + 2, y0, z0);
+      if (i + 2 < n_in) stage_plane<kBatch, 0>(p, sn, smem + next * kPlaneElems, b, xin + 2, y0, z0);
       cp_async_commit();                     // (an empty group past the end)
 #pragma unroll
       for (int c = 0; c < kCols; ++c) {
         const int y = y0 + ty0 + c;
         if (z < p.R2 && y < p.R1) {
-          const SemiReader rd{p, smem + slot * kPlaneElems, xin, y0, z0, ty0 + c, tz, y, z};
+          const SemiReader<kBatch> rd{p, sn, smem + slot * kPlaneElems, b, xin, y0, z0,
+                                      ty0 + c, tz, y, z};
           float out[RT_NO];
-          if (semi_plane(rd, p.s, acc[c], r, x0, x1, out)) {
+          if (semi_plane(rd, s, acc[c], r, x0, x1, out)) {
             const int o = xin - RT_H;
 #pragma unroll
-            for (int k = 0; k < RT_NO; ++k) store_out(p, k, o, y, z, out[k]);
+            for (int k = 0; k < RT_NO; ++k) store_out<kBatch>(p, sn, k, o, y, z, out[k], b);
           }
         }
       }
@@ -189,17 +197,26 @@ semi_step_kernel(const Params p) {
 
 extern "C" int rt_semi_step(const void* meta, const void* scal, void* stream) {
   const Params p = rt_params(meta, scal);
+  const Scenarios sn = rt_scenarios(meta);
+  const unsigned nz = scenario_blocks(p, sn, RT_TB0);
+  if (nz == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
   const size_t smem_bytes =
       sizeof(elem_t) * kStages * (kPlaneElems > 0 ? kPlaneElems : 1);
+  const bool many = batched(sn);
   if (smem_bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        semi_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem_bytes));
+        many ? semi_step_kernel<true> : semi_step_kernel<false>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem_bytes));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const dim3 threads(RT_TB2, RT_TB1 / kCols, 1);
-  const dim3 blocks((p.R2 + RT_TB2 - 1) / RT_TB2, (p.R1 + RT_TB1 - 1) / RT_TB1,
-                    (p.R0 + RT_TB0 - 1) / RT_TB0);
-  semi_step_kernel<<<blocks, threads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(p);
+  const dim3 blocks((p.R2 + RT_TB2 - 1) / RT_TB2, (p.R1 + RT_TB1 - 1) / RT_TB1, nz);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t e = scenario_scalars_to(sn, st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (many)
+    semi_step_kernel<true><<<blocks, threads, smem_bytes, st>>>(p, sn);
+  else
+    semi_step_kernel<false><<<blocks, threads, smem_bytes, st>>>(p, sn);
   return static_cast<int>(cudaGetLastError());
 }

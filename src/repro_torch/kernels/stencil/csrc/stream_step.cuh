@@ -73,22 +73,30 @@ constexpr int kMinBlocks = kThreads < 768 ? 768 / kThreads : 1;
 // (planes outside a grid's tap reach [-h0, R0 + h0) are not copied: no
 // interior point reads them).  TMA grids by thread 0, which first arrives
 // on the slot's barrier with the bytes to expect.
-template <int G>
-__device__ __forceinline__ void stage_grids(const Params& p, const StreamArgs& a,
-                                            unsigned char* ring, unsigned long long* bar,
-                                            int tid, int xp, int slot, int y0, int z0) {
+template <bool kBatch, int G>
+__device__ __forceinline__ void stage_grids(const Params& p, const Scenarios& sn,
+                                            const StreamArgs& a, unsigned char* ring,
+                                            unsigned long long* bar, int tid, int b, int xp,
+                                            int slot, int y0, int z0) {
   if constexpr (G < RT_NG) {
     if constexpr (grid_ring(G) != 0) {
       constexpr int h0 = grid_h0(G), h1 = grid_h1(G), h2 = grid_h2(G);
       unsigned char* dst = ring + ring_offset(G) + slot * plane_bytes(G);
       if (xp >= -h0 && xp < p.R0 + h0) {
         if constexpr (grid_tma(G)) {
-          if (tid == 0)
-            tma_load_3d(dst, &a.map[G], bar, a.oz[G] + z0 - h2 - grid_lead(G),
-                        a.oy[G] + y0 - h1, a.ox[G] + xp);
+          if (tid == 0) {
+            if constexpr (kBatch)
+              tma_load_4d(dst, &a.map[G], bar, a.oz[G] + z0 - h2 - grid_lead(G),
+                          a.oy[G] + y0 - h1, a.ox[G] + xp, b);
+            else
+              tma_load_3d(dst, &a.map[G], bar, a.oz[G] + z0 - h2 - grid_lead(G),
+                          a.oy[G] + y0 - h1, a.ox[G] + xp);
+          }
         } else {
-          // rows and cells of the tap reach [-h, R + h) only
-          const long long base = p.org[G] + static_cast<long long>(xp) * p.sx[G] + z0 - h2;
+          // rows and cells of the tap reach [-h, R + h) only, as element
+          // indices from scenario 0's buffer (its granules are aligned)
+          const long long base = scenario_offset<kBatch>(sn, G, b) + p.org[G] +
+                                 static_cast<long long>(xp) * p.sx[G] + z0 - h2;
           const long long yend = p.R1 + h1, zend = p.R2 + h2;
           copy_granules<ring_p2(G), ring_w1(G), kThreads>(
               reinterpret_cast<elem_t*>(dst), p.g[G], tid,
@@ -102,7 +110,7 @@ __device__ __forceinline__ void stage_grids(const Params& p, const StreamArgs& a
         }
       }
     }
-    stage_grids<G + 1>(p, a, ring, bar, tid, xp, slot, y0, z0);
+    stage_grids<kBatch, G + 1>(p, sn, a, ring, bar, tid, b, xp, slot, y0, z0);
   }
 }
 
@@ -118,10 +126,12 @@ __device__ __forceinline__ unsigned tma_bytes(const Params& p, int xp) {
 
 // Local plane i of the chunk (global x0 - kH + i) into slot i mod kSlots,
 // unless no plane of the chunk needs it (i >= nx + 2kH).
-__device__ __forceinline__ void stage_plane(const Params& p, const StreamArgs& a,
+template <bool kBatch>
+__device__ __forceinline__ void stage_plane(const Params& p, const Scenarios& sn,
+                                            const StreamArgs& a,
                                             unsigned char* ring, unsigned long long* bar,
-                                            int tid, int i, int slot, int nx, int x0, int y0,
-                                            int z0) {
+                                            int tid, int b, int i, int slot, int nx, int x0,
+                                            int y0, int z0) {
   if (i >= nx + 2 * kH) return;
   const int xp = x0 - kH + i;
   if constexpr (kAnyTma) {
@@ -132,7 +142,7 @@ __device__ __forceinline__ void stage_plane(const Params& p, const StreamArgs& a
       else mbar_arrive(&bar[slot]);
     }
   }
-  stage_grids<0>(p, a, ring, &bar[slot], tid, xp, slot, y0, z0);
+  stage_grids<kBatch, 0>(p, sn, a, ring, &bar[slot], tid, b, xp, slot, y0, z0);
 }
 
 // Cell (yr, zr) (from the staged plane's first cell) of grid G's plane in
@@ -171,12 +181,14 @@ struct RingReader {
   }
 };
 
-// every center-only grid at (x, y, z)
-__device__ __forceinline__ void center_load(const Params& p, int x, int y, int z, float* v) {
+// every center-only grid at (x, y, z) of scenario b
+template <bool kBatch>
+__device__ __forceinline__ void center_load(const Params& p, const Scenarios& sn, int b, int x,
+                                            int y, int z, float* v) {
 #pragma unroll
   for (int g = 0; g < RT_NG; ++g)
     if (center_only(g))
-      v[g] = ld_elem(p.g[g] + p.org[g] + static_cast<long long>(x) * p.sx[g] +
+      v[g] = ld_elem(grid_buf<kBatch>(p, sn, g, b) + p.org[g] + static_cast<long long>(x) * p.sx[g] +
                      static_cast<long long>(y) * p.sy[g] + z);
 }
 
@@ -221,18 +233,21 @@ __device__ __forceinline__ void queue_fill(const Params& p, const unsigned char*
   }
 }
 
+template <bool kBatch>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-stream_step_kernel(const Params p, const __grid_constant__ StreamArgs a) {
+stream_step_kernel(const Params p, const Scenarios sn, const __grid_constant__ StreamArgs a) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ring = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<unsigned long long>(smem_raw) + kPlaneAlign - 1) &
       ~static_cast<unsigned long long>(kPlaneAlign - 1));
   unsigned long long* bar = reinterpret_cast<unsigned long long*>(ring + kRingBytes);
   const int z0 = blockIdx.x * RT_TB2, y0 = blockIdx.y * RT_TB1;
-  const int x0 = blockIdx.z * RT_TB0;
+  int x0;
+  const int b = scenario_of<kBatch>(p, RT_TB0, &x0);
   const int tz = threadIdx.x, ty0 = threadIdx.y * kRows;
   const int tid = threadIdx.y * RT_TB2 + threadIdx.x;
   const int nx = min(x0 + RT_TB0, p.R0) - x0;
+  const float* s = scenario_scalars<kBatch>(p, b);
   const int z = z0 + tz, zc = min(z, p.R2 - 1);
   if constexpr (kAnyTma) {
     if (tid == 0) {
@@ -243,7 +258,7 @@ stream_step_kernel(const Params p, const __grid_constant__ StreamArgs a) {
   __syncthreads();
   // the chunk's first 2kH + RT_PRE planes
   for (int i = 0; i < 2 * kH + RT_PRE; ++i) {
-    stage_plane(p, a, ring, bar, tid, i, i, nx, x0, y0, z0);
+    stage_plane<kBatch>(p, sn, a, ring, bar, tid, b, i, i, nx, x0, y0, z0);
     if constexpr (kAnyGranule) cp_async_commit();
   }
   if constexpr (kAnyGranule) cp_async_wait<RT_PRE>();
@@ -255,8 +270,8 @@ stream_step_kernel(const Params p, const __grid_constant__ StreamArgs a) {
   int low[RT_NG];
 #pragma unroll
   for (int g = 0; g < RT_NG; ++g)
-    low[g] = static_cast<int>(p.org[g] + static_cast<long long>(y0 - grid_h1(g)) * p.sy[g] +
-                              z0 - grid_h2(g));
+    low[g] = static_cast<int>(scenario_offset<kBatch>(sn, g, b) + p.org[g] +
+                              static_cast<long long>(y0 - grid_h1(g)) * p.sy[g] + z0 - grid_h2(g));
   float q[kRows][kQueue];
   float cen[kRows][kAhead + 1][RT_NG];   // center-only grids at planes x .. x + kAhead
 #pragma unroll
@@ -265,7 +280,7 @@ stream_step_kernel(const Params p, const __grid_constant__ StreamArgs a) {
     const int yc = min(y0 + ty0 + c, p.R1 - 1);
 #pragma unroll
     for (int k = 0; k < kAhead; ++k)
-      if (k < nx) center_load(p, x0 + k, yc, zc, cen[c][k]);
+      if (k < nx) center_load<kBatch>(p, sn, b, x0 + k, yc, zc, cen[c][k]);
   }
   for (int base = 0; base < nx; base += kSlots) {
 #pragma unroll
@@ -279,20 +294,21 @@ stream_step_kernel(const Params p, const __grid_constant__ StreamArgs a) {
         mbar_wait(&bar[(r + 2 * kH) % kSlots], ((t + 2 * kH) / kSlots) & 1);
       __syncthreads();                        // and everyone is done with plane x - 1
       // local t + 2kH + RT_PRE into the slot plane x - kH - 1 left
-      stage_plane(p, a, ring, bar, tid, t + 2 * kH + RT_PRE, (r + 2 * kH + RT_PRE) % kSlots,
-                  nx, x0, y0, z0);
+      stage_plane<kBatch>(p, sn, a, ring, bar, tid, b, t + 2 * kH + RT_PRE,
+                          (r + 2 * kH + RT_PRE) % kSlots, nx, x0, y0, z0);
       if constexpr (kAnyGranule) cp_async_commit();   // (an empty group past the end)
 #pragma unroll
       for (int c = 0; c < kRows; ++c) {
         const int ty = ty0 + c, y = y0 + ty;
-        if (t + kAhead < nx) center_load(p, x + kAhead, min(y, p.R1 - 1), zc, cen[c][kAhead]);
+        if (t + kAhead < nx)
+          center_load<kBatch>(p, sn, b, x + kAhead, min(y, p.R1 - 1), zc, cen[c][kAhead]);
         queue_lead<0>(p, ring, q[c], low, r, x, ty, tz);
         const RingReader rd{p, ring, q[c], low, cen[c][0], r, x, ty, tz};
         float out[RT_NO];
-        stencil_point(rd, p.s, out);
+        stencil_point(rd, s, out);
         if (z < p.R2 && y < p.R1) {
 #pragma unroll
-          for (int o = 0; o < RT_NO; ++o) store_out(p, o, x, y, z, out[o]);
+          for (int o = 0; o < RT_NO; ++o) store_out<kBatch>(p, sn, o, x, y, z, out[o], b);
         }
         queue_shift<0>(q[c]);
 #pragma unroll
@@ -311,18 +327,18 @@ stream_step_kernel(const Params p, const __grid_constant__ StreamArgs a) {
 // encoded.
 extern "C" int rt_stream_step(const void* meta, const void* scal, void* stream) {
   const Params p = rt_params(meta, scal);
-#ifdef RT_MAP
-  const long long* n0 = static_cast<const long long*>(meta) + 4 * RT_NG + 3 + 4 * RT_NO;
-#else
-  const long long* n0 = static_cast<const long long*>(meta) + 4 * RT_NG + 3;
-#endif
+  const Scenarios sn = rt_scenarios(meta);
+  const long long* n0 = static_cast<const long long*>(meta) + kMetaLen;
+  const unsigned nz = scenario_blocks(p, sn, RT_TB0);
+  if (nz == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
   StreamArgs args{};            // kernel parameters (copied at the launch)
+  const bool many = batched(sn);  // the scenario dimension of the TMA maps
   std::unique_lock<std::mutex> lock(host_state_mutex);
   for (int g = 0; g < RT_NG; ++g) {
     origin_cells(p.org[g], p.sx[g], p.sy[g], &args.ox[g], &args.oy[g], &args.oz[g]);
     if (grid_ring(g) && grid_tma(g)) {
-      const CUresult r = tma_map(g, p.g[g], n0[g], p.sx[g], p.sy[g], ring_p2(g), ring_w1(g), 1,
-                                 &args.map[g]);
+      const CUresult r = tma_map(g, p.g[g], n0[g], p.sx[g], p.sy[g], many ? sn.nb : 0, sn.bs[g],
+                                 ring_p2(g), ring_w1(g), 1, &args.map[g]);
       if (r != CUDA_SUCCESS) return 10000 + static_cast<int>(r);
     }
   }
@@ -332,15 +348,23 @@ extern "C" int rt_stream_step(const void* meta, const void* scal, void* stream) 
   static bool ready[64];
   if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
   if (!ready[dev]) {
-    e = cudaFuncSetAttribute(stream_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kSmemBytes);
+    e = cudaFuncSetAttribute(stream_step_kernel<false>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(stream_step_kernel<true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
     if (e != cudaSuccess) return static_cast<int>(e);
     ready[dev] = true;
   }
   lock.unlock();
   const dim3 threads(RT_TB2, RT_TB1 / kRows, 1);
-  const dim3 blocks((p.R2 + RT_TB2 - 1) / RT_TB2, (p.R1 + RT_TB1 - 1) / RT_TB1,
-                    (p.R0 + RT_TB0 - 1) / RT_TB0);
-  stream_step_kernel<<<blocks, threads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(p, args);
+  const dim3 blocks((p.R2 + RT_TB2 - 1) / RT_TB2, (p.R1 + RT_TB1 - 1) / RT_TB1, nz);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  e = scenario_scalars_to(sn, st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (many)
+    stream_step_kernel<true><<<blocks, threads, kSmemBytes, st>>>(p, sn, args);
+  else
+    stream_step_kernel<false><<<blocks, threads, kSmemBytes, st>>>(p, sn, args);
   return static_cast<int>(cudaGetLastError());
 }

@@ -68,13 +68,14 @@ struct TParams {
   elem_t* dst[2];         // spares standing for RT_GW (0) and RT_GO (1)
 };
 
-// meta as rt_params, followed by the two spare pointers
+// meta as rt_params, followed by the two spare pointers (each spare has
+// the layout, scenarios included, of the buffer whose role it takes)
 static inline TParams rt_tparams(const void* meta, const void* scal) {
   TParams t;
   t.p = rt_params(meta, scal);
   const long long* m = static_cast<const long long*>(meta);
-  t.dst[0] = reinterpret_cast<elem_t*>(m[4 * RT_NG + 3]);
-  t.dst[1] = reinterpret_cast<elem_t*>(m[4 * RT_NG + 4]);
+  t.dst[0] = reinterpret_cast<elem_t*>(m[kMetaLen]);
+  t.dst[1] = reinterpret_cast<elem_t*>(m[kMetaLen + 1]);
   return t;
 }
 
@@ -103,9 +104,11 @@ __host__ __device__ constexpr bool center_only(int g) {
 // unless no tick needs it (at or past x_end); planes outside the tap reach
 // are not copied (no interior point reads them) and their barrier phase
 // completes empty.
-__device__ __forceinline__ void stage_input(const Params& p, const TempArgs& a,
-                                            unsigned char* smem, unsigned long long* bar, int tid,
-                                            int i, int first, int x_end, int y0, int z0) {
+template <bool kBatch>
+__device__ __forceinline__ void stage_input(const Params& p, const Scenarios& sn,
+                                            const TempArgs& a, unsigned char* smem,
+                                            unsigned long long* bar, int tid, int b, int i,
+                                            int first, int x_end, int y0, int z0) {
   const int xp = first + i;
   if (xp >= x_end) return;
   const int slot = i % kInSlots;
@@ -117,14 +120,21 @@ __device__ __forceinline__ void stage_input(const Params& p, const TempArgs& a,
       fence_proxy_async();
       if (reach) {
         mbar_expect_tx(&bar[slot], kInPayload);
-        tma_load_3d(dst, &a.map, &bar[slot], a.oz + zs - kInLead, a.oy + y0 - RT_K * kH1,
-                    a.ox + xp);
+        if constexpr (kBatch)
+          tma_load_4d(dst, &a.map, &bar[slot], a.oz + zs - kInLead, a.oy + y0 - RT_K * kH1,
+                      a.ox + xp, b);
+        else
+          tma_load_3d(dst, &a.map, &bar[slot], a.oz + zs - kInLead, a.oy + y0 - RT_K * kH1,
+                      a.ox + xp);
       } else {
         mbar_arrive(&bar[slot]);
       }
     }
   } else if (reach) {
-    const long long base = p.org[RT_GO] + static_cast<long long>(xp) * p.sx[RT_GO] + zs;
+    // element indices from scenario 0's buffer (its granules are aligned)
+    const long long base =
+        scenario_offset<kBatch>(sn, RT_GO, b) + p.org[RT_GO] +
+        static_cast<long long>(xp) * p.sx[RT_GO] + zs;
     const int zlo = max(0, -kH2 - zs), zhi = min(kInW2, p.R2 + kH2 - zs);
     copy_granules<kInP2, kInW1, kThreads>(
         reinterpret_cast<elem_t*>(dst), p.g[RT_GO], tid,
@@ -158,16 +168,17 @@ __device__ __forceinline__ int wrap(int s, int n) { return s >= n ? s - n : s; }
 // Tap reader of stage J at cell (cy, cz) of sub-step 0's tile, point
 // (x, y, z).  in0: ring -1's slot of plane x - h0; rb: ring J-1's slot of
 // plane x + RT_DLO.
-template <int J>
+template <bool kBatch, int J>
 struct StageReader {
   const Params& p;
+  const Scenarios& sn;
   const unsigned char* smem;
   const float* q1;        // queue J-1 at this cell (F_{J-1}, planes x - h0 .. x + h0)
   const float* q2;        // queue J-2 at this cell (F_{J-2} at plane x first)
   const float* qi;        // the read buffer's queue at this cell (F_{-1}, planes
                           // tick - h0 .. tick + h0)
   const float* cen;       // center-only grids (and F_{-2} at stage 0) at the point
-  int in0, rb, lowin, x, y, z, cy, cz;
+  int b, in0, rb, lowin, x, y, z, cy, cz;
   template <int G>
   __device__ __forceinline__ float at(int dx, int dy, int dz) const {
     if constexpr (G == RT_GO) {               // F_{J-1}
@@ -193,7 +204,7 @@ struct StageReader {
     } else if constexpr (center_only(G)) {
       return cen[G];
     } else {                                  // a grid the steps do not change
-      return ld_elem(p.g[G] + index_of(p, G, x + dx, y + dy, z + dz));
+      return ld_elem(grid_buf<kBatch>(p, sn, G, b) + index_of(p, G, x + dx, y + dy, z + dz));
     }
   }
 };
@@ -205,12 +216,14 @@ struct StageReader {
 // together (their shared tap reads are one read) where either is in the
 // interior; queue J takes a plane every tick (0 where the stage computes
 // nothing: no stage reads it).
-template <int J>
-__device__ __forceinline__ void stage(const TParams& t, unsigned char* smem,
+template <bool kBatch, int J>
+__device__ __forceinline__ void stage(const TParams& t, const Scenarios& sn, const float* s,
+                                      unsigned char* smem,
                                       float (&q)[kQRings][kCells][kQ],
                                       const float (&qin)[kCells][kQ],
-                                      const float (&cen)[RT_K][kCells][RT_NG], int tid, int tick,
-                                      int first, int lowin, int x0, int x1, int y0, int z0) {
+                                      const float (&cen)[RT_K][kCells][RT_NG], int tid, int b,
+                                      int tick, int first, int lowin, int x0, int x1, int y0,
+                                      int z0) {
   const Params& p = t.p;
   constexpr int E = RT_K - 1 - J;
   constexpr int role = J % 2 == 0 ? RT_GW : RT_GO;
@@ -240,10 +253,11 @@ __device__ __forceinline__ void stage(const TParams& t, unsigned char* smem,
 #pragma unroll
       for (int r = 0; r < kPair; ++r) {
         const int c = u * kPair + r;
-        const StageReader<J> rd{p, smem, q[J >= 1 ? J - 1 : 0][c], q[J >= 2 ? J - 2 : 0][c],
-                                qin[c], cen[J][c], in0, rb, lowin, x, y + r, z, cy + r, cz};
+        const StageReader<kBatch, J> rd{p, sn, smem, q[J >= 1 ? J - 1 : 0][c],
+                                        q[J >= 2 ? J - 2 : 0][c],
+                                qin[c], cen[J][c], b, in0, rb, lowin, x, y + r, z, cy + r, cz};
         float out[RT_NO];
-        stencil_point(rd, p.s, out);
+        stencil_point(rd, s, out);
         v[c] = out[0];
       }
     }
@@ -254,11 +268,13 @@ __device__ __forceinline__ void stage(const TParams& t, unsigned char* smem,
         if constexpr (J >= RT_K - 2) {
           if (x >= x0 && x < x1 && y + r >= y0 && y + r < y0 + RT_TB1 && z >= z0 &&
               z < z0 + RT_TB2)
-            st_elem(t.dst[J % 2] + index_of(p, role, x, y + r, z), v[c]);
+            st_elem(t.dst[J % 2] + scenario_offset<kBatch>(sn, role, b) +
+                        index_of(p, role, x, y + r, z), v[c]);
         }
       } else {
-        v[c] = in_reach(p, x, y + r, z) ? ld_elem(p.g[role] + index_of(p, role, x, y + r, z))
-                                        : 0.0f;
+        v[c] = in_reach(p, x, y + r, z)
+                   ? ld_elem(grid_buf<kBatch>(p, sn, role, b) + index_of(p, role, x, y + r, z))
+                   : 0.0f;
       }
     }
   }
@@ -276,24 +292,29 @@ __device__ __forceinline__ void stage(const TParams& t, unsigned char* smem,
   }
 }
 
-template <int J>
-__device__ __forceinline__ void stages(const TParams& t, unsigned char* smem,
+template <bool kBatch, int J>
+__device__ __forceinline__ void stages(const TParams& t, const Scenarios& sn, const float* s,
+                                       unsigned char* smem,
                                        float (&q)[kQRings][kCells][kQ],
                                        const float (&qin)[kCells][kQ],
-                                       const float (&cen)[RT_K][kCells][RT_NG], int tid, int tick,
-                                       int first, int lowin, int x0, int x1, int y0, int z0) {
+                                       const float (&cen)[RT_K][kCells][RT_NG], int tid, int b,
+                                       int tick, int first, int lowin, int x0, int x1, int y0,
+                                       int z0) {
   if constexpr (J < RT_K) {
-    stage<J>(t, smem, q, qin, cen, tid, tick, first, lowin, x0, x1, y0, z0);
+    stage<kBatch, J>(t, sn, s, smem, q, qin, cen, tid, b, tick, first, lowin, x0, x1, y0, z0);
     if constexpr (J < RT_K - 1) __syncthreads();   // ring J complete before stage J+1
-    stages<J + 1>(t, smem, q, qin, cen, tid, tick, first, lowin, x0, x1, y0, z0);
+    stages<kBatch, J + 1>(t, sn, s, smem, q, qin, cen, tid, b, tick, first, lowin, x0, x1, y0,
+                          z0);
   }
 }
 
 // The center-only grids, and F_{-2} for stage 0, at each stage's plane of
 // tick `tick` and each of this thread's cells where it computes a point.
-template <int J>
-__device__ __forceinline__ void center_loads(const Params& p, float (&cen)[RT_K][kCells][RT_NG],
-                                             int tid, int tick, int x0, int x1, int y0, int z0) {
+template <bool kBatch, int J>
+__device__ __forceinline__ void center_loads(const Params& p, const Scenarios& sn,
+                                             float (&cen)[RT_K][kCells][RT_NG],
+                                             int tid, int b, int tick, int x0, int x1, int y0,
+                                             int z0) {
   if constexpr (J < RT_K) {
     const int x = tick - J * kH0;
     if (x >= max(0, x0 - (RT_K - 1 - J) * kH0) && x < min(p.R0, x1 + (RT_K - 1 - J) * kH0)) {
@@ -306,15 +327,16 @@ __device__ __forceinline__ void center_loads(const Params& p, float (&cen)[RT_K]
 #pragma unroll
         for (int g = 0; g < RT_NG; ++g)
           if (center_only(g) || (J == 0 && g == RT_GW))
-            cen[J][c][g] = ld_elem(p.g[g] + index_of(p, g, x, y, z));
+            cen[J][c][g] = ld_elem(grid_buf<kBatch>(p, sn, g, b) + index_of(p, g, x, y, z));
       }
     }
-    center_loads<J + 1>(p, cen, tid, tick, x0, x1, y0, z0);
+    center_loads<kBatch, J + 1>(p, sn, cen, tid, b, tick, x0, x1, y0, z0);
   }
 }
 
+template <bool kBatch>
 __global__ void __launch_bounds__(kThreads)
-temporal_step_kernel(const TParams t, const __grid_constant__ TempArgs a) {
+temporal_step_kernel(const TParams t, const Scenarios sn, const __grid_constant__ TempArgs a) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<unsigned long long>(smem_raw) + kPlaneAlign - 1) &
@@ -323,8 +345,10 @@ temporal_step_kernel(const TParams t, const __grid_constant__ TempArgs a) {
   const Params& p = t.p;
   const int tid = threadIdx.x;
   const int z0 = blockIdx.x * RT_TB2, y0 = blockIdx.y * RT_TB1;
-  const int x0 = blockIdx.z * RT_TB0;
+  int x0;
+  const int b = scenario_of<kBatch>(p, RT_TB0, &x0);
   const int x1 = min(x0 + RT_TB0, p.R0);
+  const float* s = scenario_scalars<kBatch>(p, b);
   const int first = x0 - RT_K * kH0;          // ring -1's local plane 0
   const int x_end = x1 + RT_K * kH0;          // planes the last tick reads end here
   constexpr bool kTma = grid_tma(RT_GO) != 0;
@@ -336,7 +360,7 @@ temporal_step_kernel(const TParams t, const __grid_constant__ TempArgs a) {
   }
   __syncthreads();
   for (int i = 0; i < 2 * kH0 + RT_PRE; ++i) {
-    stage_input(p, a, smem, bar, tid, i, first, x_end, y0, z0);
+    stage_input<kBatch>(p, sn, a, smem, bar, tid, b, i, first, x_end, y0, z0);
     if constexpr (!kTma) cp_async_commit();
   }
   if constexpr (kTma) {
@@ -344,7 +368,7 @@ temporal_step_kernel(const TParams t, const __grid_constant__ TempArgs a) {
   } else {
     cp_async_wait<RT_PRE>();
   }
-  const int lowin = static_cast<int>(p.org[RT_GO] +
+  const int lowin = static_cast<int>(scenario_offset<kBatch>(sn, RT_GO, b) + p.org[RT_GO] +
                                      static_cast<long long>(y0 - RT_K * kH1) * p.sy[RT_GO] + z0 -
                                      RT_K * kH2);
   float q[kQRings][kCells][kQ];
@@ -370,7 +394,7 @@ temporal_step_kernel(const TParams t, const __grid_constant__ TempArgs a) {
   for (int lt = 0; lt < n_ticks; ++lt) {
     const int tick = x0 - (RT_K - 1) * kH0 + lt;
     float cen[RT_K][kCells][RT_NG];
-    center_loads<0>(p, cen, tid, tick, x0, x1, y0, z0);
+    center_loads<kBatch, 0>(p, sn, cen, tid, b, tick, x0, x1, y0, z0);
     // plane tick + h0 (ring -1's local lt + 2h0) has arrived
     if constexpr (kTma) {
       mbar_wait(&bar[(lt + 2 * kH0) % kInSlots], ((lt + 2 * kH0) / kInSlots) & 1);
@@ -378,7 +402,8 @@ temporal_step_kernel(const TParams t, const __grid_constant__ TempArgs a) {
       cp_async_wait<RT_PRE - 1>();
     }
     __syncthreads();        // and every stage of the last tick is done
-    stage_input(p, a, smem, bar, tid, lt + 2 * kH0 + RT_PRE, first, x_end, y0, z0);
+    stage_input<kBatch>(p, sn, a, smem, bar, tid, b, lt + 2 * kH0 + RT_PRE, first, x_end, y0,
+                        z0);
     if constexpr (!kTma) cp_async_commit();   // (an empty group past the end)
     // the read buffer's queues take plane tick + h0
     const int slot = (lt + 2 * kH0) % kInSlots;
@@ -390,7 +415,7 @@ temporal_step_kernel(const TParams t, const __grid_constant__ TempArgs a) {
       for (int i = 0; i + 1 < kQ; ++i) qin[c][i] = qin[c][i + 1];
       qin[c][kQ - 1] = valid ? in_at(p, smem, slot, lowin, tick + kH0, cy + kH1, cz + kH2) : 0.0f;
     }
-    stages<0>(t, smem, q, qin, cen, tid, tick, first, lowin, x0, x1, y0, z0);
+    stages<kBatch, 0>(t, sn, s, smem, q, qin, cen, tid, b, tick, first, lowin, x0, x1, y0, z0);
   }
   if constexpr (!kTma) cp_async_wait<0>();
 }
@@ -400,14 +425,18 @@ temporal_step_kernel(const TParams t, const __grid_constant__ TempArgs a) {
 // encoded.
 extern "C" int rt_temporal_step(const void* meta, const void* scal, void* stream) {
   const TParams t = rt_tparams(meta, scal);
-  const long long* n0 = static_cast<const long long*>(meta) + 4 * RT_NG + 5;
+  const Scenarios sn = rt_scenarios(meta);
+  const long long* n0 = static_cast<const long long*>(meta) + kMetaLen + 2;
   TempArgs args{};
   const Params& p = t.p;
+  const unsigned nz = scenario_blocks(p, sn, RT_TB0);
+  if (nz == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const bool many = batched(sn);  // the scenario dimension of the TMA map
   origin_cells(p.org[RT_GO], p.sx[RT_GO], p.sy[RT_GO], &args.ox, &args.oy, &args.oz);
   std::unique_lock<std::mutex> lock(host_state_mutex);
   if (grid_tma(RT_GO)) {
-    const CUresult r = tma_map(RT_GO, p.g[RT_GO], n0[RT_GO], p.sx[RT_GO], p.sy[RT_GO], kInP2,
-                               kInW1, 1, &args.map);
+    const CUresult r = tma_map(RT_GO, p.g[RT_GO], n0[RT_GO], p.sx[RT_GO], p.sy[RT_GO],
+                               many ? sn.nb : 0, sn.bs[RT_GO], kInP2, kInW1, 1, &args.map);
     if (r != CUDA_SUCCESS) return 10000 + static_cast<int>(r);
   }
   int dev = 0;
@@ -416,15 +445,22 @@ extern "C" int rt_temporal_step(const void* meta, const void* scal, void* stream
   static bool ready[64];
   if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
   if (!ready[dev]) {
-    e = cudaFuncSetAttribute(temporal_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kSmemBytes);
+    e = cudaFuncSetAttribute(temporal_step_kernel<false>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(temporal_step_kernel<true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
     if (e != cudaSuccess) return static_cast<int>(e);
     ready[dev] = true;
   }
   lock.unlock();
-  const dim3 blocks((p.R2 + RT_TB2 - 1) / RT_TB2, (p.R1 + RT_TB1 - 1) / RT_TB1,
-                    (p.R0 + RT_TB0 - 1) / RT_TB0);
-  temporal_step_kernel<<<blocks, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(t,
-                                                                                           args);
+  const dim3 blocks((p.R2 + RT_TB2 - 1) / RT_TB2, (p.R1 + RT_TB1 - 1) / RT_TB1, nz);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  e = scenario_scalars_to(sn, st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (many)
+    temporal_step_kernel<true><<<blocks, kThreads, kSmemBytes, st>>>(t, sn, args);
+  else
+    temporal_step_kernel<false><<<blocks, kThreads, kSmemBytes, st>>>(t, sn, args);
   return static_cast<int>(cudaGetLastError());
 }

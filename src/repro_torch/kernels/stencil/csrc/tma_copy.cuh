@@ -1,7 +1,7 @@
 // Asynchronous copies into shared memory, shared by the kernels that stage
 // halo'd boxes or planes (K4 smem: map_smem.cuh; K2: stream_step.cuh; K3:
 // temporal_step.cuh): 4-byte cp.async granules, mbarriers, the TMA's 3D
-// tiled copy, and on the host the encoding and cache of its maps.  The
+// and 4D (a scenario axis) tiled copies, and on the host the encoding and cache of its maps.  The
 // includer defines elem_t (common.cuh).
 //
 // Rules the card imposes (found on an H100): a TMA box's inner start must
@@ -81,6 +81,18 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// the same with a fourth coordinate c3: the scenario of a map with one
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            unsigned long long* bar, int c0, int c1, int c2,
+                                            int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<unsigned long long>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
 // The granule copy of ROWS staged rows, P2 cells apart, by THREADS
 // threads: row(yr, rs, lo, hi) gives row yr's first staged cell rs and the
 // cells [lo, hi) it must hold (element indices of grid g; false: skip the
@@ -141,14 +153,20 @@ static EncodeTiled encode_tiled() {
 
 // The TMA map of grid g's tensor at ptr (its extents n0 x sx/sy x sy,
 // pitches sx, sy in cells) with boxes of b2 x b1 x b0 cells (inner first),
-// cached by (grid, pointer, shape, box): encoding is host work on every
-// launch otherwise.  The caller holds host_state_mutex.
-static CUresult tma_map(int g, void* ptr, long long n0, long long sx, long long sy, int b2,
-                        int b1, int b0, CUtensorMap* out) {
+// cached by (grid, pointer, shape, scenarios, box): encoding is host work on
+// every launch otherwise.  With nb > 0 the tensor holds nb scenarios, bs
+// cells apart, and the map has a fourth dimension, the scenario, with a box
+// of one: a box at one scenario's edge reads what it reads unbatched (the
+// TMA's zeros past axis 0), never the next scenario's planes.  nb = 0: a
+// map of three dimensions.  The caller holds host_state_mutex.
+static CUresult tma_map(int g, void* ptr, long long n0, long long sx, long long sy, int nb,
+                        long long bs, int b2, int b1, int b0, CUtensorMap* out) {
   struct Entry {
     int g;
     void* ptr;
     long long n0, sx, sy;
+    int nb;
+    long long bs;
     int b2, b1, b0;
     CUtensorMap map;
   };
@@ -157,8 +175,8 @@ static CUresult tma_map(int g, void* ptr, long long n0, long long sx, long long 
   static int used = 0, next = 0;
   for (int i = 0; i < used; ++i) {
     const Entry& e = cache[i];
-    if (e.g == g && e.ptr == ptr && e.n0 == n0 && e.sx == sx && e.sy == sy && e.b2 == b2 &&
-        e.b1 == b1 && e.b0 == b0) {
+    if (e.g == g && e.ptr == ptr && e.n0 == n0 && e.sx == sx && e.sy == sy && e.nb == nb &&
+        e.bs == bs && e.b2 == b2 && e.b1 == b1 && e.b0 == b0) {
       *out = e.map;
       return CUDA_SUCCESS;
     }
@@ -166,20 +184,22 @@ static CUresult tma_map(int g, void* ptr, long long n0, long long sx, long long 
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return CUDA_ERROR_NOT_FOUND;
   constexpr cuuint64_t es = sizeof(elem_t);
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(sy), static_cast<cuuint64_t>(sx / sy),
-                              static_cast<cuuint64_t>(n0)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(sy) * es, static_cast<cuuint64_t>(sx) * es};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(b2), static_cast<cuuint32_t>(b1),
-                             static_cast<cuuint32_t>(b0)};
-  const cuuint32_t unit[3] = {1, 1, 1};
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(sy), static_cast<cuuint64_t>(sx / sy),
+                              static_cast<cuuint64_t>(n0), static_cast<cuuint64_t>(nb)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sy) * es, static_cast<cuuint64_t>(sx) * es,
+                                 static_cast<cuuint64_t>(bs) * es};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(b2), static_cast<cuuint32_t>(b1),
+                             static_cast<cuuint32_t>(b0), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
   CUtensorMap map;
   const CUresult r = encode(
       &map, sizeof(elem_t) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-      3, ptr, dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      nb > 0 ? 4 : 3, ptr, dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (r != CUDA_SUCCESS) return r;
   Entry& e = used < kCache ? cache[used++] : cache[next++ % kCache];
-  e = Entry{g, ptr, n0, sx, sy, b2, b1, b0, map};
+  e = Entry{g, ptr, n0, sx, sy, nb, bs, b2, b1, b0, map};
   *out = map;
   return CUDA_SUCCESS;
 }

@@ -71,11 +71,17 @@ def offsets3(offs: Sequence[int]) -> Tuple[int, int, int]:
     raise ValueError("the hopper kernels take 2D and 3D stencils")
 
 
+# each f32 operation rounded once by itself: no FMA contraction (the
+# functions are defined with semi_functions' output)
+_STRICT = {"+": "rt_fadd", "-": "rt_fsub", "*": "rt_fmul", "/": "rt_fdiv"}
+
+
 class _Emitter:
     def __init__(self, kernel: ir.StencilIR, opnd_grids: Sequence[str],
-                 tap=None):
+                 tap=None, strict: bool = False):
         self.kernel = kernel
         self.tap = tap          # C source of a Tap, when not the default
+        self.strict = strict    # operations as _STRICT's intrinsics
         self.gidx = {g: i for i, g in enumerate(opnd_grids)}
         self.sidx = {n: i for i, (n, _) in enumerate(kernel.scalar_params)}
         self.lines: List[str] = []
@@ -111,6 +117,8 @@ class _Emitter:
                 return f"powf({l}, {r})"
             if e.op not in "+-*/":
                 raise ValueError(f"bad op {e.op}")
+            if self.strict:
+                return f"{_STRICT[e.op]}({l}, {r})"
             return f"({l} {e.op} {r})"
         if isinstance(e, ir.Call):
             args = ", ".join(self.c(self.expr(a)) for a in e.args)
@@ -398,15 +406,19 @@ def semi_functions(kernel: ir.StencilIR, opnd_grids: Sequence[str],
             if gidx[t.grid] not in fields:
                 fields.append(gidx[t.grid])
             return f"f{gidx[t.grid]}"
-        em = _Emitter(kernel, opnd_grids, tap=field)
+        # each operation of the finish rounded by itself: the plane's value
+        # must not depend on which products the compiler contracts into
+        # FMAs, which differs with where the scalars come from (the
+        # parameter block or a scenario's row, csrc/common.cuh)
+        em = _Emitter(kernel, opnd_grids, tap=field, strict=True)
         parts = [f"acc[{i}]" if phi is None else
-                 f"{em.c(em.expr(phi))} * acc[{i}]" for i, phi in enumerate(phis)]
+                 f"rt_fmul({em.c(em.expr(phi))}, acc[{i}])" for i, phi in enumerate(phis)]
         const = em.expr(lin[out_grids[o]][1])
         if not (isinstance(const, float) and const == 0.0) or not parts:
             parts.append(em.c(const))
         value = parts[0]
         for part in parts[1:]:
-            value = f"({value} + {part})"
+            value = f"rt_fadd({value}, {part})"
         finish.append((f"O == {o}",
                        [f"const float f{g} = rd.template cf<{g}>(RT_H);"
                         for g in fields] + [f"return {value};"]))
@@ -414,6 +426,12 @@ def semi_functions(kernel: ir.StencilIR, opnd_grids: Sequence[str],
         f"#define RT_H {H}",
         f"#define RT_NR {2 * H + 1}",
         f"#define RT_NGR {ngr}",
+        "// f32 operations that round once each and are never contracted into",
+        "// an FMA (the card's __f*_rn intrinsics; plain operations on a host)",
+        *[f"__host__ __device__ inline float rt_{name}(float a, float b) {{\n"
+          f"#ifdef __CUDA_ARCH__\n  return __{name}_rn(a, b);\n#else\n"
+          f"  return a {op} b;\n#endif\n}}"
+          for name, op in (("fadd", "+"), ("fsub", "-"), ("fmul", "*"), ("fdiv", "/"))],
         f"// semi-stencil scatter of stencil '{kernel.name}' (generated from "
         "StencilIR by emit.py)",
         "template <int O, int D, class Rd>",

@@ -19,6 +19,10 @@ tap where the kernel does (``map_step.gmem_taps``).
 Both versions read f32 or bf16 buffers, compute in f32 and round once,
 when they store an output cell.
 
+Under ``batch=B`` the buffers carry a leading scenario axis: the kernel
+advances every scenario in one launch, the plain version each scenario as
+its own step (``CudaPlan.scenarios``).
+
 In place: both versions write the output grids' interiors into their
 layout buffers; nothing else is written.
 """
@@ -40,7 +44,12 @@ def fused_step_plain(plan, padded: Dict[str, torch.Tensor],
                      scalars: Dict[str, float]) -> None:
     """K1's plain PyTorch version: the same per-point update, chunk by
     chunk of ``b0`` planes as the kernel's lanes walk them, outputs
-    written into the layout buffers' interiors."""
+    written into the layout buffers' interiors.  ``scalars``: a dict of
+    floats, or the ``(B, NS)`` array of a batched launch."""
+    if plan.batch_of(padded[plan.out_grids[0]]):
+        for args in plan.scenarios(padded, scalars):
+            fused_step_plain(plan, *args)
+        return
     R0, R1, R2 = plan.R3
     device = padded[plan.out_grids[0]].device
     scal = scalar_tensors(scalars, device)

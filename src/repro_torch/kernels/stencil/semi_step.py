@@ -29,6 +29,10 @@ It also runs K5's per-application call (template semi of ``st.map``, a
 full tensors with the origin at the region's first point, outputs into
 the plan's destinations.
 
+Under ``batch=B`` (the fused path) the buffers carry a leading scenario
+axis: the kernel advances every scenario in one launch, the plain version
+each scenario as its own step (``CudaPlan.scenarios``).
+
 Writes: both versions write the output grids' interiors (``MapPlan``: the
 region, in place or into ``dst``); nothing else is written.
 """
@@ -51,6 +55,10 @@ def semi_step_plain(plan, padded: Dict[str, torch.Tensor],
                     scalars: Dict[str, float],
                     dst: Optional[Dict[str, torch.Tensor]] = None) -> None:
     """K5's plain PyTorch version (see the module docstring)."""
+    if plan.batch_of(padded[plan.out_grids[0]]):
+        for args in plan.scenarios(padded, scalars, dst):
+            semi_step_plain(plan, *args)
+        return
     R0, R1, R2 = plan.R3
     H, chunk = plan.H, plan.B3[0]
     nr = 2 * H + 1

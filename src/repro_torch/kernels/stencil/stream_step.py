@@ -34,6 +34,10 @@ the plan's destinations.
 Both versions read f32 or bf16 buffers (the rings hold the grids' own
 type), compute in f32 and round once, when they store an output cell.
 
+Under ``batch=B`` (the fused path) the buffers carry a leading scenario
+axis: the kernel advances every scenario in one launch, the plain version
+each scenario as its own step (``CudaPlan.scenarios``).
+
 Writes: both versions write the output grids' interiors (``MapPlan``: the
 region, in place or into ``dst``); nothing else is written.
 """
@@ -59,6 +63,10 @@ def stream_step_plain(plan, padded: Dict[str, torch.Tensor],
                       scalars: Dict[str, float],
                       dst: Optional[Dict[str, torch.Tensor]] = None) -> None:
     """K2's plain PyTorch version (see the module docstring)."""
+    if plan.batch_of(padded[plan.out_grids[0]]):
+        for args in plan.scenarios(padded, scalars, dst):
+            stream_step_plain(plan, *args)
+        return
     R0, R1, R2 = plan.R3
     chunk = plan.B3[0]
     dtype, device = torch.float32, padded[plan.out_grids[0]].device

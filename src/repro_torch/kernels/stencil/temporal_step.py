@@ -35,6 +35,11 @@ Both versions read f32 or bf16 buffers and compute in f32; the rings of
 sub-step values and the queues hold f32, so a sub-step's values reach the
 next one unrounded, and only the stores into the spares round.
 
+Under ``batch=B`` the buffers and spares carry a leading scenario axis:
+the kernel advances every scenario in one launch (the ring -1 TMA map has
+a scenario dimension), the plain version each scenario as its own launch
+(``CudaPlan.scenarios``).
+
 Writes: both versions write the interiors of the two spares only; the
 layout buffers they read are left as they were.
 """
@@ -57,6 +62,10 @@ def temporal_step_plain(plan, padded: Dict[str, torch.Tensor],
                         spares: Dict[str, torch.Tensor],
                         scalars: Dict[str, float]) -> None:
     """K3's plain PyTorch version (see the module docstring)."""
+    if plan.batch_of(padded[plan.swap[1]]):
+        for p_b, scal_b, sp_b in plan.scenarios(padded, scalars, spares):
+            temporal_step_plain(plan, p_b, sp_b, scal_b)
+        return
     R0, R1, R2 = plan.R3
     k, chunk = plan.time_block, plan.B3[0]
     written, other = plan.swap

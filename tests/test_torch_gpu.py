@@ -10,7 +10,13 @@ region start, and under both ``mem_type`` values; every stencil source
 built for bf16 grids (within one bf16 ulp of max(1, |plain|): both versions
 compute in f32 and round once), K5 with two coefficient groups, and K7's
 split and combine passes with lengths 0, 1, S and one past a split
-boundary, at B=1 and with 32 query heads to a KV head.
+boundary, at B=1 and with 32 query heads to a KV head; ``batch=B`` under
+K1, K2, K3 (k=2 and 3) and K5 in f32 and bf16 (each scenario bit for bit
+against its own unbatched run, a window's launches those of the unbatched
+window), per-scenario ``(B, NS)`` scalars against the plain versions, and
+the adjoint under ``st.hopper`` against the same adjoint under
+``st.torch()`` (within 1e-3 of each gradient's max: the two forward
+passes differ by f32 rounding).
 
 Each kernel is held against its plain version on the same CUDA tensors
 (the plain versions are held against the JAX package on the CPU by the
@@ -1033,3 +1039,151 @@ def test_autotune_per_application_on_the_card(cuda, tmp_path):
         out.append(g)
     _check(out[1]["v"].data, out[0]["v"].data, "v")
     at.clear_cache()
+
+
+# ---- batch=B: one launch advances every scenario -----------------------------
+BATCH_CASES = [("star3d4r", (20, 24, 70)), ("acoustic", (18, 22, 40)),
+               ("tapped_coef", (45, 77))]
+BATCH_BACKENDS = [("gmem", 1), ("shift", 1), ("shift", 2), ("shift", 3), ("semi", 1)]
+
+
+def _batched_grids(k, shape, dtype, device, nb, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    h = k.info.order
+    return {g: st.grid(dtype=dtype, shape=shape, order=h, device=device, batch=nb,
+                       data=torch.randn((nb,) + tuple(s + 2 * h for s in shape),
+                                        generator=gen, device=device).to(dtype))
+            for g in k.ir.grid_params}
+
+
+def _launches():
+    return (fused_step.launches, stream_step.launches, temporal_step.launches,
+            semi_step.launches)
+
+
+@pytest.fixture(scope="module")
+def batch_built():
+    """Every source the batch and adjoint cases run, built in parallel (one
+    nvcc each): the window's plan and the single-step plan of K3's
+    remainders."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.core import timeloop
+    cases = [(name, shape, t, kb, d) for name, shape in BATCH_CASES
+             for t, kb in BATCH_BACKENDS for d in (torch.float32, torch.bfloat16)
+             if not (t == "semi" and name == "tapped_coef")]
+    cases += [("acoustic", (14, 16, 18), t, kb, torch.float32)
+              for t, kb in (("gmem", 1), ("shift", 2), ("semi", 1))]
+    sources = []
+    for name, shape, t, kb, d in cases:
+        k, swap, _ = _kernel(name)
+        halos = {g: (k.info.order,) * k.ir.ndim for g in k.ir.grid_params}
+        for plan in timeloop.hopper_plans(k.ir, halos, shape,
+                                          st.hopper(template=t, time_block=kb), swap):
+            sources.append(plan.source(d))
+    _build.build_many(sources)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("template,time_block", BATCH_BACKENDS,
+                         ids=[f"{t}-k{k}" for t, k in BATCH_BACKENDS])
+@pytest.mark.parametrize("name,shape", BATCH_CASES, ids=[c[0] for c in BATCH_CASES])
+def test_batched_kernels_equal_serial_runs(cuda, batch_built, name, shape, template,
+                                           time_block, dtype):
+    """Each scenario of a batched loop equals its own unbatched run bit for
+    bit, and a window launches as many kernels as the unbatched window."""
+    k, swap, scal = _kernel(name)
+    if template == "semi" and name == "tapped_coef":
+        pytest.skip("semi takes kernels linear in their taps")
+    nb, steps, fuse = 3, 5, 3
+    be = st.hopper(template=template, time_block=time_block)
+    grids = _batched_grids(k, shape, dtype, cuda, nb, 4)
+    serial, per_run = [], None
+    for b in range(nb):
+        one = {g: st.grid(dtype=dtype, shape=shape, order=x.order, device=cuda,
+                          data=x.data[b].clone()) for g, x in grids.items()}
+        n0 = _launches()
+        st.launch(backend=be)(lambda: st.timeloop(steps, swap=swap, fuse_steps=fuse)(k)(
+            *[one[g] for g in k.ir.grid_params], *scal.values()))()
+        per_run = [a - c for a, c in zip(_launches(), n0)]
+        serial.append(one)
+    n0 = _launches()
+    st.launch(backend=be)(lambda: st.timeloop(steps, swap=swap, fuse_steps=fuse, batch=nb)(k)(
+        *[grids[g] for g in k.ir.grid_params], *scal.values()))()
+    assert [a - c for a, c in zip(_launches(), n0)] == per_run
+    for b in range(nb):
+        for g in grids:
+            assert torch.equal(grids[g].data[b], serial[b][g].data), (name, g, b)
+
+
+@pytest.mark.parametrize("template,time_block", BATCH_BACKENDS,
+                         ids=[f"{t}-k{k}" for t, k in BATCH_BACKENDS])
+def test_batched_per_scenario_scalars_on_the_card(cuda, batch_built, template, time_block):
+    """(B, NS) scalars: each scenario's kernel reads its own row; the launch
+    matches its plain version and each scenario its serial run."""
+    k = acoustic.acoustic_iso_kernel
+    shape, nb = (18, 22, 40), 3
+    dts = torch.tensor([0.2, 0.25, 0.3])
+    be = st.hopper(template=template, time_block=time_block)
+    grids = _batched_grids(k, shape, torch.float32, cuda, nb, 5)
+    plan = codegen.plan_cuda(k.ir, {g: x.halo for g, x in grids.items()}, shape, be,
+                             swap=("p0", "p1"))
+    sc = plan.scenario_scalars({"dt": dts}, nb, cuda)
+    padded = plan.to_padded({g: x.data.clone() for g, x in grids.items()})
+    ref = {g: t.clone() for g, t in padded.items()}
+    if time_block > 1:
+        spares, rsp = plan.make_spares(padded), plan.make_spares(ref)
+        temporal_step(plan, padded, spares, sc)
+        temporal_step_plain(plan, ref, rsp, sc)
+        got, want = spares, rsp
+    else:
+        plan.step(padded, sc)
+        {"fused": fused_step_plain, "stream": stream_step_plain,
+         "semi": semi_step_plain}[plan.kind](plan, ref, sc)
+        got, want = padded, ref
+    for g in plan.step_out_grids:
+        _check(got[g], want[g], (template, g))
+    serial = []
+    for b in range(nb):
+        one = [st.grid(dtype=torch.float32, shape=shape, order=x.order, device=cuda,
+                       data=x.data[b].clone()) for x in grids.values()]
+        st.launch(backend=be)(lambda: st.timeloop(4, swap=("p0", "p1"))(k)(
+            *one, float(dts[b])))()
+        serial.append(one)
+    st.launch(backend=be)(lambda: st.timeloop(4, swap=("p0", "p1"), batch=nb)(k)(
+        *grids.values(), dts))()
+    for b in range(nb):
+        for x, y in zip(grids.values(), serial[b]):
+            assert torch.equal(x.data[b], y.data)
+    assert not torch.equal(grids["p1"].data[0], grids["p1"].data[2])
+
+
+@pytest.mark.parametrize("template,time_block", [("gmem", 1), ("shift", 2), ("semi", 1)])
+def test_hopper_adjoint_matches_torch_adjoint(cuda, batch_built, template, time_block):
+    """The adjoint under st.hopper (forward and replay on the kernels, the
+    cotangents through the torch lowering) against the same adjoint under
+    st.torch(): every gradient within 1e-3 of its max."""
+    nb = 2
+    p0, p1, vp2, damp, dt = acoustic.make_fields((14, 16, 18), pml_width=3,
+                                                 device=cuda, batch=nb)
+    p1.randomize(3, 0.1)
+    vp2.interior = vp2.interior * (1.0 + 0.1 * torch.rand(vp2.interior.shape, device=cuda))
+
+    def between(t, g):
+        acoustic.inject_source(g["p1"], t, pos=[(4, 5, 6), (9, 8, 7)])
+
+    grads = {}
+    for be in (st.torch(), st.hopper(template=template, time_block=time_block)):
+        fn = st.differentiable_timeloop(acoustic.acoustic_iso_kernel, p0, p1, vp2, damp,
+                                        dt, steps=9, swap=("p0", "p1"),
+                                        between=between, backend=be)
+        arrays = {n: a.detach().clone().requires_grad_() for n, a in fn.arrays.items()}
+        d = torch.tensor(float(dt), device=cuda, requires_grad=True)
+        out = fn(arrays, {"dt": d})
+        (out["p1"] ** 2).sum().backward()
+        grads[be.kind] = {**{n: a.grad for n, a in arrays.items()}, "dt": d.grad}
+    for n, want in grads["torch"].items():
+        got = grads["hopper"][n]
+        assert bool(torch.isfinite(got).all()), n
+        err = float((got - want).abs().max())
+        assert err <= 1e-3 * float(want.abs().max()), (n, err)

@@ -540,7 +540,7 @@ extern "C" void host_f4(const long long* m, const float* s) {
     sy[i] = m[2 * RT_NG + i]; org[i] = m[3 * RT_NG + i];
   }
   const int R0 = m[4 * RT_NG], R1 = m[4 * RT_NG + 1], R2 = m[4 * RT_NG + 2];
-  const long long* d = m + 4 * RT_NG + 3;
+  const long long* d = m + 5 * RT_NG + 5;   // past nb, sc and bs (csrc/common.cuh)
   for (int x0 = 0; x0 < R0; x0 += RT_TB0)
     for (int y = 0; y < R1; ++y)
       for (int z0 = 0; z0 < R2; z0 += 4) {
