@@ -151,7 +151,42 @@ Phases, each of which exits non-zero when it fails:
    gradients within 1e-3 of their max of the same adjoint under
    ``st.torch()``, the vp² gradient along the blob within 2e-2 of a
    central difference; forward seconds, backward seconds split into
-   replay, recompute and VJP, and peak device memory.
+   replay, recompute and VJP, and peak device memory;
+12. resilience — (a) acoustic ISO at 512³ f32 (PML 10, 100 steps, windows
+   of 10, the source in ``between``) on phase 10's tuned acoustic build
+   through ``timeloop.run_resilient`` into a directory under ``build/``
+   (removed afterwards), a save every 5 windows, failures injected before
+   windows 3 and 7: the fields bit for bit an uninterrupted ``engine.run``
+   from the same initial fields, exactly 2 restarts (each the injected
+   failure), the launches of the windows run (replays included); then a
+   fresh run of 50 steps and one of 100 steps on the same directory
+   (no hook: a run that ends at 50 does not inject there), bit for bit
+   the uninterrupted run, the second launching only the last 5 windows;
+   the uninterrupted and resilient seconds, bytes and seconds of each
+   save (device to host, files) and restore, windows replayed; (b) the
+   gradient at 256³ (100 steps, windows of 10, K1) through
+   ``run_resilient(loss=)`` with a save every 6 of its 21 units (at most
+   4 saves), failures before a forward unit and a backward segment: value
+   and every gradient bit for bit the uninterrupted ``differentiable_run``
+   on the same engine; (c) ``launch.train``'s step on
+   ``configs.tiny(recurrentgemma-9b)`` at the CLI's smoke size, 6 steps, a
+   save every 2, a failure before step 3 through ``run_with_restarts``:
+   losses and state equal to an uninterrupted run's (bit for bit when two
+   uninterrupted runs agree bit for bit, else within their difference),
+   K6's launches those of the steps run; ``launch.train --ckpt-dir`` on
+   the card;
+13. stencil serving — ``SimServer`` on the card: 16 ``star3d4r`` requests,
+   interior extents drawn from a seed in 129–256 (one 256³ bucket), steps
+   in 20–100 and one of 0, ``batch_cap=8``, ``fuse_window=10`` (two waves
+   of the masked batched ``st.torch()`` window, no kernel launched): each
+   result within ``rtol=1e-5, atol=1e-6`` of its own serial unbatched
+   ``st.torch()`` run at its true shape, the first request also within
+   2e-5 of its max of its run under K2; requests/s, seconds a wave,
+   latency p50/max, peak device memory a wave; then a server with
+   ``autotune_cache=`` (a directory under ``build/``) cold and warm (the
+   in-process caches and cost models dropped) on the first 8 requests:
+   the cold one measures candidates, the warm one none, with the same
+   fuse window and results.
 
 It prints the kernels line ``{"kernels": [...]}`` and then, last,
 ``{"ok": true, "device": {...}}``.  ``--quick`` runs phases 1–3 at the two
@@ -159,9 +194,11 @@ small shapes only (K6 and K7 at all of theirs, untimed) and prints no
 result line.  Phases 4, 5 and 10 read the launch counts of the fused path, 6
 and 7 those of ``st.map``, 8 those of serving, 9 those of training: each
 sets the counts to 0 just before its run and reads them just after (11:
-each batched run and the gradient); the kernels line gives K1/K2/K3/K5
-their launches in phase 11's batched runs (``batched_launches``) and lists
-K6 once a path (``causal_conv1d``: serving, at the
+each batched run and the gradient; 12 and 13: each run); the kernels line
+gives K1/K2/K3/K5 their launches in phase 11's batched runs
+(``batched_launches``), the tuned acoustic build's kernel and K6's
+training entry theirs in phase 12's restarted runs (``resilient_launches``),
+and lists K6 once a path (``causal_conv1d``: serving, at the
 decode shape; ``causal_conv1d.train``: training, at its shape).  The script imports neither
 JAX nor the JAX package, and needs nothing outside the checkout.
 """
@@ -301,6 +338,30 @@ ADJOINT_TOL = 1e-3
 ADJOINT_EPS = 0.01
 ADJOINT_FD_TOL = 2e-2
 # the kernel wrapper that runs each plan kind
+# phase 12: resilience.  (a) at MAIN_SHAPE, failures before windows 3 and
+# 7 of 20, a save every 5; (b) the gradient at GRAD_SHAPE: 10 windows, the
+# seed, 10 backward segments = 21 units, a save every 6 (4 saves), failures
+# before a forward unit and a backward one; (c) the CLI's smoke training
+# (its defaults: lr, warmup, seq, batch), a failure before step 3 of 6
+RESILIENCE_FAILS = (3, 7)
+RESILIENCE_CKPT_EVERY = 5
+GRAD_SHAPE = (256, 256, 256)
+GRAD_CKPT_EVERY = 6
+GRAD_FAILS = (4, 15)
+TRAIN_RESTART_STEPS = 6
+TRAIN_RESTART_EVERY = 2
+TRAIN_RESTART_FAIL = 3
+TRAIN_CLI_SEQ, TRAIN_CLI_BATCH, TRAIN_CLI_LR, TRAIN_CLI_WARMUP = 128, 8, 3e-4, 10
+CKPT_ROOT = ROOT / "build" / "smoke_tmp"
+# phase 13: stencil serving, the JAX test's tolerance against serial runs
+SIM_REQUESTS = 16
+SIM_SEED = 13
+SIM_SHAPE_RANGE = (129, 256)
+SIM_STEP_RANGE = (20, 100)
+SIM_ZERO = 5
+SIM_CAP = 8
+SIM_FUSE = 10
+SIM_RTOL, SIM_ATOL = 1e-5, 1e-6
 KIND_WRAPPER = {"fused": "fused_step", "stream": "stream_step",
                 "semi": "semi_step", "temporal": "temporal_step"}
 
@@ -1307,7 +1368,8 @@ def autotune_phase(torch, mods, counters, main_rows):
     measured time; with star3d4r's rates, the shortlist acoustic would get;
     then each main path through ``st.launch(autotune=True)`` (in-process
     hit), and again after the in-process cache and the cost models are
-    dropped (disk hit: nothing measured).  Returns the phase's record."""
+    dropped (disk hit: nothing measured).  Returns the phase's record and
+    the two-stage winner of each workload."""
     st, suite, acoustic = mods["st"], mods["suite"], mods["acoustic"]
     at, cm, tl = mods["autotune"], mods["cost_model"], mods["timeloop"]
     reset_counts, counts = counters
@@ -1315,7 +1377,7 @@ def autotune_phase(torch, mods, counters, main_rows):
     cdir = str(AUTOTUNE_CACHE)
     at.clear_cache()
     cm.reset_default_models()
-    rows, star_rates = [], None
+    rows, star_rates, winners = [], None, {}
     classes = ("torch", "hopper-K1", "hopper-K2", "hopper-K3", "hopper-K5")
     for wname in ("star3d4r", "acoustic_iso"):
         if wname == "star3d4r":
@@ -1471,7 +1533,8 @@ def autotune_phase(torch, mods, counters, main_rows):
         del ref
         torch.cuda.empty_cache()
         rows.append(row)
-    return rows
+        winners[wname] = two.backend
+    return rows, winners
 
 
 def train_phase(torch, mods, counters):
@@ -1931,6 +1994,519 @@ def adjoint_phase(torch, mods, counters, device="cuda"):
             "backward_over_forward": hrow["backward_s"] / hrow["forward_s"]}
 
 
+def units_run(n: int, every: int, fails) -> list:
+    """The units ``run_with_restarts`` executes, in order, for ``n`` units
+    saved every ``every`` (and after the last) with a failure injected
+    before each unit of ``fails`` (once each): a failure resumes at the
+    last save, or from the start before the first."""
+    done, saved, start, fails = [], 0, 0, set(fails)
+    while True:
+        for s in range(start, n):
+            if s in fails:
+                fails.discard(s)
+                start = saved
+                break
+            done.append(s)
+            if (s + 1) % every == 0 or s + 1 == n:
+                saved = s + 1
+        else:
+            return done
+
+
+def ckpt_stats(ckpt) -> dict:
+    """Per save and per restore, from ``checkpoint.STATS``: bytes and
+    seconds (a save: device to host, then the files; a restore: the files,
+    then the tensors on the card)."""
+    s = dict(ckpt.STATS)
+    n, r = max(s["saves"], 1), max(s["restores"], 1)
+    return {"saves": s["saves"], "bytes_a_save": s["save_bytes"] / n,
+            "snapshot_s_a_save": s["snapshot_s"] / n, "write_s_a_save": s["write_s"] / n,
+            "restores": s["restores"], "bytes_a_restore": s["restore_bytes"] / r,
+            "read_s_a_restore": s["read_s"] / r, "place_s_a_restore": s["place_s"] / r}
+
+
+def say_ckpt(label: str, c: dict) -> None:
+    say(f"{label}: {c['saves']} saves of {c['bytes_a_save'] / 1e9:.3f} GB, each "
+        f"{c['snapshot_s_a_save']:.3f} s device to host + {c['write_s_a_save']:.3f} s "
+        f"written; {c['restores']} restores of {c['bytes_a_restore'] / 1e9:.3f} GB, each "
+        f"{c['read_s_a_restore']:.3f} s read + {c['place_s_a_restore']:.3f} s to the card")
+
+
+def resilience_phase(torch, mods, counters, backend, device="cuda"):
+    """Phase 12: resilience on the card.  (a) Acoustic ISO at 512³ f32, PML
+    10, 100 steps in windows of 10 with the source in ``between``, on the
+    tuned acoustic build ``backend``, through ``timeloop.run_resilient``
+    (a save every ``RESILIENCE_CKPT_EVERY`` windows, failures injected
+    before windows ``RESILIENCE_FAILS``): bit for bit an uninterrupted
+    ``engine.run``, one restart a failure, the launches of the windows run
+    (replays included); then a fresh run of 50 steps and another of 100
+    on the same directory (no hook: a run ending at 50 does not inject at
+    50), bit for bit the uninterrupted run, the second run launching
+    only the last 5 windows.  (b) The gradient at ``GRAD_SHAPE``
+    (``run_resilient(loss=)``, a failure in a forward unit and one in a
+    backward segment): value and gradients bit for bit the uninterrupted
+    ``differentiable_run`` under the same engine.  (c) ``launch.train``'s
+    step on ``configs.tiny(recurrentgemma-9b)`` at the CLI's smoke size
+    through ``run_with_restarts`` with a failure at step
+    ``TRAIN_RESTART_FAIL``: losses and state equal to the uninterrupted
+    run (bit for bit when two uninterrupted runs agree bit for bit), and
+    the CLI itself with ``--ckpt-dir`` on the card.  Checkpoints go to
+    directories under ``CKPT_ROOT``, removed afterwards.  Returns the
+    phase's record."""
+    import dataclasses
+    import tempfile
+    st, acoustic, tl, adjoint = mods["st"], mods["acoustic"], mods["timeloop"], mods["adjoint"]
+    ckpt, ft = mods["checkpoint"], mods["fault_tolerance"]
+    reset_counts, counts = counters
+    k = acoustic.acoustic_iso_kernel
+    swap = ("p0", "p1")
+    CKPT_ROOT.mkdir(parents=True, exist_ok=True)
+    record = {}
+
+    def fields_at(shape):
+        p0, p1, vp2, damp, dt = acoustic.make_fields(shape, pml_width=PML_WIDTH,
+                                                     device=device)
+        acoustic.inject_source(p1, 0)
+        arrays = {"p0": p0.data, "p1": p1.data, "vp2": vp2.data, "damp": damp.data}
+        return arrays, float(dt), {n: (acoustic.ORDER,) * 3 for n in arrays}
+
+    def between_for(shape):
+        # acoustic.inject_source on the engine's arrays (in place; out of place where
+        # autograd records the hook) on the engine's arrays
+        def between(t, arrays):
+            p = st.grid(st.f32, shape, acoustic.ORDER, data=arrays["p1"])
+            acoustic.inject_source(p, t)
+            return {**arrays, "p1": p.data}
+        return between
+
+    def launches_of(be, halos, shape, sizes):
+        """{wrapper: launches} of windows of ``sizes`` steps under ``be``."""
+        plan, plan1 = tl.hopper_plans(k.ir, halos, shape, be, swap)
+        want = {}
+        for kw in sizes:
+            blocked, single, _ = tl.launch_steps(kw, kw, plan.time_block)
+            for name, n in ((KIND_WRAPPER[plan.kind], blocked // plan.time_block),
+                            (KIND_WRAPPER[plan1.kind], single)):
+                if n:
+                    want[name] = want.get(name, 0) + n
+        return want
+
+    def check_launches(label, want):
+        seen = {g: c for g, c in counts().items() if c}
+        if seen != want:
+            fail(f"{label}: launch counts {seen}, expected {want}")
+        return seen
+
+    def check_restarts(label, inj, restarts, n):
+        if len(restarts) != n or len(inj.fired) != n \
+                or not all("injected node failure" in r for r in restarts):
+            fail(f"{label}: restarts {restarts}, injected {inj.fired}: every restart "
+                 f"must be one of the {n} injected failures")
+
+    def tmpdir():
+        return tempfile.mkdtemp(dir=CKPT_ROOT)
+
+    # (a) the forward run at 512³
+    arrays, dt, halos = fields_at(MAIN_SHAPE)
+    scal = {"dt": dt}
+    between = between_for(MAIN_SHAPE)
+    n_win = STEPS // ACOUSTIC_FUSE
+
+    def engine():
+        return tl.TimeloopEngine(k.ir, halos, MAIN_SHAPE, backend, swap=swap)
+
+    warm = {n: a.clone() for n, a in arrays.items()}
+    engine().run(warm, scal, ACOUSTIC_FUSE, ACOUSTIC_FUSE)      # loads the build
+    del warm
+    ref = {n: a.clone() for n, a in arrays.items()}
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = engine().run(ref, scal, STEPS, ACOUSTIC_FUSE, between)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    check_launches("resilience uninterrupted",
+                   launches_of(backend, halos, MAIN_SHAPE, [ACOUSTIC_FUSE] * n_win))
+    d = tmpdir()
+    try:
+        ckpt.reset_stats()
+        inj, restarts = ft.FailureInjector(RESILIENCE_FAILS), []
+        reset_counts()
+        t0 = time.perf_counter()
+        got = tl.run_resilient(engine(), arrays, scal, STEPS, ACOUSTIC_FUSE, between,
+                               ckpt_dir=d, ckpt_every=RESILIENCE_CKPT_EVERY, injector=inj,
+                               on_restart=lambda n, e: restarts.append(repr(e)))
+        torch.cuda.synchronize()
+        res_s = time.perf_counter() - t0
+        ran = units_run(n_win, RESILIENCE_CKPT_EVERY, RESILIENCE_FAILS)
+        seen = check_launches("resilient run", launches_of(
+            backend, halos, MAIN_SHAPE, [ACOUSTIC_FUSE] * len(ran)))
+        check_restarts("resilient run", inj, restarts, len(RESILIENCE_FAILS))
+        for n in ref:
+            if not torch.equal(got[n], ref[n]):
+                fail(f"resilient run at {MAIN_SHAPE}: grid {n} differs from the "
+                     f"uninterrupted run (max {float((got[n] - ref[n]).abs().max())})")
+        stats = ckpt_stats(ckpt)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    del got
+    record["forward"] = {"shape": list(MAIN_SHAPE), "backend": describe(backend, ACOUSTIC_FUSE),
+                         "uninterrupted_s": plain_s, "resilient_s": res_s,
+                         "restarts": len(restarts), "windows_run": len(ran),
+                         "windows_replayed": len(ran) - n_win, "launches": seen,
+                         "checkpoints": stats, "bit_equal": True}
+    say(f"resilience {MAIN_SHAPE} on {describe(backend, ACOUSTIC_FUSE)}: uninterrupted "
+        f"{plain_s:.3f} s, resilient {res_s:.3f} s with {len(restarts)} restarts "
+        f"(failures before windows {list(RESILIENCE_FAILS)}; {len(ran)} windows run, "
+        f"{len(ran) - n_win} replayed; launches {seen}); bit for bit the uninterrupted run")
+    say_ckpt("resilience checkpoints", stats)
+
+    # a fresh run resumes a directory another one left
+    d = tmpdir()
+    try:
+        plain = engine().run({n: a.clone() for n, a in arrays.items()}, scal, STEPS,
+                             ACOUSTIC_FUSE)
+        tl.run_resilient(engine(), arrays, scal, STEPS // 2, ACOUSTIC_FUSE, ckpt_dir=d,
+                         ckpt_every=RESILIENCE_CKPT_EVERY)
+        first = ckpt.steps(d)
+        reset_counts()
+        got = tl.run_resilient(engine(), arrays, scal, STEPS, ACOUSTIC_FUSE, ckpt_dir=d,
+                               ckpt_every=RESILIENCE_CKPT_EVERY)
+        torch.cuda.synchronize()
+        check_launches("resumed run", launches_of(backend, halos, MAIN_SHAPE,
+                                                  [ACOUSTIC_FUSE] * (n_win // 2)))
+        for n in plain:
+            if not torch.equal(got[n], plain[n]):
+                fail(f"resumed run: grid {n} differs from the uninterrupted run")
+        record["resume"] = {"first_run_saves": first, "second_run_saves": ckpt.steps(d),
+                            "bit_equal": True}
+        say(f"resilience resume: a run of {STEPS // 2} steps saved windows {first}; a "
+            f"fresh one of {STEPS} steps resumed there ({n_win // 2} windows launched), "
+            f"bit for bit the uninterrupted run")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    del arrays, ref, plain, got
+    torch.cuda.empty_cache()
+
+    # (b) the gradient at GRAD_SHAPE
+    arrays, dt, halos = fields_at(GRAD_SHAPE)
+    between = between_for(GRAD_SHAPE)
+    be = st.hopper(template="gmem")
+    eng = tl.TimeloopEngine(k.ir, halos, GRAD_SHAPE, be, swap=swap, differentiable=True)
+
+    def loss(out):
+        return (out["p1"].double() ** 2).sum()
+
+    fn = adjoint.differentiable_run(eng, STEPS, ACOUSTIC_FUSE, between)
+    sched = fn.schedule
+    sizes, stride, n_ckpts = sched["windows"], sched["stride"], sched["checkpoints"]
+    W = len(sizes)
+    x = {n: a.detach().clone().requires_grad_() for n, a in arrays.items()}
+    d_t = torch.tensor(dt, device=device, requires_grad=True)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    value = loss(fn(x, {"dt": d_t}))
+    value.backward()
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    check_launches("gradient uninterrupted",
+                   launches_of(be, halos, GRAD_SHAPE, [1] * (2 * STEPS)))
+    want = {n: x[n].grad for n in x}
+    want_dt = d_t.grad
+    del x
+    # the steps a unit launches: a forward window; the seed none; a backward
+    # segment replays its windows but the last, then each a step at a time
+    unit_steps = list(sizes) + [0] + [
+        sum(sizes[seg * stride:min(seg * stride + stride, W) - 1])
+        + sum(sizes[seg * stride:min(seg * stride + stride, W)])
+        for seg in reversed(range(n_ckpts))]
+    d = tmpdir()
+    try:
+        ckpt.reset_stats()
+        inj, restarts = ft.FailureInjector(GRAD_FAILS), []
+        reset_counts()
+        t0 = time.perf_counter()
+        got = tl.run_resilient(eng, arrays, {"dt": dt}, STEPS, ACOUSTIC_FUSE, between,
+                               ckpt_dir=d, ckpt_every=GRAD_CKPT_EVERY, injector=inj, loss=loss,
+                               on_restart=lambda n, e: restarts.append(repr(e)))
+        torch.cuda.synchronize()
+        res_s = time.perf_counter() - t0
+        ran = units_run(W + 1 + n_ckpts, GRAD_CKPT_EVERY, GRAD_FAILS)
+        seen = check_launches("resilient gradient", launches_of(
+            be, halos, GRAD_SHAPE, [1] * sum(unit_steps[u] for u in ran)))
+        check_restarts("resilient gradient", inj, restarts, len(GRAD_FAILS))
+        stats = ckpt_stats(ckpt)
+        if stats["saves"] > 4:
+            fail(f"resilient gradient: {stats['saves']} saves, more than 4")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    if float(got["value"]) != float(value.detach()):
+        fail(f"resilient gradient: value {float(got['value'])} != {float(value.detach())}")
+    for n, w in want.items():
+        if not torch.equal(got["grad_arrays"][n], w):
+            fail(f"resilient gradient of {n} differs from the uninterrupted one (max "
+                 f"{float((got['grad_arrays'][n] - w).abs().max())})")
+    if not torch.equal(got["grad_scalars"]["dt"], want_dt):
+        fail(f"resilient gradient of dt {got['grad_scalars']['dt']} != {want_dt}")
+    record["gradient"] = {"shape": list(GRAD_SHAPE), "schedule": {
+        "windows": W, "checkpoints": n_ckpts, "units": W + 1 + n_ckpts},
+        "uninterrupted_s": ref_s, "resilient_s": res_s, "restarts": len(restarts),
+        "units_run": len(ran), "launches": seen, "checkpoints": stats, "bit_equal": True}
+    say(f"resilient gradient at {GRAD_SHAPE} ({W} windows, {n_ckpts} checkpoints, "
+        f"{W + 1 + n_ckpts} units, a save every {GRAD_CKPT_EVERY}): uninterrupted "
+        f"{ref_s:.3f} s, resilient {res_s:.3f} s with {len(restarts)} restarts (failures "
+        f"before units {list(GRAD_FAILS)}; {len(ran)} units run; launches {seen}); value "
+        f"and every gradient bit for bit the uninterrupted adjoint's")
+    say_ckpt("resilient gradient checkpoints", stats)
+    del arrays, want, got, fn, eng
+    torch.cuda.empty_cache()
+
+    # (c) the training restart at the CLI's smoke size
+    configs, train_loop, optimizer, data, shapes, train_cli = (
+        mods["configs"], mods["train_loop"], mods["optimizer"], mods["data"],
+        mods["shapes"], mods["train_cli"])
+    cfg = configs.tiny(configs.get(SERVE_ARCH))
+    shape = dataclasses.replace(shapes.SHAPES["train_4k"], seq_len=TRAIN_CLI_SEQ,
+                                global_batch=TRAIN_CLI_BATCH)
+    batch_fn = data.make_batch_fn(cfg, shape, seed=0)
+    tc = train_loop.TrainConfig(opt=optimizer.OptConfig(
+        lr=TRAIN_CLI_LR, warmup_steps=TRAIN_CLI_WARMUP, total_steps=TRAIN_RESTART_STEPS))
+    step = train_loop.make_train_step(cfg, tc)
+
+    def init_fn():
+        return train_loop.init_state(cfg, device=device, seed=0)
+
+    def stepper(losses):
+        def one(state, i):
+            state, metrics = step(state, batch_fn(i))
+            losses[i] = float(metrics["loss"])
+            return state
+        return one
+
+    def uninterrupted():
+        losses, state = {}, init_fn()
+        one = stepper(losses)
+        reset_counts()
+        for i in range(TRAIN_RESTART_STEPS):
+            state = one(state, i)
+        return losses, state, counts()["causal_conv1d"]
+
+    def leaves(state):
+        return [t for t in ckpt.flatten(state)[0] if isinstance(t, torch.Tensor)]
+
+    def spread(a, b):
+        la, sa = a
+        lb, sb = b
+        return max([abs(la[i] - lb[i]) for i in la]
+                   + [float((x - y).abs().max()) for x, y in zip(leaves(sa), leaves(sb))])
+
+    ref_a, ref_b = uninterrupted(), uninterrupted()
+    k6_a_step = ref_a[2] / TRAIN_RESTART_STEPS
+    noise = spread(ref_a[:2], ref_b[:2])
+    d = tmpdir()
+    try:
+        ckpt.reset_stats()
+        losses, restarts = {}, []
+        inj = ft.FailureInjector([TRAIN_RESTART_FAIL])
+        reset_counts()
+        t0 = time.perf_counter()
+        state = ft.run_with_restarts(
+            init_fn=init_fn, step_fn=stepper(losses), n_steps=TRAIN_RESTART_STEPS,
+            ckpt_dir=d, ckpt_every=TRAIN_RESTART_EVERY, injector=inj,
+            on_restart=lambda n, e: restarts.append(repr(e)))
+        torch.cuda.synchronize()
+        restart_s = time.perf_counter() - t0
+        k6 = counts()["causal_conv1d"]
+        ran = units_run(TRAIN_RESTART_STEPS, TRAIN_RESTART_EVERY, [TRAIN_RESTART_FAIL])
+        if k6 != k6_a_step * len(ran) or not k6:
+            fail(f"training restart: {k6} K6 launches, expected {k6_a_step} a step x "
+                 f"{len(ran)} steps run")
+        check_restarts("training restart", inj, restarts, 1)
+        diff = spread((losses, state), ref_a[:2])
+        if not diff <= noise:
+            fail(f"training restart: losses and state differ from the uninterrupted run "
+                 f"by {diff}, more than two uninterrupted runs differ ({noise})")
+        stats = ckpt_stats(ckpt)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    d = tmpdir()
+    try:
+        cli = train_cli.main(["--ckpt-dir", d, "--steps", "2", "--ckpt-every", "1"])
+        if len(cli) != 2 or not all(math.isfinite(v) for v in cli) or ckpt.steps(d) != [1, 2]:
+            fail(f"launch.train --ckpt-dir on the card: losses {cli}, saves {ckpt.steps(d)}")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    record["training"] = {"config": cfg.name, "steps": TRAIN_RESTART_STEPS,
+                          "restart_s": restart_s, "restarts": len(restarts),
+                          "steps_run": len(ran), "k6_launches": k6,
+                          "max_diff_vs_uninterrupted": diff,
+                          "uninterrupted_spread": noise, "checkpoints": stats,
+                          "cli_losses": cli}
+    say(f"training restart ({cfg.name}, tiny, batch {TRAIN_CLI_BATCH} x seq "
+        f"{TRAIN_CLI_SEQ}): {TRAIN_RESTART_STEPS} steps, a failure before step "
+        f"{TRAIN_RESTART_FAIL}, {len(restarts)} restart, {len(ran)} steps run in "
+        f"{restart_s:.3f} s, {k6} K6 launches; losses and state within {diff:.3g} of the "
+        f"uninterrupted run (two uninterrupted runs: {noise:.3g}); launch.train "
+        f"--ckpt-dir on the card: losses {[round(v, 4) for v in cli]}")
+    say_ckpt("training checkpoints", stats)
+    return record
+
+
+def sim_requests(np):
+    """Phase 13's requests: (interior shape, steps) drawn from ``SIM_SEED``,
+    each extent in ``SIM_SHAPE_RANGE`` (one 256³ bucket), steps in
+    ``SIM_STEP_RANGE``; request ``SIM_ZERO`` asks for 0 steps."""
+    rng = np.random.default_rng(SIM_SEED)
+    lo, hi = SIM_SHAPE_RANGE
+    shapes = [tuple(int(x) for x in rng.integers(lo, hi + 1, size=3))
+              for _ in range(SIM_REQUESTS)]
+    steps = [int(x) for x in rng.integers(SIM_STEP_RANGE[0], SIM_STEP_RANGE[1] + 1,
+                                          size=SIM_REQUESTS)]
+    steps[SIM_ZERO] = 0
+    return list(zip(shapes, steps))
+
+
+def stencil_serve_phase(torch, np, mods, counters, device="cuda"):
+    """Phase 13: ``SimServer`` on the card.  ``SIM_REQUESTS`` star3d4r
+    requests (``sim_requests``; payloads drawn with numpy), ``batch_cap``
+    ``SIM_CAP``, fuse window ``SIM_FUSE``: two waves of the masked batched
+    ``st.torch()`` window; each result within ``rtol=SIM_RTOL,
+    atol=SIM_ATOL`` of its own serial unbatched ``st.torch()`` run at its
+    true shape on the card, the first also within ``END_TO_END_RTOL`` of
+    its max of the same run under K2 (``st.hopper(template="shift")``);
+    requests/s, seconds a wave, latency p50/max, peak device memory a wave.
+    Then a server with ``autotune_cache=`` (a temporary directory), cold
+    and warm (the in-process caches and cost models dropped), on the first
+    wave's requests: the cold one measures candidates, the warm one none,
+    with the same fuse window and the same results.  Returns the phase's
+    record."""
+    import statistics
+    import tempfile
+    st, suite, at, cm, serve = (mods["st"], mods["suite"], mods["autotune"],
+                                mods["cost_model"], mods["stencil_serve"])
+    reset_counts, counts = counters
+    k = suite.get_kernel("star3d4r")
+    reqs = sim_requests(np)
+    rng = np.random.default_rng(SIM_SEED + 1)
+    payloads = [{"u": rng.standard_normal(s, dtype=np.float32)} for s, _ in reqs]
+    bucket = at.shape_bucket((SIM_SHAPE_RANGE[1],) * 3)
+    keys = {serve.bucket_key("star3d4r", s) for s, _ in reqs}
+    if keys != {("star3d4r", bucket, "float32")}:
+        fail(f"stencil serving: buckets {keys}, expected one of {bucket}")
+
+    def serial(shape, steps, payload, backend):
+        gs = {g: st.grid(st.f32, shape, k.info.order, device=device) for g in ("u", "v")}
+        gs["u"].interior = torch.from_numpy(payload["u"]).to(device)
+        if steps:
+            st.launch(backend=backend)(lambda: st.timeloop(steps, swap=("v", "u"))(k)(
+                gs["u"], gs["v"]))()
+        return {g: gs[g].interior for g in gs}
+
+    def check(label, result, want):
+        worst = 0.0
+        for g, w in want.items():
+            got = torch.from_numpy(result[g]).to(device)
+            err = (got - w).abs()
+            if bool((err > SIM_ATOL + SIM_RTOL * w.abs()).any()):
+                fail(f"stencil serving {label} grid {g}: max |served - serial| "
+                     f"{float(err.max())} beyond rtol {SIM_RTOL}, atol {SIM_ATOL}")
+            worst = max(worst, float(err.max()))
+        return worst
+
+    srv = serve.SimServer(batch_cap=SIM_CAP, fuse_window=SIM_FUSE, device=device)
+    uids = [srv.submit("star3d4r", s, n, p) for (s, n), p in zip(reqs, payloads)]
+    done, wave_s, peaks = {}, [], []
+    reset_counts()
+    t0 = time.perf_counter()
+    while srv.pending():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tw = time.perf_counter()
+        for r in srv.step(force=True):
+            done[r.uid] = r
+        torch.cuda.synchronize()
+        wave_s.append(time.perf_counter() - tw)
+        peaks.append(torch.cuda.max_memory_allocated() / 1e9)
+    total_s = time.perf_counter() - t0
+    if sum(counts().values()) or srv.waves_run != 2:
+        fail(f"stencil serving: {srv.waves_run} waves, launches {counts()} (the masked "
+             f"windows run st.torch(): no kernel)")
+    lat = sorted(done[u].done_at - done[u].submitted_at for u in uids)
+    (eng, fuse), = srv._engines.values()
+    worst, refs = 0.0, {}
+    for i, ((shape, steps), p) in enumerate(zip(reqs, payloads)):
+        want = serial(shape, steps, p, st.torch())
+        worst = max(worst, check(f"request {i} {shape} x {steps}", done[uids[i]].result, want))
+        if i < SIM_CAP:
+            refs[i] = want
+    # the first request again under K2, at its own shape
+    shape, steps = reqs[0]
+    reset_counts()
+    k2 = serial(shape, steps, payloads[0], st.hopper(template="shift"))
+    if {g: c for g, c in counts().items() if c} != {"stream_step": steps}:
+        fail(f"stencil serving K2 check: launches {counts()}, expected {steps} of stream_step")
+    scale = max(float(w.abs().max()) for w in k2.values())
+    k2_diff = max(float((torch.from_numpy(done[uids[0]].result[g]).to(device) - k2[g])
+                        .abs().max()) for g in k2)
+    if not k2_diff <= END_TO_END_RTOL * scale:
+        fail(f"stencil serving: request 0 differs from its K2 run by {k2_diff} (field max "
+             f"{scale}, limit {END_TO_END_RTOL} of it)")
+    record = {"requests": len(reqs), "bucket": list(bucket), "waves": srv.waves_run,
+              "fuse": fuse, "seconds": total_s, "requests_per_s": len(reqs) / total_s,
+              "wave_s": wave_s, "latency_p50_s": statistics.median(lat),
+              "latency_max_s": lat[-1], "peak_gb_a_wave": peaks,
+              "max_abs_diff_vs_serial": worst, "k2_max_abs_diff": k2_diff,
+              "k2_field_max": scale}
+    say(f"stencil serving star3d4r: {len(reqs)} requests (shapes {SIM_SHAPE_RANGE[0]}-"
+        f"{SIM_SHAPE_RANGE[1]} an axis, steps {SIM_STEP_RANGE[0]}-{SIM_STEP_RANGE[1]}, one "
+        f"of 0) in {srv.waves_run} waves of {SIM_CAP} at {bucket}, fuse {fuse}: "
+        f"{total_s:.3f} s = {len(reqs) / total_s:.3f} requests/s; a wave "
+        f"{', '.join(f'{s:.3f}' for s in wave_s)} s, peak "
+        f"{', '.join(f'{g:.2f}' for g in peaks)} GB; latency p50 "
+        f"{statistics.median(lat):.3f} s, max {lat[-1]:.3f} s; max |served - serial "
+        f"st.torch()| {worst:.3g}; request 0 vs K2 {k2_diff:.3g} (field max {scale:.3g})")
+
+    cdir = tempfile.mkdtemp(dir=CKPT_ROOT)
+    try:
+        tuned = {}
+        for label in ("cold", "warm"):
+            at.clear_cache()
+            cm.reset_default_models()
+            at.reset_measure_count()
+            srv2 = serve.SimServer(batch_cap=SIM_CAP, fuse_window=SIM_FUSE,
+                                   autotune_cache=cdir, device=device)
+            ids = [srv2.submit("star3d4r", s, n, p)
+                   for (s, n), p in zip(reqs[:SIM_CAP], payloads[:SIM_CAP])]
+            t0 = time.perf_counter()
+            got = srv2.run_until_drained()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            (_, tfuse), = srv2._engines.values()
+            tuned[label] = {"seconds": secs, "fuse": tfuse,
+                            "measured": at.MEASURE_COUNT["measured_candidates"],
+                            "pruned": at.MEASURE_COUNT["pruned_candidates"],
+                            "results": [got[u].result for u in ids]}
+            for i in range(SIM_CAP):
+                check(f"{label} tuned request {i}", tuned[label]["results"][i], refs[i])
+        cold, warm = tuned["cold"], tuned["warm"]
+        if not cold["measured"] or warm["measured"] or warm["fuse"] != cold["fuse"]:
+            fail(f"stencil serving autotune: cold measured {cold['measured']}, warm "
+                 f"{warm['measured']}; fuse {cold['fuse']} then {warm['fuse']}")
+        for a, b in zip(cold["results"], warm["results"]):
+            if not all(np.array_equal(a[g], b[g]) for g in a):
+                fail("stencil serving autotune: the warm server's results differ from "
+                     "the cold one's")
+    finally:
+        shutil.rmtree(cdir, ignore_errors=True)
+    record["autotune"] = {lbl: {kk: v for kk, v in t.items() if kk != "results"}
+                          for lbl, t in tuned.items()}
+    say(f"stencil serving with autotune_cache: cold {cold['seconds']:.3f} s (fuse "
+        f"{cold['fuse']}, {cold['measured']} measured, {cold['pruned']} pruned), warm "
+        f"{warm['seconds']:.3f} s ({warm['measured']} measured); results equal")
+    return record
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -1969,7 +2545,9 @@ def main(argv=None) -> int:
         from repro_torch.kernels.decode_attn import ref as attn_ref
         from repro_torch.models import api, griffin
         from repro_torch.models import layers as lm_layers
-        from repro_torch.serving import serve_loop
+        from repro_torch.launch import train as train_cli
+        from repro_torch.serving import serve_loop, stencil_serve
+        from repro_torch.train import checkpoint, fault_tolerance
         from repro_torch.train import data as train_data
         from repro_torch.train import optimizer, train_loop
     except ImportError as e:
@@ -2065,6 +2643,10 @@ def main(argv=None) -> int:
         st.cuda(computeCapability="9.0", threadsPerBlock=(8, 128),
                 template="gmem")).source()]
     sources += [conv.source(), attn.source()]
+    # phase 13 runs its first request under K2 at the request's own shape
+    if not args.quick:
+        sources.append(workloads[0].plan(codegen, sim_requests(np)[0][0],
+                                         "shift").source(torch.float32))
     try:
         _build.build_many(sources)
     except RuntimeError as e:
@@ -2586,8 +3168,8 @@ def main(argv=None) -> int:
     at_mods = {"st": st, "suite": suite, "acoustic": acoustic,
                "autotune": autotune, "cost_model": cost_model,
                "timeloop": timeloop}
-    record["autotune"] = autotune_phase(torch, at_mods, (reset_counts, counts),
-                                        main_rows)
+    record["autotune"], tuned = autotune_phase(torch, at_mods, (reset_counts, counts),
+                                               main_rows)
 
     # -- 11. batched scenarios and the adjoint -------------------------------------
     b_mods = {"st": st, "acoustic": acoustic, "suite": suite, "codegen": codegen,
@@ -2596,9 +3178,29 @@ def main(argv=None) -> int:
     record["batch"] = batch_phase(torch, b_mods, (reset_counts, counts), main_rows,
                                   entries)
     record["adjoint"] = adjoint_phase(torch, b_mods, (reset_counts, counts))
+
+    # -- 12. resilience ------------------------------------------------------------------
+    r_mods = {"st": st, "acoustic": acoustic, "timeloop": timeloop, "adjoint": adjoint,
+              "checkpoint": checkpoint, "fault_tolerance": fault_tolerance,
+              "configs": configs, "train_loop": train_loop, "optimizer": optimizer,
+              "data": train_data, "shapes": lm_shapes, "train_cli": train_cli}
+    backend = tuned["acoustic_iso"]
+    if backend.kind != "hopper":
+        backend = st.hopper(template="gmem")
+    record["resilience"] = resilience_phase(torch, r_mods, (reset_counts, counts), backend)
+    for name, n in record["resilience"]["forward"]["launches"].items():
+        entries[f"{name}[acoustic_iso]"]["resilient_launches"] = n
+
+    # -- 13. stencil serving ---------------------------------------------------------------
+    s_mods = {"st": st, "suite": suite, "autotune": autotune, "cost_model": cost_model,
+              "stencil_serve": stencil_serve}
+    record["stencil_serving"] = stencil_serve_phase(torch, np, s_mods,
+                                                    (reset_counts, counts))
     for e in conv_entries:
         row = serve_row if e["path"] == "serving" else train_row
         e["launches"], e["max_abs_err"] = row["k6_launches"], conv_worst
+        if e["path"] != "serving":
+            e["resilient_launches"] = record["resilience"]["training"]["k6_launches"]
     for kname, e in attn_entries.items():  # standalone: 0 on the serving path
         e["launches"] = serve_row["launches"][kname]
 
@@ -2611,11 +3213,13 @@ def main(argv=None) -> int:
         path.parent.mkdir(parents=True, exist_ok=True)
         path.write_text(json.dumps(record, indent=1))
     # batched_launches: phase 11's launches of a kernel that advanced every
-    # scenario of a batched loop (None where phase 11 does not run it)
+    # scenario of a batched loop; resilient_launches: phase 12's in its
+    # restarted runs, replays included (None where the phase does not run it)
     line = {"kernels": [{**{k: e[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
         "plain_ms", "bound_ms", "bound_by", "library_ms")},
-        "batched_launches": e.get("batched_launches")} for e in kernels]}
+        "batched_launches": e.get("batched_launches"),
+        "resilient_launches": e.get("resilient_launches")} for e in kernels]}
     say(json.dumps(line))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}))

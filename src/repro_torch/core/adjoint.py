@@ -39,6 +39,16 @@ window carries (≤ stride) + one window of per-step carries (≤ fuse) + one
 step's graph; with the default schedule (fuse ≈ ⌈√T⌉) every term but the
 last is O(√T) carries.
 
+Masked (serving) windows, ``domain_mask`` / ``step_limits`` on a batched
+torch engine, differentiate through ``lowering.lower_torch_window_masked``,
+whose ``torch.where`` freeze makes the adjoint freeze masked cells and
+budget-exhausted scenarios too.
+
+``resilient_grad`` drives the same schedule one restartable unit at a time
+with its state on disk (``run_resilient(..., loss=)``): a failure anywhere,
+mid-backward included, resumes from the latest snapshot, bit for bit the
+result of ``differentiable_run``.
+
 ``between`` hooks run at the same window boundaries as
 ``TimeloopEngine.run``, as ``between(t, arrays) -> arrays``, and are
 differentiated as part of the window chain: a hook must compute with torch
@@ -59,8 +69,8 @@ import torch
 from . import lowering
 
 __all__ = ["ceil_sqrt", "window_schedule", "checkpoint_stride",
-           "differentiable_run", "CHECKPOINT_STATS", "SECONDS",
-           "reset_stats"]
+           "differentiable_run", "resilient_grad", "CHECKPOINT_STATS",
+           "SECONDS", "reset_stats"]
 
 #: accounting of the most recent forward/backward pass: ``checkpoints`` is
 #: the number of carries kept (the O(√T) bound tests pin),
@@ -127,15 +137,11 @@ class _AdjointPlan:
 
     def __init__(self, engine, steps, fuse_steps, between, domain_mask,
                  step_limits, checkpoint_stride_windows):
-        from .dsl import not_ported
         if not engine.differentiable:
             raise ValueError(
                 "the checkpointed adjoint requires TimeloopEngine(..., "
                 "differentiable=True): an engine that writes its windows' "
                 "inputs cannot keep or replay a carry")
-        if domain_mask is not None or step_limits is not None:
-            raise not_ported("domain_mask / step_limits (masked serving windows)",
-                             "queue 1, item 8 (stencil serving)")
         self.engine = engine
         self.between = between
         self.steps = steps = int(steps)
@@ -147,24 +153,54 @@ class _AdjointPlan:
                        if checkpoint_stride_windows
                        else checkpoint_stride(self.W, steps))
         self.n_ckpts = -(-self.W // self.stride) if self.W else 0
+        self.masked = domain_mask is not None or step_limits is not None
+        if self.masked:
+            engine.check_masked()
+        self._mask_args = (domain_mask, step_limits)
+        self._masks: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
         self._primal: Dict[int, Callable] = {}
         self._adjoint: Optional[Callable] = None
+
+    def masks(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The masked windows' ``(mask, limits)``, moved to the grids'
+        ``device`` once."""
+        if self._masks is None:
+            self._masks = self.engine.masked_operands(*self._mask_args,
+                                                      self.steps, device)
+        return self._masks
+
+    def window(self, fn: Callable, start: int) -> Callable:
+        """``fn`` (a window of the engine or of the torch lowering) as a
+        function of (carry, scalars), the masked operands bound with the
+        window's first step ``start``."""
+        if not self.masked:
+            return fn
+
+        def run(arrays, scalars):
+            mask, limits = self.masks(next(iter(arrays.values())).device)
+            return fn(arrays, scalars, mask, start, limits)
+        return run
 
     # primal/replay: the engine's own windows (on the hopper backend the
     # CUDA kernels), bit for bit the same carries every time
     def primal_window(self, kw: int) -> Callable:
         fn = self._primal.get(kw)
         if fn is None:
-            fn = self._primal[kw] = self.engine.window_arrays(kw)
+            fn = self._primal[kw] = self.engine.window_arrays(kw, self.masked)
         return fn
 
     # adjoint: one step of the torch reference lowering, new tensors out
+    # (masked: the masked window's step, whose selects freeze the cotangent)
     def adjoint_step(self) -> Callable:
         if self._adjoint is None:
             e = self.engine
-            self._adjoint = lowering.lower_torch_window(
-                e.kernel, e.halos, e.interior, None, e.swap, 1, batch=e.batch,
-                fresh=True)
+            if self.masked:
+                self._adjoint = lowering.lower_torch_window_masked(
+                    e.kernel, e.halos, e.interior, e.swap, 1, batch=e.batch)
+            else:
+                self._adjoint = lowering.lower_torch_window(
+                    e.kernel, e.halos, e.interior, None, e.swap, 1, batch=e.batch,
+                    fresh=True)
         return self._adjoint
 
     def chain(self, i: int) -> Callable:
@@ -172,7 +208,7 @@ class _AdjointPlan:
         window plus the ``between`` hook at its trailing boundary, the
         exact per-window step ``engine.run`` executes."""
         kw, t1 = self.sizes[i], self.starts[i] + self.sizes[i]
-        win = self.primal_window(kw)
+        win = self.window(self.primal_window(kw), self.starts[i])
         hook = self.hook(t1)
 
         def fn(arrays, scalars):
@@ -217,25 +253,51 @@ class _AdjointPlan:
         cotangents are wanted.  Returns (carry cotangent, scalar
         cotangents)."""
         device = next(iter(carry.values())).device
-        kw, t1 = self.sizes[i], self.starts[i] + self.sizes[i]
+        kw, start = self.sizes[i], self.starts[i]
         t0 = time.perf_counter()
-        step = self.primal_window(1)
         carries = [carry]
-        for _ in range(kw):
-            carries.append(step(carries[-1], pscal))
+        for s in range(kw):
+            carries.append(self.window(self.primal_window(1), start + s)(
+                carries[-1], pscal))
         _sync(device)
         SECONDS["replay"] += time.perf_counter() - t0
         d_scal = {n: torch.zeros_like(v) for n, v in scal.items()}
-        hook = self.hook(t1)
+        hook = self.hook(start + kw)
         if hook is not None:
             cot, _ = self._vjp(lambda x, s: hook(x), carries[kw], {}, cot, need)
-        adj = self.adjoint_step()
         for s in reversed(range(kw)):
+            adj = self.window(self.adjoint_step(), start + s)
             cot, gs = self._vjp(adj, carries[s], scal, cot, need)
             carries[s + 1] = None
             for n in gs:
                 d_scal[n] = d_scal[n] + gs[n]
         return cot, d_scal
+
+    def backward_segment(self, seg: int, ckpt, scal, pscal, cot, g_scal, need):
+        """Checkpoint segment ``seg`` of the backward pass: replay its
+        windows from ``ckpt`` (its first window's start carry) on the
+        engine's windows, then pull ``cot`` back through each window,
+        newest first, adding the scalar cotangents to ``g_scal``.  Returns
+        (carry cotangent, scalar cotangents)."""
+        device = next(iter(ckpt.values())).device
+        first = seg * self.stride
+        last = min(first + self.stride, self.W)
+        # bit for bit the forward pass's window carries: the same windows
+        t0 = time.perf_counter()
+        carries = [ckpt]
+        for i in range(first, last - 1):
+            carries.append(self.chain(i)(carries[-1], pscal))
+            CHECKPOINT_STATS["replayed_windows"] += 1
+        _sync(device)
+        SECONDS["replay"] += time.perf_counter() - t0
+        g_scal = dict(g_scal)
+        for i in reversed(range(first, last)):
+            cot, gs = self.vjp_window(i, carries[i - first], scal, pscal, cot, need)
+            carries[i - first] = None
+            for n in gs:
+                g_scal[n] = g_scal[n] + gs[n]
+            CHECKPOINT_STATS["vjp_windows"] += 1
+        return cot, g_scal
 
     @staticmethod
     def _vjp(fn, carry, scal, cot, need):
@@ -301,29 +363,12 @@ class _Adjoint(torch.autograd.Function):
         # others' cotangents) and every input that asks for one
         need = {g for g, w in zip(names, wants) if w} | set(plan.engine.touched)
         need |= {n for n, w in zip(snames, wants[len(names):]) if w}
-        device = ckpts[0][names[0]].device
         cot = {g: (torch.zeros_like(ckpts[0][g]) if c is None else c)
                for g, c in zip(names, cots) if g in need}
         g_scal = {n: torch.zeros_like(v) for n, v in ctx.scal.items()}
         for seg in reversed(range(plan.n_ckpts)):
-            first = seg * plan.stride
-            last = min(first + plan.stride, plan.W)
-            # replay the segment's window carries from its checkpoint with
-            # the engine's own windows: bit for bit the forward pass's
-            t0 = time.perf_counter()
-            carries = [ckpts[seg]]
-            for i in range(first, last - 1):
-                carries.append(plan.chain(i)(carries[-1], ctx.pscal))
-                CHECKPOINT_STATS["replayed_windows"] += 1
-            _sync(device)
-            SECONDS["replay"] += time.perf_counter() - t0
-            for i in reversed(range(first, last)):
-                cot, gs = plan.vjp_window(i, carries[i - first], ctx.scal, ctx.pscal,
-                                          cot, need)
-                carries[i - first] = None
-                for n in gs:
-                    g_scal[n] = g_scal[n] + gs[n]
-                CHECKPOINT_STATS["vjp_windows"] += 1
+            cot, g_scal = plan.backward_segment(seg, ckpts[seg], ctx.scal, ctx.pscal,
+                                                cot, g_scal, need)
             ckpts[seg] = None
         ctx.ckpts = None
         return (None, None, None, *[cot[g] if g in need else None for g in names],
@@ -354,8 +399,9 @@ def differentiable_run(engine,
     optimal single-level schedule) instead of ``run``'s whole-loop default;
     pass it explicitly to pin a ``between``-hook cadence.
     ``checkpoint_stride_windows`` overrides the checkpoint thinning.
-    ``domain_mask`` / ``step_limits`` (the JAX package's masked serving
-    windows) are not ported and raise.
+    ``domain_mask`` / ``step_limits`` select the masked serving windows
+    (batched torch engines only; ``ValueError`` otherwise), constants of
+    the differentiation: a frozen cell's cotangent passes through.
 
     The engine must be built with ``differentiable=True``, so that its
     windows never write their inputs.
@@ -391,3 +437,122 @@ def differentiable_run(engine,
                    "stride": plan.stride, "checkpoints": plan.n_ckpts,
                    "fuse": plan.fuse}
     return fn
+
+
+def _seed(loss: Callable, carry, need):
+    """(loss value, its gradient on the grids in ``need``) at ``carry``:
+    the cotangent the backward pass starts from (zeros where the loss does
+    not read a grid)."""
+    with torch.enable_grad():
+        x = {g: c.detach().requires_grad_(g in need) for g, c in carry.items()}
+        value = loss(x)
+        ins = [g for g in x if x[g].requires_grad]
+        grads = torch.autograd.grad(value, [x[g] for g in ins], allow_unused=True)
+    got = dict(zip(ins, grads))
+    return value.detach(), {g: (torch.zeros_like(carry[g]) if got.get(g) is None
+                                else got[g]) for g in carry if g in need}
+
+
+def resilient_grad(engine,
+                   arrays: Dict[str, torch.Tensor],
+                   scalars,
+                   steps: int,
+                   loss: Callable,
+                   *,
+                   fuse_steps: Optional[int] = None,
+                   between: Optional[Callable] = None,
+                   domain_mask=None,
+                   step_limits=None,
+                   checkpoint_stride_windows: Optional[int] = None,
+                   ckpt_dir: str,
+                   ckpt_every: int = 1,
+                   max_failures: int = 3,
+                   injector=None,
+                   watchdog=None,
+                   on_restart: Optional[Callable] = None) -> Dict[str, object]:
+    """Fault-tolerant checkpointed gradient: the value of ``loss(final
+    arrays)`` and its gradient with respect to every floating grid of
+    ``arrays`` and every scalar, through the same schedule as
+    ``differentiable_run`` (the JAX package's ``resilient_grad``), driven
+    one restartable unit at a time by
+    ``train.fault_tolerance.run_with_restarts``.
+
+    The units: one fusion window per forward step (the checkpoints ride in
+    the saved state), one step seeding the cotangent with the gradient of
+    ``loss``, then one checkpoint segment per backward step
+    (``_AdjointPlan.backward_segment``: replay up to ``stride`` windows,
+    pull the cotangent through each in reverse).  A failure anywhere,
+    mid-backward included, resumes from the latest snapshot and gives the
+    same bits: the units run the same windows and steps in the same order
+    as ``differentiable_run`` and a ``backward()`` through it.
+
+    The saved state: the forward carry, each checkpoint's grids that a
+    window writes (a grid no window writes, such as a velocity model, is
+    the carry's and is saved once), the cotangents, the scalar cotangents
+    and the value (f64, so an f32 or f64 loss keeps its bits).  The JAX
+    package saves every grid in every checkpoint slot.
+
+    Returns ``{"value", "grad_arrays", "grad_scalars"}``; needs
+    ``TimeloopEngine(..., differentiable=True)``.
+    """
+    from repro_torch.train import fault_tolerance as _ft
+
+    steps = int(steps)
+    init_arrays = {g: torch.as_tensor(a) for g, a in arrays.items()}
+    engine.check_batch(init_arrays)
+    names = list(init_arrays)
+    device = init_arrays[names[0]].device
+    need = {g for g, a in init_arrays.items() if a.is_floating_point()}
+    plan = _AdjointPlan(engine, steps, fuse_steps, between, domain_mask,
+                        step_limits, checkpoint_stride_windows)
+    if steps <= 0:
+        value, cot = _seed(loss, init_arrays, need)
+        return {"value": value, "grad_arrays": cot,
+                "grad_scalars": {n: torch.zeros_like(v) for n, v in
+                                 plan.normalize_scalars(scalars).items()}}
+    W, stride, n_ckpts = plan.W, plan.stride, plan.n_ckpts
+    scal = plan.normalize_scalars(scalars)
+    pscal = plan.primal_scalars(scal, device)
+    scal = {n: v.detach().to(device) for n, v in scal.items()}
+    need |= set(engine.touched) | set(scal)
+    written = [g for g in names if g in engine.touched]
+
+    # a constant structure: every unit saves the same tree, so any snapshot
+    # restores into the template of any unit
+    def init_fn():
+        return {"carry": dict(init_arrays),
+                "ckpts": [{g: torch.zeros_like(init_arrays[g]) for g in written}
+                          for _ in range(n_ckpts)],
+                "cot": {g: torch.zeros_like(init_arrays[g]) for g in names if g in need},
+                "g_scal": {n: torch.zeros_like(v) for n, v in scal.items()},
+                "value": torch.zeros((), dtype=torch.float64, device=device)}
+
+    def step_fn(state, wi):
+        state = dict(state)
+        if wi < W:                                   # forward window wi
+            if wi % stride == 0:
+                ckpts = list(state["ckpts"])
+                ckpts[wi // stride] = {g: state["carry"][g] for g in written}
+                state["ckpts"] = ckpts
+            t0 = time.perf_counter()
+            state["carry"] = plan.chain(wi)(state["carry"], pscal)
+            _sync(device)
+            SECONDS["forward"] += time.perf_counter() - t0
+        elif wi == W:                                # seed the cotangent
+            CHECKPOINT_STATS["checkpoints"] = n_ckpts
+            value, state["cot"] = _seed(loss, state["carry"], need)
+            state["value"] = value.to(torch.float64)
+        else:                                        # backward segment
+            seg = n_ckpts - 1 - (wi - W - 1)
+            slot = state["ckpts"][seg]
+            ckpt = {g: slot.get(g, state["carry"][g]) for g in names}
+            state["cot"], state["g_scal"] = plan.backward_segment(
+                seg, ckpt, scal, pscal, state["cot"], state["g_scal"], need)
+        return state
+
+    final = _ft.run_with_restarts(
+        init_fn=init_fn, step_fn=step_fn, n_steps=W + 1 + n_ckpts,
+        ckpt_dir=ckpt_dir, ckpt_every=ckpt_every, max_failures=max_failures,
+        injector=injector, watchdog=watchdog, on_restart=on_restart)
+    return {"value": final["value"], "grad_arrays": final["cot"],
+            "grad_scalars": final["g_scal"]}

@@ -653,8 +653,10 @@ def differentiable_timeloop(k: Kernel, *args,
     the forward pass and the backward pass's replay run the engine's CUDA
     kernels; the cotangents run through the torch lowering, one step at a
     time, by design (the kernels define no backward, as ``pallas_call``
-    defines no VJP in the JAX package).  ``mesh``, ``domain_mask`` and
-    ``step_limits`` are not ported and raise.
+    defines no VJP in the JAX package).  ``domain_mask`` / ``step_limits``
+    select the masked serving windows (batched grids under ``st.torch()``;
+    ``ValueError`` otherwise, as the JAX package's refuse Pallas).
+    ``mesh`` is not ported and raises.
 
     Example::
 

@@ -14,8 +14,9 @@ In place: ``lower_torch``'s function writes each output grid's region into
 the tensor it was given (the other grids are only read), and
 ``lower_torch_window`` therefore advances the tensors of its ``arrays`` dict
 in place as well; the returned dicts hold the same tensors under the rotated
-names.  ``lower_torch_window(fresh=True)`` is the exception: it writes new
-tensors and leaves its arguments as they were.
+names.  ``lower_torch_window(fresh=True)`` and the masked serving window
+``lower_torch_window_masked`` are the exceptions: they write new tensors and
+leave their arguments as they were.
 """
 from __future__ import annotations
 
@@ -232,6 +233,79 @@ def lower_torch_window(kernel: ir.StencilIR,
             arrs = step_fn(arrs, scalars)
             if swap is not None:
                 arrs[swap[0]], arrs[swap[1]] = arrs[swap[1]], arrs[swap[0]]
+        return arrs
+
+    return window
+
+
+def lower_torch_window_masked(kernel: ir.StencilIR,
+                              halos: Mapping[str, Tuple[int, ...]],
+                              interior_shape: Tuple[int, ...],
+                              swap: Optional[Tuple[str, str]],
+                              steps: int,
+                              batch: int = 0):
+    """Masked fused window for shape-bucketed serving (the counterpart of
+    ``lower_jax_window_masked``): the step update is confined to a
+    ``mask``-selected sub-domain and to scenarios whose step budget has not
+    run out.
+
+    Semantics (exact):
+
+      * **spatial** — interior cells where ``mask`` is False are frozen:
+        they keep each buffer's value and behave like grid-halo cells.  The
+        freeze happens in buffer space, before the rotation, so frozen
+        cells travel with their buffers as halo cells do.
+      * **temporal** — a scenario stops changing (its rotation included)
+        once the step index ``start + i`` reaches its ``limit``; it keeps
+        both buffers.
+
+    Returns ``fn(arrays, scalars, mask, start, limit) -> arrays``: ``mask``
+    a bool tensor over the interior, ``limit`` the step budget and
+    ``start`` the index of the window's first step.  Under ``batch=B``
+    ``mask`` is ``(B,) + interior`` and ``limit`` ``(B,)`` (per scenario),
+    ``start`` shared, and the spatial axes follow the scenario axis.  Both
+    freezes are ``torch.where`` selects on new tensors, so the arguments
+    are left as they were and autograd freezes masked cells exactly: a
+    frozen cell's cotangent passes through the step unchanged and the
+    discarded update contributes nothing.
+    """
+    step_fn = lower_torch(kernel, halos, interior_shape, None, batch, fresh=True)
+    written = kernel.output_grids()
+    ndim = kernel.ndim
+
+    def interior_idx(g):
+        h = halos[g]
+        return (...,) + tuple(slice(h[ax], h[ax] + interior_shape[ax])
+                              for ax in range(ndim))
+
+    def window(arrays: Dict[str, torch.Tensor],
+               scalars: Mapping[str, torch.Tensor],
+               mask: torch.Tensor,
+               start,
+               limit: torch.Tensor):
+        arrs = dict(arrays)
+        limit = torch.as_tensor(limit, device=mask.device)
+        for i in range(steps):
+            out = dict(step_fn(arrs, scalars))
+            act = (start + i) < limit
+            if batch:
+                act = act.reshape((-1,) + (1,) * ndim)
+            for g in written:
+                # out[g] is the step's own copy of the grid: its halo is
+                # the old buffer's; freeze its masked interior cells too
+                idx = interior_idx(g)
+                out[g][idx] = torch.where(mask, out[g][idx], arrs[g][idx])
+            if swap is not None:
+                w, o = swap
+                # per-scenario rotation: a frozen scenario keeps both
+                # buffers, an active one trades them
+                new_w = torch.where(act, arrs[o], arrs[w])
+                new_o = torch.where(act, out[w], arrs[o])
+                out[w], out[o] = new_w, new_o
+            else:
+                for g in written:
+                    out[g] = torch.where(act, out[g], arrs[g])
+            arrs = out
         return arrs
 
     return window

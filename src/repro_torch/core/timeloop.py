@@ -25,15 +25,26 @@ Scenarios (``batch=B``): every grid carries a leading axis of B
 independent scenarios, advanced together: the torch window indexes the
 spatial axes after it, and each hopper launch advances all B (the kernels'
 ``blockIdx.z`` walks the scenarios' tiles).  Scalars are floats (shared)
-or ``(B,)`` values (one a scenario).
+or ``(B,)`` values (one a scenario).  A batched torch engine also runs
+*masked* windows for shape-bucketed serving
+(``lowering.lower_torch_window_masked``, ``run(domain_mask=,
+step_limits=)``): a per-scenario spatial mask freezes cells outside a
+request's true sub-domain and a per-scenario step budget freezes finished
+scenarios, both exactly.  The kernels take no mask, as the JAX package's
+Pallas kernels take none: masked windows need the torch backend.
 
 In place: ``run`` advances the tensors of the ``arrays`` dict it is given
 (the output and swap grids' buffers); the returned dict holds those tensors
-under the rotated names.  Callers that need the initial state clone first.
-An engine built with ``differentiable=True`` never writes the caller's
-tensors: each window writes buffers of its own (``window_arrays``, the
-carries of the adjoint, ``core/adjoint.py``), and a grid no window writes
-is passed on as it is.
+under the rotated names.  Callers that need the initial state clone first
+(``run_resilient`` does).  An engine built with ``differentiable=True``
+never writes the caller's tensors: each window writes buffers of its own
+(``window_arrays``, the carries of the adjoint, ``core/adjoint.py``), and a
+grid no window writes is passed on as it is.  Masked windows write new
+tensors too.
+
+``run_resilient`` drives the engine one restartable window at a time with
+checkpoints on disk (``train/checkpoint.py``, ``train/fault_tolerance.py``),
+bit for bit the uninterrupted run.
 """
 from __future__ import annotations
 
@@ -175,7 +186,7 @@ class TimeloopEngine:
         self.touched = tuple(g for g in kernel.grid_params
                              if g in set(kernel.output_grids()) | set(self.swap or ()))
         self._profile_cb = profile_cb
-        self._windows: Dict[int, Callable] = {}
+        self._windows: Dict[Tuple[int, bool], Callable] = {}
         self._plan = self._plan1 = None
         self.time_block = 1
         if backend.kind == "hopper":
@@ -190,14 +201,55 @@ class TimeloopEngine:
         if self._profile_cb is not None:
             self._profile_cb(phase, dt)
 
-    def _window(self, kw: int) -> Callable:
-        fn = self._windows.get(kw)
+    def _window(self, kw: int, masked: bool = False) -> Callable:
+        """The torch window of ``kw`` steps; ``masked``: the serving variant
+        ``fn(arrays, scalars, mask, start, limits)`` (batched torch
+        engines only)."""
+        fn = self._windows.get((kw, masked))
         if fn is None:
-            fn = lowering.lower_torch_window(self.kernel, self.halos,
-                                             self.interior, None, self.swap,
-                                             kw, batch=self.batch)
-            self._windows[kw] = fn
+            if masked:
+                self.check_masked()
+                fn = lowering.lower_torch_window_masked(
+                    self.kernel, self.halos, self.interior, self.swap, kw,
+                    batch=self.batch)
+            else:
+                fn = lowering.lower_torch_window(self.kernel, self.halos,
+                                                 self.interior, None, self.swap,
+                                                 kw, batch=self.batch)
+            self._windows[(kw, masked)] = fn
         return fn
+
+    def check_masked(self) -> None:
+        """Raise ``ValueError`` unless the engine can run masked windows
+        (batched, torch backend)."""
+        if not self.batch or self._plan is not None:
+            raise ValueError(
+                "domain_mask / step_limits require a batched torch timeloop "
+                "(the serving path; the kernels take no mask)")
+
+    def masked_operands(self, domain_mask, step_limits, steps: int, device):
+        """``(mask, limits)`` of a masked run on ``device``: the bool mask
+        ``(B,) + interior`` (all True when None) and the int step budgets
+        ``(B,)`` (``steps`` each when None).  Raises ``ValueError`` unless
+        the engine is batched torch and the shapes fit."""
+        self.check_masked()
+        full = (self.batch,) + self.interior
+        if domain_mask is None:
+            mask = torch.ones(full, dtype=torch.bool, device=device)
+        else:
+            mask = torch.as_tensor(domain_mask, dtype=torch.bool, device=device)
+            if tuple(mask.shape) != full:
+                raise ValueError(f"domain_mask must have shape {full} "
+                                 f"(got {tuple(mask.shape)})")
+        if step_limits is None:
+            limits = torch.full((self.batch,), int(steps), dtype=torch.int32,
+                                device=device)
+        else:
+            limits = torch.as_tensor(step_limits, dtype=torch.int32, device=device)
+            if tuple(limits.shape) != (self.batch,):
+                raise ValueError(f"step_limits must have shape ({self.batch},) "
+                                 f"(got {tuple(limits.shape)})")
+        return mask, limits
 
     def launch_scalars(self, scalars: Mapping[str, object], device):
         """``scalars`` in the form a window takes them, rounded to f32 as
@@ -225,17 +277,21 @@ class TimeloopEngine:
                 raise ValueError(f"grid '{g}' has {a.dim()} axes; an unbatched "
                                  f"timeloop of a {nd}D kernel takes {nd}")
 
-    def window_arrays(self, kw: int) -> Callable:
+    def window_arrays(self, kw: int, masked: bool = False) -> Callable:
         """``fn(arrays, scalars) -> arrays``: one fused window of ``kw``
         steps that leaves its arguments as they were (the grids it writes
         get buffers of their own; a grid it does not write is passed on),
-        ``scalars`` in ``launch_scalars``'s form.  On the hopper backend the
-        layout round trip and the leapfrog name parity are folded in, so it
-        maps full (grid-halo'd) arrays to full arrays on every backend.
-        The carry surface of the adjoint (``core/adjoint.py``): its forward
-        pass and its replay run these windows on the engine's kernels.
-        Unlike ``run``, no profiling, host sync or traffic count happens
-        here."""
+        ``scalars`` in ``launch_scalars``'s form (masked: ``fn(arrays,
+        scalars, mask, start, limits)``, ``masked_operands``'s tensors and
+        the window's first step).  On the hopper backend the layout round
+        trip and the leapfrog name parity are folded in, so it maps full
+        (grid-halo'd) arrays to full arrays on every backend.  The carry
+        surface of the adjoint (``core/adjoint.py``): its forward pass and
+        its replay run these windows on the engine's kernels.  Unlike
+        ``run``, no profiling, host sync or traffic count happens here."""
+        if masked:
+            return self._window(kw, masked=True)
+
         def fn(arrays, scal):
             return self._apply_window(dict(arrays), scal, kw, fresh=True)
         return fn
@@ -249,24 +305,40 @@ class TimeloopEngine:
             scalars: Mapping[str, object],
             steps: int,
             fuse_steps: Optional[int] = None,
-            between: Optional[Callable] = None) -> Dict[str, torch.Tensor]:
+            between: Optional[Callable] = None,
+            *,
+            domain_mask=None,
+            step_limits=None) -> Dict[str, torch.Tensor]:
         """Advance the grids ``steps`` applications and return the final
         buffers (same keys as ``arrays``; the tensors are advanced in
-        place, unless the engine is ``differentiable``).  ``scalars`` are
-        rounded to f32; under ``batch=B`` each is a float (shared) or
-        ``(B,)`` values.  ``between(t, arrays) -> arrays`` runs at every
-        window boundary before the last."""
+        place, unless the engine is ``differentiable`` or the run masked).
+        ``scalars`` are rounded to f32; under ``batch=B`` each is a float
+        (shared) or ``(B,)`` values.  ``between(t, arrays) -> arrays`` runs
+        at every window boundary before the last.
+
+        ``domain_mask`` (bool, ``(B,) + interior``: False cells keep their
+        values) and ``step_limits`` (``(B,)``: scenario ``b`` stops after
+        ``step_limits[b]`` applications) select the masked serving windows;
+        they need a batched torch engine (``ValueError`` otherwise) and go
+        to the grids' device once a run."""
         fuse = self.window_for(steps, fuse_steps)
         arrays = dict(arrays)
         self.check_batch(arrays)
         device = next(iter(arrays.values())).device
         scal = self.launch_scalars(scalars, device)
+        masked = domain_mask is not None or step_limits is not None
+        if masked:
+            mask, limits = self.masked_operands(domain_mask, step_limits, steps,
+                                                device)
         t = 0
         while t < steps:
             kw = min(fuse, steps - t)
             t0 = time.perf_counter()
-            arrays = self._apply_window(arrays, scal, kw,
-                                        fresh=self.differentiable, count=True)
+            if masked:
+                arrays = self._window(kw, masked=True)(arrays, scal, mask, t, limits)
+            else:
+                arrays = self._apply_window(arrays, scal, kw,
+                                            fresh=self.differentiable, count=True)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             self._add("kernel", time.perf_counter() - t0)
@@ -333,3 +405,78 @@ def run_timeloop(kernel: _ir.StencilIR,
     eng = TimeloopEngine(kernel, halos, interior_shape, backend, swap=swap,
                          batch=batch)
     return eng.run(dict(arrays), scalars, steps, fuse_steps, between)
+
+
+def run_resilient(engine: TimeloopEngine,
+                  arrays: Dict[str, torch.Tensor],
+                  scalars: Mapping[str, object],
+                  steps: int,
+                  fuse_steps: Optional[int] = None,
+                  between: Optional[Callable] = None,
+                  *,
+                  ckpt_dir: str,
+                  ckpt_every: int = 1,
+                  max_failures: int = 3,
+                  injector=None,
+                  watchdog=None,
+                  on_restart: Optional[Callable] = None,
+                  loss: Optional[Callable] = None):
+    """Fault-tolerant timeloop run: checkpoint/restore of the leapfrog
+    carry through ``train.checkpoint`` and ``train.fault_tolerance`` (the
+    JAX package's ``run_resilient``).
+
+    The run advances one fusion window per restartable step; every
+    ``ckpt_every`` windows the whole arrays dict (both swap buffers and the
+    coefficient grids) is saved atomically to ``ckpt_dir``.  After a
+    failure, or in a fresh process pointed at the same directory, the run
+    restores the latest snapshot and resumes at that window boundary.  A
+    window replays the same launches on the same carry, so a resumed run
+    is bit for bit an uninterrupted ``engine.run``.  ``between`` runs at
+    the same window boundaries as in ``engine.run`` (a window is never
+    split), so source injections survive restarts; a run that ends at
+    ``steps`` does not run the hook at that boundary, so a longer run
+    resumed from its last checkpoint lacks the injection there, as in the
+    JAX package.
+
+    ``arrays`` are left as they were: the engine advances tensors in place,
+    so every start or restart without a checkpoint begins from clones of
+    them.  ``on_restart(failures, error)`` is called at each restart
+    (``fault_tolerance.run_with_restarts``).
+
+    ``loss`` (a scalar function of the final arrays) makes it a
+    fault-tolerant gradient run (``adjoint.resilient_grad``, which needs
+    ``differentiable=True``): it returns ``{"value", "grad_arrays",
+    "grad_scalars"}`` in place of the final arrays.
+    """
+    from repro_torch.train import fault_tolerance as _ft
+
+    if loss is not None:
+        from . import adjoint as _adj
+        return _adj.resilient_grad(
+            engine, arrays, scalars, steps, loss, fuse_steps=fuse_steps,
+            between=between, ckpt_dir=ckpt_dir, ckpt_every=ckpt_every,
+            max_failures=max_failures, injector=injector, watchdog=watchdog,
+            on_restart=on_restart)
+
+    fuse = engine.window_for(steps, fuse_steps)
+    n_windows = -(-steps // fuse) if steps > 0 else 0
+    init_arrays = dict(arrays)
+
+    def init_fn():
+        return {g: a.clone() for g, a in init_arrays.items()}
+
+    def step_fn(state, wi):
+        t0 = wi * fuse
+        kw = min(fuse, steps - t0)
+        out = engine.run(dict(state), scalars, kw, kw)
+        t1 = t0 + kw
+        if between is not None and t1 < steps:
+            out = between(t1, out) or out
+        return out
+
+    if n_windows == 0:
+        return init_fn()
+    return _ft.run_with_restarts(
+        init_fn=init_fn, step_fn=step_fn, n_steps=n_windows,
+        ckpt_dir=ckpt_dir, ckpt_every=ckpt_every, max_failures=max_failures,
+        injector=injector, watchdog=watchdog, on_restart=on_restart)

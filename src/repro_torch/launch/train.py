@@ -6,8 +6,11 @@ otherwise::
 
 ``--preset smoke`` shrinks the arch to its reduced same-family config
 (``configs.tiny``); ``--preset full`` needs the real config on the
-production mesh and ``--ckpt-dir`` checkpointing with restarts, neither
-ported yet.
+production mesh, not ported yet.  ``--ckpt-dir DIR`` runs the steps
+through ``fault_tolerance.run_with_restarts``: a checkpoint every
+``--ckpt-every`` steps, a restart from the latest one after a failure, a
+resume when ``DIR`` already holds checkpoints, and the straggler
+watchdog's events reported at the end.
 """
 from __future__ import annotations
 
@@ -18,7 +21,7 @@ import time
 from repro_torch import configs
 from repro_torch.configs.shapes import SHAPES
 from repro_torch.core.dsl import not_ported
-from repro_torch.train import data, optimizer, train_loop
+from repro_torch.train import data, fault_tolerance, optimizer, train_loop
 
 
 def main(argv=None):
@@ -44,9 +47,6 @@ def main(argv=None):
     if args.preset == "full":
         raise not_ported("launch.train --preset full (the production mesh)",
                          "queue 1, item 9")
-    if args.ckpt_dir:
-        raise not_ported("launch.train --ckpt-dir (checkpoints and restarts)",
-                         "queue 1, item 7")
     cfg = configs.tiny(configs.get(args.arch))
     seq = args.seq_len or 128
     gb = args.global_batch or 8
@@ -58,11 +58,13 @@ def main(argv=None):
                              total_steps=max(args.steps, 1))
     tc = train_loop.TrainConfig(opt=oc, n_microbatches=args.microbatches)
     step_fn = train_loop.make_train_step(cfg, tc)
-    state = train_loop.init_state(cfg, device=args.device, seed=args.seed)
+
+    def init_fn():
+        return train_loop.init_state(cfg, device=args.device, seed=args.seed)
 
     losses = []
-    t0 = time.perf_counter()
-    for step in range(args.steps):
+
+    def one_step(state, step):
         state, metrics = step_fn(state, batch_fn(step))
         if step % args.log_every == 0:
             loss = float(metrics["loss"])
@@ -70,6 +72,20 @@ def main(argv=None):
             print(f"step {step:5d}  loss {loss:8.4f}  "
                   f"gnorm {float(metrics['grad_norm']):7.3f}  "
                   f"lr {float(metrics['lr']):.2e}", flush=True)
+        return state
+
+    t0 = time.perf_counter()
+    if args.ckpt_dir:
+        wd = fault_tolerance.Watchdog()
+        state = fault_tolerance.run_with_restarts(
+            init_fn=init_fn, step_fn=one_step, n_steps=args.steps,
+            ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every, watchdog=wd)
+        if wd.events:
+            print(f"straggler events: {len(wd.events)}")
+    else:
+        state = init_fn()
+        for step in range(args.steps):
+            state = one_step(state, step)
     dt = time.perf_counter() - t0
     print(f"done: {args.steps} steps in {dt:.1f}s "
           f"({dt / max(args.steps, 1):.2f} s/step) on "

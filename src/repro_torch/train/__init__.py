@@ -1,2 +1,3 @@
 """Training of the port: ``optimizer`` (AdamW), ``data`` (the synthetic
-token stream) and ``train_loop`` (the step)."""
+token stream), ``train_loop`` (the step), ``checkpoint`` (atomic
+checkpoints) and ``fault_tolerance`` (the restart loop)."""

@@ -9,7 +9,7 @@ template (on CPU tensors the forward pass and the replay run the kernels'
 plain versions; the cotangents run through the torch lowering as on the
 card); a port-only f64 test holds the gradients against central finite
 differences.  Also: the ``between`` hook differentiated, per-scenario
-gradients, the masked serving windows raising ``not_ported``, and an engine
+gradients, the masked serving windows refused on unbatched grids, and an engine
 built with ``differentiable=True`` never writing the caller's tensors.
 """
 import math
@@ -340,10 +340,13 @@ def test_batched_grads_are_per_scenario(backend):
 
 # ---- guard rails ----------------------------------------------------------------
 def test_masked_windows_raise_not_ported():
+    # the masked serving windows are ported (tests/test_torch_stencil_serve.py);
+    # like the JAX package's, they need batched grids: an unbatched engine
+    # refuses them
     k = suite.get_kernel("star2d1r")
     grids = suite.make_grids("star2d1r", (6, 8), device="cpu")
     for kw in ({"domain_mask": np.ones((6, 8), bool)}, {"step_limits": [3]}):
-        with pytest.raises(NotImplementedError, match="queue 1, item 8"):
+        with pytest.raises(ValueError, match="batched torch"):
             st.differentiable_timeloop(k, grids["u"], grids["v"], steps=4,
                                        swap=("v", "u"), **kw)
     with pytest.raises(NotImplementedError, match="item 9"):

@@ -1187,3 +1187,80 @@ def test_hopper_adjoint_matches_torch_adjoint(cuda, batch_built, template, time_
         assert bool(torch.isfinite(got).all()), n
         err = float((got - want).abs().max())
         assert err <= 1e-3 * float(want.abs().max()), (n, err)
+
+
+# ---- resilience and masked serving windows -------------------------------------
+def test_run_resilient_on_k1_is_bit_exact(cuda, tmp_path):
+    """run_resilient under st.hopper(template="gmem") (K1) at 64³ with two
+    injected failures: bit for bit the uninterrupted engine.run, one restart
+    a failure, the caller's tensors left as given."""
+    from repro_torch.core import timeloop
+    from repro_torch.train.fault_tolerance import FailureInjector
+    k = acoustic.acoustic_iso_kernel
+    shape = (64, 64, 64)
+    fields = acoustic.make_fields(shape, pml_width=6, device=cuda)
+    acoustic.inject_source(fields[1], 0)
+    arrays = {n: f.data for n, f in zip(("p0", "p1", "vp2", "damp"), fields)}
+    first = {n: a.clone() for n, a in arrays.items()}
+    halos = {n: f.halo for n, f in zip(arrays, fields)}
+
+    def engine():
+        return timeloop.TimeloopEngine(k.ir, halos, shape, st.hopper(template="gmem"),
+                                       swap=("p0", "p1"))
+
+    def between(t, a):
+        a["p1"][tuple(4 + s // 2 for s in shape)] += acoustic.source_wavelet(t)
+        return a
+
+    scal = {"dt": float(fields[4])}
+    ref = engine().run({n: a.clone() for n, a in first.items()}, scal, 30, 5, between)
+    inj, restarts = FailureInjector([1, 4]), []
+    n0 = fused_step.launches
+    got = timeloop.run_resilient(engine(), arrays, scal, 30, 5, between,
+                                 ckpt_dir=str(tmp_path / "ck"), ckpt_every=2, injector=inj,
+                                 on_restart=lambda n, e: restarts.append(str(e)))
+    assert fused_step.launches - n0 >= 30
+    assert inj.fired == [1, 4] and len(restarts) == 2
+    for n in ref:
+        assert torch.equal(got[n], ref[n]), n
+        assert torch.equal(arrays[n], first[n]), n
+
+
+def test_masked_window_on_the_card_matches_the_cpu(cuda):
+    from repro_torch.core import timeloop
+    k = suite.get_kernel("star3d4r")
+    shape, nb = (20, 24, 30), 3
+    gen = torch.Generator().manual_seed(6)
+    arrays = {g: torch.randn((nb,) + tuple(s + 8 for s in shape), generator=gen)
+              for g in ("u", "v")}
+    mask = torch.ones((nb,) + shape, dtype=torch.bool)
+    mask[1, :, 10:] = False
+    mask[2, :7] = False
+    limits = torch.tensor([9, 4, 0], dtype=torch.int32)
+    eng = timeloop.TimeloopEngine(k.ir, {g: (4, 4, 4) for g in arrays}, shape, st.torch(),
+                                  swap=("v", "u"), batch=nb)
+    want = eng.run({g: a.clone() for g, a in arrays.items()}, {}, 9, 4, domain_mask=mask,
+                   step_limits=limits)
+    got = eng.run({g: a.to(cuda) for g, a in arrays.items()}, {}, 9, 4,
+                  domain_mask=mask.to(cuda), step_limits=limits)
+    for g in arrays:
+        _check(got[g].cpu(), want[g], ("masked", g))
+        assert torch.equal(got[g][2].cpu(), arrays[g][2])   # budget 0: untouched
+
+
+def test_async_checkpoint_snapshots_a_cuda_tensor(cuda, tmp_path):
+    """save(blocking=False) copies every leaf off the card before it
+    returns: a kernel that overwrites the tensor right after the save does
+    not reach the checkpoint."""
+    from repro_torch.train import checkpoint
+    x = torch.randn(1 << 22, device=cuda)
+    b = torch.randn(1 << 16, device=cuda).to(torch.bfloat16)
+    before = (x.cpu().clone(), b.cpu().clone())
+    checkpoint.save(str(tmp_path / "ck"), 1, {"x": x, "b": b}, blocking=False)
+    x.mul_(-2.0).add_(1.0)
+    b.zero_()
+    checkpoint.wait()
+    got = checkpoint.restore(str(tmp_path / "ck"), {"x": x, "b": b})
+    assert got["x"].device == x.device and got["x"].data_ptr() != x.data_ptr()
+    assert torch.equal(got["x"].cpu(), before[0])
+    assert torch.equal(got["b"].cpu().view(torch.int16), before[1].view(torch.int16))

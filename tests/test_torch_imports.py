@@ -114,6 +114,32 @@ def test_autotune_modules_load_neither_jax_nor_repro():
     assert out.returncode == 0, out.stdout + out.stderr
 
 
+# resilience and stencil serving
+RESILIENCE_MODULES = ("repro_torch.train.checkpoint", "repro_torch.train.fault_tolerance",
+                      "repro_torch.serving.stencil_serve")
+
+
+@pytest.mark.parametrize("mod", RESILIENCE_MODULES)
+def test_resilience_modules_are_checked(mod):
+    assert REPO / "src" / (mod.replace(".", "/") + ".py") in FILES
+
+
+def test_resilience_modules_load_neither_jax_nor_repro():
+    """Importing the checkpoint, restart and stencil-serving modules in a
+    fresh interpreter leaves ``jax`` and ``repro`` out of ``sys.modules``."""
+    code = ("import sys\n"
+            + "".join(f"import {m}\n" for m in RESILIENCE_MODULES)
+            + "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+              "('jax', 'jaxlib', 'repro'))\n"
+              "print(bad)\n"
+              "assert not bad\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=str(REPO / "src")),
+                         timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
 def test_training_modules_load_neither_jax_nor_repro():
     """Importing every module of the training slice in a fresh interpreter
     leaves ``jax`` and ``repro`` out of ``sys.modules``."""

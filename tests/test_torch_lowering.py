@@ -225,12 +225,12 @@ def test_cuda_alias_selects_hopper():
     # over a mesh waits for the distributed layer
     lambda: autotune.tune(None, None, mesh={"data": 2}),
     lambda: st.distributed(grid_axes=("data",)),
-    # the adjoint and batch=B were ported; the adjoint's masked serving
-    # windows wait for stencil serving
+    # the adjoint, batch=B and its masked serving windows were ported; the
+    # adjoint over a mesh waits for the distributed layer
     lambda: st.differentiable_timeloop(
         suite.get_kernel("star2d1r"),
         *suite.make_grids("star2d1r", (4, 4), device="cpu").values(),
-        steps=1, swap=("v", "u"), domain_mask=np.ones((4, 4), bool)),
+        steps=1, swap=("v", "u"), mesh={"data": 2}),
 ], ids=["autotune", "distributed", "adjoint"])
 def test_not_ported_features_raise(call):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

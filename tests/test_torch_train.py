@@ -41,7 +41,7 @@ from repro_torch import configs, interop  # noqa: E402
 from repro_torch.configs.shapes import SHAPES  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.models import api  # noqa: E402
-from repro_torch.train import data, optimizer, train_loop  # noqa: E402
+from repro_torch.train import checkpoint, data, optimizer, train_loop  # noqa: E402
 from repro_torch.train.optimizer import tree_leaves, tree_map  # noqa: E402
 
 F32_TOL = 1e-5
@@ -387,9 +387,23 @@ def test_launch_train_smoke_on_the_cpu(capsys):
 @pytest.mark.parametrize("argv", [["--preset", "full"],
                                   ["--ckpt-dir", "ckpt", "--device", "cpu"]],
                          ids=["full", "ckpt"])
-def test_launch_train_not_ported_options(argv):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_cli.main(argv)
+def test_launch_train_not_ported_options(argv, tmp_path, capsys):
+    if "--ckpt-dir" not in argv:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            train_cli.main(argv)
+        return
+    # --ckpt-dir is ported: two steps with a checkpoint after each, then a
+    # second run on the same directory resumes after step 2
+    ckpt = str(tmp_path / "ckpt")
+    args = ["--ckpt-dir", ckpt, "--device", "cpu", "--ckpt-every", "1", "--seq-len", "16",
+            "--global-batch", "2"]
+    losses = train_cli.main(args + ["--steps", "2"])
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    assert checkpoint.steps(ckpt) == [1, 2]
+    more = train_cli.main(args + ["--steps", "3"])
+    assert len(more) == 1 and np.isfinite(more[0])
+    assert checkpoint.steps(ckpt) == [1, 2, 3]
+    assert "step     2" in capsys.readouterr().out
 
 
 def test_sharded_step_is_not_ported():
