@@ -186,7 +186,25 @@ Phases, each of which exits non-zero when it fails:
    ``autotune_cache=`` (a directory under ``build/``) cold and warm (the
    in-process caches and cost models dropped) on the first 8 requests:
    the cold one measures candidates, the warm one none, with the same
-   fuse window and results.
+   fuse window and results;
+14. distributed — the distributed stencil layer on a (2, 2) mesh of the
+   card over ("data", "model"), axes 0 and 1 split, every shard on
+   ``cuda:0``: (a) 20 ``st.map`` of star3d4r at 512³ under
+   ``inner=st.hopper(template=...)`` gmem (K4) and shift (K2's ``RT_MAP``
+   build), overlap on (400 launches: the deep interior and four strips a
+   shard) and off (80), each field equal to 20 unsharded applications;
+   (b) acoustic ISO at 512³ (PML 10, 100 steps, windows of 10, the source
+   in ``between``) under K4 gmem at exchange depths 1 and 2: the launches
+   ``HaloSpec`` implies, the fields within 2e-5 of their max of the
+   unsharded gmem run, steps/s, collective bytes a window, the copy
+   stream's exchange time and its overlap with the deep interior, the
+   gather/scatter around each hook, the window's idle share
+   (``torch.profiler``); (c) star3d4r ``batch=2`` at 256³, each scenario
+   bit for bit its own sharded run; (d) the 256³ gradient (40 steps)
+   through ``st.differentiable_timeloop(mesh=)`` against the unsharded
+   adjoint; (e) ``run_resilient`` at 256³ with one failure, bit for bit;
+   (f) ``predict(mesh=)`` with the probed link rate against (b)'s times
+   and ``tune(mesh=)`` over the two depths.
 
 It prints the kernels line ``{"kernels": [...]}`` and then, last,
 ``{"ok": true, "device": {...}}``.  ``--quick`` runs phases 1–3 at the two
@@ -194,11 +212,12 @@ small shapes only (K6 and K7 at all of theirs, untimed) and prints no
 result line.  Phases 4, 5 and 10 read the launch counts of the fused path, 6
 and 7 those of ``st.map``, 8 those of serving, 9 those of training: each
 sets the counts to 0 just before its run and reads them just after (11:
-each batched run and the gradient; 12 and 13: each run); the kernels line
+each batched run and the gradient; 12, 13 and 14: each run); the kernels line
 gives K1/K2/K3/K5 their launches in phase 11's batched runs
 (``batched_launches``), the tuned acoustic build's kernel and K6's
 training entry theirs in phase 12's restarted runs (``resilient_launches``),
-and lists K6 once a path (``causal_conv1d``: serving, at the
+K4 gmem and K2's ``RT_MAP`` build theirs in phase 14's sharded runs
+(``sharded_launches``), and lists K6 once a path (``causal_conv1d``: serving, at the
 decode shape; ``causal_conv1d.train``: training, at its shape).  The script imports neither
 JAX nor the JAX package, and needs nothing outside the checkout.
 """
@@ -364,6 +383,24 @@ SIM_FUSE = 10
 SIM_RTOL, SIM_ATOL = 1e-5, 1e-6
 KIND_WRAPPER = {"fused": "fused_step", "stream": "stream_step",
                 "semi": "semi_step", "temporal": "temporal_step"}
+# phase 14: the distributed layer on one card, a (2, 2) mesh over (data,
+# model) splitting axes 0 and 1; (a) st.map applications at MAIN_SHAPE,
+# (b) the fused window at the exchange depths, (c)-(e) at DIST_SHAPE: the
+# batch, the gradient's steps, the failure before window DIST_FAIL; (f)
+# the tune's steps.  Fields of the sharded runs against the unsharded ones
+# (of the field's max: the same kernels on the same regions, 0 expected),
+# gradients (of each gradient's max)
+DIST_MESH = (2, 2)
+DIST_AXES = ("data", "model", None)
+DIST_APPS = 20
+DIST_DEPTHS = (1, 2)
+DIST_SHAPE = (256, 256, 256)
+DIST_BATCH, DIST_BATCH_STEPS = 2, 20
+DIST_GRAD_STEPS = 40
+DIST_FAIL = 2
+DIST_TUNE_STEPS = 20
+DIST_TOL = 2e-5
+DIST_GRAD_TOL = 1e-4
 
 
 def bf16_ulp(scale: float) -> float:
@@ -2507,6 +2544,463 @@ def stencil_serve_phase(torch, np, mods, counters, device="cuda"):
     return record
 
 
+def dist_idle(torch, run):
+    """Device busy share of ``run()`` under ``torch.profiler``: the kernels'
+    device time (copies included) over the wall time of the run, which
+    ends in a sync."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    def dev_us(e):
+        return float(getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0.0)))
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0]
+    busy = sum(dev_us(e) for e in events) / 1e6
+    top = sorted(events, key=dev_us, reverse=True)[:6]
+    return {"wall_s": wall, "device_busy_s": busy,
+            "idle_share": 1.0 - busy / wall if busy else None,
+            "top_kernels": [(e.key[:60], dev_us(e) / 1e3, e.count) for e in top]}
+
+
+def distributed_phase(torch, np, mods, counters, main_rows, map_rows, entries,
+                      device="cuda"):
+    """Phase 14: the distributed stencil layer on a ``DIST_MESH`` mesh over
+    ("data", "model"), every shard on ``device``, ``grid_axes=DIST_AXES``.
+    (a) ``DIST_APPS`` ``st.map`` applications of star3d4r at MAIN_SHAPE
+    under ``inner=st.hopper(template=t)`` for gmem and shift, overlap on
+    and off: the launches (deep interior and two strips a decomposed axis
+    a shard, or one pass a shard), the fields against the same
+    applications unsharded; (b) acoustic ISO at MAIN_SHAPE, PML 10, STEPS
+    steps in windows of ACOUSTIC_FUSE with the source in ``between``, K4
+    gmem, time_steps 1 and 2: the launches ``HaloSpec`` implies, the fields
+    against the unsharded gmem run, steps/s, collective bytes a window,
+    the exchange's device time on the copy stream and whether it overlapped
+    the deep-interior pass, the gather/scatter around ``between``, the
+    device's idle share over one window; (c) star3d4r ``batch=2`` at
+    DIST_SHAPE, each scenario bit for bit its own sharded run; (d) the
+    gradient of acoustic at DIST_SHAPE (DIST_GRAD_STEPS steps) through
+    ``st.differentiable_timeloop(mesh=)`` against the unsharded adjoint
+    under gmem (dt's also within twice the unsharded K1 and torch
+    adjoints' own difference); (e) ``run_resilient`` on (b)'s depth-2 engine at
+    DIST_SHAPE with one failure, bit for bit; (f) ``predict(mesh=)`` of
+    (b)'s two depths with the probed link rate against (b)'s times, and
+    ``tune(mesh=)`` over them.  Every kernel source of the phase is built
+    in one wave first.  Returns the phase's record; sets the K4 entries'
+    ``sharded_launches`` ((a) and (b))."""
+    (st, suite, acoustic, dist, mesh_mod, tl, adjoint, cm, at, ft,
+     build) = (mods[k] for k in ("st", "suite", "acoustic", "distributed", "mesh",
+                                 "timeloop", "adjoint", "cost_model", "autotune",
+                                 "fault_tolerance", "build"))
+    reset_counts, counts = counters
+    cuda = device == "cuda"
+    mesh = mesh_mod.make_mesh(DIST_MESH, ("data", "model"),
+                              devices=[torch.device(device)])
+    n_sh = mesh.size
+    rec = {"mesh": dict(mesh.shape), "grid_axes": list(DIST_AXES)}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def gmem(ts=1, overlap=True, template="gmem"):
+        return st.distributed(grid_axes=DIST_AXES, overlap=overlap, time_steps=ts,
+                              inner=st.hopper(template=template))
+
+    star = suite.get_kernel("star3d4r")
+    ak = acoustic.acoustic_iso_kernel
+    a_halos = {g: (acoustic.ORDER,) * 3 for g in ak.ir.grid_params}
+    s_halos = {g: (star.info.order,) * 3 for g in star.ir.grid_params}
+    swap = ("p0", "p1")
+
+    def engine(shape, be, **kw):
+        return tl.TimeloopEngine(ak.ir, a_halos, shape, be, swap=swap, mesh=mesh, **kw)
+
+    # every source of the phase, one nvcc wave: (a)'s applications, (b)'s
+    # and (e)'s windows, (c)'s and (d)'s, and the unsharded K1 at DIST_SHAPE
+    # of (d)'s reference
+    t0 = time.perf_counter()
+    plans = []
+    for template in ("gmem", "shift"):
+        for overlap in (True, False):
+            plans += dist.lower_distributed(star.ir, s_halos, MAIN_SHAPE, None,
+                                            gmem(1, overlap, template), mesh).plans()
+    for ts in DIST_DEPTHS:
+        plans += engine(MAIN_SHAPE, gmem(ts)).distributed_window(
+            ACOUSTIC_FUSE, ACOUSTIC_FUSE).plans()
+    plans += engine(DIST_SHAPE, gmem(2)).distributed_window(
+        ACOUSTIC_FUSE, ACOUSTIC_FUSE).plans()
+    d_eng = engine(DIST_SHAPE, gmem(1))
+    plans += d_eng.distributed_window(ACOUSTIC_FUSE, ACOUSTIC_FUSE).plans()
+    plans += d_eng.distributed_window(1, 1).plans()
+    plans += tl.TimeloopEngine(star.ir, s_halos, DIST_SHAPE, gmem(1), swap=("v", "u"),
+                               mesh=mesh, batch=DIST_BATCH).distributed_window(
+        ACOUSTIC_FUSE, ACOUSTIC_FUSE).plans()
+    sources = [p.source(torch.float32) for p in plans]
+    sources.append(tl.hopper_plans(ak.ir, a_halos, DIST_SHAPE, st.hopper(template="gmem"),
+                                   swap)[0].source(torch.float32))
+    sources = list(dict.fromkeys(sources))
+    if cuda:
+        try:
+            build.build_many(sources)
+        except RuntimeError as e:
+            fail(f"distributed build: {e}")
+    rec["build"] = {"sources": len(sources), "seconds": time.perf_counter() - t0}
+    say(f"distributed: {len(sources)} K4 region and K1 sources built in "
+        f"{rec['build']['seconds']:.1f} s")
+
+    def check_rel(label, got, want, tol):
+        worst, scale = 0.0, 0.0
+        for g, w in want.items():
+            if not bool(torch.isfinite(got[g]).all()):
+                fail(f"{label}: non-finite field '{g}'")
+            worst = max(worst, float((got[g] - w).abs().max()))
+            scale = max(scale, float(w.abs().max()))
+        if not worst <= tol * max(scale, 1e-30):
+            fail(f"{label}: max |sharded - unsharded| = {worst} > {tol} x {scale}")
+        return worst, scale
+
+    def only(seen, wrapper, n, label):
+        if seen[wrapper] != n or sum(seen.values()) != n:
+            fail(f"{label}: launch counts {seen}, expected {n} of {wrapper} "
+                 f"and no other")
+
+    # -- (a) per-application --------------------------------------------------
+    init = suite.make_grids("star3d4r", MAIN_SHAPE, seed=0, device=device)
+
+    def apps(backend, m=None, n=DIST_APPS):
+        grids = {g: x.copy() for g, x in init.items()}
+
+        def run(u, v):
+            for _ in range(n):
+                st.map(e=u.shape)(star)(u, v)
+                (u.data, v.data) = (v.data, u.data)
+        sync()
+        t0 = time.perf_counter()
+        st.launch(backend=backend, mesh=m)(run)(grids["u"], grids["v"])
+        sync()
+        return time.perf_counter() - t0, {g: x.interior for g, x in grids.items()}
+
+    phase6 = {r["path"]: r["steps_per_s"] for r in map_rows}
+    rec["per_application"] = []
+    sharded = {}
+    for template, wrapper, ename in (("gmem", "map_step", "map_step.gmem"),
+                                     ("shift", "stream_step", "stream_step.map")):
+        _, want = apps(st.hopper(template=template))
+        for overlap in (True, False):
+            be = gmem(1, overlap, template)
+            apps(be, mesh, 1)                       # warm: load the builds
+            reset_counts()
+            seconds, got = apps(be, mesh)
+            seen = counts()
+            per_app = n_sh * ((1 + 2 * 2) if overlap else 1)
+            only(seen, wrapper, per_app * DIST_APPS, f"sharded st.map {template} "
+                 f"overlap={overlap}")
+            key = f"{ename}[star3d4r]"
+            sharded[key] = sharded.get(key, 0) + seen[wrapper]
+            diff, scale = check_rel(f"sharded st.map {template} overlap={overlap}",
+                                    got, want, DIST_TOL)
+            row = {"template": template, "overlap": overlap, "apps": DIST_APPS,
+                   "launches": seen[wrapper], "seconds": seconds,
+                   "steps_per_s": DIST_APPS / seconds,
+                   "unsharded_steps_per_s": phase6.get(f"st.map {key}"),
+                   "max_abs_diff": diff, "field_max": scale}
+            rec["per_application"].append(row)
+            say(f"distributed (a) st.map star3d4r {MAIN_SHAPE} {template} "
+                f"overlap={overlap}: {DIST_APPS} applications in {seconds:.3f} s = "
+                f"{row['steps_per_s']:.1f} steps/s (unsharded, phase 6: "
+                f"{row['unsharded_steps_per_s']}); {seen[wrapper]} launches; max "
+                f"|sharded - unsharded| {diff:.3g} (field max {scale:.3g})")
+        del want
+    del init
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # -- (b) the fused window -------------------------------------------------
+    a_init = acoustic.make_fields(MAIN_SHAPE, pml_width=PML_WIDTH, device=device)
+
+    def a_fields():
+        return tuple(x.copy() for x in a_init[:4]) + (a_init[4],)
+
+    def a_run(backend, fields, steps=STEPS, m=None):
+        p0, p1, vp2, damp, dt = fields
+        acoustic.inject_source(p1, 0)
+
+        def between(t, grids):
+            acoustic.inject_source(grids["p1"], t)
+        sync()
+        return st.launch(backend=backend, mesh=m, fuse_steps=ACOUSTIC_FUSE)(
+            acoustic.acoustic_target_fused)(p0, p1, vp2, damp, dt, steps,
+                                            between=between)
+
+    ref = a_fields()
+    a_run(st.hopper(template="gmem"), ref)
+    o = acoustic.ORDER
+    inner = tuple(slice(o, o + n) for n in MAIN_SHAPE)
+    want = {"p0": ref[0].data[inner], "p1": ref[1].data[inner]}
+    phase4 = {r["path"]: r["steps_per_s"] for r in main_rows}
+    rec["window"] = []
+    measured = {}
+    for ts in DIST_DEPTHS:
+        be = gmem(ts)
+        fields = a_fields()
+        reset_counts()
+        res = a_run(be, fields, m=mesh)
+        seen = counts()
+        eng = next(e for e in ak._cache.values()
+                   if isinstance(e, tl.TimeloopEngine) and e.mesh is mesh
+                   and e.backend == be)
+        win = eng.distributed_window(ACOUSTIC_FUSE, ACOUSTIC_FUSE)
+        n_win = STEPS // ACOUSTIC_FUSE
+        spec = win.spec
+        per_win = dist.launch_counts(spec, ACOUSTIC_FUSE, True) * n_sh
+        only(seen, "map_step", per_win * n_win, f"sharded window time_steps={ts}")
+        sharded["map_step.gmem[acoustic_iso]"] = (
+            sharded.get("map_step.gmem[acoustic_iso]", 0) + seen["map_step"])
+        diff, scale = check_rel(f"sharded window time_steps={ts}",
+                                {"p0": fields[0].data[inner], "p1": fields[1].data[inner]},
+                                want, DIST_TOL)
+        seconds = res.value.seconds
+        measured[ts] = seconds
+        prof = res.profile
+        hooks = n_win - 1
+        coll = spec.window_collective_bytes(ACOUSTIC_FUSE, 4)
+        # one more window, instrumented: the copy stream's events around the
+        # first group's exchange and the deep-interior pass, and the profiler
+        f2 = a_fields()
+        arrays = {g: f.data for g, f in zip(ak.ir.grid_params, f2[:4])}
+        scal = eng.launch_scalars({"dt": f2[4]}, torch.device(device))
+        st_ = win.scatter(arrays)
+        win.record, win.timeline = True, []
+        win.advance(st_, scal)
+        sync()
+        win.record = False
+        ex_ms = pre_ms = None
+        overlapped = None
+        if cuda and win.timeline:
+            e = win.timeline[0]
+            ex_ms, pre_ms = e[0].elapsed_time(e[1]), e[2].elapsed_time(e[3])
+            overlapped = e[0].elapsed_time(e[3]) > 0 and e[2].elapsed_time(e[1]) > 0
+        idle = dist_idle(torch, lambda: win.advance(st_, scal)) if cuda else None
+        del f2, arrays, st_
+        row = {"time_steps": ts, "steps": STEPS, "fuse_steps": ACOUSTIC_FUSE,
+               "seconds": seconds, "steps_per_s": STEPS / seconds,
+               "unsharded_steps_per_s": phase4.get("fused_step[acoustic_iso]"),
+               "launches": seen["map_step"], "launches_per_window": per_win,
+               "groups": [list(g) for g in spec.group_depths(ACOUSTIC_FUSE)],
+               "collective_bytes_per_window": coll,
+               "exchange_ms": ex_ms, "deep_interior_ms": pre_ms,
+               "exchange_overlapped_deep_interior": overlapped,
+               "gather_s_per_hook": prof.get("gather", 0.0) / (hooks + 1),
+               "scatter_s_per_hook": prof.get("scatter", 0.0) / (hooks + 1),
+               "kernel_s": prof.get("kernel"), "window_profile": idle,
+               "max_abs_diff": diff, "field_max": scale}
+        rec["window"].append(row)
+        say(f"distributed (b) acoustic {MAIN_SHAPE} K4 gmem time_steps={ts}: "
+            f"{STEPS} steps in {seconds:.3f} s = {row['steps_per_s']:.2f} steps/s "
+            f"(unsharded K1, phase 4: {row['unsharded_steps_per_s']}); groups "
+            f"{row['groups']} a window, {per_win} launches a window, {seen['map_step']} "
+            f"in all; {coll} collective bytes a window a shard; exchange {ex_ms} ms "
+            f"on the copy stream, deep interior {pre_ms} ms, overlapped: "
+            f"{overlapped}; gather {row['gather_s_per_hook'] * 1e3:.2f} ms and scatter "
+            f"{row['scatter_s_per_hook'] * 1e3:.2f} ms around each hook; window "
+            f"idle share {idle and idle['idle_share']}; max |sharded - "
+            f"unsharded| {diff:.3g} (field max {scale:.3g})")
+        if idle:
+            say(f"  window kernels: {idle['top_kernels']}")
+        del fields
+        if cuda:
+            torch.cuda.empty_cache()
+    del ref, want
+
+    # -- (c) batched ---------------------------------------------------------------
+    b_init = [suite.make_grids("star3d4r", DIST_SHAPE, seed=10 * b, device=device)
+              for b in range(DIST_BATCH)]
+
+    def star_loop(grids, batch=0):
+        st.launch(backend=gmem(1), mesh=mesh, fuse_steps=ACOUSTIC_FUSE)(
+            lambda u, v: st.timeloop(DIST_BATCH_STEPS, swap=("v", "u"), batch=batch)(
+                star)(u, v))(grids["u"], grids["v"])
+    serial = []
+    for b in range(DIST_BATCH):
+        g = {n: x.copy() for n, x in b_init[b].items()}
+        reset_counts()
+        star_loop(g)
+        serial.append((g, counts()["map_step"]))
+    gb = {n: st.grid(st.f32, DIST_SHAPE, star.info.order, batch=DIST_BATCH,
+                     device=device) for n in star.ir.grid_params}
+    for n in gb:
+        gb[n].data.copy_(torch.stack([b_init[b][n].data for b in range(DIST_BATCH)]))
+    reset_counts()
+    star_loop(gb, DIST_BATCH)
+    seen = counts()
+    only(seen, "map_step", DIST_BATCH * serial[0][1], "sharded batch")
+    for b, (g, _) in enumerate(serial):
+        for n in gb:
+            if not torch.equal(gb[n].interior[b], g[n].interior):
+                fail(f"sharded batch: scenario {b} grid '{n}' differs from its "
+                     f"own sharded run")
+    rec["batch"] = {"batch": DIST_BATCH, "shape": list(DIST_SHAPE),
+                    "steps": DIST_BATCH_STEPS, "launches": seen["map_step"],
+                    "serial_launches": [n for _, n in serial], "bit_for_bit": True}
+    say(f"distributed (c) star3d4r batch={DIST_BATCH} at {DIST_SHAPE}: every "
+        f"scenario bit for bit its own sharded run; {seen['map_step']} K4 launches "
+        f"({serial[0][1]} a serial run)")
+    del b_init, serial, gb
+
+    # -- (d) the gradient ----------------------------------------------------------
+    p0, p1, vp2, damp, dt = acoustic.make_fields(DIST_SHAPE, pml_width=PML_WIDTH,
+                                                 device=device)
+    acoustic.inject_source(p1, 0)
+
+    def between(t, grids):
+        acoustic.inject_source(grids["p1"], t)
+
+    def gradient(backend, m, label):
+        fn = st.differentiable_timeloop(ak, p0, p1, vp2, damp, dt,
+                                        steps=DIST_GRAD_STEPS, swap=swap,
+                                        fuse_steps=ACOUSTIC_FUSE, between=between,
+                                        backend=backend, mesh=m)
+        arrays = {n: (a.detach().clone().requires_grad_() if n != "damp" else a)
+                  for n, a in fn.arrays.items()}
+        d = torch.tensor(float(dt), device=device, requires_grad=True)
+        adjoint.reset_stats()
+        sync()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        loss = (fn(arrays, {"dt": d})["p1"].double() ** 2).sum()
+        sync()
+        t1 = time.perf_counter()
+        loss.backward()
+        sync()
+        t2 = time.perf_counter()
+        grads = {n: arrays[n].grad for n in ("p0", "p1", "vp2")}
+        grads["dt"] = d.grad
+        for n, g in grads.items():
+            if g is None or not bool(torch.isfinite(g).all()):
+                fail(f"sharded adjoint {label}: gradient of {n} missing or not finite")
+        return {"backend": label, "loss": float(loss.detach()), "forward_s": t1 - t0,
+                "backward_s": t2 - t1, "seconds": dict(adjoint.SECONDS),
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda else None,
+                "launches": counts()}, grads, fn
+
+    drow, dgrads, dfn = gradient(gmem(1), mesh, "sharded K4 gmem")
+    win10 = dfn.engine.distributed_window(ACOUSTIC_FUSE, ACOUSTIC_FUSE)
+    win1 = dfn.engine.distributed_window(1, 1)
+    want_n = (DIST_GRAD_STEPS // ACOUSTIC_FUSE * win10.launches_per_scenario
+              + DIST_GRAD_STEPS * win1.launches_per_scenario)
+    only(drow["launches"], "map_step", want_n, "sharded adjoint")
+    del dfn
+    urow, ugrads, _ = gradient(st.hopper(template="gmem"), None, "unsharded K1")
+    _, tgrads, _ = gradient(st.torch(), None, "unsharded torch")
+    errs = {}
+    # interiors: a sharded run keeps each grid's halo with its name (it is
+    # the global zero halo), the unsharded one rotates the buffers, halos
+    # and all, so the halos' cotangents differ, as in the JAX package.  dt's
+    # gradient is a sum over every cell and step that cancels to a small
+    # value: in f32 its reduction order alone moves it, so it may also
+    # differ by as much as the two unsharded adjoints (K1's and the torch
+    # lowering's forward passes) differ from each other
+    box = tuple(slice(acoustic.ORDER, acoustic.ORDER + n) for n in DIST_SHAPE)
+    for n, w in ugrads.items():
+        got = dgrads[n] if n == "dt" else dgrads[n][box]
+        t = tgrads[n] if n == "dt" else tgrads[n][box]
+        w = w if n == "dt" else w[box]
+        scale = float(w.abs().max())
+        err = float((got - w).abs().max())
+        floor = float((t - w).abs().max())
+        limit = DIST_GRAD_TOL * scale if n != "dt" else max(DIST_GRAD_TOL * scale,
+                                                            2 * floor)
+        if not err <= limit:
+            fail(f"sharded adjoint: gradient of {n} max |sharded - unsharded| = "
+                 f"{err} > {limit} (max {scale}; unsharded K1 vs torch {floor})")
+        errs[n] = {"max_abs_diff": err, "max": scale, "k1_vs_torch": floor}
+    rec["adjoint"] = {"shape": list(DIST_SHAPE), "steps": DIST_GRAD_STEPS,
+                      "sharded": drow, "unsharded": urow, "grad_vs_unsharded": errs}
+    say(f"distributed (d) gradient acoustic {DIST_SHAPE}, {DIST_GRAD_STEPS} steps: "
+        f"sharded forward {drow['forward_s']:.3f} s, backward {drow['backward_s']:.3f} "
+        f"s (replay {drow['seconds']['replay']:.3f}, recompute "
+        f"{drow['seconds']['recompute']:.3f}, vjp {drow['seconds']['vjp']:.3f}), peak "
+        f"{drow['peak_gb']} GB, {drow['launches']['map_step']} K4 launches; unsharded "
+        f"K1 forward {urow['forward_s']:.3f} s, backward {urow['backward_s']:.3f} s, "
+        f"peak {urow['peak_gb']} GB; gradients: " + ", ".join(
+            f"{n} {e['max_abs_diff']:.3g} of max {e['max']:.3g} (K1 vs torch "
+            f"{e['k1_vs_torch']:.3g})" for n, e in errs.items()))
+    del dgrads, ugrads, tgrads
+
+    # -- (e) resilience ---------------------------------------------------------------
+    arrays0 = {"p0": p0.data, "p1": p1.data, "vp2": vp2.data, "damp": damp.data}
+
+    def r_between(t, arrs):
+        arrs = dict(arrs)
+        g = st.grid(st.f32, DIST_SHAPE, acoustic.ORDER, data=arrs["p1"])
+        acoustic.inject_source(g, t)
+        arrs["p1"] = g.data
+        return arrs
+    r_eng = engine(DIST_SHAPE, gmem(2))
+    want = r_eng.run({g: a.clone() for g, a in arrays0.items()}, {"dt": dt},
+                     DIST_GRAD_STEPS, ACOUSTIC_FUSE, r_between)
+    ckpt = CKPT_ROOT / "distributed"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    restarts = []
+    try:
+        got = tl.run_resilient(r_eng, arrays0, {"dt": dt}, DIST_GRAD_STEPS,
+                               ACOUSTIC_FUSE, r_between, ckpt_dir=str(ckpt),
+                               ckpt_every=1, injector=ft.FailureInjector([DIST_FAIL]),
+                               on_restart=lambda n, e: restarts.append(repr(e)))
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    for g in want:
+        if not torch.equal(got[g], want[g]):
+            fail(f"sharded run_resilient: '{g}' differs from the uninterrupted run")
+    if len(restarts) != 1:
+        fail(f"sharded run_resilient: {len(restarts)} restarts, expected 1")
+    rec["resilience"] = {"shape": list(DIST_SHAPE), "time_steps": 2,
+                         "steps": DIST_GRAD_STEPS, "restarts": len(restarts),
+                         "bit_for_bit": True}
+    say(f"distributed (e) run_resilient acoustic {DIST_SHAPE} time_steps=2, failure "
+        f"before window {DIST_FAIL}: bit for bit the uninterrupted sharded run, "
+        f"{len(restarts)} restart")
+    del want, got, arrays0, p0, p1, vp2, damp
+
+    # -- (f) pricing ---------------------------------------------------------------
+    model = cm.CostModel(calibrate=True, device=device)
+    f = a_fields()
+    grids = dict(zip(ak.ir.grid_params, f[:4]))
+    link = model.rate_for("link", torch.float32, mesh=mesh)
+    preds = {ts: model.predict(ak, grids, gmem(ts), ACOUSTIC_FUSE, STEPS, swap,
+                               mesh=mesh, scalars={"dt": f[4]})
+             for ts in DIST_DEPTHS}
+    tuned = at.tune(ak, grids, iters=1, swap=swap, steps=DIST_TUNE_STEPS,
+                    space=[(gmem(ts), ACOUSTIC_FUSE) for ts in DIST_DEPTHS],
+                    top_k=None, cost_model=model, mesh=mesh, scalars={"dt": f[4]})
+    rec["pricing"] = {
+        "link": {"bytes_per_s": link.bytes_per_s, "overhead_s": link.overhead_s},
+        "predicted_s": {str(ts): p for ts, p in preds.items()},
+        "measured_s": {str(ts): s for ts, s in measured.items()},
+        "tune": {"winner_time_steps": tuned.backend.time_steps,
+                 "trials": [[b.time_steps, fz, s] for b, fz, s in tuned.trials],
+                 "steps": DIST_TUNE_STEPS}}
+    say(f"distributed (f) link rate {link.bytes_per_s / 1e9:.1f} GB/s, overhead "
+        f"{link.overhead_s * 1e6:.1f} us; predicted vs measured ({STEPS} steps): " +
+        ", ".join(f"time_steps={ts} {preds[ts]:.3f} s vs {measured[ts]:.3f} s"
+                  for ts in DIST_DEPTHS) +
+        f"; tune(mesh=) over both ({DIST_TUNE_STEPS} steps): time_steps="
+        f"{tuned.backend.time_steps} wins, " + ", ".join(
+            f"time_steps={b.time_steps} {s:.3f} s" for b, _, s in tuned.trials))
+    del f, grids
+    for key, n in sharded.items():
+        entries[key]["sharded_launches"] = n
+    rec["sharded_launches"] = sharded
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -2522,7 +3016,9 @@ def main(argv=None) -> int:
     try:
         from repro_torch.core import acoustic, regions, suite
         from repro_torch.core import adjoint, autotune, cost_model
+        from repro_torch.core import distributed
         from repro_torch.core import dsl as st
+        from repro_torch.launch import mesh as mesh_mod
         from repro_torch.core import timeloop
         from repro_torch.kernels import _build
         from repro_torch.kernels.stencil import codegen
@@ -3196,6 +3692,13 @@ def main(argv=None) -> int:
               "stencil_serve": stencil_serve}
     record["stencil_serving"] = stencil_serve_phase(torch, np, s_mods,
                                                     (reset_counts, counts))
+    # -- 14. the distributed layer -----------------------------------------------------
+    d_mods = {"st": st, "suite": suite, "acoustic": acoustic, "distributed": distributed,
+              "mesh": mesh_mod, "timeloop": timeloop, "adjoint": adjoint,
+              "cost_model": cost_model, "autotune": autotune,
+              "fault_tolerance": fault_tolerance, "build": _build}
+    record["distributed"] = distributed_phase(torch, np, d_mods, (reset_counts, counts),
+                                              main_rows, map_rows, entries)
     for e in conv_entries:
         row = serve_row if e["path"] == "serving" else train_row
         e["launches"], e["max_abs_err"] = row["k6_launches"], conv_worst
@@ -3214,12 +3717,14 @@ def main(argv=None) -> int:
         path.write_text(json.dumps(record, indent=1))
     # batched_launches: phase 11's launches of a kernel that advanced every
     # scenario of a batched loop; resilient_launches: phase 12's in its
-    # restarted runs, replays included (None where the phase does not run it)
+    # restarted runs, replays included; sharded_launches: phase 14's in its
+    # sharded st.map and window runs (None where a phase does not run it)
     line = {"kernels": [{**{k: e[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
         "plain_ms", "bound_ms", "bound_by", "library_ms")},
         "batched_launches": e.get("batched_launches"),
-        "resilient_launches": e.get("resilient_launches")} for e in kernels]}
+        "resilient_launches": e.get("resilient_launches"),
+        "sharded_launches": e.get("sharded_launches")} for e in kernels]}
     say(json.dumps(line))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}))

@@ -66,7 +66,6 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from . import lowering
 
 __all__ = ["ceil_sqrt", "window_schedule", "checkpoint_stride",
            "differentiable_run", "resilient_grad", "CHECKPOINT_STATS",
@@ -191,16 +190,11 @@ class _AdjointPlan:
 
     # adjoint: one step of the torch reference lowering, new tensors out
     # (masked: the masked window's step, whose selects freeze the cotangent)
+    # on a mesh: per-shard steps, the cotangents through the transposed
+    # exchange (``distributed.sharded_step``)
     def adjoint_step(self) -> Callable:
         if self._adjoint is None:
-            e = self.engine
-            if self.masked:
-                self._adjoint = lowering.lower_torch_window_masked(
-                    e.kernel, e.halos, e.interior, e.swap, 1, batch=e.batch)
-            else:
-                self._adjoint = lowering.lower_torch_window(
-                    e.kernel, e.halos, e.interior, None, e.swap, 1, batch=e.batch,
-                    fresh=True)
+            self._adjoint = self.engine.adjoint_step(self.masked)
         return self._adjoint
 
     def chain(self, i: int) -> Callable:
@@ -240,7 +234,7 @@ class _AdjointPlan:
     def primal_scalars(self, scal: Dict[str, torch.Tensor], device):
         """The scalars as the engine's windows take them: the tensors
         themselves on the torch backend, f32 values for the kernels."""
-        if self.engine.backend.kind == "torch":
+        if self.engine.exec_kind == "torch":
             return {n: v.detach().to(device) for n, v in scal.items()}
         return self.engine.launch_scalars({n: v.detach().cpu() for n, v in scal.items()},
                                           device)

@@ -58,6 +58,7 @@ from . import cost_model as _cost
 from . import dsl as st
 from . import timeloop as _tl
 from .cost_model import kernel_fingerprint  # noqa: F401  (re-export)
+from ..launch.mesh import mesh_axes
 
 _CACHE: Dict = {}
 
@@ -388,10 +389,13 @@ def shortlist_indices(predictions: Sequence[Optional[float]],
 
 
 def _launched(cm, kernel, grids, backend, fuse, steps, swap):
-    """The plans a candidate's run launches: ``()`` under torch, ``None``
-    for a geometry the kernels cannot take; in a time loop the window's
-    plan if it runs K3 launches and the single-step plan if it runs single
-    steps."""
+    """The plans a candidate's run launches: ``()`` under torch (and for a
+    distributed candidate, whose region plans its first run builds),
+    ``None`` for a geometry the kernels cannot take; in a time loop the
+    window's plan if it runs K3 launches and the single-step plan if it
+    runs single steps."""
+    if backend.kind == "distributed":
+        return ()
     g0 = next(iter(grids.values()))
     plans = cm.plans(kernel, {n: g.halo for n, g in grids.items()}, g0.shape,
                      backend, swap)
@@ -401,20 +405,20 @@ def _launched(cm, kernel, grids, backend, fuse, steps, swap):
     return tuple(p for p, n in ((plans[0], blocked), (plans[1], single)) if n)
 
 
-def _measure(kernel, grids, scalars, backend, iters: int) -> float:
+def _measure(kernel, grids, scalars, backend, iters: int, mesh=None) -> float:
     """Median host seconds of one ``st.map`` application (after a warm-up
     application; each ends in a sync)."""
     return statistics.median(_cost.time_map(kernel, grids, scalars, backend,
-                                            iters))
+                                            iters, mesh=mesh))
 
 
 def _measure_timeloop(kernel, grids, scalars, backend, fuse: int, steps: int,
-                      swap, iters: int) -> float:
+                      swap, iters: int, mesh=None) -> float:
     """Median host seconds of ``steps`` fused time steps (after a warm-up
     run; each window ends in a sync)."""
     return statistics.median(_cost.time_timeloop(kernel, grids, scalars,
                                                  backend, fuse, steps, swap,
-                                                 iters))
+                                                 iters, mesh=mesh))
 
 
 def tune(kernel: st.Kernel, grids: Dict[str, st.grid], iters: int = 3,
@@ -445,11 +449,11 @@ def tune(kernel: st.Kernel, grids: Dict[str, st.grid], iters: int = 3,
     nothing is pruned.  ``cache_dir`` (or ``$REPRO_AUTOTUNE_CACHE``)
     enables the disk cache: a miss in the in-process layer reads the entry
     for this configuration before predicting or measuring anything, and a
-    fresh result is written back.  ``mesh`` is not ported yet and
-    raises."""
-    if mesh is not None:
-        raise st.not_ported("autotune.tune(mesh=...)",
-                            "queue 1, item 9 (distributed)")
+    fresh result is written back.  ``mesh`` is the mesh the distributed
+    candidates of ``space`` are priced and measured on (an ``{axis:
+    size}`` mapping prices them but cannot run them); results tuned on a
+    mesh stay in the in-process cache only (the disk key names no
+    mesh)."""
     if top_k is not None and int(top_k) < 1:
         raise ValueError(f"top_k must be >= 1 or None (got {top_k})")
     scalars = dict(scalars or {})
@@ -467,12 +471,14 @@ def tune(kernel: st.Kernel, grids: Dict[str, st.grid], iters: int = 3,
            int(steps) if swap else None,
            tuple(int(f) for f in fuse_space) if swap else None,
            tuple(int(t) for t in time_block_space) if swap else None,
-           int(top_k) if top_k is not None else None)
+           int(top_k) if top_k is not None else None,
+           tuple(sorted(mesh_axes(mesh).items())) if mesh is not None else None)
     if key in _CACHE:
         return _CACHE[key]
     cdir = cache_dir or cache_dir_from_env()
     digest = readable = None
-    if cdir:
+    use_disk = cdir and mesh is None
+    if use_disk:
         if cdir not in _PURGED:
             _PURGED.add(cdir)
             purge_stale(cdir)
@@ -489,6 +495,8 @@ def tune(kernel: st.Kernel, grids: Dict[str, st.grid], iters: int = 3,
     cm = cost_model or _cost.default_model(cdir, g0.device)
 
     def identity(b, f):
+        if b.kind == "distributed":
+            return b.cache_key(), f
         runs = _launched(cm, kernel, grids, b, f, steps, swap)
         if runs is None:
             return ("infeasible", b.cache_key(), f)
@@ -508,6 +516,9 @@ def tune(kernel: st.Kernel, grids: Dict[str, st.grid], iters: int = 3,
                                   and len(cands) > int(top_k)):
         classes = set()
         for (b, _), r in zip(cands, runs):
+            if b.kind == "distributed":
+                # probed as _predict_distributed reads it (below)
+                continue
             if r is not None:
                 classes.update([_cost.plan_class(p) for p in r]
                                or [_cost.exec_key(b, swap)])
@@ -518,7 +529,7 @@ def tune(kernel: st.Kernel, grids: Dict[str, st.grid], iters: int = 3,
         t0 = time.perf_counter()
         for backend, fuse in cands:
             p = cm.predict(kernel, grids, backend, fuse, steps, swap,
-                           scalars=scalars)
+                           mesh=mesh, scalars=scalars)
             preds.append(p)
             if verbose and p is not None:
                 print(f"  predict {backend} fuse={fuse}: {p:.5f}s",
@@ -539,16 +550,17 @@ def tune(kernel: st.Kernel, grids: Dict[str, st.grid], iters: int = 3,
                            for p in runs[i] or ()])
         timing["build"] = time.perf_counter() - t0
     trials = []
+    on_mesh = {"mesh": mesh} if mesh is not None else {}
     t0 = time.perf_counter()
     for i in measure_idx:
         backend, fuse = cands[i]
         if runs[i] is None:
             dt = float("inf")         # a plan's ValueError: nothing to run
         elif swap is None:
-            dt = _measure(kernel, grids, scalars, backend, iters)
+            dt = _measure(kernel, grids, scalars, backend, iters, **on_mesh)
         else:
             dt = _measure_timeloop(kernel, grids, scalars, backend, fuse,
-                                   steps, swap, iters)
+                                   steps, swap, iters, **on_mesh)
         MEASURE_COUNT["measured_candidates"] += 1
         trials.append((backend, fuse, dt))
         if verbose:
@@ -576,6 +588,6 @@ def tune(kernel: st.Kernel, grids: Dict[str, st.grid], iters: int = 3,
                         top_k=int(top_k) if top_k is not None else None,
                         timing=timing)
     _CACHE[key] = result
-    if cdir:
+    if use_disk:
         _disk_store(cdir, digest, readable, result)
     return result

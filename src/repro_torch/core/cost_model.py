@@ -41,9 +41,20 @@ tag}.json``).  ``CostModel(calibrate=False)`` never probes and uses
 ``DEFAULT_RATES`` (deterministic: what the tests rank with); a calibrating
 model raises when a probe fails.
 
+Distributed candidates (``st.distributed``) are priced when the caller
+gives the mesh (``predict(..., mesh=...)``, the JAX formula): the
+per-shard compute at the local shape (the inner's bytes a pass, at the
+class of the pass: ``torch``, or the inner's per-application kernel, K4
+on gmem/f4/smem) plus each window's ``HaloSpec.window_collective_bytes``
+over the ``"link"`` rate and one link overhead an exchange group.  The
+link rate is measured (``rate_for("link", dtype, mesh=...)``) when the
+mesh names at least two shards: a ring of slab copies among them, timed
+at two message sizes, keyed ``link@{shards}/{dtype}``; a shape-only
+mapping keeps ``DEFAULT_RATES["link"]``.  Without a mesh a distributed
+candidate is unpredictable (``None``) and the tuner measures it.
+
 The model's job is ranking: ``autotune.tune`` measures only the ``top_k``
-cheapest predicted candidates.  Distributed pricing (the JAX ``link``
-rates) waits for the distributed layer: ``predict`` on a mesh raises.
+cheapest predicted candidates.
 """
 from __future__ import annotations
 
@@ -59,13 +70,14 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import torch
 
 from . import dsl as st
+from . import halo as _halo
 from . import ir as _ir
 from . import timeloop as _tl
 
 __all__ = ["CALIBRATION_VERSION", "Rate", "DEFAULT_RATES", "CostModel",
            "default_model", "reset_default_models", "exec_key",
            "kernel_fingerprint", "device_tag", "torch_step_bytes",
-           "rate_key"]
+           "rate_key", "shard_class"]
 
 #: bump when the prediction formula or the probe protocol changes:
 #: persisted calibrations (and disk tune entries, which key on this via
@@ -181,7 +193,36 @@ DEFAULT_RATES: Dict[str, Rate] = {
     "hopper-K4-gmem": Rate(1.94e12, 4.9e-5), "hopper-K4-f4": Rate(1.97e12, 4.9e-5),
     "hopper-K4-smem": Rate(1.99e12, 4.9e-5),
     "hopper-K2-map": Rate(3.58e12, 4.9e-5), "hopper-K5-map": Rate(1.97e12, 4.9e-5),
+    # the JAX package's fixed fallback for a mesh that names no shards
+    "link": Rate(1e9, 5e-4),
 }
+
+#: link probe: elements a shard's message at the two sizes, by device
+#: type (the JAX package's on the CPU), and copy rounds a timed run
+LINK_PROBE = {"cuda": (1 << 16, 1 << 22), "cpu": (1 << 10, 1 << 16)}
+LINK_ROUNDS = 8
+
+
+def _probeable_mesh(mesh):
+    """The mesh, iff it names devices and at least 2 shards (a ring of
+    copies can then be timed); else None: a plain ``{axis: size}``
+    mapping prices geometry but names no devices."""
+    devices = getattr(mesh, "devices", None)
+    if devices is None:
+        return None
+    return mesh if devices.size >= 2 else None
+
+
+def shard_class(backend, swap) -> Optional[str]:
+    """The execution class of a distributed candidate's per-shard passes:
+    the torch lowering's (``torch`` in a time loop), or the inner's
+    per-application kernel (``hopper-K4-gmem``, …): every pass of a
+    shard, in ``st.map`` and in a window, is one application on a
+    region."""
+    inner = backend.inner
+    if inner.kind == "hopper":
+        return exec_key(dataclasses.replace(inner, time_block=1), None)
+    return exec_key(inner, swap)
 
 
 def _dtype_name(dtype) -> str:
@@ -292,23 +333,24 @@ def _atomic_write_json(path: str, obj) -> None:
 
 
 def time_timeloop(kernel, grids, scalars, backend, fuse: int, steps: int,
-                  swap, iters: int) -> List[float]:
+                  swap, iters: int, mesh=None) -> List[float]:
     """Host seconds of ``iters`` runs of ``steps`` fused steps on copies of
     ``grids`` after one warm-up run (the engine syncs at every window's
-    end); the copies are freed on return."""
+    end), on ``mesh`` for a distributed backend; the copies are freed on
+    return."""
     gs = {n: g.copy() for n, g in grids.items()}
     args = tuple(gs.values()) + tuple(scalars.values())
 
     def tgt(*a):
         return st.timeloop(steps, swap=swap, fuse_steps=fuse)(kernel)(*a)
 
-    run = st.launch(backend=backend)
+    run = st.launch(backend=backend, mesh=mesh)
     run(tgt)(*args)
     return [run(tgt)(*args).value.seconds for _ in range(iters)]
 
 
 def time_map(kernel, grids, scalars, backend, iters: int,
-             apps: int = 1) -> List[float]:
+             apps: int = 1, mesh=None) -> List[float]:
     """Host seconds of one ``st.map`` application over the interior (each
     ends in a sync), averaged over runs of ``apps`` applications, for
     ``iters`` runs on copies of ``grids`` after one warm-up application."""
@@ -319,7 +361,7 @@ def time_map(kernel, grids, scalars, backend, iters: int,
         for _ in range(apps):
             st.map(e=a[0].shape)(kernel)(*a)
 
-    run = st.launch(backend=backend)
+    run = st.launch(backend=backend, mesh=mesh)
     run(lambda *a: st.map(e=a[0].shape)(kernel)(*a))(*args)
     return [run(tgt)(*args).profile["kernel"] / apps for _ in range(iters)]
 
@@ -416,10 +458,12 @@ class CostModel:
         ``scalars`` are the kernel's, for a calibration the prediction
         needs.  Batched grids (``batch=B``) move B times the bytes in the
         same launches: traffic × B, plus the windows' overheads, as in the
-        JAX package; a calibration probes scenario 0."""
-        if mesh is not None:
-            raise st.not_ported("cost_model.predict(mesh=...)",
-                                "queue 1, item 9 (distributed)")
+        JAX package; a calibration probes scenario 0.  ``mesh`` (a
+        ``launch.mesh.Mesh`` or an ``{axis: size}`` mapping) makes a
+        distributed candidate predictable (``_predict_distributed``)."""
+        if getattr(backend, "kind", None) == "distributed":
+            return self._predict_distributed(kernel, grids, backend, fuse,
+                                             steps, swap, mesh, scalars)
         if exec_key(backend, swap) is None:
             return None
         g0 = next(iter(grids.values()))
@@ -464,12 +508,89 @@ class CostModel:
                 seconds += n * p.hbm_bytes_per_step(itemsize, batch) / r.bytes_per_s
         return seconds
 
+    def _predict_distributed(self, kernel, grids, backend, fuse, steps, swap,
+                             mesh, scalars) -> Optional[float]:
+        """A distributed candidate on a known mesh (the JAX formula): the
+        shards' compute at the local shape over the rate of their passes'
+        class, plus each window's ``HaloSpec.window_collective_bytes``
+        over the link rate and one link overhead an exchange group.  An
+        infeasible geometry (indivisible mesh, k·h deeper than a shard)
+        predicts ``inf``."""
+        if mesh is None:
+            return None
+        mesh_shape = (dict(mesh.shape) if hasattr(mesh, "shape")
+                      else dict(mesh))
+        g0 = next(iter(grids.values()))
+        batch = max(1, int(g0.batch or 1))
+        if g0.batch:
+            grids, scalars = _scenario0(grids, scalars)
+        interior = tuple(g0.shape)
+        halos = {n: tuple(g.halo) for n, g in grids.items()}
+        itemsize = g0.data.element_size()
+        steps = max(1, int(steps))
+        if swap is None:
+            # the tuner measures a single application for swap-less targets
+            steps, window, windows, depth = 1, 1, 1, 1
+        else:
+            window = min(max(1, int(fuse)), steps)
+            windows = -(-steps // window)
+            depth = min(backend.time_steps * _tl.backend_time_block(backend),
+                        window)
+        h_max = max((h for hs in halos.values() for h in hs), default=0)
+        if h_max == 0:
+            depth = 1
+        try:
+            spec = _halo.HaloSpec.build(halos, backend.grid_axes, interior,
+                                        mesh_shape, depth=depth, swap=swap)
+        except ValueError:
+            return float("inf")
+        inner = backend.inner
+        if inner.kind == "hopper":
+            inner = dataclasses.replace(inner, time_block=1)
+        sb = self.step_bytes(kernel, halos, spec.local_shape, inner,
+                             swap if inner.kind == "torch" else None, g0.dtype)
+        if sb is None:
+            return None
+        per_step, _ = sb
+        if not math.isfinite(per_step):
+            return float("inf")
+        # a K4 class is probed as st.map is, by single applications
+        crate = self.rate_for(shard_class(backend, swap), g0.dtype, _Probe(
+            kernel, grids, swap if inner.kind == "torch" else None,
+            dict(scalars or {})))
+        lrate = self.rate_for("link", g0.dtype, mesh=mesh)
+        coll_w = spec.window_collective_bytes(window, itemsize, batch=batch)
+        groups_w = sum(c for c, _d in spec.group_depths(window))
+        compute = (batch * steps * per_step / crate.bytes_per_s
+                   + windows * crate.overhead_s)
+        comm = windows * (coll_w / lrate.bytes_per_s
+                          + groups_w * lrate.overhead_s)
+        return compute + comm
+
     # -- rates -------------------------------------------------------------
-    def rate_for(self, key: str, dtype, probe: Optional[_Probe] = None) -> Rate:
+    def rate_for(self, key: str, dtype, probe: Optional[_Probe] = None,
+                 mesh=None) -> Rate:
         """The rate of one execution class × dtype: the stored rate for
         ``probe``'s kernel and geometry (or, without ``probe``, the class
         alone), else a probe of the class when the model calibrates
-        (persisted next to the tune cache), else ``DEFAULT_RATES``."""
+        (persisted next to the tune cache), else ``DEFAULT_RATES``.
+
+        ``mesh`` applies to the ``"link"`` class only: a mesh of at least
+        2 shards gives the measured rate of its ring of slab copies
+        (``link@{shards}/{dtype}``, ``_probe_link``); a shape-only mapping
+        or no mesh keeps ``DEFAULT_RATES["link"]``."""
+        if key == "link":
+            pm = _probeable_mesh(mesh)
+            rk = rate_key(f"link@{pm.size}" if pm is not None else "link", dtype)
+            r = self._rates.get(rk)
+            if r is not None:
+                return r
+            if pm is None or not self.calibrate:
+                return DEFAULT_RATES["link"]
+            r = self._rates[rk] = self._probe_link(dtype, pm)
+            if self.cache_dir:
+                self._store_rates()
+            return r
         rk = rate_key(key, dtype, probe)
         r = self._rates.get(rk)
         if r is not None:
@@ -562,6 +683,47 @@ class CostModel:
         o = max(o, 1e-8)
         bw = (S * b + W_f * w) / max(t_f - W_f * o, 1e-9)
         return Rate(max(bw, 1.0), o)
+
+    def _probe_link(self, dtype, mesh) -> Rate:
+        """Measure the ``"link"`` Rate on a mesh's shards.  Every shard
+        sends a message to the next in a ring (the copies an exchange makes
+        between shards), ``LINK_ROUNDS`` rounds a timed run; timing it at
+        two message sizes gives ``t(bytes) = bytes / bytes_per_s +
+        overhead_s``, bytes a shard a round, the accounting
+        ``HaloSpec.window_collective_bytes`` charges."""
+        import time
+        devs = list(mesh.devices.flat)
+        n = len(devs)
+        dtype = getattr(dtype, "dtype", dtype)
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        small, big = LINK_PROBE["cuda" if devs[0].type == "cuda" else "cpu"]
+
+        def sync():
+            for d in dict.fromkeys(devs):
+                if d.type == "cuda":
+                    torch.cuda.synchronize(d)
+
+        def per_round(elems: int) -> float:
+            xs = [torch.zeros(elems, dtype=dtype, device=d) for d in devs]
+            ys = [torch.zeros(elems, dtype=dtype, device=d) for d in devs]
+
+            def ring():
+                for _ in range(LINK_ROUNDS):
+                    for i in range(n):
+                        ys[(i + 1) % n].copy_(xs[i])
+                sync()
+            ring()                                   # warm the path
+            best = float("inf")
+            for _ in range(3):
+                t0 = time.perf_counter()
+                ring()
+                best = min(best, time.perf_counter() - t0)
+            return best / LINK_ROUNDS
+
+        t_small, t_big = per_round(small), per_round(big)
+        bw = (big - small) * itemsize / max(t_big - t_small, 1e-12)
+        overhead = max(t_small - small * itemsize / bw, 1e-8)
+        return Rate(bytes_per_s=max(bw, 1.0), overhead_s=overhead)
 
     def _probe_bytes(self, probe, key, grids, itemsize) -> float:
         if key.startswith("torch"):

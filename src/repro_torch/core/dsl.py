@@ -307,9 +307,39 @@ def cuda(computeCapability: str = "", threadsPerBlock: Optional[Tuple[int, ...]]
     return hopper(template=template, block=threadsPerBlock, **kw)
 
 
-def distributed(*args, **kw):
-    """Domain decomposition across cards: not ported yet."""
-    raise not_ported("st.distributed", "queue 1, item 9 (distributed)")
+@dataclasses.dataclass(frozen=True)
+class distributed(Backend):
+    """Domain decomposition over a mesh of shards (``core/distributed.py``;
+    meshes: ``repro_torch.launch.mesh``).
+
+    ``grid_axes`` maps stencil-grid axes to mesh axis names (None: not
+    split), e.g. ``("data", "model", None)`` splits axes 0 and 1.
+    ``inner`` is the per-shard backend: ``st.torch()`` (the default, as
+    ``xla()`` is the JAX package's) or ``st.hopper(template=t)``, whose
+    per-application kernel (K4 for gmem/f4/smem) runs every shard's
+    passes.  Halos travel as slab copies between the shards' tensors.
+
+    ``time_steps`` > 1 enables overlapped tiling (paper §3 / time skewing
+    at mesh level): ONE k·h-wide halo exchange covers k kernel
+    applications, trading a thin shell of redundant compute for 1/k the
+    exchange rounds; ``st.map`` needs ``swap``, the (older, newer) grid
+    pair rotated between applications.  Under ``st.timeloop`` a window of
+    ``fuse_steps`` decomposes into ⌊w/k⌋ depth-k exchange groups plus a
+    remainder group, k = ``time_steps`` × the inner's ``time_block``; k·h
+    must fit the local shard extent.  ``overlap`` selects the
+    deep-interior pass that runs while the slabs copy.
+    """
+    kind: str = "distributed"
+    grid_axes: Tuple[Optional[str], ...] = ("data",)
+    inner: Backend = dataclasses.field(default_factory=torch_backend)
+    overlap: bool = True
+    time_steps: int = 1
+    swap: Optional[Tuple[str, str]] = None
+
+    def cache_key(self):
+        """Cache key flattening the nested ``inner`` backend."""
+        return ("distributed", self.grid_axes, self.inner.cache_key(),
+                self.overlap, self.time_steps, self.swap)
 
 
 # --------------------------------------------------------------------------
@@ -318,6 +348,7 @@ def distributed(*args, **kw):
 class _Ctx(threading.local):
     def __init__(self):
         self.backend: Backend = torch_backend()
+        self.mesh = None
         self.profile: Dict[str, float] = {}
         self.active = False
         self.fuse_steps: Optional[int] = None
@@ -436,14 +467,20 @@ def _apply_kernel(k: Kernel, args, begin, end):
         if region == tuple((0, s) for s in interior):
             region = None
     backend = _CTX.backend if _CTX.active else torch_backend()
+    mesh = _CTX.mesh if _CTX.active else None
     key = ("map", backend.cache_key(),
            tuple(sorted((n, g.shape, g.order, str(g.dtype))
-                        for n, g in grids.items())), region)
+                        for n, g in grids.items())), region,
+           id(mesh) if mesh is not None else None)
     fn = k._cache.get(key)
     if fn is None:
         t0 = time.perf_counter()
         halos = {n: g.halo for n, g in grids.items()}
-        if backend.kind == "hopper":
+        if backend.kind == "distributed":
+            from . import distributed as _dist
+            fn = _dist.lower_distributed(k.ir, halos, interior, region,
+                                         backend, mesh)
+        elif backend.kind == "hopper":
             from repro_torch.kernels.stencil import codegen as _codegen
             fn = _codegen.lower_hopper(k.ir, halos, interior, region,
                                        backend).apply
@@ -532,10 +569,12 @@ def _run_timeloop(k: Kernel, args, call: _TimeloopCall) -> TimeloopResult:
             f"st.grid(..., batch={call.batch})")
     batch = call.batch or grid_batch
     backend = _CTX.backend if _CTX.active else torch_backend()
+    mesh = _CTX.mesh if _CTX.active else None
     swap = _tl.normalize_swap(k.ir, call.swap)
     at_cfg = _CTX.autotune if _CTX.active else None
     tuned_fuse = None
-    if at_cfg is not None and swap is not None and not batch and call.steps > 0:
+    if (at_cfg is not None and swap is not None and not batch
+            and call.steps > 0 and backend.kind != "distributed"):
         # st.launch(autotune=...): pick the backend (and default fusion
         # window) by the two-stage search.  The measurement launches inside
         # tune() run under their own _Launcher, whose autotune=None stops
@@ -548,7 +587,10 @@ def _run_timeloop(k: Kernel, args, call: _TimeloopCall) -> TimeloopResult:
             fuse_space=at_cfg["fuse_space"],
             time_block_space=at_cfg["time_block_space"],
             cache_dir=at_cfg["cache_dir"], top_k=at_cfg["top_k"],
-            cost_model=at_cfg["cost_model"], scalars=scalars)
+            cost_model=at_cfg["cost_model"], scalars=scalars,
+            # distributed candidates in a custom space are priced and
+            # measured on the launch mesh
+            mesh=mesh)
         _CTX.add("autotune", time.perf_counter() - t0)
         backend = tuned.backend
         tuned_fuse = tuned.fuse_steps
@@ -557,10 +599,16 @@ def _run_timeloop(k: Kernel, args, call: _TimeloopCall) -> TimeloopResult:
         # launch-level override of the in-kernel temporal-blocking depth
         if backend.kind == "hopper":
             backend = dataclasses.replace(backend, time_block=int(tb))
+        elif (backend.kind == "distributed"
+              and getattr(backend.inner, "kind", None) == "hopper"):
+            backend = dataclasses.replace(
+                backend, inner=dataclasses.replace(backend.inner,
+                                                   time_block=int(tb)))
         elif int(tb) != 1:
             # silently running without blocking would let a user believe
             # the depth is active while measuring the plain fused loop
-            raise ValueError(f"time_block={tb} requires a hopper backend; "
+            raise ValueError(f"time_block={tb} requires a hopper backend (or "
+                             f"a distributed backend with a hopper inner); "
                              f"got '{backend.kind}'")
     fuse = call.fuse_steps
     if fuse is None and _CTX.active:
@@ -572,14 +620,15 @@ def _run_timeloop(k: Kernel, args, call: _TimeloopCall) -> TimeloopResult:
 
     key = ("timeloop", backend.cache_key(),
            tuple(sorted((n, g.shape, g.order, str(g.dtype))
-                        for n, g in grids.items())), swap, batch)
+                        for n, g in grids.items())), swap,
+           id(mesh) if mesh is not None else None, batch)
     engine = k._cache.get(key)
     if engine is None:
         t0 = time.perf_counter()
         engine = _tl.TimeloopEngine(
             k.ir, {n: g.halo for n, g in grids.items()}, interior, backend,
             swap=swap, profile_cb=_CTX.add if _CTX.active else None,
-            batch=batch)
+            batch=batch, mesh=mesh)
         _CTX.add("codegen", time.perf_counter() - t0)
         k._cache[key] = engine
     fuse = engine.window_for(call.steps, fuse)
@@ -654,9 +703,14 @@ def differentiable_timeloop(k: Kernel, *args,
     kernels; the cotangents run through the torch lowering, one step at a
     time, by design (the kernels define no backward, as ``pallas_call``
     defines no VJP in the JAX package).  ``domain_mask`` / ``step_limits``
-    select the masked serving windows (batched grids under ``st.torch()``;
-    ``ValueError`` otherwise, as the JAX package's refuse Pallas).
-    ``mesh`` is not ported and raises.
+    select the masked serving windows (batched grids under ``st.torch()``
+    or a distributed backend with a torch inner; ``ValueError`` otherwise,
+    as the JAX package's refuse Pallas).  With ``backend=st.distributed(...),
+    mesh=...`` (or the enclosing launch's mesh) the forward windows and the
+    replay run on the mesh's shards and each step's cotangent is pulled
+    back per shard through the transposed exchange
+    (``distributed.sharded_step``): gradients reach sharded velocity grids
+    and scalars without a gathered step.
 
     Example::
 
@@ -669,24 +723,24 @@ def differentiable_timeloop(k: Kernel, *args,
     from . import adjoint as _adj
     from . import timeloop as _tl
 
-    if mesh is not None:
-        raise not_ported("st.differentiable_timeloop(mesh=...)",
-                         "queue 1, item 9 (distributed)")
     grids, scalars = _bind_args(k, args)
     interior = next(iter(grids.values())).shape
     batch = next(iter(grids.values())).batch or 0
     if backend is None:
         backend = _CTX.backend if _CTX.active else torch_backend()
+    if mesh is None:
+        mesh = _CTX.mesh if _CTX.active else None
     swap = _tl.normalize_swap(k.ir, tuple(swap) if swap is not None else None)
 
     key = ("difftimeloop", backend.cache_key(),
            tuple(sorted((n, g.shape, g.order, str(g.dtype))
-                        for n, g in grids.items())), swap, batch)
+                        for n, g in grids.items())), swap,
+           id(mesh) if mesh is not None else None, batch)
     engine = k._cache.get(key)
     if engine is None:
         engine = _tl.TimeloopEngine(
             k.ir, {n: g.halo for n, g in grids.items()}, interior, backend,
-            swap=swap, batch=batch, differentiable=True)
+            swap=swap, batch=batch, differentiable=True, mesh=mesh)
         k._cache[key] = engine
 
     between_arrays = None
@@ -724,8 +778,8 @@ def differentiable_timeloop(k: Kernel, *args,
 class _Launcher:
     def __init__(self, backend: Backend, fuse_steps: Optional[int] = None,
                  time_block: Optional[int] = None,
-                 autotune: Optional[dict] = None):
-        self.backend = backend
+                 autotune: Optional[dict] = None, mesh=None):
+        self.backend, self.mesh = backend, mesh
         self.fuse_steps = fuse_steps
         self.time_block = time_block
         self.autotune = autotune
@@ -733,8 +787,9 @@ class _Launcher:
     def __call__(self, tgt: Callable):
         def run(*args, **kw) -> LaunchResult:
             prev = (_CTX.backend, _CTX.profile, _CTX.active, _CTX.fuse_steps,
-                    _CTX.time_block, _CTX.autotune)
+                    _CTX.time_block, _CTX.autotune, _CTX.mesh)
             _CTX.backend, _CTX.profile, _CTX.active = self.backend, {}, True
+            _CTX.mesh = self.mesh
             _CTX.fuse_steps, _CTX.time_block = self.fuse_steps, self.time_block
             _CTX.autotune = self.autotune
             t0 = time.perf_counter()
@@ -744,7 +799,8 @@ class _Launcher:
                 prof = _CTX.profile
                 prof["total"] = time.perf_counter() - t0
                 (_CTX.backend, _CTX.profile, _CTX.active,
-                 _CTX.fuse_steps, _CTX.time_block, _CTX.autotune) = prev
+                 _CTX.fuse_steps, _CTX.time_block, _CTX.autotune,
+                 _CTX.mesh) = prev
             return LaunchResult(value=value, profile=prof)
         return run
 
@@ -779,10 +835,14 @@ def launch(backend: Backend = None, mesh=None, profile: bool = True,
     disk.  The tuned fusion window applies unless ``fuse_steps`` (or the
     time loop's own) overrides it; ``time_block`` still applies on top of
     the tuned backend.  The tune's seconds are the profile's
-    ``autotune`` phase.  ``mesh`` is not ported yet and raises."""
+    ``autotune`` phase.  Batched, distributed and swap-less time loops run
+    the fixed backend.
+
+    ``mesh`` (``repro_torch.launch.mesh.make_mesh``) is the mesh a
+    ``st.distributed`` backend decomposes over, for ``st.map`` and
+    ``st.timeloop`` (and ``st.differentiable_timeloop`` inside the
+    target)."""
     del profile
-    if mesh is not None:
-        raise not_ported("st.launch(mesh=...)", "queue 1, item 9 (distributed)")
     at_cfg = None
     if autotune:
         at_cfg = {"space": autotune_space, "cache_dir": autotune_cache,
@@ -792,4 +852,4 @@ def launch(backend: Backend = None, mesh=None, profile: bool = True,
                   "time_block_space": tuple(autotune_time_block_space),
                   "cost_model": autotune_cost_model}
     return _Launcher(backend or torch_backend(), fuse_steps=fuse_steps,
-                     time_block=time_block, autotune=at_cfg)
+                     time_block=time_block, autotune=at_cfg, mesh=mesh)

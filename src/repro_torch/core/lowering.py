@@ -169,7 +169,10 @@ def lower_torch(kernel: ir.StencilIR,
     the output grids on ``region`` (interior coordinates, default the whole
     interior) in place and returns the dict.  ``fresh``: each write goes to
     a copy of the grid made once its value is computed, so no tensor given
-    is written and autograd can record the step.
+    is written and autograd can record the step.  ``fn(arrays, scalars,
+    out)``: each output's region goes to ``out[grid]`` (a tensor of the
+    grid's shape), which takes the grid's place in the returned dict; the
+    grids given are only read.
     """
     ndim = kernel.ndim
     if region is None:
@@ -182,15 +185,19 @@ def lower_torch(kernel: ir.StencilIR,
                                         h[ax] + region[ax][1] + offs[ax])
                                   for ax in range(ndim))]
 
-    def write(arr, val, g):
-        h = halos[g]
-        if fresh:
-            arr = arr.clone()
-        arr[(...,) + tuple(slice(h[ax] + region[ax][0], h[ax] + region[ax][1])
-                           for ax in range(ndim))] = val
-        return arr if fresh else None
+    def fn(arrays: Dict[str, torch.Tensor], scalars: Mapping[str, torch.Tensor],
+           out: Optional[Dict[str, torch.Tensor]] = None):
+        def write(arr, val, g):
+            h = halos[g]
+            new = out is not None or fresh
+            if out is not None:
+                arr = out[g]
+            elif fresh:
+                arr = arr.clone()
+            arr[(...,) + tuple(slice(h[ax] + region[ax][0], h[ax] + region[ax][1])
+                               for ax in range(ndim))] = val
+            return arr if new else None
 
-    def fn(arrays: Dict[str, torch.Tensor], scalars: Mapping[str, torch.Tensor]):
         dtype = arrays[kernel.output_grids()[0]].dtype
         if batch:
             # a (B,) scalar: one value a scenario, broadcast over its grid

@@ -20,6 +20,15 @@ only at window boundaries.  Per backend:
             (the JAX engine's decomposition); ``fuse_steps`` is never
             rounded to a multiple of ``k``.  A window is a Python loop of
             kernel launches on the current stream.
+  distributed — (``TimeloopEngine(mesh=)``) a window is
+            ``distributed.lower_distributed_window`` on the mesh's shards:
+            depth-k exchange groups (k = ``time_steps`` × the inner's
+            ``time_block``) of slab copies and per-shard passes of the
+            inner's per-application kernel (hopper: K4 on regions) or of
+            the torch lowering.  The state lives in the shards across
+            windows; it is gathered into the caller's tensors before a
+            ``between`` hook and at the end of ``run``, and scattered again
+            after a hook.
 
 Scenarios (``batch=B``): every grid carries a leading axis of B
 independent scenarios, advanced together: the torch window indexes the
@@ -70,8 +79,12 @@ def window_parts(kw: int, k_inner: int) -> list:
 
 
 def backend_time_block(backend) -> int:
-    """Effective in-kernel temporal depth of a backend (1 unless the
-    backend carries ``time_block``)."""
+    """Effective in-kernel temporal depth of a backend: the knob rides on
+    the backend itself for hopper, on the ``inner`` for distributed
+    wrappers, and is 1 everywhere else (the engine and the distributed
+    lowering read it here, so they agree on the exchange depth)."""
+    if getattr(backend, "kind", "") == "distributed":
+        backend = getattr(backend, "inner", None)
     return int(getattr(backend, "time_block", 1) or 1)
 
 
@@ -171,7 +184,8 @@ class TimeloopEngine:
                  swap: Optional[Tuple[str, str]] = None,
                  profile_cb: Optional[Callable[[str, float], None]] = None,
                  batch: int = 0,
-                 differentiable: bool = False):
+                 differentiable: bool = False,
+                 mesh=None):
         self.kernel = kernel
         self.halos = {g: tuple(h) for g, h in halos.items()}
         self.interior = tuple(interior_shape)
@@ -189,11 +203,26 @@ class TimeloopEngine:
         self._windows: Dict[Tuple[int, bool], Callable] = {}
         self._plan = self._plan1 = None
         self.time_block = 1
+        # what runs the steps: the backend, or a distributed backend's inner
+        self.exec_kind = backend.kind
+        self.mesh = None
         if backend.kind == "hopper":
             self._plan, self._plan1 = hopper_plans(kernel, self.halos,
                                                    self.interior, backend,
                                                    self.swap)
             self.time_block = self._plan.time_block
+        elif backend.kind == "distributed":
+            from . import distributed as _dist
+            if mesh is None:
+                raise ValueError("distributed backend requires launch(mesh=...)")
+            if self.swap is None:
+                raise ValueError("distributed timeloop requires swap=(a, b)")
+            self.mesh, self.exec_kind = mesh, backend.inner.kind
+            self.time_block = backend_time_block(backend)
+            self._dwins: Dict[tuple, object] = {}
+            self._layouts: Dict[int, object] = {}
+            # validates the geometry (divisibility, axes, depth) now
+            _dist.window_depth(kernel, self.interior, backend, mesh, self.swap, 1)
         elif backend.kind != "torch":
             raise ValueError(f"timeloop: unsupported backend {backend.kind}")
 
@@ -219,10 +248,49 @@ class TimeloopEngine:
             self._windows[(kw, masked)] = fn
         return fn
 
+    def distributed_window(self, kw: int, fuse: Optional[int] = None,
+                           masked: bool = False):
+        """The sharded window of ``kw`` steps (``distributed.
+        DistributedWindow``) in a run of windows of ``fuse`` (default
+        ``kw``): the windows of one run share the shards' tensors, padded
+        for the widest exchange of a window of ``fuse``."""
+        from . import distributed as _dist
+        depth = _dist.window_depth(self.kernel, self.interior, self.backend,
+                                   self.mesh, self.swap, fuse or kw, masked)
+        win = self._dwins.get((kw, masked, depth))
+        if win is None:
+            layout = self._layouts.get(depth)
+            if layout is None:
+                layout = self._layouts[depth] = _dist.window_layout(
+                    self.kernel, self.interior, self.backend, self.mesh,
+                    self.swap, depth, self.batch)
+            win = self._dwins[(kw, masked, depth)] = _dist.lower_distributed_window(
+                self.kernel, self.interior, self.backend, self.mesh, self.swap,
+                kw, batch=self.batch, masked=masked, layout=layout)
+        return win
+
+    def adjoint_step(self, masked: bool = False) -> Callable:
+        """One step of the torch lowering that the adjoint differentiates
+        (new tensors out): the fresh window of one step, the masked
+        window's step, or on a mesh ``distributed.sharded_step`` (per-shard
+        VJPs and the transposed exchange)."""
+        if self.mesh is not None:
+            from . import distributed as _dist
+            return _dist.sharded_step(self.kernel, self.interior, self.backend,
+                                      self.mesh, self.swap, self.batch, masked)
+        if masked:
+            return lowering.lower_torch_window_masked(
+                self.kernel, self.halos, self.interior, self.swap, 1,
+                batch=self.batch)
+        return lowering.lower_torch_window(self.kernel, self.halos, self.interior,
+                                           None, self.swap, 1, batch=self.batch,
+                                           fresh=True)
+
     def check_masked(self) -> None:
         """Raise ``ValueError`` unless the engine can run masked windows
-        (batched, torch backend)."""
-        if not self.batch or self._plan is not None:
+        (batched, torch backend or a distributed one with a torch
+        inner)."""
+        if not self.batch or self.exec_kind != "torch":
             raise ValueError(
                 "domain_mask / step_limits require a batched torch timeloop "
                 "(the serving path; the kernels take no mask)")
@@ -256,7 +324,11 @@ class TimeloopEngine:
         in the JAX package: 0-d tensors (torch backend) or floats (hopper);
         under ``batch=B`` each a ``(B,)`` tensor (torch) or one ``(B, NS)``
         array on the card (hopper: ``CudaPlan.scenario_scalars``), a float
-        or a 0-d value shared by the scenarios."""
+        or a 0-d value shared by the scenarios.  On a mesh:
+        ``distributed.shard_scalars``."""
+        if self.mesh is not None:
+            from . import distributed as _dist
+            return _dist.shard_scalars(self.exec_kind, scalars, device, self.batch)
         if self._plan is None:
             return scalar_tensors(scalars, device, self.batch)
         if not self.batch:                  # the kernels take f32 by value
@@ -289,6 +361,8 @@ class TimeloopEngine:
         surface of the adjoint (``core/adjoint.py``): its forward pass and
         its replay run these windows on the engine's kernels.  Unlike
         ``run``, no profiling, host sync or traffic count happens here."""
+        if self.mesh is not None:
+            return self.distributed_window(kw, kw, masked)
         if masked:
             return self._window(kw, masked=True)
 
@@ -330,6 +404,9 @@ class TimeloopEngine:
         if masked:
             mask, limits = self.masked_operands(domain_mask, step_limits, steps,
                                                 device)
+        if self.mesh is not None:
+            return self._run_distributed(arrays, scal, steps, fuse, between,
+                                         *((mask, limits) if masked else (None, None)))
         t = 0
         while t < steps:
             kw = min(fuse, steps - t)
@@ -345,6 +422,48 @@ class TimeloopEngine:
             t += kw
             if between is not None and t < steps:
                 arrays = between(t, arrays) or arrays
+        return arrays
+
+    def _sync_mesh(self) -> None:
+        for d in dict.fromkeys(self.mesh.devices.flat):
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
+
+    def _run_distributed(self, arrays, scal, steps, fuse, between, mask, limits):
+        """``run`` on a mesh: the state scattered into the shards once, the
+        windows advanced there, gathered before each ``between`` hook (and
+        scattered again after it) and at the end, into the caller's tensors
+        (new tensors when the engine is differentiable).  Profile phases:
+        ``kernel`` (the windows), ``gather`` and ``scatter``."""
+        masked = mask is not None
+        main = self.distributed_window(fuse, fuse, masked)
+        t0 = time.perf_counter()
+        st = main.scatter(arrays)
+        self._sync_mesh()
+        self._add("scatter", time.perf_counter() - t0)
+        t = 0
+        while t < steps:
+            kw = min(fuse, steps - t)
+            win = main if kw == fuse else self.distributed_window(kw, fuse, masked)
+            t0 = time.perf_counter()
+            win.advance(st, scal, mask, t, limits)
+            self._sync_mesh()
+            self._add("kernel", time.perf_counter() - t0)
+            t += kw
+            if between is not None and t < steps:
+                t0 = time.perf_counter()
+                arrays = main.gather(st, arrays, self.touched, self.differentiable)
+                self._sync_mesh()
+                self._add("gather", time.perf_counter() - t0)
+                arrays = between(t, arrays) or arrays
+                t0 = time.perf_counter()
+                main.layout.scatter(st.bufs, arrays, self.kernel.grid_params)
+                self._sync_mesh()
+                self._add("scatter", time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        arrays = main.gather(st, arrays, self.touched, self.differentiable)
+        self._sync_mesh()
+        self._add("gather", time.perf_counter() - t0)
         return arrays
 
     def _apply_window(self, arrays, scal, kw, fresh: bool = False,

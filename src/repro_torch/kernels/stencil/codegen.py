@@ -1288,9 +1288,14 @@ class MapPlan(_Plan):
             sx.append(b.stride(0))
             sy.append(b.stride(1))
             org.append(w[0] * b.stride(0) + w[1] * b.stride(1) + w[2])
-        if (dst is None) != self.in_place:
+        full = {g: dst is not None and self.full_dst(g, dst[g])
+                for g in self.out_grids}
+        if dst is None and not self.in_place:
             raise ValueError("destinations: None exactly when the plan "
                              "writes in place (make_dst)")
+        if self.in_place and dst is not None and not all(full.values()):
+            raise ValueError("destinations of the region's shape: only where "
+                             "the plan does not write in place (make_dst)")
         d, dsx, dsy, dorg = [], [], [], []
         for g in self.out_grids:
             if dst is None:
@@ -1301,16 +1306,18 @@ class MapPlan(_Plan):
                 dorg.append(org[i])
                 continue
             t = dst[g]
-            check(f"destination of '{g}'", t, self.R)
+            check(f"destination of '{g}'", t,
+                  self.full_shapes[g] if full[g] else self.R)
             lo, hi = span(t)
             if any(lo < span(b)[1] and span(b)[0] < hi for b in bufs.values()):
                 raise ValueError(f"destination of '{g}' aliases a grid the "
                                  "kernel reads")
-            b = self.buf3(t)
+            b, w = self.buf3(t), self.org3[g]
             d.append(t.data_ptr())
             dsx.append(b.stride(0))
             dsy.append(b.stride(1))
-            dorg.append(0)
+            dorg.append(w[0] * b.stride(0) + w[1] * b.stride(1) + w[2]
+                        if full[g] else 0)
         # smem's and K2's TMA maps need each grid's extent along axis 0
         n0 = ([bufs[g].shape[0] for g in self.opnd_grids]
               if self.template == "smem" or self.kind == "stream" else [])
@@ -1323,13 +1330,33 @@ class MapPlan(_Plan):
         scal = (ctypes.c_float * len(vals))(*vals)
         return meta, scal
 
+    def full_dst(self, g: str, t: torch.Tensor) -> bool:
+        """Whether ``t``, a destination of output ``g``, has the grid's full
+        shape (the kernel then writes its region at the grid's place) rather
+        than the region's."""
+        return tuple(t.shape) == self.full_shapes[g]
+
+    def out3(self, g: str, bufs: Dict[str, torch.Tensor], dst=None,
+             x=None) -> torch.Tensor:
+        """``_Plan.out3``; a destination of the grid's full shape is written
+        at the region's place in it."""
+        if dst is not None and self.full_dst(g, dst[g]):
+            return self.interior3(g, dst[g], x)
+        return super().out3(g, bufs, dst, x)
+
     def apply(self, arrays: Dict[str, torch.Tensor],
-              scalars: Dict[str, float]) -> Dict[str, torch.Tensor]:
+              scalars: Dict[str, float],
+              out: Optional[Dict[str, torch.Tensor]] = None
+              ) -> Dict[str, torch.Tensor]:
         """One application on the grids' full tensors: the kernel of
         ``kind`` (on CPU tensors its plain version) writes the outputs'
         region in place or into ``make_dst``'s buffers, which are then
         copied into it.  Cells outside the region, halos included, keep
-        their values.  Returns ``arrays``."""
+        their values.  ``out`` (a tensor of each output grid's full shape,
+        overlapping no grid) takes the region's values instead of the
+        grids, which are then only read: the kernel writes it directly, so
+        taps read the old values wherever they reach.  Returns
+        ``arrays``."""
         from .map_step import map_step
         from .semi_step import semi_step
         from .stream_step import stream_step
@@ -1337,10 +1364,18 @@ class MapPlan(_Plan):
         dtype = bufs[self.opnd_grids[0]].dtype
         for g, t in bufs.items():
             check_dtype(f"grid '{g}'", t, dtype)
-        dst = self.make_dst(bufs)
+        if out is not None:
+            dst = {g: out[g] for g in self.out_grids}
+            for g, t in dst.items():
+                check_dtype(f"destination of '{g}'", t, dtype)
+                if not self.full_dst(g, t):
+                    raise ValueError(f"out['{g}']: expected the grid's shape "
+                                     f"{self.full_shapes[g]}")
+        else:
+            dst = self.make_dst(bufs)
         {"map": map_step, "stream": stream_step,
          "semi": semi_step}[self.kind](self, bufs, scalars, dst)
-        if dst is not None:
+        if dst is not None and out is None:
             for g in self.out_grids:
                 self.interior3(g, bufs[g]).copy_(self.buf3(dst[g]))
         return arrays

@@ -349,9 +349,16 @@ def test_masked_windows_raise_not_ported():
         with pytest.raises(ValueError, match="batched torch"):
             st.differentiable_timeloop(k, grids["u"], grids["v"], steps=4,
                                        swap=("v", "u"), **kw)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        st.differentiable_timeloop(k, grids["u"], grids["v"], steps=4, swap=("v", "u"),
-                                   mesh={"data": 2})
+    # on a mesh (ported: the distributed layer) masked windows need a
+    # batched engine with a torch inner too
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((2,), ("data",), devices=["cpu"])
+    for inner in (st.torch(), st.hopper()):
+        with pytest.raises(ValueError, match="batched torch"):
+            st.differentiable_timeloop(
+                k, grids["u"], grids["v"], steps=4, swap=("v", "u"),
+                domain_mask=np.ones((6, 8), bool), mesh=mesh,
+                backend=st.distributed(grid_axes=("data", None), inner=inner))
 
 
 def test_requires_differentiable_engine():

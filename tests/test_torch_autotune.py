@@ -516,10 +516,25 @@ def test_tune_on_cpu_builds_nothing(monkeypatch):
     assert res.timing["build"] == 0.0 and res.measured_candidates == 3
 
 
-def test_tune_with_a_mesh_is_not_ported():
-    k, grids = _grids()
-    with pytest.raises(NotImplementedError, match="item 9"):
-        at.tune(k, grids, mesh={"data": 4})
+def test_tune_with_a_mesh_is_not_ported(tmp_path):
+    """Ported: ``tune(mesh=)`` prices and measures distributed candidates
+    on the mesh (a shape-only mapping prices them); a mesh-tuned result
+    stays in the in-process cache, never on disk (the JAX package's
+    rule)."""
+    from repro_torch.launch.mesh import make_mesh
+    k, grids = _grids("star2d1r", (16, 12))
+    mesh = make_mesh((4,), ("data",), devices=["cpu"])
+    space = [(st.distributed(grid_axes=("data", None), time_steps=ts), 4)
+             for ts in (1, 2)]
+    res = at.tune(k, grids, iters=1, space=space, swap=("v", "u"), steps=4,
+                  top_k=None, cost_model=_model(), mesh=mesh,
+                  cache_dir=str(tmp_path))
+    assert res.measured_candidates == 2 and res.backend in [b for b, _ in space]
+    assert all(p is not None and math.isfinite(p) for _, _, p in res.predicted)
+    assert not glob.glob(str(tmp_path / "*.json"))
+    cm_ = _model()
+    assert cm_.predict(k, grids, space[0][0], 4, 4, ("v", "u"), mesh={"data": 4}) \
+        == res.predicted[0][2]
 
 
 def test_scalars_reach_the_candidates():
@@ -603,5 +618,22 @@ def test_launch_autotune_skips_loops_without_a_swap_or_steps():
 
 
 def test_launch_with_a_mesh_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        st.launch(mesh={"data": 2})
+    """Ported: ``st.launch(mesh=)`` runs ``st.map`` under
+    ``st.distributed`` on the mesh (equal to the unsharded run), and a
+    distributed backend without a mesh is refused, as in the JAX
+    package."""
+    from repro_torch.launch.mesh import make_mesh
+    k = suite.get_kernel("star2d1r")
+    mesh = make_mesh((2,), ("data",), devices=["cpu"])
+
+    def tgt(u, v):
+        st.map(e=u.shape)(k)(u, v)
+    a = suite.make_grids("star2d1r", (8, 6), device="cpu")
+    b = {g: x.copy() for g, x in a.items()}
+    st.launch(backend=st.distributed(grid_axes=("data", None)), mesh=mesh)(tgt)(
+        a["u"], a["v"])
+    st.launch()(tgt)(b["u"], b["v"])
+    assert torch.equal(a["v"].interior, b["v"].interior)
+    with pytest.raises(ValueError, match="mesh"):
+        st.launch(backend=st.distributed(grid_axes=("data", None)))(tgt)(
+            b["u"], b["v"])

@@ -351,10 +351,18 @@ def test_build_identity_builds_nothing_and_tells_builds_apart(monkeypatch):
 
 
 def test_predict_on_a_mesh_is_not_ported():
+    """Ported: a mesh prices distributed candidates only (a single-device
+    backend's prediction ignores it, as in the JAX package); without a mesh
+    a distributed candidate is unpredictable, and an infeasible split
+    costs ``inf``."""
     k, grids = _grids()
-    with pytest.raises(NotImplementedError, match="item 9"):
-        _model().predict(k, grids, st.torch(), 1, 8, ("v", "u"),
-                         mesh={"data": 4})
+    m = _model()
+    assert m.predict(k, grids, st.torch(), 1, 8, ("v", "u"), mesh={"data": 4}) \
+        == m.predict(k, grids, st.torch(), 1, 8, ("v", "u"))
+    be = st.distributed(grid_axes=("data", None))
+    assert m.predict(k, grids, be, 1, 8, ("v", "u")) is None
+    assert math.isfinite(m.predict(k, grids, be, 1, 8, ("v", "u"), mesh={"data": 4}))
+    assert m.predict(k, grids, be, 1, 8, ("v", "u"), mesh={"data": 32}) == float("inf")
 
 
 def test_grids_on_another_device_are_refused():
@@ -517,3 +525,58 @@ def test_crop_keeps_the_central_box_and_its_neighbours():
     np.testing.assert_array_equal(c.data.numpy(), g.data[3:11, 3:13].numpy())
     c.data.zero_()
     assert g.data.abs().sum() > 0          # a copy
+
+
+DIST_PREDICT_CASES = [  # (time_steps, fuse, steps, mesh): no mesh axis of size 1
+    (1, 1, 8, {"data": 4}), (1, 4, 8, {"data": 4}), (2, 4, 8, {"data": 4}),
+    (2, 5, 10, {"data": 2}), (3, 7, 14, {"data": 2}), (1, 8, 8, {"data": 8}),
+]
+
+
+@pytest.mark.parametrize("ts,fuse,steps,mesh", DIST_PREDICT_CASES,
+                         ids=[f"k{a}-f{b}-s{c}-m{d['data']}" for a, b, c, d in
+                              DIST_PREDICT_CASES])
+def test_predict_on_a_mesh_matches_jax(ts, fuse, steps, mesh, monkeypatch):
+    """``predict(mesh=)`` on a shape-only mesh: the JAX formula (compute at
+    the local shape over the rate of the shards' passes, the window's
+    collective bytes over the link rate and a link overhead an exchange
+    group) given the same bytes a step and the same rates, to 1e-12."""
+    name, shape = "star2d2r", (32, 24)
+    k, grids = _grids(name, shape)
+    swap = ("v", "u")
+    rate = cm.Rate(bytes_per_s=2.7e11, overhead_s=6.1e-5)
+    port = _seeded(k, grids, swap, {"torch": rate})
+    port._rates[cm.rate_key("link", F32)] = rate
+    be = st.distributed(grid_axes=("data", None), time_steps=ts)
+    jbe = jst.distributed(grid_axes=("data", None), time_steps=ts)
+    local = (shape[0] // mesh["data"], shape[1])
+    halos = {n: g.halo for n, g in grids.items()}
+    sb = port.step_bytes(k, halos, local, st.torch(), swap, torch.float32)
+    jmodel = jcm.CostModel(calibrate=False)
+    monkeypatch.setattr(jmodel, "step_bytes", lambda *a, **kw: sb)
+    monkeypatch.setattr(jmodel, "rate_for",
+                        lambda *a, **kw: jcm.Rate(rate.bytes_per_s, rate.overhead_s))
+    got = port.predict(k, grids, be, fuse, steps, swap, mesh=mesh)
+    want = jmodel.predict(jsuite.get_kernel(name), jsuite.make_grids(name, shape),
+                          jbe, fuse, steps, swap, mesh=mesh)
+    assert math.isfinite(got) and got > 0
+    assert got == pytest.approx(want, rel=1e-12, abs=0)
+
+
+def test_link_rate_probe_and_fallback(tmp_path):
+    """A mesh naming at least two shards gets its ring's measured rate
+    (``link@{shards}``, persisted); a mapping or a one-shard mesh keeps
+    the JAX package's fixed fallback."""
+    from repro_torch.launch.mesh import make_mesh
+    m = cm.CostModel(calibrate=True, device="cpu", cache_dir=str(tmp_path))
+    assert m.rate_for("link", torch.float32, mesh={"data": 4}) == cm.DEFAULT_RATES["link"]
+    assert m.rate_for("link", torch.float32,
+                      mesh=make_mesh((1,), ("data",), devices=["cpu"])) \
+        == cm.DEFAULT_RATES["link"]
+    r = m.rate_for("link", torch.float32, mesh=make_mesh((4,), ("data",), devices=["cpu"]))
+    assert r.bytes_per_s > 0 and r.overhead_s > 0
+    stored = json.load(open(m._cal_path()))["rates"]
+    assert "link@4/float32" in stored
+    assert cm.CostModel(calibrate=False, device="cpu").rate_for(
+        "link", torch.float32, mesh=make_mesh((4,), ("data",), devices=["cpu"])) \
+        == cm.DEFAULT_RATES["link"]

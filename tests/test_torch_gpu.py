@@ -1264,3 +1264,94 @@ def test_async_checkpoint_snapshots_a_cuda_tensor(cuda, tmp_path):
     assert got["x"].device == x.device and got["x"].data_ptr() != x.data_ptr()
     assert torch.equal(got["x"].cpu(), before[0])
     assert torch.equal(got["b"].cpu().view(torch.int16), before[1].view(torch.int16))
+
+
+# -- the distributed layer on the card ---------------------------------------------
+# a (2, 2) mesh on one card: every pass of a shard under a hopper inner is K4
+# (or K2's ``RT_MAP`` build) on a region of the shard's padded tensors
+SHARD_TEMPLATES = ("gmem", "f4", "smem", "shift")
+
+
+def _card_mesh():
+    from repro_torch.launch.mesh import make_mesh
+    return make_mesh((2, 2), ("data", "model"))
+
+
+@pytest.mark.parametrize("template", SHARD_TEMPLATES)
+@pytest.mark.parametrize("ts", [1, 2])
+def test_sharded_regions_match_plain(cuda, template, ts):
+    """K4 on the regions of a sharded window (sub-steps on shrinking
+    regions, the deep interior, the bands; written in place or into the
+    spare) against its plain version on the same CUDA tensors."""
+    from repro_torch.core import timeloop as tl
+    k = acoustic.acoustic_iso_kernel
+    halos = {g: (acoustic.ORDER,) * 3 for g in k.ir.grid_params}
+    be = st.distributed(grid_axes=("data", "model", None), time_steps=ts,
+                        inner=st.hopper(template=template))
+    eng = tl.TimeloopEngine(k.ir, halos, (48, 40, 36), be, swap=("p0", "p1"),
+                            mesh=_card_mesh())
+    win = eng.distributed_window(4, 4)
+    _build.build_many([p.source(torch.float32) for p in win.plans()])
+    rng = np.random.default_rng(ts)
+    lay = win.layout
+    wrapper = {"map": (map_step, map_step_plain),
+               "stream": (stream_step, stream_step_plain)}
+    for _, _, steps, pre, bands in win._fns.values():
+        for op in [*steps, pre, *bands]:
+            if op is None:
+                continue
+            plan = op.plan
+            bufs = {g: torch.from_numpy(rng.standard_normal(lay.shape(g)).astype(
+                np.float32)).to(cuda) for g in k.ir.grid_params}
+            # coefficients in their physical ranges, as the other tests'
+            bufs["vp2"] = 0.5 + 1.5 * bufs["vp2"].abs().clamp(max=1)
+            bufs["damp"] = 0.2 * bufs["damp"].abs().clamp(max=1)
+            out = {"p0": torch.zeros_like(bufs["p0"])}
+            kern, plain = wrapper[plan.kind]
+            for dst in (None, out):
+                a = {g: t.clone() for g, t in bufs.items()}
+                b = {g: t.clone() for g, t in bufs.items()}
+                da = None if dst is None else {"p0": out["p0"].clone()}
+                db = None if dst is None else {"p0": out["p0"].clone()}
+                kern(plan, {g: a[g] for g in plan.opnd_grids}, {"dt": 0.3}, da)
+                plain(plan, {g: b[g] for g in plan.opnd_grids}, {"dt": 0.3}, db)
+                got = a["p0"] if dst is None else da["p0"]
+                want = b["p0"] if dst is None else db["p0"]
+                err = float((got - want).abs().max())
+                assert err <= RTOL * max(1.0, float(want.abs().max())), (op.region, err)
+
+
+@pytest.mark.parametrize("ts,overlap", [(1, True), (1, False), (2, True)])
+def test_sharded_window_matches_unsharded(cuda, ts, overlap):
+    """Acoustic ISO through ``st.timeloop`` on a (2, 2) mesh of the card
+    under K4 gmem against the unsharded K1 run (interiors, 2e-5 of the
+    field's max), the launches those ``HaloSpec`` implies."""
+    from repro_torch.core import distributed as dist
+    mesh = _card_mesh()
+    shape, steps, fuse = (64, 48, 40), 12, 4
+
+    def run(backend, m):
+        p0, p1, vp2, damp, dt = acoustic.make_fields(shape, pml_width=6)
+        acoustic.inject_source(p1, 0)
+
+        def between(t, grids):
+            acoustic.inject_source(grids["p1"], t)
+        map_step.launches = 0
+        st.launch(backend=backend, mesh=m, fuse_steps=fuse)(
+            acoustic.acoustic_target_fused)(p0, p1, vp2, damp, dt, steps,
+                                            between=between)
+        inner = tuple(slice(4, 4 + n) for n in shape)
+        return p0.data[inner], p1.data[inner], map_step.launches
+
+    want = run(st.hopper(template="gmem"), None)
+    be = st.distributed(grid_axes=("data", "model", None), time_steps=ts,
+                        overlap=overlap, inner=st.hopper(template="gmem"))
+    got = run(be, mesh)
+    scale = max(float(want[0].abs().max()), float(want[1].abs().max()))
+    for a, b in zip(got[:2], want[:2]):
+        assert float((a - b).abs().max()) <= RTOL * scale
+    from repro_torch.core.halo import HaloSpec
+    spec = HaloSpec.build({"p0": (0,) * 3, "p1": (4,) * 3, "vp2": (0,) * 3,
+                           "damp": (0,) * 3}, ("data", "model", None), shape,
+                          {"data": 2, "model": 2}, depth=ts, swap=("p0", "p1"))
+    assert got[2] == 4 * (steps // fuse) * dist.launch_counts(spec, fuse, overlap)

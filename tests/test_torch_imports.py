@@ -197,3 +197,30 @@ def test_default_device_is_the_card(make, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make()
     assert st.grid(shape=(4, 4), order=1, device="cpu").device.type == "cpu"
+
+
+# the distributed stencil layer
+DISTRIBUTED_MODULES = ("repro_torch.core.halo", "repro_torch.core.distributed",
+                       "repro_torch.launch.mesh")
+
+
+@pytest.mark.parametrize("mod", DISTRIBUTED_MODULES)
+def test_distributed_modules_are_checked(mod):
+    assert REPO / "src" / (mod.replace(".", "/") + ".py") in FILES
+
+
+def test_distributed_modules_load_neither_jax_nor_repro():
+    """Importing the halo geometry (the port's own copy of the JAX
+    package's), the distributed runtime and the meshes in a fresh
+    interpreter leaves ``jax`` and ``repro`` out of ``sys.modules``."""
+    code = ("import sys\n"
+            + "".join(f"import {m}\n" for m in DISTRIBUTED_MODULES)
+            + "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+              "('jax', 'jaxlib', 'repro'))\n"
+              "print(bad)\n"
+              "assert not bad\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=str(REPO / "src")),
+                         timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr

@@ -220,21 +220,43 @@ def test_cuda_alias_selects_hopper():
         st.hopper(template="tma")
 
 
-@pytest.mark.parametrize("call", [
-    # st.launch(autotune=True) runs since the autotuner was ported; tuning
-    # over a mesh waits for the distributed layer
-    lambda: autotune.tune(None, None, mesh={"data": 2}),
-    lambda: st.distributed(grid_axes=("data",)),
-    # the adjoint, batch=B and its masked serving windows were ported; the
-    # adjoint over a mesh waits for the distributed layer
-    lambda: st.differentiable_timeloop(
-        suite.get_kernel("star2d1r"),
-        *suite.make_grids("star2d1r", (4, 4), device="cpu").values(),
-        steps=1, swap=("v", "u"), mesh={"data": 2}),
-], ids=["autotune", "distributed", "adjoint"])
+def _cpu_mesh():
+    from repro_torch.launch.mesh import make_mesh
+    return make_mesh((2,), ("data",), devices=["cpu"])
+
+
+def _tune_on_a_mesh():
+    k = suite.get_kernel("star2d1r")
+    grids = suite.make_grids("star2d1r", (8, 6), device="cpu")
+    be = st.distributed(grid_axes=("data", None))
+    res = autotune.tune(k, grids, iters=1, space=[(be, 2)], swap=("v", "u"),
+                        steps=2, top_k=None, mesh=_cpu_mesh())
+    return res.backend == be and np.isfinite(res.seconds)
+
+
+def _distributed_backend():
+    be = st.distributed(grid_axes=("data",))
+    return (be.kind == "distributed" and be.inner == st.torch()
+            and be.cache_key()[:3] == ("distributed", ("data",), ("torch",)))
+
+
+def _adjoint_on_a_mesh():
+    k = suite.get_kernel("star2d1r")
+    grids = suite.make_grids("star2d1r", (4, 4), device="cpu")
+    fn = st.differentiable_timeloop(k, *grids.values(), steps=1, swap=("v", "u"),
+                                    backend=st.distributed(grid_axes=("data", None)),
+                                    mesh=_cpu_mesh())
+    return fn.engine.mesh is not None and set(fn()) == {"u", "v"}
+
+
+# the three features that once raised NotImplementedError naming
+# ROADMAP.md's item 9 (tuning, the backend and the adjoint over a mesh) run
+# since the distributed layer was ported; each case now checks that it does
+@pytest.mark.parametrize("call", [_tune_on_a_mesh, _distributed_backend,
+                                  _adjoint_on_a_mesh],
+                         ids=["autotune", "distributed", "adjoint"])
 def test_not_ported_features_raise(call):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        call()
+    assert call()
 
 
 def test_map_under_hopper_raises():
