@@ -2544,27 +2544,57 @@ def stencil_serve_phase(torch, np, mods, counters, device="cuda"):
     return record
 
 
-def dist_idle(torch, run):
-    """Device busy share of ``run()`` under ``torch.profiler``: the kernels'
-    device time (copies included) over the wall time of the run, which
-    ends in a sync."""
+def _union_us(spans) -> float:
+    """Length of the union of ``(start, end)`` intervals."""
+    total, reach = 0.0, None
+    for a, b in sorted(spans):
+        if reach is None or a > reach:
+            total, reach = total + b - a, b
+        elif b > reach:
+            total, reach = total + b - reach, b
+    return total
+
+
+def dist_idle(torch, run, trace_path, wall):
+    """Device time of ``run()`` from a ``torch.profiler`` trace: ``busy_ms``
+    the union of every kernel's and copy's interval on every stream, each
+    stream's own busy time, ``compute`` the stream that runs the stencil
+    kernels (``map_step``) and ``copy`` the others (the slab copies), and
+    ``overlap_ms`` the time the copies ran beside a stencil kernel.  The
+    idle share is 1 - busy over ``wall``, the seconds the same ``run()``
+    takes unprofiled (ending in a sync)."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-
-    def dev_us(e):
-        return float(getattr(e, "self_device_time_total",
-                             getattr(e, "self_cuda_time_total", 0.0)))
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0]
-    busy = sum(dev_us(e) for e in events) / 1e6
-    top = sorted(events, key=dev_us, reverse=True)[:6]
+    prof.export_chrome_trace(str(trace_path))
+    events = [e for e in json.loads(trace_path.read_text())["traceEvents"]
+              if e.get("ph") == "X" and e.get("dur")
+              and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    trace_path.unlink()
+    spans, names = {}, {}
+    for e in events:
+        sid = e.get("args", {}).get("stream")
+        spans.setdefault(sid, []).append((float(e["ts"]), float(e["ts"]) + float(e["dur"])))
+        names.setdefault(sid, []).append(e["name"])
+    compute = {sid for sid, ns in names.items() if any("map_step" in n for n in ns)}
+    stencil = [(float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events
+               if "map_step" in e["name"]]
+    copies = [iv for sid, ivs in spans.items() if sid not in compute for iv in ivs]
+    busy = _union_us([iv for ivs in spans.values() for iv in ivs]) / 1e6
+    copy_us, stencil_us = _union_us(copies), _union_us(stencil)
+    kinds = {}
+    for e in events:
+        k = kinds.setdefault(e["name"][:60], [0.0, 0])
+        k[0], k[1] = k[0] + float(e["dur"]) / 1e3, k[1] + 1
     return {"wall_s": wall, "device_busy_s": busy,
             "idle_share": 1.0 - busy / wall if busy else None,
-            "top_kernels": [(e.key[:60], dev_us(e) / 1e3, e.count) for e in top]}
+            "streams": {str(sid): _union_us(ivs) / 1e3 for sid, ivs in spans.items()},
+            "compute_streams": sorted(map(str, compute)),
+            "copy_ms": copy_us / 1e3, "stencil_ms": stencil_us / 1e3,
+            "overlap_ms": (copy_us + stencil_us - _union_us(copies + stencil)) / 1e3,
+            "top_kernels": sorted(((n, ms, c) for n, (ms, c) in kinds.items()),
+                                  key=lambda t: -t[1])[:6]}
 
 
 def distributed_phase(torch, np, mods, counters, main_rows, map_rows, entries,
@@ -2578,15 +2608,18 @@ def distributed_phase(torch, np, mods, counters, main_rows, map_rows, entries,
     applications unsharded; (b) acoustic ISO at MAIN_SHAPE, PML 10, STEPS
     steps in windows of ACOUSTIC_FUSE with the source in ``between``, K4
     gmem, time_steps 1 and 2: the launches ``HaloSpec`` implies, the fields
-    against the unsharded gmem run, steps/s, collective bytes a window,
-    the exchange's device time on the copy stream and whether it overlapped
-    the deep-interior pass, the gather/scatter around ``between``, the
-    device's idle share over one window; (c) star3d4r ``batch=2`` at
-    DIST_SHAPE, each scenario bit for bit its own sharded run; (d) the
-    gradient of acoustic at DIST_SHAPE (DIST_GRAD_STEPS steps) through
-    ``st.differentiable_timeloop(mesh=)`` against the unsharded adjoint
-    under gmem (dt's also within twice the unsharded K1 and torch
-    adjoints' own difference); (e) ``run_resilient`` on (b)'s depth-2 engine at
+    against the unsharded gmem run, every pass of the window on the
+    shards' tensors against ``map_step_plain``, steps/s, collective bytes
+    a window, from a ``torch.profiler`` trace of one window the slab
+    copies' device time and how much of it ran beside a K4 pass and the
+    device's idle share, the gather/scatter around ``between``; (c)
+    star3d4r ``batch=2`` at DIST_SHAPE, each scenario bit for bit its own
+    sharded run; (d) the gradient of acoustic at DIST_SHAPE
+    (DIST_GRAD_STEPS steps) through ``st.differentiable_timeloop(mesh=)``
+    against the unsharded adjoint under gmem (dt's also within twice the
+    unsharded K1 and torch adjoints' own difference, a bound that must
+    refuse a planted fault: the shards' dt shares not summed); (e)
+    ``run_resilient`` on (b)'s depth-2 engine at
     DIST_SHAPE with one failure, bit for bit; (f) ``predict(mesh=)`` of
     (b)'s two depths with the probed link rate against (b)'s times, and
     ``tune(mesh=)`` over them.  Every kernel source of the phase is built
@@ -2668,6 +2701,40 @@ def distributed_phase(torch, np, mods, counters, main_rows, map_rows, entries,
         if seen[wrapper] != n or sum(seen.values()) != n:
             fail(f"{label}: launch counts {seen}, expected {n} of {wrapper} "
                  f"and no other")
+
+    map_step, map_step_plain = mods["map_step"], mods["map_step_plain"]
+
+    def regions_vs_plain(win, dt):
+        """Every pass of ``win`` (K4 on a region of the shards' padded
+        tensors), in place and into a destination of the grid's shape,
+        against ``map_step_plain`` on the same seeded tensors (coefficients
+        in their physical ranges); fails above DIST_TOL of max(1, |plain|).
+        Returns the largest difference."""
+        lay, worst = win.layout, 0.0
+        gen = torch.Generator(device=device).manual_seed(14)
+        for plan in win.plans():
+            if plan.kind != "map":
+                fail(f"sharded window: a {plan.kind} pass, expected K4 (map)")
+            bufs = {g: torch.randn(lay.shape(g), generator=gen, device=device)
+                    for g in plan.opnd_grids}
+            bufs["vp2"] = 0.5 + 1.5 * bufs["vp2"].abs().clamp(max=1)
+            bufs["damp"] = 0.2 * bufs["damp"].abs().clamp(max=1)
+            out = torch.randn(lay.shape("p0"), generator=gen, device=device)
+            for into in (False, True):
+                got, want = ({g: t.clone() for g, t in bufs.items()} for _ in range(2))
+                dsts = ({"p0": out.clone()}, {"p0": out.clone()}) if into else (None, None)
+                map_step(plan, got, {"dt": dt}, dsts[0])
+                map_step_plain(plan, want, {"dt": dt}, dsts[1])
+                a = dsts[0]["p0"] if into else got["p0"]
+                b = dsts[1]["p0"] if into else want["p0"]
+                err = float((a - b).abs().max())
+                if not err <= DIST_TOL * max(1.0, float(b.abs().max())):
+                    fail(f"sharded window: K4 on region {plan.region} (into a "
+                         f"destination: {into}) differs from its plain version by "
+                         f"{err}")
+                worst = max(worst, err)
+            del bufs, got, want, out
+        return worst
 
     # -- (a) per-application --------------------------------------------------
     init = suite.make_grids("star3d4r", MAIN_SHAPE, seed=0, device=device)
@@ -2769,23 +2836,25 @@ def distributed_phase(torch, np, mods, counters, main_rows, map_rows, entries,
         prof = res.profile
         hooks = n_win - 1
         coll = spec.window_collective_bytes(ACOUSTIC_FUSE, 4)
-        # one more window, instrumented: the copy stream's events around the
-        # first group's exchange and the deep-interior pass, and the profiler
+        # every pass of the window (sub-steps, deep interior, bands), in place
+        # and into a destination, against its plain version on the shards'
+        # tensors; the launches of this comparison are not counted
+        region_err = regions_vs_plain(win, float(a_init[4]))
+        # one more window, unprofiled for its wall time, then under the
+        # profiler for its device intervals
         f2 = a_fields()
         arrays = {g: f.data for g, f in zip(ak.ir.grid_params, f2[:4])}
         scal = eng.launch_scalars({"dt": f2[4]}, torch.device(device))
         st_ = win.scatter(arrays)
-        win.record, win.timeline = True, []
-        win.advance(st_, scal)
-        sync()
-        win.record = False
-        ex_ms = pre_ms = None
-        overlapped = None
-        if cuda and win.timeline:
-            e = win.timeline[0]
-            ex_ms, pre_ms = e[0].elapsed_time(e[1]), e[2].elapsed_time(e[3])
-            overlapped = e[0].elapsed_time(e[3]) > 0 and e[2].elapsed_time(e[1]) > 0
-        idle = dist_idle(torch, lambda: win.advance(st_, scal)) if cuda else None
+        idle = None
+        if cuda:
+            sync()
+            t0 = time.perf_counter()
+            win.advance(st_, scal)
+            sync()
+            idle = dist_idle(torch, lambda: win.advance(st_, scal),
+                             CKPT_ROOT / "dist_window_trace.json",
+                             time.perf_counter() - t0)
         del f2, arrays, st_
         row = {"time_steps": ts, "steps": STEPS, "fuse_steps": ACOUSTIC_FUSE,
                "seconds": seconds, "steps_per_s": STEPS / seconds,
@@ -2793,8 +2862,7 @@ def distributed_phase(torch, np, mods, counters, main_rows, map_rows, entries,
                "launches": seen["map_step"], "launches_per_window": per_win,
                "groups": [list(g) for g in spec.group_depths(ACOUSTIC_FUSE)],
                "collective_bytes_per_window": coll,
-               "exchange_ms": ex_ms, "deep_interior_ms": pre_ms,
-               "exchange_overlapped_deep_interior": overlapped,
+               "region_vs_plain_max_abs_diff": region_err,
                "gather_s_per_hook": prof.get("gather", 0.0) / (hooks + 1),
                "scatter_s_per_hook": prof.get("scatter", 0.0) / (hooks + 1),
                "kernel_s": prof.get("kernel"), "window_profile": idle,
@@ -2804,14 +2872,19 @@ def distributed_phase(torch, np, mods, counters, main_rows, map_rows, entries,
             f"{STEPS} steps in {seconds:.3f} s = {row['steps_per_s']:.2f} steps/s "
             f"(unsharded K1, phase 4: {row['unsharded_steps_per_s']}); groups "
             f"{row['groups']} a window, {per_win} launches a window, {seen['map_step']} "
-            f"in all; {coll} collective bytes a window a shard; exchange {ex_ms} ms "
-            f"on the copy stream, deep interior {pre_ms} ms, overlapped: "
-            f"{overlapped}; gather {row['gather_s_per_hook'] * 1e3:.2f} ms and scatter "
-            f"{row['scatter_s_per_hook'] * 1e3:.2f} ms around each hook; window "
-            f"idle share {idle and idle['idle_share']}; max |sharded - "
-            f"unsharded| {diff:.3g} (field max {scale:.3g})")
+            f"in all; {coll} collective bytes a window a shard; {len(win.plans())} "
+            f"passes vs plain, max |diff| {region_err:.3g}; gather "
+            f"{row['gather_s_per_hook'] * 1e3:.2f} ms and scatter "
+            f"{row['scatter_s_per_hook'] * 1e3:.2f} ms around each hook; max "
+            f"|sharded - unsharded| {diff:.3g} (field max {scale:.3g})")
         if idle:
-            say(f"  window kernels: {idle['top_kernels']}")
+            say(f"  one window ({idle['wall_s'] * 1e3:.3f} ms wall, unprofiled): device "
+                f"busy {idle['device_busy_s'] * 1e3:.3f} ms (union of all streams), "
+                f"idle share {idle['idle_share']:.4f}; K4 {idle['stencil_ms']:.3f} ms, "
+                f"slab copies {idle['copy_ms']:.3f} ms on the copy stream, of them "
+                f"{idle['overlap_ms']:.3f} ms beside a K4 pass; streams "
+                f"{idle['streams']} (compute {idle['compute_streams']}); "
+                f"{idle['top_kernels']}")
         del fields
         if cuda:
             torch.cuda.empty_cache()
@@ -2897,6 +2970,18 @@ def distributed_phase(torch, np, mods, counters, main_rows, map_rows, entries,
               + DIST_GRAD_STEPS * win1.launches_per_scenario)
     only(drow["launches"], "map_step", want_n, "sharded adjoint")
     del dfn
+    # a planted fault for dt's bound below: the same sharded adjoint with
+    # every shard's dt share but the first one's dropped (the psum taken out)
+    step_local = dist.ShardedStep.local
+
+    def no_psum(self, i, x, s, masked_args):
+        return step_local(self, i, x, {n: v.detach() for n, v in s.items()} if i else s,
+                          masked_args)
+    dist.ShardedStep.local = no_psum
+    try:
+        _, fgrads, _ = gradient(gmem(1), mesh, "sharded K4 gmem, no psum")
+    finally:
+        dist.ShardedStep.local = step_local
     urow, ugrads, _ = gradient(st.hopper(template="gmem"), None, "unsharded K1")
     _, tgrads, _ = gradient(st.torch(), None, "unsharded torch")
     errs = {}
@@ -2906,7 +2991,8 @@ def distributed_phase(torch, np, mods, counters, main_rows, map_rows, entries,
     # gradient is a sum over every cell and step that cancels to a small
     # value: in f32 its reduction order alone moves it, so it may also
     # differ by as much as the two unsharded adjoints (K1's and the torch
-    # lowering's forward passes) differ from each other
+    # lowering's forward passes) differ from each other.  That bound must
+    # still refuse the planted fault above
     box = tuple(slice(acoustic.ORDER, acoustic.ORDER + n) for n in DIST_SHAPE)
     for n, w in ugrads.items():
         got = dgrads[n] if n == "dt" else dgrads[n][box]
@@ -2920,7 +3006,13 @@ def distributed_phase(torch, np, mods, counters, main_rows, map_rows, entries,
         if not err <= limit:
             fail(f"sharded adjoint: gradient of {n} max |sharded - unsharded| = "
                  f"{err} > {limit} (max {scale}; unsharded K1 vs torch {floor})")
-        errs[n] = {"max_abs_diff": err, "max": scale, "k1_vs_torch": floor}
+        errs[n] = {"max_abs_diff": err, "max": scale, "k1_vs_torch": floor,
+                   "limit": limit}
+    fault = float((fgrads["dt"] - ugrads["dt"]).abs().max())
+    if not fault > errs["dt"]["limit"]:
+        fail(f"sharded adjoint: dt's bound {errs['dt']['limit']} does not refuse the "
+             f"shards' dt shares left unsummed ({fault})")
+    errs["dt"]["no_psum_max_abs_diff"] = fault
     rec["adjoint"] = {"shape": list(DIST_SHAPE), "steps": DIST_GRAD_STEPS,
                       "sharded": drow, "unsharded": urow, "grad_vs_unsharded": errs}
     say(f"distributed (d) gradient acoustic {DIST_SHAPE}, {DIST_GRAD_STEPS} steps: "
@@ -2930,9 +3022,10 @@ def distributed_phase(torch, np, mods, counters, main_rows, map_rows, entries,
         f"{drow['peak_gb']} GB, {drow['launches']['map_step']} K4 launches; unsharded "
         f"K1 forward {urow['forward_s']:.3f} s, backward {urow['backward_s']:.3f} s, "
         f"peak {urow['peak_gb']} GB; gradients: " + ", ".join(
-            f"{n} {e['max_abs_diff']:.3g} of max {e['max']:.3g} (K1 vs torch "
-            f"{e['k1_vs_torch']:.3g})" for n, e in errs.items()))
-    del dgrads, ugrads, tgrads
+            f"{n} {e['max_abs_diff']:.3g} of max {e['max']:.3g}, limit {e['limit']:.3g} "
+            f"(K1 vs torch {e['k1_vs_torch']:.3g})" for n, e in errs.items()) +
+        f"; planted fault (dt shares not summed over the shards): dt off by {fault:.3g}")
+    del dgrads, ugrads, tgrads, fgrads
 
     # -- (e) resilience ---------------------------------------------------------------
     arrays0 = {"p0": p0.data, "p1": p1.data, "vp2": vp2.data, "damp": damp.data}
@@ -3696,7 +3789,8 @@ def main(argv=None) -> int:
     d_mods = {"st": st, "suite": suite, "acoustic": acoustic, "distributed": distributed,
               "mesh": mesh_mod, "timeloop": timeloop, "adjoint": adjoint,
               "cost_model": cost_model, "autotune": autotune,
-              "fault_tolerance": fault_tolerance, "build": _build}
+              "fault_tolerance": fault_tolerance, "build": _build,
+              "map_step": map_step, "map_step_plain": map_step_plain}
     record["distributed"] = distributed_phase(torch, np, d_mods, (reset_counts, counts),
                                               main_rows, map_rows, entries)
     for e in conv_entries:

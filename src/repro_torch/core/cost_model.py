@@ -73,6 +73,7 @@ from . import dsl as st
 from . import halo as _halo
 from . import ir as _ir
 from . import timeloop as _tl
+from ..launch.mesh import mesh_axes
 
 __all__ = ["CALIBRATION_VERSION", "Rate", "DEFAULT_RATES", "CostModel",
            "default_model", "reset_default_models", "exec_key",
@@ -518,8 +519,6 @@ class CostModel:
         predicts ``inf``."""
         if mesh is None:
             return None
-        mesh_shape = (dict(mesh.shape) if hasattr(mesh, "shape")
-                      else dict(mesh))
         g0 = next(iter(grids.values()))
         batch = max(1, int(g0.batch or 1))
         if g0.batch:
@@ -541,7 +540,7 @@ class CostModel:
             depth = 1
         try:
             spec = _halo.HaloSpec.build(halos, backend.grid_axes, interior,
-                                        mesh_shape, depth=depth, swap=swap)
+                                        mesh_axes(mesh), depth=depth, swap=swap)
         except ValueError:
             return float("inf")
         inner = backend.inner

@@ -63,15 +63,12 @@ import torch
 
 from . import analysis, ir, lowering
 from . import halo as _halo
+from ..launch.mesh import mesh_axes
 from .dsl import scalar_tensors
 
 __all__ = ["lower_distributed", "lower_distributed_window", "sharded_step",
            "Layout", "launch_counts", "window_depth", "window_layout",
            "shard_scalars"]
-
-
-def _mesh_shape(mesh) -> Dict[str, int]:
-    return dict(mesh.shape) if hasattr(mesh, "shape") else dict(mesh)
 
 
 def _time_block(backend) -> int:
@@ -422,12 +419,11 @@ def lower_distributed(kernel: ir.StencilIR,
     gh = _grid_halos(kernel)
     # geometry + validation (divisibility, axis mapping) via HaloSpec
     spec = _halo.HaloSpec.build(gh, grid_axes, interior_shape,
-                                _mesh_shape(mesh), depth=1)
+                                mesh_axes(mesh), depth=1)
     local = spec.local_shape
     if (backend.time_steps > 1
             or (_time_block(backend) > 1 and backend.swap is not None)):
-        return _lower_time_skewed(kernel, info, interior_shape, backend, mesh,
-                                  grid_axes, gh)
+        return _lower_time_skewed(kernel, interior_shape, backend, mesh)
     layout = Layout(mesh, grid_axes, interior_shape, local, gh)
     inner = backend.inner
     out_grids = info.output_grids
@@ -479,65 +475,39 @@ def lower_distributed(kernel: ir.StencilIR,
 
     fn.mesh, fn.local_shape, fn.spec, fn.layout = mesh, local, spec, layout
     fn.plans = lambda: [op.plan for op in ops if op.plan is not None]
-    fn.launches_per_application = len(ops) * layout.n
     return fn
 
 
 # ---------------------------------------------------------------------------
 # overlapped tiling / time skewing (paper §3) at mesh level
 # ---------------------------------------------------------------------------
-def _lower_time_skewed(kernel, info, interior_shape, backend, mesh,
-                       grid_axes, gh):
+def _lower_time_skewed(kernel, interior_shape, backend, mesh):
     """k kernel applications per ONE exchange of width ext[g] = (k−1)·h_max
-    + h_g (uniform k·h_max for the swap pair), on regions shrinking by
-    h_max a step: the shells between are computed redundantly by both
-    neighbours.  Edge shards re-impose the zero grid halo on the shells
-    between steps, so the result equals k separately exchanged steps.  A
-    hopper ``inner`` with ``time_block=k_inner`` multiplies the depth
-    (``time_steps`` counts k_inner-deep groups); every sub-step runs the
-    inner's per-application kernel on its region."""
-    k = backend.time_steps * _time_block(backend)
+    + h_g: one depth-k group of the fused window (``window=k``), whose
+    shells between the shrinking regions both neighbours compute and edge
+    shards zero again, so the result equals k separately exchanged steps.
+    A hopper ``inner`` with ``time_block=k_inner`` multiplies the depth
+    (``time_steps`` counts k_inner-deep groups)."""
     swap = backend.swap
     if swap is None:
         raise ValueError("time_steps > 1 requires swap=(older, newer)")
-    out_grids = info.output_grids
-    if len(out_grids) != 1 or out_grids[0] != swap[0]:
+    info = analysis.analyze(kernel)
+    if len(info.output_grids) != 1 or info.output_grids[0] != swap[0]:
         raise ValueError("time skewing supports single-output kernels "
                          "writing swap[0]")
-    spec = _halo.HaloSpec.build(gh, grid_axes, interior_shape,
-                                _mesh_shape(mesh), depth=k, swap=swap)
-    local = spec.local_shape
-    ext = dict(spec.ext)
-    layout = Layout(mesh, grid_axes, interior_shape, local, ext)
-    inner = backend.inner
-    older, newer = swap
-    ops = [_RegionOp(kernel, ext, local, spec.step_region(i), inner)
-           for i in range(k)]
-    exchanges = spec.exchanges()
+    k = backend.time_steps * _time_block(backend)
+    win = lower_distributed_window(kernel, interior_shape, backend, mesh, swap, k)
+    dev = win.layout.devices[0]
 
     def fn(arrays, scalars):
-        st = layout.state({g: arrays[g] for g in kernel.grid_params})
-        bufs = st.bufs
-        layout.scatter(bufs, arrays, kernel.grid_params)
-        scal = [_on(shard_scalars(inner.kind, scalars, d), d)
-                for d in layout.devices]
-        S = layout.streams
-        S.begin()
-        with S.on_copy():
-            layout.exchange(bufs, exchanges)
-        S.end()
-        for i, op in enumerate(ops):
-            shell = any(b < 0 for b, _ in spec.step_region(i))
-            for j, b in enumerate(bufs):
-                op(b, scal[j])
-                if shell:
-                    layout.zero_outside_global(j, b[older], older)
-                b[older], b[newer] = b[newer], b[older]
-        layout.gather(bufs, arrays, (older, newer))
+        st = win.scatter(arrays)
+        win.advance(st, win.launch_scalars(scalars, dev))
+        win.gather(st, arrays, swap)
         return arrays
 
-    fn.mesh, fn.local_shape, fn.spec, fn.layout = mesh, local, spec, layout
-    fn.plans = lambda: [op.plan for op in ops if op.plan is not None]
+    fn.mesh, fn.local_shape, fn.spec, fn.layout = (mesh, win.local_shape,
+                                                   win.spec, win.layout)
+    fn.plans = win.plans
     return fn
 
 
@@ -575,7 +545,7 @@ def window_depth(kernel, interior, backend, mesh, swap, window: int,
         # shrinking regions cannot express
         depth = 1
     depth = min(depth, int(window))
-    _halo.HaloSpec.build(gh, backend.grid_axes, interior, _mesh_shape(mesh),
+    _halo.HaloSpec.build(gh, backend.grid_axes, interior, mesh_axes(mesh),
                          depth=depth, swap=swap)
     return depth
 
@@ -585,7 +555,7 @@ def window_layout(kernel, interior, backend, mesh, swap, depth: int,
     """The shards of the windows of a run at exchange depth ``depth``
     (padded by that depth's ``ext``), which its shorter windows share."""
     spec = _halo.HaloSpec.build(_grid_halos(kernel), backend.grid_axes,
-                                interior, _mesh_shape(mesh), depth=depth,
+                                interior, mesh_axes(mesh), depth=depth,
                                 swap=swap)
     return Layout(mesh, backend.grid_axes, interior, spec.local_shape,
                   dict(spec.ext), batch)
@@ -618,7 +588,7 @@ class DistributedWindow:
                 raise ValueError("masked distributed windows need "
                                  "inner=st.torch() (the kernels take no mask)")
         depth = window_depth(kernel, interior, backend, mesh, swap, window, masked)
-        spec = _halo.HaloSpec.build(gh, grid_axes, interior, _mesh_shape(mesh),
+        spec = _halo.HaloSpec.build(gh, grid_axes, interior, mesh_axes(mesh),
                                     depth=depth, swap=swap)
         local = spec.local_shape
         if layout is None:
@@ -657,8 +627,6 @@ class DistributedWindow:
                              for r in sub.boundary_bands()]
                 self._fns[d] = (sub, sub.exchanges(sorted(swap)), steps, pre,
                                 bands)
-        self.record = False          # time the first group's copies and pass
-        self.timeline: List[Tuple] = []
         self.launches_per_scenario = (window if masked else
                                       launch_counts(spec, window, self.overlap)
                                       ) * layout.n
@@ -732,17 +700,10 @@ class DistributedWindow:
         lay, S = self.layout, self.layout.streams
         older, newer = self.swap
         sub, pair_ex, steps, pre, bands = self._fns[d]
-        timed = self.record and first and S.devices
-        if timed:
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         if not first:
             S.begin()
         with S.on_copy():
-            if timed:
-                ev[0].record()
             lay.exchange(st.bufs, pair_ex)
-            if timed:
-                ev[1].record()
         for i in range(d):
             region = sub.step_region(i)
             shell = any(b < 0 for b, _ in region)
@@ -750,12 +711,8 @@ class DistributedWindow:
                 # the deep interior reads no slab: it runs while they
                 # copy; it and the bands write the spare, so every pass
                 # reads the pristine inputs
-                if timed:
-                    ev[2].record()
                 for j, b in enumerate(st.bufs):
                     pre(b, scal[j], {older: st.spare[j]})
-                if timed:
-                    ev[3].record()
                 S.end()
                 for op in bands:
                     for j, b in enumerate(st.bufs):
@@ -774,8 +731,6 @@ class DistributedWindow:
                 if shell:
                     lay.zero_outside_global(j, b[older], older)
                 b[older], b[newer] = b[newer], b[older]
-        if timed:
-            self.timeline.append(tuple(ev))
 
     def __call__(self, arrays, scal, mask=None, start=0, limits=None):
         """The window on global (grid-halo'd) tensors: scatter, advance,
@@ -850,7 +805,7 @@ class ShardedStep:
                  masked=False):
         gh = _grid_halos(kernel)
         self.spec = _halo.HaloSpec.build(gh, grid_axes, interior,
-                                         _mesh_shape(mesh), depth=1, swap=swap)
+                                         mesh_axes(mesh), depth=1, swap=swap)
         self.layout = Layout(mesh, grid_axes, interior, self.spec.local_shape,
                              dict(self.spec.ext), batch)
         self.kernel, self.swap, self.batch = kernel, tuple(swap), int(batch)
