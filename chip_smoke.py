@@ -205,6 +205,21 @@ Phases, each of which exits non-zero when it fails:
    adjoint; (e) ``run_resilient`` at 256³ with one failure, bit for bit;
    (f) ``predict(mesh=)`` with the probed link rate against (b)'s times
    and ``tune(mesh=)`` over the two depths.
+15. the other language models — (a) each of mixtral-8x7b, mixtral-8x22b,
+   granite-8b, gemma-7b, phi3-mini-3.8b, nemotron-4-15b, xlstm-1.3b,
+   pixtral-12b and whisper-small at its published widths (f32 master
+   weights, bf16 compute; depth cut where the f32 parameters would pass
+   40 GB: ``LM_LAYERS``) serves 4 greedy requests of 8 new tokens through
+   ``BatchServer`` (whisper: ``Generator.generate`` on 1500 frames):
+   tokens/s, ms a decode step, peak GB; (b) the same parameters in f32,
+   the decode steps' logits against the forward's on an 8-token prompt
+   (1e-3 of the largest |logit|); (c) one representative a family
+   (granite 2 layers, mixtral 1, pixtral 2, xlstm one cycle of 8 blocks,
+   whisper whole) trains 3 AdamW steps of 1 x 4096 positions: ms a step,
+   positions/s, peak GB, finite losses; (d) the same five at one layer,
+   f32, TF32 off, 2 x 64 tokens: the loss (1e-5 relative) and every
+   gradient leaf (1e-4 of its max) on the card against the CPU.  None of
+   K1-K7 runs on these paths.
 
 It prints the kernels line ``{"kernels": [...]}`` and then, last,
 ``{"ok": true, "device": {...}}``.  ``--quick`` runs phases 1–3 at the two
@@ -218,7 +233,8 @@ gives K1/K2/K3/K5 their launches in phase 11's batched runs
 training entry theirs in phase 12's restarted runs (``resilient_launches``),
 K4 gmem and K2's ``RT_MAP`` build theirs in phase 14's sharded runs
 (``sharded_launches``), and lists K6 once a path (``causal_conv1d``: serving, at the
-decode shape; ``causal_conv1d.train``: training, at its shape).  The script imports neither
+decode shape; ``causal_conv1d.train``: training, at its shape).  Phase 15
+sets the counts to 0 before its models and checks that they stay 0.  The script imports neither
 JAX nor the JAX package, and needs nothing outside the checkout.
 """
 from __future__ import annotations
@@ -401,6 +417,55 @@ DIST_FAIL = 2
 DIST_TUNE_STEPS = 20
 DIST_TOL = 2e-5
 DIST_GRAD_TOL = 1e-4
+# phase 15: the nine other language models at their published widths, f32
+# master weights, compute in each config's dtype (bf16).  Depth: the
+# config's own where its f32 parameters fit in LM_PARAM_GB (by
+# api.param_count), else the largest that does, so that a model and its
+# decode temporaries fit the card beside nothing else:
+#   mixtral-8x7b   6 of 32 layers, 8.97 B params, 35.9 GB
+#   mixtral-8x22b  3 of 56 layers, 7.91 B params, 31.7 GB
+#   nemotron-4-15b 17 of 32 layers, 9.78 B params, 39.1 GB
+#   pixtral-12b    31 of 40 layers, 9.79 B params, 39.2 GB
+# granite-8b (33.0 GB), gemma-7b (34.2), phi3-mini (15.3), xlstm-1.3b (4.4)
+# and whisper-small (1.0) run whole.
+LM_ARCHS = ("mixtral-8x7b", "mixtral-8x22b", "granite-8b", "gemma-7b",
+            "phi3-mini-3.8b", "nemotron-4-15b", "xlstm-1.3b", "pixtral-12b",
+            "whisper-small")
+LM_PARAM_GB = 40.0
+LM_LAYERS = {"mixtral-8x7b": 6, "mixtral-8x22b": 3, "nemotron-4-15b": 17,
+             "pixtral-12b": 31}
+# (a) serving: BatchServer waves of 4 greedy requests (whisper:
+# Generator.generate with 1500 frames, one prompt length)
+LM_REQUESTS, LM_MAX_NEW, LM_PROMPT_LEN, LM_FRAMES = 4, 8, (4, 16), 1500
+# (b) decode against forward in f32 on a prompt of LM_CHECK_LEN tokens, 2
+# rows: within LM_CHECK_TOL of the largest |logit|; moe with capacity
+# factor n_experts (dropless in both groupings, as configs.tiny does)
+LM_CHECK_LEN, LM_CHECK_TOL = 8, 1e-3
+# (c) 3 steps of make_train_step, batch 1 x train_4k's 4096 positions, one
+# representative a family, depth cut so that the training state (f32
+# params, AdamW moments and gradients: 16 B a parameter) stays near 30 GB
+# or under: granite 2 layers 13.4 GB, mixtral 1 layer (capacity 1.25)
+# 27.4 GB, pixtral 2 layers (1024 prefix embeddings) 30.2 GB, xlstm one
+# cycle of 8 blocks (7 mLSTM, 1 sLSTM) 4.3 GB, whisper whole 3.8 GB
+LM_TRAIN = {"granite-8b": {"n_layers": 2}, "mixtral-8x7b": {"n_layers": 1},
+            "pixtral-12b": {"n_layers": 2}, "xlstm-1.3b": {"n_layers": 8},
+            "whisper-small": {}}
+LM_TRAIN_STEPS, LM_TRAIN_BATCH, LM_TRAIN_SEQ = 3, 1, 4096
+# (d) the same five at one layer (xlstm one cycle, whisper 1 + 1), f32,
+# 2 rows of 64 tokens (vlm: 16 patch embeddings before them; audio: 64
+# frames), loss and every gradient on the card against the CPU, TF32 off:
+# the loss within 1e-5 relative, a gradient leaf within 1e-4 of its max.
+# A leaf that f32 rounding alone moves further is held to the CPU in f64
+# instead, within LM_CPU_F64_TOL: the stacked mLSTM normalizers amplify
+# rounding, and this phase reads one xlstm cycle's f32 gradients 3.2e-3
+# of a leaf's max apart, the CPU's own f32 1.2e-3 from f64, and the two
+# f64 runs within 2.9e-12 (NVIDIA H100 80GB HBM3, 700 W)
+LM_CPU = {"granite-8b": {"n_layers": 1}, "mixtral-8x7b": {"n_layers": 1},
+          "pixtral-12b": {"n_layers": 1, "n_prefix_tokens": 16},
+          "xlstm-1.3b": {"n_layers": 8},
+          "whisper-small": {"n_layers": 2, "n_enc_layers": 1, "n_dec_layers": 1}}
+LM_CPU_BATCH, LM_CPU_TOKENS = 2, 64
+LM_CPU_LOSS_RTOL, LM_CPU_GRAD_TOL, LM_CPU_F64_TOL = 1e-5, 1e-4, 1e-9
 
 
 def bf16_ulp(scale: float) -> float:
@@ -3094,6 +3159,298 @@ def distributed_phase(torch, np, mods, counters, main_rows, map_rows, entries,
     return rec
 
 
+def fit_depth(api, cfg) -> int:
+    """The config's depth if its f32 parameters fit in ``LM_PARAM_GB``,
+    else the largest depth whose do (``api.param_count``: meta device)."""
+    import dataclasses
+    d = cfg.n_layers
+    while d > 1 and 4 * api.param_count(dataclasses.replace(cfg, n_layers=d)) \
+            > LM_PARAM_GB * 1e9:
+        d -= 1
+    return d
+
+
+def lm_serve(torch, np, mods, cfg, params, device):
+    """Phase 15 (a): ``LM_REQUESTS`` greedy requests of ``LM_MAX_NEW`` new
+    tokens through ``BatchServer`` (audio: ``Generator.generate`` on
+    ``LM_FRAMES`` frame embeddings); returns the row."""
+    serve_loop = mods["serve_loop"]
+    rng = np.random.default_rng(0)
+    lo, hi = LM_PROMPT_LEN
+    gen = serve_loop.GenConfig(max_new_tokens=LM_MAX_NEW)
+    if cfg.family == "audio":
+        S = int(rng.integers(lo, hi + 1))
+        prompts = rng.integers(0, cfg.vocab, (LM_REQUESTS, S)).astype(np.int32)
+        frames = rng.standard_normal((LM_REQUESTS, LM_FRAMES, cfg.d_model),
+                                     dtype=np.float32)
+        t0 = time.perf_counter()
+        out = serve_loop.Generator(cfg, params, gen).generate(
+            prompts, frame_embeds=frames)
+        results = list(out[:, S:])
+        steps = S + LM_MAX_NEW - 1
+    else:
+        server = serve_loop.BatchServer(cfg, params, batch_size=LM_REQUESTS,
+                                        gen=gen)
+        plens = [int(rng.integers(lo, hi + 1)) for _ in range(LM_REQUESTS)]
+        for n in plens:
+            server.submit(rng.integers(0, cfg.vocab, n), LM_MAX_NEW)
+        t0 = time.perf_counter()
+        done = server.run_until_drained()
+        results = [done[u].result for u in sorted(done)]
+        # one wave; its context bucketed to a power of two, one decode step
+        # a position but the last
+        steps = (1 << max(1, (max(plens) + LM_MAX_NEW - 1).bit_length())) - 1
+    sync(torch, device)
+    wall = time.perf_counter() - t0
+    if len(results) != LM_REQUESTS or any(
+            len(r) != LM_MAX_NEW or (r < 0).any() or (r >= cfg.vocab).any()
+            for r in results):
+        fail(f"{cfg.name} serving: results {results}")
+    n_tok = LM_REQUESTS * LM_MAX_NEW
+    return {"requests": LM_REQUESTS, "new_tokens": n_tok, "decode_steps": steps,
+            "seconds": wall, "tokens_per_s": n_tok / wall,
+            "ms_per_decode_step": 1e3 * wall / steps,
+            "first_result": [int(t) for t in results[0]]}
+
+
+def lm_decode_check(torch, np, mods, cfg, params, device):
+    """Phase 15 (b): in f32, the forward's logits on a prompt against the
+    decode steps' logits at the same positions (moe: capacity factor
+    n_experts; vlm: text only); returns (max |diff|, max |logit|)."""
+    import dataclasses
+    api, encdec, L = mods["api"], mods["encdec"], mods["layers"]
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    if cfg.moe:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=float(cfg.moe.n_experts)))
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    B = 2
+    toks = torch.randint(0, cfg.vocab, (B, LM_CHECK_LEN), generator=gen).to(device)
+    if cfg.family == "audio":
+        frames = torch.randn((B, LM_FRAMES, cfg.d_model), generator=gen).to(device)
+        enc = encdec.encode(params, frames, cfg)
+        hid = encdec.decode_train(params, enc, toks, cfg)
+        cache = encdec.build_cache(params, enc, cfg, B, LM_CHECK_LEN)
+    else:
+        hid, _ = api.forward_hidden(cfg, params, {"tokens": toks})
+        cache = api.init_cache(cfg, B, api.decode_cache_len(cfg, LM_CHECK_LEN),
+                               device=device)
+    want = L.unembed(params["embed"], hid, cfg).float()
+    got = []
+    for i in range(LM_CHECK_LEN):
+        logits, cache = api.decode_step(cfg, params, cache, toks[:, i:i + 1])
+        got.append(logits[:, 0].float())
+    got = torch.stack(got, dim=1)
+    if not bool(torch.isfinite(got).all()) or not bool(torch.isfinite(want).all()):
+        fail(f"{cfg.name} decode vs forward: non-finite logits")
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    if err > LM_CHECK_TOL * scale:
+        fail(f"{cfg.name} decode vs forward (f32): max |diff| {err} > "
+             f"{LM_CHECK_TOL} * {scale}")
+    return err, scale
+
+
+def lm_train(torch, mods, cfg, device):
+    """Phase 15 (c): ``LM_TRAIN_STEPS`` AdamW steps of ``make_train_step``
+    on ``train/data.py``'s batches; returns the row."""
+    import dataclasses
+    train_loop, optimizer, data, shapes = (mods["train_loop"], mods["optimizer"],
+                                           mods["data"], mods["shapes"])
+    base = reset_peak(torch, device)
+    state = train_loop.init_state(cfg, device=device, seed=0)
+    n_params = sum(p.numel() for p in optimizer.tree_leaves(state["params"]))
+    shape = dataclasses.replace(shapes.SHAPES["train_4k"], seq_len=LM_TRAIN_SEQ,
+                                global_batch=LM_TRAIN_BATCH)
+    batch_fn = data.make_batch_fn(cfg, shape, seed=0)
+    step_fn = train_loop.make_train_step(cfg, train_loop.TrainConfig(
+        opt=optimizer.OptConfig(warmup_steps=1, total_steps=LM_TRAIN_STEPS)))
+    step_s, losses, gnorms = [], [], []
+    for s in range(LM_TRAIN_STEPS):
+        batch = batch_fn(s)
+        sync(torch, device)
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["grad_norm"]))
+        step_s.append(time.perf_counter() - t0)
+    if not all(math.isfinite(v) for v in losses + gnorms):
+        fail(f"{cfg.name} training: losses {losses}, gradient norms {gnorms}")
+    steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    positions = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    row = {"arch": cfg.name, "n_layers": cfg.n_layers, "params": n_params,
+           "batch": LM_TRAIN_BATCH, "seq": LM_TRAIN_SEQ, "step_s": step_s,
+           "ms_per_step": 1e3 * steady, "tokens_per_s": positions / steady,
+           "losses": losses, "grad_norms": gnorms,
+           "peak_gb": peak_gb(torch, device, base)}
+    del state
+    return row
+
+
+def lm_card_vs_cpu(torch, mods, cfg, device):
+    """Phase 15 (d): the loss and every gradient leaf of one batch on
+    ``device`` against the CPU, in f32 with TF32 off, on parameters drawn
+    once and copied: the loss within ``LM_CPU_LOSS_RTOL``, a leaf within
+    ``LM_CPU_GRAD_TOL`` of its max.  A leaf that f32 rounding alone moves
+    further (xLSTM's stacked mLSTM normalizers) is held to the CPU in f64
+    instead, within ``LM_CPU_F64_TOL``; returns the record."""
+    import dataclasses
+    api, train_loop, optimizer, data, shapes = (
+        mods["api"], mods["train_loop"], mods["optimizer"], mods["data"],
+        mods["shapes"])
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    # seq_len counts the positions: vlm's prefix before the tokens, audio's
+    # frames beside them (make_batch_fn gives audio seq_len // 2 of each)
+    seq = {"vlm": LM_CPU_TOKENS + cfg.n_prefix_tokens,
+           "audio": 2 * LM_CPU_TOKENS}.get(cfg.family, LM_CPU_TOKENS)
+    shape = dataclasses.replace(shapes.SHAPES["train_4k"], seq_len=seq,
+                                global_batch=LM_CPU_BATCH)
+    batch = data.make_batch_fn(cfg, shape, seed=0)(0)
+    # drawn on the device (a truncated normal of 1.7 B draws takes minutes
+    # on 8 CPU cores) and copied to the CPU: the same values on both
+    params = api.init_params(cfg, device=device, seed=0)
+
+    def run(dev, dt):
+        c = dataclasses.replace(cfg, dtype=dt, param_dtype=dt)
+        p = optimizer.tree_map(lambda t: t.to(dev, getattr(torch, dt)), params)
+        loss, grads = train_loop.make_loss_and_grad(c)(
+            p, {k: torch.as_tensor(v, device=dev) for k, v in batch.items()})
+        return float(loss), [g.cpu() for g in optimizer.tree_leaves(grads)]
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False      # f32 products in f32
+    try:
+        (loss, got), (want_loss, want) = run(device, "float32"), run("cpu", "float32")
+        loss_rel = abs(loss - want_loss) / abs(want_loss)
+        if not math.isfinite(loss) or loss_rel > LM_CPU_LOSS_RTOL:
+            fail(f"{cfg.name} card vs CPU: loss {loss!r} vs {want_loss!r} "
+                 f"(limit {LM_CPU_LOSS_RTOL} of it)")
+        rels = []
+        for g, w in zip(got, want):
+            if not bool(torch.isfinite(g).all()):
+                fail(f"{cfg.name} card vs CPU: non-finite gradient {tuple(g.shape)}")
+            rels.append(float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30))
+        over = [i for i, r in enumerate(rels) if r > LM_CPU_GRAD_TOL]
+        row = {"loss_rel_diff": loss_rel, "grad_worst_rel_diff": max(rels),
+               "leaves": len(rels), "leaves_over_f32_tol": len(over)}
+        if over:
+            (_, got64), (_, want64) = run(device, "float64"), run("cpu", "float64")
+            worst64 = cpu32 = 0.0
+            for i in over:
+                scale = float(want64[i].abs().max())
+                rel64 = float((got64[i] - want64[i]).abs().max()) / scale
+                if rel64 > LM_CPU_F64_TOL:
+                    fail(f"{cfg.name} card vs CPU: gradient leaf {i} "
+                         f"{tuple(want[i].shape)} {rels[i]} of its max apart in "
+                         f"f32 (limit {LM_CPU_GRAD_TOL}) and {rel64} in f64 "
+                         f"(limit {LM_CPU_F64_TOL})")
+                worst64 = max(worst64, rel64)
+                cpu32 = max(cpu32, float((want[i].double() - want64[i]).abs().max())
+                            / scale)
+            row.update(f64_worst_rel_diff=worst64, cpu_f32_vs_f64_worst_rel=cpu32)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    del params
+    return row
+
+
+def sync(torch, device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def reset_peak(torch, device):
+    """Frees the cache and restarts the peak count; returns the bytes
+    allocated now (what earlier phases still hold), the base of
+    ``peak_gb``."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        return torch.cuda.memory_allocated()
+    return 0
+
+
+def peak_gb(torch, device, base):
+    """Peak device memory since ``reset_peak`` above its ``base``, GB."""
+    if torch.device(device).type == "cuda":
+        return (torch.cuda.max_memory_allocated() - base) / 1e9
+    return None
+
+
+def lm_families_phase(torch, np, mods, counters, device="cuda"):
+    """Phase 15: (a) serve and (b) check decode against forward for each of
+    ``LM_ARCHS`` at its published widths (depth cut as ``fit_depth``
+    says), (c) train and (d) hold the card against the CPU for one
+    representative a family.  None of K1-K7 runs on these paths: the
+    launch counts stay 0.  Returns the record of the phase."""
+    import dataclasses
+    configs, api = mods["configs"], mods["api"]
+    reset_counts, counts = counters
+    rec = {"serve": {}, "decode_check": {}, "train": {}, "card_vs_cpu": {}}
+    t_phase = time.perf_counter()
+    reset_counts()
+    for name in LM_ARCHS:
+        base = configs.get(name)
+        depth = fit_depth(api, base)
+        if depth != LM_LAYERS.get(name, base.n_layers):
+            fail(f"{name}: {depth} layers fit {LM_PARAM_GB} GB of f32 "
+                 f"parameters, LM_LAYERS says {LM_LAYERS.get(name)}")
+        cfg = dataclasses.replace(base, n_layers=depth)
+        held = reset_peak(torch, device)
+        t0 = time.perf_counter()
+        params = api.init_params(cfg, device=device, seed=0)
+        sync(torch, device)
+        init_s = time.perf_counter() - t0
+        n_params = api.param_count(cfg)
+        row = lm_serve(torch, np, mods, cfg, params, device)
+        row.update(arch=name, n_layers=depth, published_layers=base.n_layers,
+                   params=n_params, init_s=init_s, dtype=cfg.dtype)
+        err, scale = lm_decode_check(torch, np, mods, cfg, params, device)
+        row["peak_gb"] = peak_gb(torch, device, held)
+        rec["serve"][name] = row
+        rec["decode_check"][name] = {"max_abs_diff": err, "max_abs_logit": scale}
+        say(f"lm {name} ({cfg.family}), {depth} of {base.n_layers} layers, "
+            f"{n_params} params (f32) drawn in {init_s:.2f} s: served "
+            f"{row['new_tokens']} new tokens in {row['decode_steps']} decode steps "
+            f"in {row['seconds']:.3f} s = {row['tokens_per_s']:.2f} tokens/s, "
+            f"{row['ms_per_decode_step']:.2f} ms a decode step ({cfg.dtype}); "
+            f"decode vs forward (f32): max |diff| {err:.3g} of max |logit| "
+            f"{scale:.3g}; peak {row['peak_gb']} GB")
+        del params
+        reset_peak(torch, device)
+    for name, kw in LM_TRAIN.items():
+        row = lm_train(torch, mods, dataclasses.replace(configs.get(name), **kw),
+                       device)
+        rec["train"][name] = row
+        say(f"lm train {name}, {row['n_layers']} layers, {row['params']} params: "
+            f"{LM_TRAIN_STEPS} steps of {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ}, "
+            f"{', '.join(f'{1e3 * t:.1f}' for t in row['step_s'])} ms a step "
+            f"(wall); steady {row['ms_per_step']:.1f} ms = "
+            f"{row['tokens_per_s']:.0f} positions/s; losses {row['losses']}; "
+            f"peak {row['peak_gb']} GB")
+        reset_peak(torch, device)
+    for name, kw in LM_CPU.items():
+        row = lm_card_vs_cpu(torch, mods, dataclasses.replace(
+            configs.get(name), **kw), device)
+        rec["card_vs_cpu"][name] = row
+        say(f"lm card vs CPU {name} ({kw}): loss {row['loss_rel_diff']:.3g} apart "
+            f"(limit {LM_CPU_LOSS_RTOL}), worst gradient leaf "
+            f"{row['grad_worst_rel_diff']:.3g} of its max (limit "
+            f"{LM_CPU_GRAD_TOL}); " + (
+                f"{row['leaves_over_f32_tol']} of {row['leaves']} leaves over it in "
+                f"f32 (the CPU's own f32 {row['cpu_f32_vs_f64_worst_rel']:.3g} "
+                f"from f64) within {row['f64_worst_rel_diff']:.3g} in f64 (limit "
+                f"{LM_CPU_F64_TOL})" if row["leaves_over_f32_tol"]
+                else f"all {row['leaves']} leaves within it"))
+        reset_peak(torch, device)
+    seen = counts()
+    if any(seen.values()):
+        fail(f"lm families: launch counts {seen}, expected none of K1-K7")
+    rec["seconds"] = time.perf_counter() - t_phase
+    say(f"lm families phase: {rec['seconds']:.1f} s")
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -3132,7 +3489,7 @@ def main(argv=None) -> int:
         from repro_torch.kernels.conv1d import ref as conv_ref
         from repro_torch.kernels.decode_attn import decode_attn as attn
         from repro_torch.kernels.decode_attn import ref as attn_ref
-        from repro_torch.models import api, griffin
+        from repro_torch.models import api, encdec, griffin
         from repro_torch.models import layers as lm_layers
         from repro_torch.launch import train as train_cli
         from repro_torch.serving import serve_loop, stencil_serve
@@ -3793,6 +4150,11 @@ def main(argv=None) -> int:
               "map_step": map_step, "map_step_plain": map_step_plain}
     record["distributed"] = distributed_phase(torch, np, d_mods, (reset_counts, counts),
                                               main_rows, map_rows, entries)
+    # -- 15. the other language models ----------------------------------------------
+    f_mods = {"configs": configs, "api": api, "encdec": encdec, "layers": lm_layers,
+              "serve_loop": serve_loop, "train_loop": train_loop,
+              "optimizer": optimizer, "data": train_data, "shapes": lm_shapes}
+    record["lm_families"] = lm_families_phase(torch, np, f_mods, (reset_counts, counts))
     for e in conv_entries:
         row = serve_row if e["path"] == "serving" else train_row
         e["launches"], e["max_abs_err"] = row["k6_launches"], conv_worst

@@ -3,8 +3,7 @@ package's ``configs/base.py`` (which imports no JAX).
 
 Every architecture is a ``ModelConfig``; ``repro_torch.configs.get(name)``
 returns it and ``tiny()`` derives the reduced smoke-test variant of the same
-family.  Only the architectures whose family the port runs are registered
-(``recurrentgemma-9b``); the others come with their families.
+family.  Every architecture of the JAX package is registered.
 """
 from __future__ import annotations
 

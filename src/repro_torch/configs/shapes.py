@@ -1,6 +1,6 @@
 """Assigned input shapes (the JAX package's ``configs/shapes.py``:
-``ShapeSpec`` and ``SHAPES``; its ``input_specs`` are abstract JAX arrays
-for the dry run, ROADMAP.md queue 1, item 11.4):
+``ShapeSpec``, ``SHAPES`` and ``applicable``; its ``input_specs`` are
+abstract JAX arrays for the dry run, ROADMAP.md queue 1, item 11.4):
 
   train_4k      seq_len=4096    global_batch=256   (training step)
   prefill_32k   seq_len=32768   global_batch=32    (inference prefill)
@@ -12,9 +12,11 @@ for the dry run, ROADMAP.md queue 1, item 11.4):
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Tuple
 
-__all__ = ["ShapeSpec", "SHAPES"]
+from .base import ModelConfig
+
+__all__ = ["ShapeSpec", "SHAPES", "applicable"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,3 +33,18 @@ SHAPES: Dict[str, ShapeSpec] = {
     "decode_32k": ShapeSpec("decode_32k", "decode", 32768, 128),
     "long_500k": ShapeSpec("long_500k", "decode", 524288, 1),
 }
+
+
+def _subquadratic(cfg: ModelConfig) -> bool:
+    """Archs with O(window)/O(1) decode state: SSM, hybrid, or SWA."""
+    return cfg.family in ("ssm", "hybrid") or bool(cfg.window)
+
+
+def applicable(cfg: ModelConfig, shape: ShapeSpec) -> Tuple[bool, str]:
+    """(runs?, reason-if-skip): ``long_500k`` needs sub-quadratic
+    attention; pure full-attention archs skip it.  (No encoder-only archs
+    are assigned, so decode shapes run everywhere else.)"""
+    if shape.name == "long_500k" and not _subquadratic(cfg):
+        return False, ("pure full-attention arch: 500k-context decode has "
+                       "no sub-quadratic structure (documented skip)")
+    return True, ""

@@ -2,8 +2,11 @@
 smoke-sized model (``configs.tiny`` of the chosen architecture), on the
 card unless ``--device`` says otherwise.
 
-    python -m repro_torch.launch.serve --arch recurrentgemma-9b \\
+    python -m repro_torch.launch.serve --arch mixtral-8x7b \\
         --requests 8 --prompt-len 16 --max-new 8 [--device cpu]
+
+Every family but the encoder-decoder (audio), whose requests carry frame
+embeddings: serve it with ``Generator.generate(frame_embeds=)``.
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ def main(argv=None):
     """Serve ``--requests`` random prompts; prints throughput, latency and
     the first results; returns the finished requests by uid."""
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="recurrentgemma-9b")
+    ap.add_argument("--arch", default="mixtral-8x7b")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--batch-size", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
@@ -33,6 +36,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = configs.tiny(configs.get(args.arch))
+    if cfg.family == "audio":
+        raise SystemExit("serve the encoder-decoder with "
+                         "serve_loop.Generator.generate(frame_embeds=)")
     params = api.init_params(cfg, device=args.device, seed=args.seed)
     server = BatchServer(cfg, params, batch_size=args.batch_size,
                          gen=GenConfig(max_new_tokens=args.max_new,

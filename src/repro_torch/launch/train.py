@@ -1,7 +1,7 @@
 """Training from the command line, on the card unless ``--device`` says
 otherwise::
 
-    python -m repro_torch.launch.train --arch recurrentgemma-9b \\
+    python -m repro_torch.launch.train --arch mixtral-8x7b \\
         --steps 20 --preset smoke [--device cpu]
 
 ``--preset smoke`` shrinks the arch to its reduced same-family config
@@ -28,7 +28,7 @@ def main(argv=None):
     """Run ``--steps`` steps; prints loss, gradient norm and lr a step and
     the time; returns the losses logged."""
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="recurrentgemma-9b")
+    ap.add_argument("--arch", default="mixtral-8x7b")
     ap.add_argument("--preset", default="smoke", choices=["smoke", "full"])
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--seq-len", type=int, default=None)

@@ -1,9 +1,9 @@
 """Family-dispatching model API: init / param count / forward / loss /
 decode / caches (the JAX package's ``models/api.py``).
 
-``cfg.family`` picks the backbone module; the port runs the ``hybrid``
-family (Griffin / RecurrentGemma).  Entry points run on the card unless
-the caller passes ``device="cpu"``.
+``cfg.family`` picks the backbone module: ``transformer`` (dense, moe,
+vlm), ``griffin`` (hybrid), ``xlstm`` (ssm), ``encdec`` (audio).  Entry
+points run on the card unless the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -14,20 +14,27 @@ import torch.nn.functional as F
 from torch.utils import checkpoint as _ckpt
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.dsl import not_ported, resolve_device
+from repro_torch.core.dsl import resolve_device
 
-from . import griffin
+from . import encdec, griffin, transformer, xlstm
 from . import layers as L
 
-_FAMILY = {"hybrid": griffin}
+_FAMILY = {"dense": transformer, "moe": transformer, "vlm": transformer,
+           "hybrid": griffin, "ssm": xlstm, "audio": encdec}
 
 
 def module_for(cfg: ModelConfig):
     """The backbone module of ``cfg.family``."""
     if cfg.family not in _FAMILY:
-        raise not_ported(f"the '{cfg.family}' model family ({cfg.name})",
-                         "queue 1, item 11")
+        raise ValueError(f"unknown model family '{cfg.family}' ({cfg.name}); "
+                         f"have {sorted(_FAMILY)}")
     return _FAMILY[cfg.family]
+
+
+def _conv_kw(use_kernel_conv: Optional[bool]) -> Dict:
+    """The ``use_kernel_conv`` argument of the families with a temporal
+    conv (``griffin``), passed only when set."""
+    return {} if use_kernel_conv is None else {"use_kernel_conv": use_kernel_conv}
 
 
 def init_params(cfg: ModelConfig, *, device=None, seed: int = 0):
@@ -42,23 +49,31 @@ def init_params(cfg: ModelConfig, *, device=None, seed: int = 0):
     return module_for(cfg).init_params(gen, cfg, dev)
 
 
+def _leaves(tree, path=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{path}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, f"{path}/{i}")
+    else:
+        yield path, tree
+
+
 def param_count(cfg: ModelConfig) -> int:
     """Number of parameters, counted from shapes on the ``meta`` device
     (nothing is allocated)."""
-    params = init_params(cfg, device="meta")
-    total = 0
+    return sum(t.numel() for _, t in _leaves(init_params(cfg, device="meta")))
 
-    def walk(t):
-        nonlocal total
-        if isinstance(t, dict):
-            for x in t.values():
-                walk(x)
-        elif isinstance(t, (list, tuple)):
-            for x in t:
-                walk(x)
-        else:
-            total += t.numel()
-    walk(params)
+
+def active_param_count(cfg: ModelConfig) -> int:
+    """MoE: experts count at top_k/E; everything else fully active."""
+    total = 0
+    for path, t in _leaves(init_params(cfg, device="meta")):
+        n = t.numel()
+        if cfg.moe and "moe" in path and "router" not in path:
+            n = n * cfg.moe.top_k // cfg.moe.n_experts
+        total += n
     return total
 
 
@@ -71,10 +86,12 @@ def stacked_ndims(cfg: ModelConfig, params):
 def forward_hidden(cfg: ModelConfig, params, batch: Dict,
                    use_kernel_conv: Optional[bool] = None):
     """→ (hidden_for_logits [B, S_tok, D], aux_loss)."""
+    mod = module_for(cfg)
+    if cfg.family == "audio":
+        return mod.forward(params, batch, cfg)
     prefix = batch.get("patch_embeds")
-    hid, aux = module_for(cfg).forward(params, batch["tokens"], cfg,
-                                       prefix_embeds=prefix,
-                                       use_kernel_conv=use_kernel_conv)
+    hid, aux = mod.forward(params, batch["tokens"], cfg, prefix_embeds=prefix,
+                           **_conv_kw(use_kernel_conv))
     if prefix is not None:
         hid = hid[:, prefix.shape[1]:]
     return hid, aux
@@ -82,7 +99,7 @@ def forward_hidden(cfg: ModelConfig, params, batch: Dict,
 
 def _ce_from_logits(logits, labels):
     """Mean token cross-entropy, f32 logsumexp."""
-    lg = logits.float()
+    lg = L.wide(logits)
     lse = torch.logsumexp(lg, dim=-1)
     picked = torch.gather(lg, -1, labels.long()[..., None])[..., 0]
     return (lse - picked).mean()
@@ -108,12 +125,12 @@ def loss_fn(cfg: ModelConfig, params, batch: Dict,
         valid = (torch.arange(hid.shape[1], device=hid.device) < S).reshape(n, C)
 
         def chunk_loss(h, y, v):
-            logits = L.unembed(embed_p, h, cfg).float()
+            logits = L.wide(L.unembed(embed_p, h, cfg))
             lse = torch.logsumexp(logits, dim=-1)
             picked = torch.gather(logits, -1, y.long()[..., None])[..., 0]
             return ((lse - picked) * v[None]).sum()
 
-        total = torch.zeros((), dtype=torch.float32, device=hid.device)
+        total = torch.zeros((), dtype=L.wide_dtype(hid.dtype), device=hid.device)
         for i in range(n):
             sl = slice(i * C, (i + 1) * C)
             total = total + _ckpt.checkpoint(chunk_loss, hid[:, sl],
@@ -128,17 +145,19 @@ def loss_fn(cfg: ModelConfig, params, batch: Dict,
     return loss, {"ce": ce, "aux": aux}
 
 
-def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *, device=None):
-    """The decode cache of ``batch`` rows on ``device`` (None: the card)."""
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *, device=None,
+               **kw):
+    """The decode cache of ``batch`` rows on ``device`` (None: the card);
+    ``kw`` goes to the family's ``init_cache`` (audio: ``enc_len``)."""
     return module_for(cfg).init_cache(cfg, batch, cache_len,
-                                      resolve_device(device))
+                                      resolve_device(device), **kw)
 
 
 def decode_step(cfg: ModelConfig, params, cache, tokens,
                 use_kernel_conv: Optional[bool] = None):
     """One decode step: tokens [B, S] → (logits [B, S, vocab], cache')."""
     return module_for(cfg).decode_step(params, cache, tokens, cfg,
-                                       use_kernel_conv=use_kernel_conv)
+                                       **_conv_kw(use_kernel_conv))
 
 
 def decode_cache_len(cfg: ModelConfig, context_len: int) -> int:

@@ -15,13 +15,12 @@ Conventions, as there:
   explicit device; on the ``meta`` device it draws nothing (shapes only).
 
 Not ported yet: the sharding constraints (``constrain``, ``kv_cache_mode``:
-the identity and ``None`` without a mesh; ROADMAP.md queue 1, item 9) and
-cross-attention (the encoder-decoder family, item 11).
+the identity and ``None`` without a mesh; ROADMAP.md queue 1, item 9).
 """
 from __future__ import annotations
 
 import functools
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -50,6 +49,19 @@ def remat_wrap(cfg: ModelConfig):
         kw["context_fn"] = functools.partial(
             _ckpt.create_selective_checkpoint_contexts, _save_dots)
     return lambda f: functools.partial(_ckpt.checkpoint, f, **kw)
+
+
+def wide(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in f32, or as it is in f64: the precision of the JAX
+    package's f32 reductions, softmaxes and gate math, kept in f64 when a
+    run computes in f64 (``chip_smoke.py`` holds ill-conditioned
+    gradients on the card to the CPU's so)."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
+def wide_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype ``wide`` gives a tensor of ``dtype``."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
 
 
 def cdtype(cfg: ModelConfig) -> torch.dtype:
@@ -87,7 +99,7 @@ def rmsnorm(p, x, eps=1e-6):
     """Variance in f32; ``rsqrt`` cast to the input dtype, then
     ``x * inv * scale`` in the input dtype (the JAX package's order)."""
     dt = x.dtype
-    x32 = x.float()
+    x32 = wide(x)
     var = (x32 * x32).mean(dim=-1, keepdim=True)
     inv = torch.rsqrt(var + eps).to(dt)
     return x * inv * p["scale"].to(dt)
@@ -102,7 +114,7 @@ def init_layernorm(d, cfg, device):
 def layernorm(p, x, eps=1e-5):
     """Mean and variance in f32, the rest in the input dtype."""
     dt = x.dtype
-    x32 = x.float()
+    x32 = wide(x)
     mu = x32.mean(dim=-1, keepdim=True)
     var = x32.var(dim=-1, unbiased=False, keepdim=True)
     inv = torch.rsqrt(var + eps).to(dt)
@@ -129,9 +141,9 @@ def rope(x, positions, theta: float):
     concatenated halves (not interleaved pairs), angles in f32."""
     d = x.shape[-1]
     half = d // 2
-    freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
-                                   device=x.device) / half)
-    ang = positions.float()[..., None, None] * freq          # [...,S,1,half]
+    wd = wide_dtype(x.dtype)
+    freq = theta ** (-torch.arange(0, half, dtype=wd, device=x.device) / half)
+    ang = positions.to(wd)[..., None, None] * freq           # [...,S,1,half]
     sin, cos = torch.sin(ang), torch.cos(ang)
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
@@ -186,7 +198,7 @@ def _sdpa(q, k, v, mask, scale):
     H = q.shape[2]
     k = _expand_kv(k, H)
     v = _expand_kv(v, H)
-    logits = torch.einsum("bqhd,bshd->bhqs", q, k).float()
+    logits = wide(torch.einsum("bqhd,bshd->bhqs", q, k))
     logits = logits * scale
     logits = logits.masked_fill(~mask, -1e30)
     probs = torch.softmax(logits, dim=-1)
@@ -209,13 +221,13 @@ def _sdpa_chunked(q, k, v, q_pos, k_pos, mode, window, scale, chunk):
         v = F.pad(v, (0, 0, 0, 0, 0, pad))
         k_pos = F.pad(k_pos, (0, pad), value=-(10 ** 9))
     acc = torch.zeros((B, H, Sq, D), dtype=v.dtype, device=q.device)
-    m = torch.full((B, H, Sq), -float("inf"), dtype=torch.float32,
+    m = torch.full((B, H, Sq), -float("inf"), dtype=wide_dtype(q.dtype),
                    device=q.device)
-    l = torch.zeros((B, H, Sq), dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, H, Sq), dtype=wide_dtype(q.dtype), device=q.device)
     for c in range(nch):
         kb, vb = k[:, c * chunk:(c + 1) * chunk], v[:, c * chunk:(c + 1) * chunk]
         pb = k_pos[:, c * chunk:(c + 1) * chunk]
-        logits = torch.einsum("bqhd,bshd->bhqs", q, kb).float()
+        logits = wide(torch.einsum("bqhd,bshd->bhqs", q, kb))
         logits = logits * scale
         msk = _mask(q_pos, pb, mode, window)             # [B, Sq, chunk]
         logits = logits.masked_fill(~msk[:, None], -1e30)
@@ -242,10 +254,15 @@ def attention(p, x, cfg: ModelConfig, *,
               mode: str = "causal",
               window: Optional[int] = None,
               positions: Optional[torch.Tensor] = None,
+              kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+              kv_positions: Optional[torch.Tensor] = None,
               cache: Optional[Dict] = None):
-    """Self-attention (the JAX package's cache and full-sequence branches;
-    the full sequence blockwise over KV chunks when ``cfg.attn_chunk``).
+    """Self- or cross-attention (the JAX package's three branches; the
+    full sequence blockwise over KV chunks when ``cfg.attn_chunk``).
 
+    ``kv``: precomputed (k, v) ``[B, T, K, D]`` for cross-attention (the
+    encoder-decoder's decoder), at ``kv_positions``; bidirectional, no
+    RoPE on the query.
     ``cache``: {'k','v' [B,Sc,K,D], 'pos' int} decode-time KV cache — writes
     the new tokens at slot ``pos % Sc`` (rolling buffer) in place.
     Returns (out, new_cache)."""
@@ -257,24 +274,28 @@ def attention(p, x, cfg: ModelConfig, *,
         positions = torch.arange(S, device=x.device).expand(B, S)
 
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
-    q = rope(q, positions, cfg.rope_theta)
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(dt))
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(dt))
-    k = rope(k, positions, cfg.rope_theta)
-
     new_cache = None
-    if cache is not None:                  # decode with KV cache
-        Sc = cache["k"].shape[1]
-        pos = int(cache["pos"])
-        # lax.dynamic_update_slice clamps the start so the update fits
-        slot = min(pos % Sc, Sc - S)
-        cache["k"][:, slot:slot + S] = k.to(cache["k"].dtype)
-        cache["v"][:, slot:slot + S] = v.to(cache["v"].dtype)
-        k, v = cache["k"], cache["v"]
-        k_pos = cache_abs_pos(pos, Sc, x.device).expand(B, Sc)
-        new_cache = {"k": k, "v": v, "pos": pos + S}
-    else:                                  # full-sequence self-attention
-        k_pos = positions
+    if kv is not None:                     # cross-attention
+        k, v = kv
+        k_pos = kv_positions
+        mode, window = "bidir", None
+    else:
+        q = rope(q, positions, cfg.rope_theta)
+        k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(dt))
+        v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(dt))
+        k = rope(k, positions, cfg.rope_theta)
+        if cache is not None:              # decode with KV cache
+            Sc = cache["k"].shape[1]
+            pos = int(cache["pos"])
+            # lax.dynamic_update_slice clamps the start so the update fits
+            slot = min(pos % Sc, Sc - S)
+            cache["k"][:, slot:slot + S] = k.to(cache["k"].dtype)
+            cache["v"][:, slot:slot + S] = v.to(cache["v"].dtype)
+            k, v = cache["k"], cache["v"]
+            k_pos = cache_abs_pos(pos, Sc, x.device).expand(B, Sc)
+            new_cache = {"k": k, "v": v, "pos": pos + S}
+        else:                              # full-sequence self-attention
+            k_pos = positions
 
     if cfg.attn_chunk and cache is None:
         out = _sdpa_chunked(q, k.to(dt), v.to(dt), positions, k_pos, mode,

@@ -68,21 +68,31 @@ class Generator:
         self._step = make_serve_step(cfg, temperature=gen.temperature or 1.0)
         self.cache = None
 
-    def _init_cache(self, batch: int, context_len: int):
-        cache_len = api.decode_cache_len(self.cfg, context_len)
-        return api.init_cache(self.cfg, batch, cache_len, device=self.device)
-
     def generate(self, prompts: np.ndarray,
+                 frame_embeds: Optional[np.ndarray] = None,
                  max_new: Optional[int] = None) -> np.ndarray:
         """prompts: [B, S] int32 → [B, S + max_new] (greedy when
-        temperature == 0).  ``max_new`` overrides the config's
+        temperature == 0).  The audio family (encoder-decoder) takes its
+        encoder input ``frame_embeds`` [B, T, D]: the prompt is decoded
+        against a cache of the encoder output's cross K/V
+        (``encdec.build_cache``).  ``max_new`` overrides the config's
         ``max_new_tokens`` per call (the batch server varies it per wave
         without rebuilding the generator)."""
-        gen = self.gen
+        cfg, gen = self.cfg, self.gen
         if max_new is not None:
             gen = dataclasses.replace(gen, max_new_tokens=int(max_new))
         B, S = prompts.shape
-        cache = self._init_cache(B, S + gen.max_new_tokens)
+        cache_len = api.decode_cache_len(cfg, S + gen.max_new_tokens)
+        if cfg.family == "audio":
+            if frame_embeds is None:
+                raise ValueError(f"{cfg.name}: the audio family decodes "
+                                 f"against frame_embeds [B, T, D]")
+            mod = api.module_for(cfg)
+            enc = mod.encode(self.params, torch.as_tensor(
+                np.asarray(frame_embeds), device=self.device), cfg)
+            cache = mod.build_cache(self.params, enc, cfg, B, cache_len)
+        else:
+            cache = api.init_cache(cfg, B, cache_len, device=self.device)
         toks = torch.as_tensor(np.asarray(prompts, np.int32),
                                device=self.device)
         sampler = None

@@ -16,7 +16,9 @@ against its own unbatched run, a window's launches those of the unbatched
 window), per-scenario ``(B, NS)`` scalars against the plain versions, and
 the adjoint under ``st.hopper`` against the same adjoint under
 ``st.torch()`` (within 1e-3 of each gradient's max: the two forward
-passes differ by f32 rounding).
+passes differ by f32 rounding); and the loss and gradients of one layer
+of each language-model family on the card against the CPU (no kernel of
+the port: the PyTorch operators on CUDA tensors).
 
 Each kernel is held against its plain version on the same CUDA tensors
 (the plain versions are held against the JAX package on the CPU by the
@@ -1355,3 +1357,50 @@ def test_sharded_window_matches_unsharded(cuda, ts, overlap):
                            "damp": (0,) * 3}, ("data", "model", None), shape,
                           {"data": 2, "model": 2}, depth=ts, swap=("p0", "p1"))
     assert got[2] == 4 * (steps // fuse) * dist.launch_counts(spec, fuse, overlap)
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("granite-8b", {"n_layers": 1}), ("mixtral-8x7b", {"n_layers": 1}),
+    ("pixtral-12b", {"n_layers": 1}), ("xlstm-1.3b", {"n_layers": 2}),
+    ("whisper-small", {"n_layers": 2, "n_enc_layers": 1, "n_dec_layers": 1})],
+    ids=["dense", "moe", "vlm", "ssm", "audio"])
+def test_lm_family_loss_and_grads_on_the_card_match_the_cpu(cuda, name, kw):
+    """``chip_smoke.py`` phase 15 (d) at tiny widths: one layer of each
+    family (xLSTM one (mLSTM, sLSTM) cycle, whisper 1 + 1), f32, TF32 off,
+    the loss and every gradient leaf on the card against the CPU on the
+    same parameters: the loss within 1e-5 relative, a leaf within 1e-4 of
+    its max; a leaf that f32 rounding alone moves further (xLSTM's mLSTM
+    normalizer) is held to the CPU in f64 instead, within 1e-9."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.models import api
+    from repro_torch.train import data, optimizer, train_loop
+    cfg = dataclasses.replace(configs.tiny(configs.get(name)), dtype="float32",
+                              **kw)
+    seq = {"vlm": 64 + cfg.n_prefix_tokens, "audio": 128}.get(cfg.family, 64)
+    shape = dataclasses.replace(SHAPES["train_4k"], seq_len=seq, global_batch=2)
+    batch = data.make_batch_fn(cfg, shape, seed=0)(0)
+    params = api.init_params(cfg, device="cpu", seed=1)
+
+    def run(dev, dt):
+        c = dataclasses.replace(cfg, dtype=dt, param_dtype=dt)
+        p = optimizer.tree_map(lambda t: t.to(dev, getattr(torch, dt)), params)
+        loss, g = train_loop.make_loss_and_grad(c)(
+            p, {k: torch.as_tensor(v, device=dev) for k, v in batch.items()})
+        return float(loss), [x.cpu() for x in optimizer.tree_leaves(g)]
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        (lg, got), (lc, want) = run("cuda", "float32"), run("cpu", "float32")
+        assert abs(lg - lc) <= 1e-5 * abs(lc)
+        over = [i for i, (g, w) in enumerate(zip(got, want))
+                if float((g - w).abs().max()) > 1e-4 * float(w.abs().max())]
+        if over:
+            (_, got64), (_, want64) = run("cuda", "float64"), run("cpu", "float64")
+            for i in over:
+                assert float((got64[i] - want64[i]).abs().max()) <= \
+                    1e-9 * float(want64[i].abs().max())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32

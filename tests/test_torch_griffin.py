@@ -78,9 +78,13 @@ def _model(dtype="float32", n_layers=None):
 
 
 def test_configs_are_the_jax_packages():
-    assert configs.names() == ["recurrentgemma-9b"]
-    assert dataclasses.asdict(configs.get("recurrentgemma-9b")) == \
-        dataclasses.asdict(jconfigs.get("recurrentgemma-9b"))
+    assert configs.names() == jconfigs.names()
+    assert configs.ARCH_NAMES == jconfigs.ARCH_NAMES
+    for name in configs.ARCH_NAMES:
+        assert dataclasses.asdict(configs.get(name)) == \
+            dataclasses.asdict(jconfigs.get(name)), name
+        assert dataclasses.asdict(configs.tiny(configs.get(name))) == \
+            dataclasses.asdict(jconfigs.tiny(jconfigs.get(name))), name
 
 
 def test_params_from_jax_unstacks_layers_in_order():
@@ -431,11 +435,13 @@ def test_block_types_and_cycle_split():
         assert griffin._cycle_split(cfg) == jgriffin._cycle_split(jcfg)
 
 
-def test_other_families_are_not_ported():
+def test_an_unknown_family_raises():
     cfg = dataclasses.replace(configs.tiny(configs.get("recurrentgemma-9b")),
-                              family="dense")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+                              family="diffusion")
+    with pytest.raises(ValueError, match="unknown model family 'diffusion'"):
         api.module_for(cfg)
+    with pytest.raises(ValueError, match="unknown model family"):
+        api.init_params(cfg, device="meta")
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
