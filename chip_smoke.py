@@ -220,6 +220,27 @@ Phases, each of which exits non-zero when it fails:
    f32, TF32 off, 2 x 64 tokens: the loss (1e-5 relative) and every
    gradient leaf (1e-4 of its max) on the card against the CPU.  None of
    K1-K7 runs on these paths.
+16. the LM side of the distributed layer — (a) recurrentgemma-9b at its
+   published widths cut to phase 9's 3 layers, 2 x 4096 tokens, on a
+   (2, 2) mesh of the card over (data, model): in f32 compute the sharded
+   loss and gradients (``train_loop.make_sharded_loss_and_grad``) against
+   the unsharded ones on the same parameters and batch (loss 1e-5
+   relative, every gradient leaf 1e-4 of its max), one sharded AdamW step
+   and every replica of a block equal to its primary; then 3 steps of
+   the sharded step (``compile_train_step``) and of ``make_train_step``
+   at the config's bf16 compute, ms a step and peak GB each, K6 launched
+   3 x 2 recurrent layers x 2 model shards x 2 data groups a step and
+   nothing else; one model shard's K6 input from that run,
+   ``[1, 4099, 2048]`` bf16, bit for bit K6's plain version, timed beside
+   it and ``F.conv1d``; (b) phi3-mini-3.8b whole (3.8 B parameters), 16 x
+   512, on the production mesh (16, 16) of the card: in f32 compute the
+   sharded loss and gradients against the unsharded ones (loss 1e-5
+   relative, every gradient leaf 1e-4 of its max); then ``python -m
+   repro_torch.launch.train --preset full --arch phi3-mini-3.8b
+   --global-batch 16 --seq-len 512 --steps 2`` (in-process, bf16): its
+   first loss within phase 9's bf16 1e-3 of the unsharded loss on the same
+   parameters and batch (a forward pass, run first, then freed), seconds
+   a step and peak GB; K1-K7 stay 0 there.
 
 It prints the kernels line ``{"kernels": [...]}`` and then, last,
 ``{"ok": true, "device": {...}}``.  ``--quick`` runs phases 1–3 at the two
@@ -231,15 +252,18 @@ each batched run and the gradient; 12, 13 and 14: each run); the kernels line
 gives K1/K2/K3/K5 their launches in phase 11's batched runs
 (``batched_launches``), the tuned acoustic build's kernel and K6's
 training entry theirs in phase 12's restarted runs (``resilient_launches``),
-K4 gmem and K2's ``RT_MAP`` build theirs in phase 14's sharded runs
-(``sharded_launches``), and lists K6 once a path (``causal_conv1d``: serving, at the
-decode shape; ``causal_conv1d.train``: training, at its shape).  Phase 15
+K4 gmem and K2's ``RT_MAP`` build theirs in phase 14's sharded runs and
+K6 its launches in phase 16's sharded training steps (``sharded_launches``),
+and lists K6 once a path (``causal_conv1d``: serving, at the decode shape;
+``causal_conv1d.train``: training, at its shape; ``causal_conv1d.sharded``:
+phase 16's sharded training, at one model shard's shape).  Phase 15
 sets the counts to 0 before its models and checks that they stay 0.  The script imports neither
 JAX nor the JAX package, and needs nothing outside the checkout.
 """
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import pathlib
@@ -466,6 +490,26 @@ LM_CPU = {"granite-8b": {"n_layers": 1}, "mixtral-8x7b": {"n_layers": 1},
           "whisper-small": {"n_layers": 2, "n_enc_layers": 1, "n_dec_layers": 1}}
 LM_CPU_BATCH, LM_CPU_TOKENS = 2, 64
 LM_CPU_LOSS_RTOL, LM_CPU_GRAD_TOL, LM_CPU_F64_TOL = 1e-5, 1e-4, 1e-9
+# phase 16: the LM side of the distributed layer.  (a) phase 9's model and
+# batch (TRAIN_ARCH, TRAIN_LAYERS, TRAIN_BATCH x TRAIN_SEQ) on a (2, 2)
+# mesh of the card over (data, model): f32 gates against the unsharded
+# loss and gradients (phase 9's: loss 1e-5 relative, a gradient leaf 1e-4
+# of its max), then SHARD_STEPS timed bf16 steps each way; K6 on one model
+# shard's slice bit for bit its plain version.  (b) FULL_ARCH whole,
+# FULL_BATCH x FULL_SEQ, on the production mesh (16, 16) of the card: in
+# f32 compute the sharded loss and gradients against the unsharded ones
+# (the same gates as (a)); then the CLI's --preset full, FULL_STEPS steps
+# at the config's bf16, its first loss within TRAIN_LOSS_RTOL (phase 9's
+# bf16 tolerance) of the unsharded bf16 step's.  In bf16 the two differ
+# by rounding alone, but a 16-bit activation that one f32 ulp of another
+# summation order rounds the other way moves a 32-layer loss ~1e-5: the
+# first losses read 9.1e-6 apart with the partial products in f32 and
+# 1.4e-5 with them as 16-bit products accumulated in f32 (my chip runs,
+# NVIDIA H100 80GB HBM3, 700 W), so a 1e-5 gate holds in f32 only
+SHARD_MESH = (2, 2)
+SHARD_STEPS = 3
+SHARD_LOSS_RTOL, SHARD_GRAD_TOL = 1e-5, 1e-4
+FULL_ARCH, FULL_BATCH, FULL_SEQ, FULL_STEPS = "phi3-mini-3.8b", 16, 512, 2
 
 
 def bf16_ulp(scale: float) -> float:
@@ -3451,6 +3495,311 @@ def lm_families_phase(torch, np, mods, counters, device="cuda"):
     return rec
 
 
+def _timed_steps(torch, device, step_fn, state, batches):
+    """Run ``step_fn`` over ``batches``: (state, wall seconds a step,
+    losses)."""
+    step_s, losses = [], []
+    for b in batches:
+        sync(torch, device)
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, b)
+        losses.append(float(metrics["loss"]))
+        sync(torch, device)
+        step_s.append(time.perf_counter() - t0)
+    return state, step_s, losses
+
+
+def _steady_ms(step_s) -> float:
+    rest = step_s[1:] or step_s
+    return 1e3 * sorted(rest)[len(rest) // 2]
+
+
+def sharded_gates(torch, mods, cfg, mesh, batch, device, adamw=True):
+    """Phase 16 in f32 compute: the sharded loss and gradients against the
+    unsharded ones on the same parameters and batch; then (``adamw``) one
+    sharded AdamW step and its replicas.  Returns the record."""
+    api, train_loop, optimizer, sharding = (mods["api"], mods["train_loop"],
+                                            mods["optimizer"], mods["sharding"])
+    base = reset_peak(torch, device)
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, device=device, seed=0)
+    tb = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+    loss_u, grads_u = train_loop.make_loss_and_grad(cfg)(params, tb)
+    sync(torch, device)
+    t1 = time.perf_counter()
+    placed = sharding.device_put(params, train_loop.state_shardings(cfg, mesh)["params"],
+                                 donate=True)
+    del params
+    sync(torch, device)
+    t2 = time.perf_counter()
+    loss_s, grads_s = train_loop.make_sharded_loss_and_grad(cfg, mesh)(placed, batch)
+    lu, ls = float(loss_u), float(loss_s)
+    sync(torch, device)
+    t3 = time.perf_counter()
+    if not (math.isfinite(ls) and abs(ls - lu) <= SHARD_LOSS_RTOL * abs(lu)):
+        fail(f"sharded training (f32): loss {ls!r}, unsharded {lu!r} (limit "
+             f"{SHARD_LOSS_RTOL} relative)")
+    worst, worst_leaf = 0.0, None
+    for (name, a), (_, b) in zip(_named_leaves(grads_s), _named_leaves(grads_u)):
+        g = a.gather()
+        scale = max(float(b.abs().max()), 1e-30)
+        e = float((g - b).abs().max()) / scale
+        if not bool(torch.isfinite(g).all()) or e > SHARD_GRAD_TOL:
+            fail(f"sharded training (f32): gradient {name} {e} of its max "
+                 f"from the unsharded one (limit {SHARD_GRAD_TOL})")
+        if e >= worst:
+            worst, worst_leaf = e, name
+        del g
+    del grads_s, grads_u, loss_u, loss_s
+    rec = {"loss_sharded": ls, "loss_unsharded": lu,
+           "loss_rel_diff": abs(ls - lu) / abs(lu), "grad_worst_rel_diff": worst,
+           "grad_worst_leaf": worst_leaf, "unsharded_loss_and_grad_s": t1 - t0,
+           "place_s": t2 - t1, "sharded_loss_and_grad_s": t3 - t2}
+    line = (f"sharded training gates (f32, {cfg.name} {cfg.n_layers} layers, "
+            f"{batch['tokens'].shape[0]} x {batch['tokens'].shape[1]}, mesh "
+            f"{mesh.shape}): loss {ls!r} vs unsharded {lu!r} (relative "
+            f"{rec['loss_rel_diff']:.3g}, limit {SHARD_LOSS_RTOL}); worst gradient "
+            f"leaf {worst_leaf} {worst:.3g} of its max (limit {SHARD_GRAD_TOL}); "
+            f"loss and gradients {t3 - t2:.2f} s sharded, {t1 - t0:.2f} s not")
+    if adamw:
+        tc = train_loop.TrainConfig(opt=optimizer.OptConfig(warmup_steps=1,
+                                                            total_steps=2))
+        state = {"params": placed, "opt": optimizer.init(placed), "step": 0}
+        _, step = train_loop.compile_train_step(cfg, tc, mesh, batch)
+        state, _ = step(state, batch)
+        blocks = copies = 0
+        for part in (state["params"], state["opt"]["m"], state["opt"]["v"]):
+            for leaf in optimizer.tree_leaves(part):
+                for reps in leaf.replicas():
+                    blocks += 1
+                    copies += len(reps) - 1
+                    if not all(torch.equal(r, reps[0]) for r in reps[1:]):
+                        fail("sharded training: a replica differs from its block")
+        rec.update(blocks=blocks, replica_copies=copies)
+        line += (f"; after one AdamW step {blocks} blocks, {copies} replica "
+                 f"copies on other devices, each equal to its primary")
+        del state
+    rec["peak_gb"] = peak_gb(torch, device, base)
+    say(f"{line}; peak {rec['peak_gb']} GB")
+    del placed
+    return rec
+
+
+def _named_leaves(tree, pre=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _named_leaves(v, f"{pre}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _named_leaves(v, f"{pre}/{i}")
+    else:
+        yield pre, tree
+
+
+def sharded_train_phase(torch, mods, counters, rates, device="cuda"):
+    """Phase 16: (a) ``TRAIN_ARCH`` cut to ``TRAIN_LAYERS`` on a
+    ``SHARD_MESH`` mesh of the card: f32 gates, timed bf16 steps sharded
+    and not, K6 on a model shard's slice; (b) ``FULL_ARCH`` whole on the
+    production mesh: f32 gates, then ``launch.train --preset full``
+    against the unsharded bf16 loss.  Returns (the record, the kernels-line entry of K6 at a model
+    shard's shape)."""
+    import dataclasses
+    configs, train_loop, optimizer, data, shapes, mesh_mod, api = (
+        mods["configs"], mods["train_loop"], mods["optimizer"], mods["data"],
+        mods["shapes"], mods["mesh"], mods["api"])
+    conv, conv_ops, conv_ref, train_cli = (mods["conv"], mods["conv_ops"],
+                                           mods["conv_ref"], mods["train_cli"])
+    reset_counts, counts = counters
+    t_phase = time.perf_counter()
+    devices = None if torch.device(device).type == "cuda" else [device]
+    gc.collect()
+    rec = {"held_gb": reset_peak(torch, device) / 1e9}
+    say(f"sharded training phase: {rec['held_gb']:.2f} GB held by earlier phases")
+
+    # -- (a) --------------------------------------------------------------------
+    base_cfg = dataclasses.replace(configs.get(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+    mesh = mesh_mod.make_mesh(SHARD_MESH, ("data", "model"), devices)
+    shape = dataclasses.replace(shapes.SHAPES["train_4k"], seq_len=TRAIN_SEQ,
+                                global_batch=TRAIN_BATCH)
+    cfg32 = dataclasses.replace(base_cfg, dtype="float32")
+    rec["gates"] = sharded_gates(torch, mods, cfg32, mesh,
+                                 data.make_batch_fn(cfg32, shape, seed=0)(0), device)
+    reset_peak(torch, device)
+
+    cfg = base_cfg
+    n_rec = mods["griffin"].block_types(cfg).count("rec")
+    batch_fn = data.make_batch_fn(cfg, shape, seed=0)
+    batches = [batch_fn(s) for s in range(SHARD_STEPS)]
+    tc = train_loop.TrainConfig(opt=optimizer.OptConfig(warmup_steps=1,
+                                                        total_steps=SHARD_STEPS))
+    base = reset_peak(torch, device)
+    state = train_loop.init_state(cfg, device=device, seed=0)
+    state, step_u, losses_u = _timed_steps(torch, device,
+                                           train_loop.make_train_step(cfg, tc),
+                                           state, batches)
+    peak_u = peak_gb(torch, device, base)
+    del state
+    base = reset_peak(torch, device)
+    state = train_loop.init_sharded_state(cfg, mesh, seed=0)
+    plan, step = train_loop.compile_train_step(cfg, tc, mesh, batches[0])
+    captured = {}
+    kernel = conv_ops.causal_conv1d
+
+    def capture(x, w):                 # one model shard's forward K6 input
+        if "x" not in captured and x.shape[0] == TRAIN_BATCH // SHARD_MESH[0]:
+            captured["x"], captured["w"] = x.clone(), w.clone()
+        return kernel(x, w)
+    conv_ops.causal_conv1d = capture
+    sync(torch, device)
+    reset_counts()
+    conv_ref.causal_conv1d_ref.calls = 0
+    try:
+        state, step_s, losses_s = _timed_steps(torch, device, step, state, batches)
+    finally:
+        conv_ops.causal_conv1d = kernel
+    seen = counts()
+    plain_calls = conv_ref.causal_conv1d_ref.calls
+    peak_s = peak_gb(torch, device, base)
+    want = 3 * n_rec * SHARD_MESH[1] * SHARD_MESH[0] * SHARD_STEPS
+    if seen["causal_conv1d"] != want or plain_calls \
+            or sum(seen.values()) != seen["causal_conv1d"]:
+        fail(f"sharded training: launch counts {seen} and {plain_calls} calls "
+             f"of K6's plain version over {SHARD_STEPS} steps; expected {want} "
+             f"of causal_conv1d (3 x {n_rec} recurrent layers x {SHARD_MESH[1]} "
+             f"model shards x {SHARD_MESH[0]} data groups a step) and nothing else")
+    if not all(math.isfinite(v) for v in losses_s):
+        fail(f"sharded training: losses {losses_s}")
+    del state
+    reset_peak(torch, device)
+    rec["train"] = {
+        "arch": cfg.name, "n_layers": cfg.n_layers, "mesh": list(SHARD_MESH),
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "dtype": cfg.dtype,
+        "steps": SHARD_STEPS, "sharded_step_s": step_s, "unsharded_step_s": step_u,
+        "sharded_ms_per_step": _steady_ms(step_s),
+        "unsharded_ms_per_step": _steady_ms(step_u),
+        "sharded_losses": losses_s, "unsharded_losses": losses_u,
+        "first_loss_rel_diff_bf16": abs(losses_s[0] - losses_u[0]) / abs(losses_u[0]),
+        "sharded_peak_gb": peak_s, "unsharded_peak_gb": peak_u,
+        "launches": seen, "k6_launches": seen["causal_conv1d"],
+        "state_bytes_per_shard": plan.state_bytes_per_shard}
+    r = rec["train"]
+    say(f"sharded training ({cfg.dtype}, mesh {mesh.shape}, {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ}): {', '.join(f'{1e3 * t:.1f}' for t in step_s)} ms a step "
+        f"(wall), steady {r['sharded_ms_per_step']:.1f} ms, peak {peak_s} GB; "
+        f"unsharded {', '.join(f'{1e3 * t:.1f}' for t in step_u)} ms, steady "
+        f"{r['unsharded_ms_per_step']:.1f} ms, peak {peak_u} GB; losses "
+        f"{losses_s} vs {losses_u} (first {r['first_loss_rel_diff_bf16']:.3g} "
+        f"apart in bf16); K6 {seen['causal_conv1d']} launches = 3 x {n_rec} x "
+        f"{SHARD_MESH[1]} x {SHARD_MESH[0]} x {SHARD_STEPS}")
+
+    # one model shard's K6 input from the run: bit for bit, timed
+    if "x" not in captured:
+        fail("sharded training: no model shard's K6 input was seen")
+    x, w = captured["x"], captured["w"]
+    want_y = conv_ref.causal_conv1d_ref(x, w)
+    got_y = conv.causal_conv1d_cuda(x, w) if torch.device(device).type == "cuda" \
+        else conv_ref.causal_conv1d_ref(x, w)
+    sync(torch, device)
+    B, T, W = x.shape
+    key = f"causal_conv1d sharded {str(x.dtype).split('.')[1]} [{B}, {T}, {W}]"
+    if not torch.equal(got_y, want_y):
+        fail(f"{key}: K6 on a model shard's slice differs from its plain "
+             f"version by {float((got_y.float() - want_y.float()).abs().max())}")
+    say(f"kernel {key} (one model shard's input from the sharded step): bit "
+        f"for bit its plain version")
+    entry = None
+    if torch.device(device).type == "cuda":
+        row = conv_times(torch, torch.nn.functional, rates, conv, conv_ref, x, w,
+                         want_y, "train", key)
+        row.update(shape=[B, T, W], dtype=str(x.dtype).split(".")[1],
+                   build=conv.build_of(x, w, want_y))
+        entry = conv_entry_of("causal_conv1d.sharded", row, "sharded training")
+        entry["launches"], entry["max_abs_err"] = seen["causal_conv1d"], 0.0
+        entry["sharded_launches"] = seen["causal_conv1d"]
+        rec["k6_shard"] = row
+    del x, w, want_y, got_y, captured
+
+    # -- (b) --------------------------------------------------------------------
+    cfg_b = configs.get(FULL_ARCH)
+    shape_b = dataclasses.replace(shapes.SHAPES["train_4k"], seq_len=FULL_SEQ,
+                                  global_batch=FULL_BATCH)
+    batch0 = data.make_batch_fn(cfg_b, shape_b, seed=0)(0)
+    rec["full_gates"] = sharded_gates(
+        torch, mods, dataclasses.replace(cfg_b, dtype="float32"),
+        mesh_mod.make_production_mesh(devices=devices), batch0, device,
+        adamw=False)
+    # the unsharded reference: the first step's loss is the loss of the
+    # parameters it starts from, so a forward pass on them gives it (a whole
+    # unsharded step of 61 GB beside what earlier phases hold does not fit)
+    base = reset_peak(torch, device)
+    params = api.init_params(cfg_b, device=device, seed=0)
+    sync(torch, device)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        loss_u, _ = api.loss_fn(cfg_b, params, {
+            k: torch.as_tensor(v, device=device) for k, v in batch0.items()})
+        lu = [float(loss_u)]
+    su = [time.perf_counter() - t0]
+    peak_bu = peak_gb(torch, device, base)
+    del params, loss_u
+    base = reset_peak(torch, device)
+    cli_s = []
+    compile_step = train_loop.compile_train_step
+
+    def timed_compile(*a, **k):
+        plan_, step_ = compile_step(*a, **k)
+
+        def run(state_, batch_):
+            sync(torch, device)
+            t1 = time.perf_counter()
+            out = step_(state_, batch_)
+            float(out[1]["loss"])
+            sync(torch, device)
+            cli_s.append(time.perf_counter() - t1)
+            return out
+        return plan_, run
+    argv = ["--preset", "full", "--arch", FULL_ARCH, "--global-batch",
+            str(FULL_BATCH), "--seq-len", str(FULL_SEQ), "--steps", str(FULL_STEPS)]
+    if devices is not None:
+        argv += ["--device", str(device)]
+    train_loop.compile_train_step = timed_compile
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        losses = train_cli.main(argv)
+    finally:
+        train_loop.compile_train_step = compile_step
+    cli_total = time.perf_counter() - t0
+    seen_b = counts()
+    peak_bs = peak_gb(torch, device, base)
+    diff = abs(losses[0] - lu[0]) / abs(lu[0])
+    if any(seen_b.values()):
+        fail(f"launch.train --preset full: launch counts {seen_b}, expected none")
+    if not (len(losses) == FULL_STEPS and all(math.isfinite(v) for v in losses)
+            and diff <= TRAIN_LOSS_RTOL):
+        fail(f"launch.train --preset full: losses {losses}, the unsharded loss "
+             f"{lu[0]!r} ({diff:.3g} apart, limit {TRAIN_LOSS_RTOL})")
+    n_params = api.param_count(cfg_b)
+    rec["full"] = {"arch": FULL_ARCH, "params": n_params, "mesh": [16, 16],
+                   "batch": FULL_BATCH, "seq": FULL_SEQ, "dtype": cfg_b.dtype,
+                   "losses": losses, "unsharded_loss": lu[0],
+                   "first_loss_rel_diff": diff, "sharded_step_s": cli_s,
+                   "unsharded_forward_s": su,
+                   "cli_seconds": cli_total, "sharded_peak_gb": peak_bs,
+                   "unsharded_peak_gb": peak_bu}
+    say(f"launch.train --preset full {FULL_ARCH} ({n_params} params, "
+        f"{cfg_b.dtype}) on the production mesh (16, 16) of one card, "
+        f"{FULL_BATCH} x {FULL_SEQ}: losses {losses}, first {diff:.3g} from the "
+        f"unsharded loss {lu[0]!r} (limit {TRAIN_LOSS_RTOL}, bf16); "
+        f"{', '.join(f'{t:.2f}' for t in cli_s)} s a step, peak {peak_bs} GB "
+        f"(CLI {cli_total:.1f} s in all); the unsharded forward {su[0]:.2f} s, "
+        f"peak {peak_bu} GB")
+    reset_peak(torch, device)
+    rec["seconds"] = time.perf_counter() - t_phase
+    say(f"sharded training phase: {rec['seconds']:.1f} s")
+    return rec, entry
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -3469,6 +3818,7 @@ def main(argv=None) -> int:
         from repro_torch.core import distributed
         from repro_torch.core import dsl as st
         from repro_torch.launch import mesh as mesh_mod
+        from repro_torch import sharding
         from repro_torch.core import timeloop
         from repro_torch.kernels import _build
         from repro_torch.kernels.stencil import codegen
@@ -4155,11 +4505,21 @@ def main(argv=None) -> int:
               "serve_loop": serve_loop, "train_loop": train_loop,
               "optimizer": optimizer, "data": train_data, "shapes": lm_shapes}
     record["lm_families"] = lm_families_phase(torch, np, f_mods, (reset_counts, counts))
+    # -- 16. the LM side of the distributed layer -------------------------------------
+    sh_mods = {"configs": configs, "api": api, "griffin": griffin,
+               "train_loop": train_loop, "optimizer": optimizer, "data": train_data,
+               "shapes": lm_shapes, "mesh": mesh_mod, "sharding": sharding,
+               "conv": conv, "conv_ops": conv_ops, "conv_ref": conv_ref,
+               "train_cli": train_cli}
+    record["sharded_training"], shard_entry = sharded_train_phase(
+        torch, sh_mods, (reset_counts, counts), rates)
     for e in conv_entries:
         row = serve_row if e["path"] == "serving" else train_row
         e["launches"], e["max_abs_err"] = row["k6_launches"], conv_worst
+        e["sharded_launches"] = record["sharded_training"]["train"]["k6_launches"]
         if e["path"] != "serving":
             e["resilient_launches"] = record["resilience"]["training"]["k6_launches"]
+    conv_entries.append(shard_entry)
     for kname, e in attn_entries.items():  # standalone: 0 on the serving path
         e["launches"] = serve_row["launches"][kname]
 
@@ -4174,7 +4534,8 @@ def main(argv=None) -> int:
     # batched_launches: phase 11's launches of a kernel that advanced every
     # scenario of a batched loop; resilient_launches: phase 12's in its
     # restarted runs, replays included; sharded_launches: phase 14's in its
-    # sharded st.map and window runs (None where a phase does not run it)
+    # sharded st.map and window runs, K6's phase 16's in its sharded training
+    # steps (None where a phase does not run it)
     line = {"kernels": [{**{k: e[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
         "plain_ms", "bound_ms", "bound_by", "library_ms")},

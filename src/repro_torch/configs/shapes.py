@@ -1,6 +1,5 @@
-"""Assigned input shapes (the JAX package's ``configs/shapes.py``:
-``ShapeSpec``, ``SHAPES`` and ``applicable``; its ``input_specs`` are
-abstract JAX arrays for the dry run, ROADMAP.md queue 1, item 11.4):
+"""Assigned input shapes × architecture → input specs (the JAX package's
+``configs/shapes.py``):
 
   train_4k      seq_len=4096    global_batch=256   (training step)
   prefill_32k   seq_len=32768   global_batch=32    (inference prefill)
@@ -8,15 +7,22 @@ abstract JAX arrays for the dry run, ROADMAP.md queue 1, item 11.4):
                                                     cache of seq_len)
   long_500k     seq_len=524288  global_batch=1     (long-context decode;
                                                     sub-quadratic archs only)
+
+``input_specs(cfg, shape)`` gives every model input as a tensor on the
+``meta`` device (shape and dtype, nothing allocated), the port's
+counterpart of the JAX package's ``jax.ShapeDtypeStruct`` stand-ins; a
+decode cell's cache is the port's cache layout (one state per layer).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict, Tuple
 
+import torch
+
 from .base import ModelConfig
 
-__all__ = ["ShapeSpec", "SHAPES", "applicable"]
+__all__ = ["ShapeSpec", "SHAPES", "applicable", "input_specs"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,3 +54,46 @@ def applicable(cfg: ModelConfig, shape: ShapeSpec) -> Tuple[bool, str]:
         return False, ("pure full-attention arch: 500k-context decode has "
                        "no sub-quadratic structure (documented skip)")
     return True, ""
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> Dict:
+    """Meta-tensor stand-ins for every input of this cell's step:
+    train → the loss batch {tokens, labels, [patch_embeds|frame_embeds]};
+    prefill → {tokens, [patch_embeds|frame_embeds]}; decode → {tokens
+    [B, 1], cache}."""
+    from repro_torch.models import api  # local import to avoid cycles
+
+    B, S = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    dt = getattr(torch, cfg.dtype)
+
+    def spec(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    if shape.kind in ("train", "prefill"):
+        if cfg.family == "audio":
+            # enc-dec split: enc_frames = dec_tokens = S/2
+            T = S // 2
+            specs = {"frame_embeds": spec((B, T, cfg.d_model), dt),
+                     "tokens": spec((B, T), i32)}
+            if shape.kind == "train":
+                specs["labels"] = spec((B, T), i32)
+            return specs
+        if cfg.family == "vlm":
+            P = cfg.n_prefix_tokens
+            St = S - P
+            specs = {"patch_embeds": spec((B, P, cfg.d_model), dt),
+                     "tokens": spec((B, St), i32)}
+            if shape.kind == "train":
+                specs["labels"] = spec((B, St), i32)
+            return specs
+        specs = {"tokens": spec((B, S), i32)}
+        if shape.kind == "train":
+            specs["labels"] = spec((B, S), i32)
+        return specs
+
+    # decode: one new token against a cache of context S
+    cache_len = api.decode_cache_len(cfg, S)
+    kw = {"enc_len": 1500} if cfg.family == "audio" else {}
+    cache = api.init_cache(cfg, B, cache_len, device="meta", **kw)
+    return {"tokens": spec((B, 1), i32), "cache": cache}

@@ -8,8 +8,9 @@ more shards than there are cards: with no ``devices`` given, the shards
 go on the visible cards in order, the cards repeating when shards
 outnumber them, as the JAX package's tests fake host devices in one
 process.  It never falls back to the CPU: without a card a mesh needs
-``devices`` naming the CPU (what the CPU tests pass).  The LM side's
-``make_production_mesh`` is not ported (``ROADMAP.md``).
+``devices`` naming the CPU (what the CPU tests pass).
+``make_production_mesh`` is the LM side's (data=16, model=16) mesh, or
+(pod=2, data=16, model=16).
 """
 from __future__ import annotations
 
@@ -19,8 +20,8 @@ from typing import Dict, Sequence
 import numpy as np
 import torch
 
-__all__ = ["Mesh", "make_mesh", "make_host_mesh", "make_scaling_mesh",
-           "mesh_axes"]
+__all__ = ["Mesh", "make_mesh", "make_production_mesh", "make_host_mesh",
+           "make_scaling_mesh", "mesh_axes"]
 
 
 class Mesh:
@@ -79,6 +80,15 @@ def make_mesh(shape: Sequence[int], names: Sequence[str],
     devs = np.empty(math.prod(shape), dtype=object)
     devs[:] = _placement(math.prod(shape), devices)
     return Mesh(devs.reshape(shape), names)
+
+
+def make_production_mesh(*, multi_pod: bool = False, devices=None) -> Mesh:
+    """The production mesh: (data=16, model=16) = 256 shards; multi-pod
+    adds a leading pod axis, (pod=2, data=16, model=16) = 512.  The shards
+    go on ``devices`` or the visible cards, in order, repeating."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, devices)
 
 
 def make_host_mesh(model: int = 1, devices=None) -> Mesh:

@@ -5,8 +5,13 @@ otherwise::
         --steps 20 --preset smoke [--device cpu]
 
 ``--preset smoke`` shrinks the arch to its reduced same-family config
-(``configs.tiny``); ``--preset full`` needs the real config on the
-production mesh, not ported yet.  ``--ckpt-dir DIR`` runs the steps
+(``configs.tiny``) on one device; ``--preset full`` runs the real config
+(``configs.get``, unreduced) on the production mesh
+(``make_production_mesh``: 16 x 16 shards over the cards, or over
+``--device``), the sequence and global batch ``train_4k``'s unless
+``--seq-len`` and ``--global-batch`` say otherwise, through
+``train_loop.compile_train_step``; the state is drawn and placed leaf by
+leaf (``train_loop.init_sharded_state``).  ``--ckpt-dir DIR`` runs the steps
 through ``fault_tolerance.run_with_restarts``: a checkpoint every
 ``--ckpt-every`` steps, a restart from the latest one after a failure, a
 resume when ``DIR`` already holds checkpoints, and the straggler
@@ -20,7 +25,7 @@ import time
 
 from repro_torch import configs
 from repro_torch.configs.shapes import SHAPES
-from repro_torch.core.dsl import not_ported
+from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.train import data, fault_tolerance, optimizer, train_loop
 
 
@@ -44,12 +49,17 @@ def main(argv=None):
                     help="torch device (default: the card)")
     args = ap.parse_args(argv)
 
-    if args.preset == "full":
-        raise not_ported("launch.train --preset full (the production mesh)",
-                         "queue 1, item 9")
-    cfg = configs.tiny(configs.get(args.arch))
-    seq = args.seq_len or 128
-    gb = args.global_batch or 8
+    if args.preset == "smoke":
+        cfg = configs.tiny(configs.get(args.arch))
+        seq = args.seq_len or 128
+        gb = args.global_batch or 8
+        mesh = None
+    else:
+        cfg = configs.get(args.arch)
+        mesh = make_production_mesh(
+            devices=None if args.device is None else [args.device])
+        seq = args.seq_len or SHAPES["train_4k"].seq_len
+        gb = args.global_batch or SHAPES["train_4k"].global_batch
     shape = dataclasses.replace(SHAPES["train_4k"], seq_len=seq,
                                 global_batch=gb)
     batch_fn = data.make_batch_fn(cfg, shape, seed=args.seed)
@@ -57,10 +67,20 @@ def main(argv=None):
     oc = optimizer.OptConfig(lr=args.lr, warmup_steps=args.warmup,
                              total_steps=max(args.steps, 1))
     tc = train_loop.TrainConfig(opt=oc, n_microbatches=args.microbatches)
-    step_fn = train_loop.make_train_step(cfg, tc)
+    shardings = None
+    if mesh is None:
+        step_fn = train_loop.make_train_step(cfg, tc)
 
-    def init_fn():
-        return train_loop.init_state(cfg, device=args.device, seed=args.seed)
+        def init_fn():
+            return train_loop.init_state(cfg, device=args.device, seed=args.seed)
+        where = lambda st: train_loop.tree_leaves(st["params"])[0].device  # noqa: E731
+    else:
+        _, step_fn = train_loop.compile_train_step(cfg, tc, mesh, batch_fn(0))
+        shardings = train_loop.state_shardings(cfg, mesh)
+
+        def init_fn():
+            return train_loop.init_sharded_state(cfg, mesh, seed=args.seed)
+        where = lambda st: mesh  # noqa: E731
 
     losses = []
 
@@ -79,7 +99,8 @@ def main(argv=None):
         wd = fault_tolerance.Watchdog()
         state = fault_tolerance.run_with_restarts(
             init_fn=init_fn, step_fn=one_step, n_steps=args.steps,
-            ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every, watchdog=wd)
+            ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+            shardings=shardings, watchdog=wd)
         if wd.events:
             print(f"straggler events: {len(wd.events)}")
     else:
@@ -89,7 +110,7 @@ def main(argv=None):
     dt = time.perf_counter() - t0
     print(f"done: {args.steps} steps in {dt:.1f}s "
           f"({dt / max(args.steps, 1):.2f} s/step) on "
-          f"{train_loop.tree_leaves(state['params'])[0].device}")
+          f"{where(state)}")
     return losses
 
 

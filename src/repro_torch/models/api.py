@@ -15,6 +15,7 @@ from torch.utils import checkpoint as _ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.dsl import resolve_device
+from repro_torch.sharding import constrain
 
 from . import encdec, griffin, transformer, xlstm
 from . import layers as L
@@ -126,6 +127,7 @@ def loss_fn(cfg: ModelConfig, params, batch: Dict,
 
         def chunk_loss(h, y, v):
             logits = L.wide(L.unembed(embed_p, h, cfg))
+            logits = constrain(logits, "batch", None, "vocab")
             lse = torch.logsumexp(logits, dim=-1)
             picked = torch.gather(logits, -1, y.long()[..., None])[..., 0]
             return ((lse - picked) * v[None]).sum()
@@ -133,7 +135,8 @@ def loss_fn(cfg: ModelConfig, params, batch: Dict,
         total = torch.zeros((), dtype=L.wide_dtype(hid.dtype), device=hid.device)
         for i in range(n):
             sl = slice(i * C, (i + 1) * C)
-            total = total + _ckpt.checkpoint(chunk_loss, hid[:, sl],
+            h = constrain(hid[:, sl], "batch", None, "embed")
+            total = total + _ckpt.checkpoint(chunk_loss, h,
                                              labels[:, sl], valid[i],
                                              use_reentrant=False)
         ce = total / (B * S)

@@ -31,8 +31,10 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.conv1d import ops as conv1d_ops
 from repro_torch.kernels.conv1d import ref as conv1d_ref
+from repro_torch.sharding import constrain
 
 from . import layers as L
+from .sharded import local
 
 _C = 8.0
 
@@ -139,13 +141,15 @@ def causal_conv(x, w, b, state: Optional[torch.Tensor] = None,
     wx = w.to(x.dtype).contiguous()
     # the conv is zero-history over the whole of xp; the outputs aligned
     # with x start at index cw-1
+    # on a model-split width (the sharded step) K6 runs on each shard's
+    # slice of it
     if use_kernel is False:
-        y = conv1d_ref.causal_conv1d_ref(xp, wx)
+        y = local(conv1d_ref.causal_conv1d_ref)(xp, wx)
     elif use_kernel and xp.device.type != "cuda":
         raise ValueError(f"causal_conv(use_kernel=True): the kernel runs on "
                          f"a CUDA device, not {xp.device}")
     else:
-        y = conv1d_ops.CausalConv1dFn.apply(xp, wx)
+        y = local(conv1d_ops.CausalConv1dFn.apply)(xp, wx)
     new_state = xp[:, -(cw - 1):] if cw > 1 else None
     return y[:, cw - 1:] + b.to(x.dtype), new_state
 
@@ -217,7 +221,9 @@ def rec_mix(p, x, cfg: ModelConfig, state=None,
     dt = x.dtype
     gate = F.gelu(torch.einsum("bsd,dw->bsw", xn, p["w_gate"].to(dt)),
                   approximate="tanh")
+    gate = constrain(gate, "batch", "seq", "rnn")
     u = torch.einsum("bsd,dw->bsw", xn, p["w_x"].to(dt))
+    u = constrain(u, "batch", "seq", "rnn")
     u, conv_state = causal_conv(u, p["conv_w"], p["conv_b"],
                                 None if state is None else state["conv"],
                                 use_kernel=use_kernel_conv)
@@ -228,6 +234,7 @@ def rec_mix(p, x, cfg: ModelConfig, state=None,
         h, h_new = rg_lru_step(p, u, state["h"])
         new_state = {"h": h_new, "conv": conv_state}
     y = torch.einsum("bsw,wd->bsd", gate * h, p["w_out"].to(dt))
+    y = constrain(y, "batch", "seq", "embed")
     return x + y, new_state
 
 

@@ -14,8 +14,11 @@ Conventions, as there:
 * Every ``init_*`` draws from an explicit ``torch.Generator`` onto an
   explicit device; on the ``meta`` device it draws nothing (shapes only).
 
-Not ported yet: the sharding constraints (``constrain``, ``kv_cache_mode``:
-the identity and ``None`` without a mesh; ROADMAP.md queue 1, item 9).
+* ``constrain`` (``sharding.py``) stands at the JAX package's call sites:
+  the identity without an activation mesh; inside a data group of the
+  sharded step it makes an activation's layout over the model shards
+  explicit (``models/sharded.py``).  Decode attention under a mesh uses
+  the grouped forms of ``_sdpa`` (``kv_mode``, ``sharding.kv_cache_mode``).
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ import torch.nn.functional as F
 from torch.utils import checkpoint as _ckpt
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.sharding import constrain, kv_cache_mode
 
 # the matmul operators a "dots" policy keeps (einsum lowers to these)
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
@@ -190,19 +194,43 @@ def _expand_kv(k, H: int):
     return torch.repeat_interleave(k, H // K, dim=2)
 
 
-def _sdpa(q, k, v, mask, scale):
-    """q:[B,Sq,H,D] k,v:[B,Sk,K,D] mask:[B,1,Sq,Sk] → [B,Sq,H,D].  KV
-    expanded to H heads; logits cast to f32, masked with -1e30, softmax in
-    f32, probabilities cast to ``v.dtype`` before the PV product (the JAX
-    package's ``kv_mode=None`` branch)."""
-    H = q.shape[2]
-    k = _expand_kv(k, H)
-    v = _expand_kv(v, H)
-    logits = wide(torch.einsum("bqhd,bshd->bhqs", q, k))
+def _sdpa(q, k, v, mask, scale, kv_mode=None):
+    """q:[B,Sq,H,D] k,v:[B,Sk,K,D] mask:[B,1,Sq,Sk] → [B,Sq,H,D].  Logits
+    cast to f32, masked with -1e30, softmax in f32, probabilities cast to
+    ``v.dtype`` before the PV product.
+
+    ``kv_mode=None`` (training) expands KV to H heads (the head dim stays
+    intact for tensor parallelism).  Decode under a mesh uses the grouped
+    form, q ``[B, Sq, K, H/K, D]`` against the unexpanded cache:
+    ``kv_mode='seq'``: the cache's sequence dim is 'model'-split and the
+    logits keep it split (a softmax of partial max/sum);
+    ``kv_mode='heads'``: kv_heads divide the model axis and the grouped
+    products split on the K dim."""
+    B, Sq, H, D = q.shape
+    if kv_mode is None:
+        k = _expand_kv(k, H)
+        v = _expand_kv(v, H)
+        logits = wide(torch.einsum("bqhd,bshd->bhqs", q, k))
+        logits = constrain(logits * scale, "batch", "heads")
+        logits = logits.masked_fill(~mask, -1e30)
+        probs = torch.softmax(logits, dim=-1)
+        return torch.einsum("bhqs,bshd->bqhd", probs.to(v.dtype), v)
+
+    K = k.shape[2]
+    qg = q.reshape(B, Sq, K, H // K, D)
+    if kv_mode == "seq":
+        k = constrain(k, "batch", "kv_seq", None, "head_dim")
+        v = constrain(v, "batch", "kv_seq", None, "head_dim")
+    logits = wide(torch.einsum("bqkgd,bskd->bkgqs", qg, k))
     logits = logits * scale
-    logits = logits.masked_fill(~mask, -1e30)
+    if kv_mode == "seq":
+        logits = constrain(logits, "batch", None, None, None, "kv_seq")
+    else:
+        logits = constrain(logits, "batch", "kv_heads")
+    logits = logits.masked_fill(~mask[:, :, None], -1e30)
     probs = torch.softmax(logits, dim=-1)
-    return torch.einsum("bhqs,bshd->bqhd", probs.to(v.dtype), v)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs.to(v.dtype), v)
+    return out.reshape(B, Sq, H, D)
 
 
 def _sdpa_chunked(q, k, v, q_pos, k_pos, mode, window, scale, chunk):
@@ -229,6 +257,7 @@ def _sdpa_chunked(q, k, v, q_pos, k_pos, mode, window, scale, chunk):
         pb = k_pos[:, c * chunk:(c + 1) * chunk]
         logits = wide(torch.einsum("bqhd,bshd->bhqs", q, kb))
         logits = logits * scale
+        logits = constrain(logits, "batch", "heads")
         msk = _mask(q_pos, pb, mode, window)             # [B, Sq, chunk]
         logits = logits.masked_fill(~msk[:, None], -1e30)
         m_new = torch.maximum(m, logits.amax(dim=-1))
@@ -274,6 +303,7 @@ def attention(p, x, cfg: ModelConfig, *,
         positions = torch.arange(S, device=x.device).expand(B, S)
 
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
+    q = constrain(q, "batch", "seq", "heads", "head_dim")
     new_cache = None
     if kv is not None:                     # cross-attention
         k, v = kv
@@ -283,6 +313,9 @@ def attention(p, x, cfg: ModelConfig, *,
         q = rope(q, positions, cfg.rope_theta)
         k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(dt))
         v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(dt))
+        if cache is None:
+            k = constrain(k, "batch", "seq", "kv_heads", "head_dim")
+            v = constrain(v, "batch", "seq", "kv_heads", "head_dim")
         k = rope(k, positions, cfg.rope_theta)
         if cache is not None:              # decode with KV cache
             Sc = cache["k"].shape[1]
@@ -292,6 +325,10 @@ def attention(p, x, cfg: ModelConfig, *,
             cache["k"][:, slot:slot + S] = k.to(cache["k"].dtype)
             cache["v"][:, slot:slot + S] = v.to(cache["v"].dtype)
             k, v = cache["k"], cache["v"]
+            if kv_cache_mode(cfg) == "seq":
+                # keep the updated cache seq-split
+                k = constrain(k, "batch", "kv_seq", None, "head_dim")
+                v = constrain(v, "batch", "kv_seq", None, "head_dim")
             k_pos = cache_abs_pos(pos, Sc, x.device).expand(B, Sc)
             new_cache = {"k": k, "v": v, "pos": pos + S}
         else:                              # full-sequence self-attention
@@ -302,9 +339,11 @@ def attention(p, x, cfg: ModelConfig, *,
                             window, scale, cfg.attn_chunk)
     else:
         msk = _mask(positions, k_pos, mode, window)[:, None]
-        out = _sdpa(q, k.to(dt), v.to(dt), msk, scale)
+        out = _sdpa(q, k.to(dt), v.to(dt), msk, scale,
+                    kv_mode=kv_cache_mode(cfg) if cache is not None else None)
+    out = constrain(out, "batch", "seq", "heads", "head_dim")
     out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt))
-    return out, new_cache
+    return constrain(out, "batch", "seq", "embed"), new_cache
 
 
 # --------------------------------------------------------------------------
@@ -331,16 +370,20 @@ def mlp(p, x, cfg: ModelConfig):
     if cfg.act in ("swiglu", "geglu"):
         g = torch.einsum("bsd,df->bsf", x, p["wg"].to(dt))
         u = torch.einsum("bsd,df->bsf", x, p["wu"].to(dt))
+        g = constrain(g, "batch", "seq", "ff")
+        u = constrain(u, "batch", "seq", "ff")
         act = F.silu(g) if cfg.act == "swiglu" else F.gelu(g, approximate="tanh")
         h = act * u
     else:
         h = torch.einsum("bsd,df->bsf", x, p["wi"].to(dt))
+        h = constrain(h, "batch", "seq", "ff")
         if cfg.act == "sqrelu":
             r = F.relu(h)
             h = r * r
         else:
             h = F.gelu(h, approximate="tanh")
-    return torch.einsum("bsf,fd->bsd", h, p["wo"].to(dt))
+    out = torch.einsum("bsf,fd->bsd", h, p["wo"].to(dt))
+    return constrain(out, "batch", "seq", "embed")
 
 
 # --------------------------------------------------------------------------
@@ -360,7 +403,7 @@ def init_embedding(gen, cfg: ModelConfig, device):
 def embed(p, tokens, cfg: ModelConfig):
     """Rows of the token table, in the compute dtype (gathered, then cast:
     the same values as the JAX package's cast-then-gather)."""
-    return p["tok"][tokens].to(cdtype(cfg))
+    return constrain(p["tok"][tokens].to(cdtype(cfg)), "batch", "seq", "embed")
 
 
 def unembed(p, x, cfg: ModelConfig):
@@ -371,4 +414,4 @@ def unembed(p, x, cfg: ModelConfig):
         w = p["tok"].to(dt).T * (cfg.d_model ** -0.5)
     else:
         w = p["out"].to(dt)
-    return torch.einsum("bsd,dv->bsv", x, w)
+    return constrain(torch.einsum("bsd,dv->bsv", x, w), "batch", "seq", "vocab")

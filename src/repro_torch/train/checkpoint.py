@@ -29,6 +29,11 @@ Layout (one directory per step), the JAX package's::
 * **restore** — each leaf becomes a fresh tensor on the template leaf's
   device and in its dtype (never an alias of the template); numbers come
   back as the template's Python type.
+* **elastic** — a ``sharding.ShardedTensor`` leaf is saved whole (its
+  shards joined on the host), as the JAX package saves a sharded array;
+  ``restore(..., shardings=)`` splits each leaf onto the mesh its
+  ``NamedSharding`` names, which need not be the mesh (or the lack of
+  one) that wrote the checkpoint.
 
 ``STATS`` sums what the saves and restores since ``reset_stats`` moved and
 took: bytes, the snapshot (device to host) and the file writes of each
@@ -45,6 +50,8 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.sharding import ShardedTensor, _put
 
 _PENDING: Optional[threading.Thread] = None
 _PENDING_ERROR: List[BaseException] = []
@@ -107,6 +114,8 @@ def unflatten(template, leaves):
 
 def _to_host(leaf) -> Tuple[np.ndarray, str]:
     """(a host copy of ``leaf`` as numpy, its dtype name for the manifest)."""
+    if isinstance(leaf, ShardedTensor):
+        leaf = leaf.gather("cpu")
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
         if t.dtype == torch.bfloat16:
@@ -203,16 +212,23 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return s[-1] if s else None
 
 
-def _place(arr: np.ndarray, dtype_name: str, like):
+def _host_tensor(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
+    if dtype_name == "bfloat16":
+        return torch.from_numpy(np.asarray(arr, order="C").view(np.int16)).view(
+            torch.bfloat16)
+    return torch.from_numpy(np.asarray(arr, order="C"))
+
+
+def _place(arr: np.ndarray, dtype_name: str, like, shard=None):
     """The stored leaf as ``like``'s kind: a fresh tensor on its device and
-    in its dtype, a numpy array of its dtype, or a Python number."""
+    in its dtype, a numpy array of its dtype, or a Python number; split
+    onto a mesh by ``shard`` (a ``NamedSharding``) where given."""
+    if shard is not None and not isinstance(like, (bool, int, float)):
+        return _put(_host_tensor(arr, dtype_name), shard, dtype=like.dtype)
+    if isinstance(like, ShardedTensor):
+        return _put(_host_tensor(arr, dtype_name), like.sharding, dtype=like.dtype)
     if isinstance(like, torch.Tensor):
-        if dtype_name == "bfloat16":
-            t = torch.from_numpy(np.asarray(arr, order="C").view(np.int16)).view(
-                torch.bfloat16)
-        else:
-            t = torch.from_numpy(np.asarray(arr, order="C"))
-        return t.to(device=like.device, dtype=like.dtype)
+        return _host_tensor(arr, dtype_name).to(device=like.device, dtype=like.dtype)
     if isinstance(like, np.ndarray):
         return arr.astype(like.dtype)
     if isinstance(like, (bool, int, float)):
@@ -220,10 +236,15 @@ def _place(arr: np.ndarray, dtype_name: str, like):
     raise TypeError(f"cannot restore a leaf into a {type(like).__name__}")
 
 
-def restore(ckpt_dir: str, target, step: Optional[int] = None):
+def restore(ckpt_dir: str, target, step: Optional[int] = None,
+            shardings=None):
     """Restore into the structure of ``target`` (a tree of tensors, arrays
-    and numbers: each leaf's device, dtype and type); ``step`` None: the
-    latest complete checkpoint."""
+    and numbers: each leaf's device, dtype and type; a ``ShardedTensor``
+    leaf onto its own sharding); ``step`` None: the latest complete
+    checkpoint.  ``shardings``: a matching tree of ``NamedSharding``s, for
+    elastic placement on the *current* mesh (which may differ from the
+    mesh, or the one device, that wrote the checkpoint); ``target`` then
+    gives the dtypes (meta tensors will do, ``train_loop.state_specs``)."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -239,8 +260,12 @@ def restore(ckpt_dir: str, target, step: Optional[int] = None):
         raise ValueError(f"leaf count mismatch: checkpoint {manifest['n_leaves']} "
                          f"vs target {len(t_leaves)}")
     dtypes = manifest.get("dtypes", [None] * len(t_leaves))
+    s_leaves = flatten(shardings)[0] if shardings is not None \
+        else [None] * len(t_leaves)
+    if len(s_leaves) != len(t_leaves):
+        raise ValueError(f"{len(s_leaves)} shardings for {len(t_leaves)} leaves")
     out = []
-    for i, (t, dt) in enumerate(zip(t_leaves, dtypes)):
+    for i, (t, dt, sh) in enumerate(zip(t_leaves, dtypes, s_leaves)):
         t0 = time.perf_counter()
         arr = np.load(os.path.join(path, _leaf_name(i)))
         t1 = time.perf_counter()
@@ -248,7 +273,7 @@ def restore(ckpt_dir: str, target, step: Optional[int] = None):
         if tuple(arr.shape) != want:
             raise ValueError(f"leaf {i}: checkpoint shape {arr.shape} vs "
                              f"target {want}")
-        out.append(_place(arr, dt, t))
+        out.append(_place(arr, dt, t, sh))
         STATS["read_s"] += t1 - t0
         STATS["place_s"] += time.perf_counter() - t1
         STATS["restore_bytes"] += arr.nbytes

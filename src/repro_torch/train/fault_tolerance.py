@@ -98,6 +98,7 @@ def run_with_restarts(*,
                       ckpt_dir: str,
                       ckpt_every: int = 10,
                       max_failures: int = 3,
+                      shardings=None,
                       watchdog: Optional[Watchdog] = None,
                       injector: Optional[FailureInjector] = None,
                       on_metrics: Optional[Callable] = None,
@@ -111,7 +112,8 @@ def run_with_restarts(*,
     checkpoint restores into), saves every ``ckpt_every`` steps, after the
     last one and when preempted, and restarts after a ``RuntimeError`` up to
     ``max_failures`` times; each restart calls ``on_restart(failures,
-    error)`` first.  ``on_metrics(step, state, seconds)`` runs after every
+    error)`` first.  ``shardings`` goes to ``checkpoint.restore``: a
+    restore places the state on the current mesh.  ``on_metrics(step, state, seconds)`` runs after every
     step.
     """
     failures = 0
@@ -121,7 +123,8 @@ def run_with_restarts(*,
             try:
                 latest = checkpoint.latest_step(ckpt_dir)
                 if latest is not None:
-                    state = checkpoint.restore(ckpt_dir, init_fn())
+                    state = checkpoint.restore(ckpt_dir, init_fn(),
+                                               shardings=shardings)
                     start = latest
                 else:
                     state = init_fn()

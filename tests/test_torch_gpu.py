@@ -1404,3 +1404,44 @@ def test_lm_family_loss_and_grads_on_the_card_match_the_cpu(cuda, name, kw):
                     1e-9 * float(want64[i].abs().max())
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+@pytest.mark.parametrize("name", ["recurrentgemma-9b", "granite-8b"])
+def test_sharded_step_on_the_card_matches_the_cpu(cuda, name):
+    """``chip_smoke.py`` phase 16 (a) at tiny widths: one sharded AdamW step
+    on a (2, 2) mesh of the card (Griffin: K6 on each model shard's slice,
+    forward, recompute and dx, 3 x recurrent layers x 2 model shards x 2
+    data groups launches) against the unsharded step on the CPU, f32, TF32
+    off: loss 1e-5 relative, the moments within 1e-4 of each leaf's max."""
+    import dataclasses
+    from repro_torch import configs, sharding
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.kernels.conv1d import conv1d
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import griffin
+    from repro_torch.train import data, optimizer, train_loop
+    cfg = dataclasses.replace(configs.tiny(configs.get(name)), dtype="float32",
+                              remat=True)
+    shape = dataclasses.replace(SHAPES["train_4k"], seq_len=64, global_batch=4)
+    batch = data.make_batch_fn(cfg, shape, seed=0)(0)
+    tc = train_loop.TrainConfig(opt=optimizer.OptConfig(warmup_steps=0))
+    mesh = make_mesh((2, 2), ("data", "model"))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        state = sharding.device_put(train_loop.init_state(cfg, device="cpu", seed=1),
+                                    train_loop.state_shardings(cfg, mesh))
+        _, step = train_loop.compile_train_step(cfg, tc, mesh, batch)
+        n = conv1d.causal_conv1d_cuda.launches
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        n_rec = griffin.block_types(cfg).count("rec") if cfg.family == "hybrid" else 0
+        assert conv1d.causal_conv1d_cuda.launches - n == 3 * n_rec * 2 * 2
+        ref, mr = train_loop.make_train_step(cfg, tc)(
+            train_loop.init_state(cfg, device="cpu", seed=1), batch)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert abs(float(m["loss"]) - float(mr["loss"])) <= 1e-5 * abs(float(mr["loss"]))
+    got = sharding.gather(state["opt"], device="cpu")
+    for a, b in zip(optimizer.tree_leaves(got), optimizer.tree_leaves(ref["opt"])):
+        assert float((a - b).abs().max()) <= 1e-4 * max(float(b.abs().max()), 1e-30)

@@ -224,3 +224,38 @@ def test_distributed_modules_load_neither_jax_nor_repro():
                          env=dict(os.environ, PYTHONPATH=str(REPO / "src")),
                          timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+# the LM side of the distributed layer: the sharding rules and placement,
+# the sharded execution of the families
+LM_DISTRIBUTED_MODULES = ("repro_torch.sharding", "repro_torch.models.sharded")
+
+
+@pytest.mark.parametrize("mod", LM_DISTRIBUTED_MODULES)
+def test_lm_distributed_modules_are_checked(mod):
+    assert REPO / "src" / (mod.replace(".", "/") + ".py") in FILES
+
+
+def test_lm_distributed_modules_load_neither_jax_nor_repro():
+    """Importing the sharding rules and the sharded execution in a fresh
+    interpreter leaves ``jax`` and ``repro`` out of ``sys.modules``."""
+    code = ("import sys\n"
+            + "".join(f"import {m}\n" for m in LM_DISTRIBUTED_MODULES)
+            + "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+              "('jax', 'jaxlib', 'repro'))\n"
+              "print(bad)\n"
+              "assert not bad\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=str(REPO / "src")),
+                         timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_production_mesh_defaults_to_the_card(monkeypatch):
+    from repro_torch.launch import mesh as mesh_mod
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mesh_mod.make_production_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_cli.main(["--preset", "full", "--steps", "1"])

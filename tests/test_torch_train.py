@@ -37,7 +37,8 @@ from repro.models import api as japi  # noqa: E402
 from repro.train import data as jdata  # noqa: E402
 from repro.train import optimizer as jopt  # noqa: E402
 from repro.train import train_loop as jtl  # noqa: E402
-from repro_torch import configs, interop  # noqa: E402
+from repro_torch import configs, interop, sharding  # noqa: E402
+from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.configs.shapes import SHAPES  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.models import api  # noqa: E402
@@ -387,10 +388,27 @@ def test_launch_train_smoke_on_the_cpu(capsys):
 @pytest.mark.parametrize("argv", [["--preset", "full"],
                                   ["--ckpt-dir", "ckpt", "--device", "cpu"]],
                          ids=["full", "ckpt"])
-def test_launch_train_not_ported_options(argv, tmp_path, capsys):
+def test_launch_train_not_ported_options(argv, tmp_path, capsys, monkeypatch):
+    """Both options, once not ported, run: ``--preset full`` (the config
+    ``configs.get`` gives, here the tiny one, on the production mesh of CPU
+    shards) and ``--ckpt-dir``."""
     if "--ckpt-dir" not in argv:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            train_cli.main(argv)
+        get = configs.get
+        monkeypatch.setattr(train_cli.configs, "get",
+                            lambda name: configs.tiny(get(name)))
+        losses = train_cli.main(argv + ["--device", "cpu", "--arch",
+                                        "phi3-mini-3.8b", "--global-batch", "16",
+                                        "--seq-len", "8", "--steps", "2"])
+        out = capsys.readouterr().out
+        assert len(losses) == 2 and all(np.isfinite(losses))
+        assert "{'data': 16, 'model': 16}" in out
+        # the first loss is the unsharded step's on the same state and batch
+        cfg = configs.tiny(configs.get("phi3-mini-3.8b"))
+        shape = dataclasses.replace(SHAPES["train_4k"], seq_len=8, global_batch=16)
+        _, m = train_loop.make_train_step(cfg, train_loop.TrainConfig())(
+            train_loop.init_state(cfg, device=CPU, seed=0),
+            data.make_batch_fn(cfg, shape, seed=0)(0))
+        np.testing.assert_allclose(losses[0], float(m["loss"]), rtol=F32_TOL)
         return
     # --ckpt-dir is ported: two steps with a checkpoint after each, then a
     # second run on the same directory resumes after step 2
@@ -407,11 +425,26 @@ def test_launch_train_not_ported_options(argv, tmp_path, capsys):
 
 
 def test_sharded_step_is_not_ported():
+    """Once not ported, the sharded step runs: ``state_shardings`` and
+    ``compile_train_step`` on a (2, 2) CPU mesh, one step of the tiny
+    Griffin to the unsharded step's loss; MoE is item 9b."""
     _, cfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="item 9"):
-        train_loop.state_shardings(cfg, None)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        train_loop.compile_train_step(cfg, train_loop.TrainConfig(), None, {})
+    mesh = make_mesh((2, 2), ("data", "model"), devices=[CPU])
+    shard = train_loop.state_shardings(cfg, mesh)
+    state = sharding.device_put(train_loop.init_state(cfg, device=CPU, seed=3),
+                                shard)
+    batch = _batch(B=4, S=16, seed=4)
+    tc = train_loop.TrainConfig(opt=optimizer.OptConfig(warmup_steps=0))
+    plan, step = train_loop.compile_train_step(cfg, tc, mesh, batch)
+    assert plan.in_shardings[0] is shard or plan.in_shardings[0] == shard
+    state, m = step(state, batch)
+    _, want = train_loop.make_train_step(cfg, tc)(
+        train_loop.init_state(cfg, device=CPU, seed=3), batch)
+    assert state["step"] == 1
+    np.testing.assert_allclose(float(m["loss"]), float(want["loss"]), rtol=F32_TOL)
+    moe = configs.tiny(configs.get("mixtral-8x7b"))
+    with pytest.raises(NotImplementedError, match="item 9b"):
+        train_loop.compile_train_step(moe, tc, mesh, batch)
 
 
 def test_training_entry_points_default_to_the_card(monkeypatch):
@@ -421,3 +454,52 @@ def test_training_entry_points_default_to_the_card(monkeypatch):
         train_loop.init_state(cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_cli.main(["--steps", "1"])
+
+
+# -- gradient compression -----------------------------------------------------------
+def test_int8_compression_matches_jax():
+    """``compress_int8``'s ``q`` and ``scale`` bit for bit the JAX
+    package's on the same numpy input (ties of round-half-even included),
+    and the round trip within one step of the scale."""
+    rng = np.random.default_rng(0)
+    g = {"w": rng.standard_normal((64, 64)).astype(np.float32),
+         "b": np.array([0.5, -1.5, 2.5, 127.0, -127.0, 0.0], np.float32),
+         "z": np.zeros((3,), np.float32)}
+    got = optimizer.compress_int8(tree_map(torch.tensor, g))
+    want = jopt.compress_int8(jax.tree.map(jnp.asarray, g))
+    for k in g:
+        assert got[k]["q"].dtype == torch.int8
+        np.testing.assert_array_equal(got[k]["q"].numpy(), np.asarray(want[k]["q"]))
+        assert np.float32(got[k]["scale"]) == np.float32(want[k]["scale"])
+    back = optimizer.decompress_int8(got)
+    want_back = jopt.decompress_int8(want)
+    for k in g:
+        np.testing.assert_array_equal(back[k].numpy(), np.asarray(want_back[k]))
+    err = float((back["w"] - torch.tensor(g["w"])).abs().max())
+    assert err <= float(np.abs(g["w"]).max()) / 127.0 + 1e-6
+
+
+def test_int8_compression_is_convergence_neutral():
+    """The JAX package's check on the port: 20 steps of the tiny granite
+    with int8-compressed gradients reach a loss within 5% of exact-gradient
+    training (lr 1e-3, warmup 5, batch 8 x 32)."""
+    cfg = dataclasses.replace(configs.tiny(configs.get("granite-8b")))
+    shape = dataclasses.replace(SHAPES["train_4k"], seq_len=32, global_batch=8)
+    batch_fn = data.make_batch_fn(cfg, shape, seed=0)
+    oc = optimizer.OptConfig(lr=1e-3, warmup_steps=5, total_steps=50)
+    grad_fn = train_loop.make_loss_and_grad(cfg)
+
+    def run(compress):
+        state = train_loop.init_state(cfg, device=CPU, seed=0)
+        for s in range(20):
+            b = {k: torch.as_tensor(v) for k, v in batch_fn(s).items()}
+            loss, g = grad_fn(state["params"], b)
+            if compress:
+                g = optimizer.decompress_int8(optimizer.compress_int8(g))
+            optimizer.apply(oc, state["params"], g, state["opt"], state["step"],
+                            ndims=api.stacked_ndims(cfg, state["params"]))
+            state["step"] += 1
+        return float(loss)
+
+    exact, comp = run(False), run(True)
+    assert abs(comp - exact) / abs(exact) < 0.05, (exact, comp)
