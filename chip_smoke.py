@@ -240,7 +240,18 @@ Phases, each of which exits non-zero when it fails:
    --global-batch 16 --seq-len 512 --steps 2`` (in-process, bf16): its
    first loss within phase 9's bf16 1e-3 of the unsharded loss on the same
    parameters and batch (a forward pass, run first, then freed), seconds
-   a step and peak GB; K1-K7 stay 0 there.
+   a step and peak GB; K1-K7 stay 0 there; (c) mixtral-8x7b (its
+   published capacity, tokens dropped, the load-balancing loss against
+   the unsharded one), pixtral-12b, xlstm-1.3b (f64) and whisper-small on
+   (2, 2): the same f32 gates, then timed bf16 steps (MoE's statistics
+   pass timed apart), K1-K7 staying 0; (d) ``--preset full`` whisper-small
+   on (16, 16), its first loss against the unsharded one.
+17. Sharded serving: one config a family on a (2, 2) mesh of the card
+   and granite-8b whole on (16, 16) (its cache split by sequence), f32:
+   the sharded prefill's logits and the greedy tokens of the sharded
+   decode against the unsharded steps; every K6 launch of the sharded
+   prefill and decode on a model shard's slice bit for bit its plain
+   version, counted, and timed beside it and ``F.conv1d``.
 
 It prints the kernels line ``{"kernels": [...]}`` and then, last,
 ``{"ok": true, "device": {...}}``.  ``--quick`` runs phases 1–3 at the two
@@ -256,13 +267,17 @@ K4 gmem and K2's ``RT_MAP`` build theirs in phase 14's sharded runs and
 K6 its launches in phase 16's sharded training steps (``sharded_launches``),
 and lists K6 once a path (``causal_conv1d``: serving, at the decode shape;
 ``causal_conv1d.train``: training, at its shape; ``causal_conv1d.sharded``:
-phase 16's sharded training, at one model shard's shape).  Phase 15
+phase 16's sharded training, at one model shard's shape;
+``causal_conv1d.sharded_prefill`` and ``causal_conv1d.sharded_decode``:
+phase 17's sharded serving, at a model shard's prefill and decode
+shapes).  Phase 15
 sets the counts to 0 before its models and checks that they stay 0.  The script imports neither
 JAX nor the JAX package, and needs nothing outside the checkout.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import math
@@ -510,6 +525,48 @@ SHARD_MESH = (2, 2)
 SHARD_STEPS = 3
 SHARD_LOSS_RTOL, SHARD_GRAD_TOL = 1e-5, 1e-4
 FULL_ARCH, FULL_BATCH, FULL_SEQ, FULL_STEPS = "phi3-mini-3.8b", 16, 512, 2
+# (c) the four families PR 24 added, on SHARD_MESH: the gates of (a) at
+# phase 15 (d)'s depths (LM_CPU) and batch, xLSTM in f64 (its f32
+# gradients are ill-conditioned), mixtral at MOE_GATE_BATCH x
+# MOE_GATE_SEQ tokens with its published capacity 1.25 (each data group
+# one whole routing group of 4096 tokens, capacity 1280 of 8192 slots:
+# tokens dropped), its load-balancing loss within SHARD_AUX_RTOL of the
+# unsharded one; then SHARD_STEPS timed bf16 steps at phase 15 (c)'s
+# depths (LM_TRAIN), FAMILY_BATCH x LM_TRAIN_SEQ.  (d) the CLI's --preset
+# full for AUDIO_FULL_ARCH whole on the production mesh (16, 16), its
+# heads (12) and vocab (51865) replicated over the 16 model shards:
+# AUDIO_FULL_STEPS steps, the first loss within TRAIN_LOSS_RTOL of the
+# unsharded bf16 loss
+FAMILY_ARCHS = ("mixtral-8x7b", "pixtral-12b", "xlstm-1.3b", "whisper-small")
+MOE_GATE_BATCH, MOE_GATE_SEQ, SHARD_AUX_RTOL = 2, 4096, 1e-6
+FAMILY_BATCH = 2
+AUDIO_FULL_ARCH, AUDIO_FULL_BATCH, AUDIO_FULL_SEQ, AUDIO_FULL_STEPS = (
+    "whisper-small", 16, 1024, 2)
+# phase 17: sharded serving.  (a) one config a family on SERVE_MESH at
+# phase 15's depths (recurrentgemma-9b at phase 9's), f32: the sharded
+# prefill's logits within SERVE17_TOL of the largest |logit| of the
+# unsharded prefill, SERVE17_NEW greedy tokens a row after a prompt of
+# SERVE17_PROMPT, token for token the unsharded decode's; every K6 launch
+# of the sharded prefill (one a model shard, data group and recurrent
+# layer) and of the sharded decode (as many again a step) bit for bit its
+# plain version, and counted.  (b) GRANITE17_ARCH whole on the
+# production mesh, GRANITE17_BATCH rows (one a data group), cache
+# GRANITE17_CACHE: its 8 KV heads do not split 16 ways, so the cache
+# splits by sequence (kv_mode "seq"); the same gates.  (b)'s prompt enters
+# the cache through the port's unsharded transformer.prefill (a sharded
+# decode step of the 256 shards takes seconds, host-bound), then
+# SERVE17_NEW sharded decode steps
+SERVE17 = {"phi3-mini-3.8b": {}, "mixtral-8x7b": {"n_layers": 6},
+           "pixtral-12b": {"n_layers": 31}, "xlstm-1.3b": {}, "whisper-small": {},
+           "recurrentgemma-9b": {"n_layers": 3}}
+SERVE_MESH = (2, 2)
+SERVE17_BATCH, SERVE17_PROMPT, SERVE17_NEW, SERVE17_TOL = 2, 16, 8, 1e-3
+# the prefill's prompt where it differs from SERVE17_PROMPT: a MoE prefill
+# routes groups of min(group_size, the batch's tokens), and mixtral's 4096
+# is one row only at a prompt of 4096 (shorter, a routing group would
+# straddle the data groups at capacity 1.25, which the port refuses)
+SERVE17_PREFILL = {"mixtral-8x7b": 4096}
+GRANITE17_ARCH, GRANITE17_BATCH, GRANITE17_CACHE = "granite-8b", 16, 4096
 
 
 def bf16_ulp(scale: float) -> float:
@@ -3509,15 +3566,37 @@ def _timed_steps(torch, device, step_fn, state, batches):
     return state, step_s, losses
 
 
+@contextlib.contextmanager
+def timed_statistics(torch, train_loop, device, seconds):
+    """``train_loop.moe_statistics`` (MoE's statistics pass) timed, the
+    device synchronized around it: each call's seconds appended to
+    ``seconds``."""
+    inner = train_loop.moe_statistics
+
+    def timed(*a, **k):
+        sync(torch, device)
+        t0 = time.perf_counter()
+        out = inner(*a, **k)
+        sync(torch, device)
+        seconds.append(time.perf_counter() - t0)
+        return out
+    train_loop.moe_statistics = timed
+    try:
+        yield seconds
+    finally:
+        train_loop.moe_statistics = inner
+
+
 def _steady_ms(step_s) -> float:
     rest = step_s[1:] or step_s
     return 1e3 * sorted(rest)[len(rest) // 2]
 
 
 def sharded_gates(torch, mods, cfg, mesh, batch, device, adamw=True):
-    """Phase 16 in f32 compute: the sharded loss and gradients against the
-    unsharded ones on the same parameters and batch; then (``adamw``) one
-    sharded AdamW step and its replicas.  Returns the record."""
+    """Phase 16 in f32 (or f64) compute: the sharded loss and gradients
+    against the unsharded ones on the same parameters and batch (MoE: the
+    load-balancing loss too); then (``adamw``) one sharded AdamW step and
+    its replicas.  Returns the record."""
     api, train_loop, optimizer, sharding = (mods["api"], mods["train_loop"],
                                             mods["optimizer"], mods["sharding"])
     base = reset_peak(torch, device)
@@ -3527,12 +3606,17 @@ def sharded_gates(torch, mods, cfg, mesh, batch, device, adamw=True):
     loss_u, grads_u = train_loop.make_loss_and_grad(cfg)(params, tb)
     sync(torch, device)
     t1 = time.perf_counter()
+    if cfg.moe:                      # the unsharded load-balancing loss
+        with torch.no_grad():
+            aux_u = float(api.loss_fn(cfg, params, tb)[1]["aux"])
     placed = sharding.device_put(params, train_loop.state_shardings(cfg, mesh)["params"],
                                  donate=True)
     del params
     sync(torch, device)
     t2 = time.perf_counter()
-    loss_s, grads_s = train_loop.make_sharded_loss_and_grad(cfg, mesh)(placed, batch)
+    fn = train_loop.make_sharded_loss_and_grad(cfg, mesh)
+    with timed_statistics(torch, train_loop, device, []) as stats_s:
+        loss_s, grads_s, metrics_s = fn(placed, batch)
     lu, ls = float(loss_u), float(loss_s)
     sync(torch, device)
     t3 = time.perf_counter()
@@ -3555,12 +3639,25 @@ def sharded_gates(torch, mods, cfg, mesh, batch, device, adamw=True):
            "loss_rel_diff": abs(ls - lu) / abs(lu), "grad_worst_rel_diff": worst,
            "grad_worst_leaf": worst_leaf, "unsharded_loss_and_grad_s": t1 - t0,
            "place_s": t2 - t1, "sharded_loss_and_grad_s": t3 - t2}
-    line = (f"sharded training gates (f32, {cfg.name} {cfg.n_layers} layers, "
+    aux_line = ""
+    if cfg.moe:
+        aux_s = float(metrics_s["aux"])
+        rec.update(aux_sharded=aux_s, aux_unsharded=aux_u,
+                   aux_rel_diff=abs(aux_s - aux_u) / abs(aux_u),
+                   stats_pass_s=sum(stats_s))
+        if not abs(aux_s - aux_u) <= SHARD_AUX_RTOL * abs(aux_u):
+            fail(f"sharded training ({cfg.name}): load-balancing loss {aux_s!r}, "
+                 f"unsharded {aux_u!r} (limit {SHARD_AUX_RTOL} relative)")
+        aux_line = (f"; load-balancing loss {aux_s!r} vs {aux_u!r} (relative "
+                    f"{rec['aux_rel_diff']:.3g}, limit {SHARD_AUX_RTOL}), statistics "
+                    f"pass {sum(stats_s):.3f} s")
+    line = (f"sharded training gates ({cfg.dtype}, {cfg.name} {cfg.n_layers} layers, "
             f"{batch['tokens'].shape[0]} x {batch['tokens'].shape[1]}, mesh "
             f"{mesh.shape}): loss {ls!r} vs unsharded {lu!r} (relative "
             f"{rec['loss_rel_diff']:.3g}, limit {SHARD_LOSS_RTOL}); worst gradient "
             f"leaf {worst_leaf} {worst:.3g} of its max (limit {SHARD_GRAD_TOL}); "
-            f"loss and gradients {t3 - t2:.2f} s sharded, {t1 - t0:.2f} s not")
+            f"loss and gradients {t3 - t2:.2f} s sharded, {t1 - t0:.2f} s not"
+            + aux_line)
     if adamw:
         tc = train_loop.TrainConfig(opt=optimizer.OptConfig(warmup_steps=1,
                                                             total_steps=2))
@@ -3728,9 +3825,30 @@ def sharded_train_phase(torch, mods, counters, rates, device="cuda"):
         torch, mods, dataclasses.replace(cfg_b, dtype="float32"),
         mesh_mod.make_production_mesh(devices=devices), batch0, device,
         adamw=False)
-    # the unsharded reference: the first step's loss is the loss of the
-    # parameters it starts from, so a forward pass on them gives it (a whole
-    # unsharded step of 61 GB beside what earlier phases hold does not fit)
+    rec["full"] = full_cli_run(torch, mods, counters, FULL_ARCH, FULL_BATCH, FULL_SEQ,
+                               FULL_STEPS, device)
+    reset_peak(torch, device)
+    rec["seconds"] = time.perf_counter() - t_phase
+    say(f"sharded training phase: {rec['seconds']:.1f} s")
+    return rec, entry
+
+
+def full_cli_run(torch, mods, counters, arch, batch, seq, steps, device):
+    """The CLI's ``--preset full`` for ``arch`` whole on the production mesh
+    of the card, ``batch`` x ``seq``, ``steps`` steps at the config's bf16:
+    the first loss within ``TRAIN_LOSS_RTOL`` of the unsharded loss on the
+    same parameters and batch (a forward pass: the first step's loss is
+    that of the parameters it starts from, and a whole unsharded step may
+    not fit beside what earlier phases hold).  Returns the row."""
+    import dataclasses
+    configs, train_loop, data, shapes, api, train_cli = (
+        mods["configs"], mods["train_loop"], mods["data"], mods["shapes"],
+        mods["api"], mods["train_cli"])
+    reset_counts, counts = counters
+    cfg_b = configs.get(arch)
+    shape_b = dataclasses.replace(shapes.SHAPES["train_4k"], seq_len=seq,
+                                  global_batch=batch)
+    batch0 = data.make_batch_fn(cfg_b, shape_b, seed=0)(0)
     base = reset_peak(torch, device)
     params = api.init_params(cfg_b, device=device, seed=0)
     sync(torch, device)
@@ -3738,8 +3856,8 @@ def sharded_train_phase(torch, mods, counters, rates, device="cuda"):
     with torch.no_grad():
         loss_u, _ = api.loss_fn(cfg_b, params, {
             k: torch.as_tensor(v, device=device) for k, v in batch0.items()})
-        lu = [float(loss_u)]
-    su = [time.perf_counter() - t0]
+        lu = float(loss_u)
+    su = time.perf_counter() - t0
     peak_bu = peak_gb(torch, device, base)
     del params, loss_u
     base = reset_peak(torch, device)
@@ -3758,9 +3876,9 @@ def sharded_train_phase(torch, mods, counters, rates, device="cuda"):
             cli_s.append(time.perf_counter() - t1)
             return out
         return plan_, run
-    argv = ["--preset", "full", "--arch", FULL_ARCH, "--global-batch",
-            str(FULL_BATCH), "--seq-len", str(FULL_SEQ), "--steps", str(FULL_STEPS)]
-    if devices is not None:
+    argv = ["--preset", "full", "--arch", arch, "--global-batch", str(batch),
+            "--seq-len", str(seq), "--steps", str(steps)]
+    if torch.device(device).type != "cuda":
         argv += ["--device", str(device)]
     train_loop.compile_train_step = timed_compile
     reset_counts()
@@ -3770,34 +3888,364 @@ def sharded_train_phase(torch, mods, counters, rates, device="cuda"):
     finally:
         train_loop.compile_train_step = compile_step
     cli_total = time.perf_counter() - t0
-    seen_b = counts()
+    seen = counts()
     peak_bs = peak_gb(torch, device, base)
-    diff = abs(losses[0] - lu[0]) / abs(lu[0])
-    if any(seen_b.values()):
-        fail(f"launch.train --preset full: launch counts {seen_b}, expected none")
-    if not (len(losses) == FULL_STEPS and all(math.isfinite(v) for v in losses)
+    diff = abs(losses[0] - lu) / abs(lu)
+    if any(seen.values()):
+        fail(f"launch.train --preset full {arch}: launch counts {seen}, expected none")
+    if not (len(losses) == steps and all(math.isfinite(v) for v in losses)
             and diff <= TRAIN_LOSS_RTOL):
-        fail(f"launch.train --preset full: losses {losses}, the unsharded loss "
-             f"{lu[0]!r} ({diff:.3g} apart, limit {TRAIN_LOSS_RTOL})")
+        fail(f"launch.train --preset full {arch}: losses {losses}, the unsharded "
+             f"loss {lu!r} ({diff:.3g} apart, limit {TRAIN_LOSS_RTOL})")
     n_params = api.param_count(cfg_b)
-    rec["full"] = {"arch": FULL_ARCH, "params": n_params, "mesh": [16, 16],
-                   "batch": FULL_BATCH, "seq": FULL_SEQ, "dtype": cfg_b.dtype,
-                   "losses": losses, "unsharded_loss": lu[0],
-                   "first_loss_rel_diff": diff, "sharded_step_s": cli_s,
-                   "unsharded_forward_s": su,
-                   "cli_seconds": cli_total, "sharded_peak_gb": peak_bs,
-                   "unsharded_peak_gb": peak_bu}
-    say(f"launch.train --preset full {FULL_ARCH} ({n_params} params, "
+    row = {"arch": arch, "params": n_params, "mesh": [16, 16], "batch": batch,
+           "seq": seq, "dtype": cfg_b.dtype, "losses": losses, "unsharded_loss": lu,
+           "first_loss_rel_diff": diff, "sharded_step_s": cli_s,
+           "unsharded_forward_s": [su], "cli_seconds": cli_total,
+           "sharded_peak_gb": peak_bs, "unsharded_peak_gb": peak_bu}
+    say(f"launch.train --preset full {arch} ({n_params} params, "
         f"{cfg_b.dtype}) on the production mesh (16, 16) of one card, "
-        f"{FULL_BATCH} x {FULL_SEQ}: losses {losses}, first {diff:.3g} from the "
-        f"unsharded loss {lu[0]!r} (limit {TRAIN_LOSS_RTOL}, bf16); "
+        f"{batch} x {seq}: losses {losses}, first {diff:.3g} from the "
+        f"unsharded loss {lu!r} (limit {TRAIN_LOSS_RTOL}, bf16); "
         f"{', '.join(f'{t:.2f}' for t in cli_s)} s a step, peak {peak_bs} GB "
-        f"(CLI {cli_total:.1f} s in all); the unsharded forward {su[0]:.2f} s, "
+        f"(CLI {cli_total:.1f} s in all); the unsharded forward {su:.2f} s, "
         f"peak {peak_bu} GB")
     reset_peak(torch, device)
+    return row
+
+
+def family_cfg(configs, name, kw):
+    """``name``'s config with ``kw`` replaced."""
+    import dataclasses
+    return dataclasses.replace(configs.get(name), **kw)
+
+
+def sharded_families_phase(torch, mods, counters, lm_rec, device="cuda"):
+    """Phase 16 (c): ``FAMILY_ARCHS`` on a ``SHARD_MESH`` mesh of the card:
+    f32 gates (xLSTM f64; mixtral at its published capacity with tokens
+    dropped, its load-balancing loss too), then ``SHARD_STEPS`` timed bf16
+    steps beside phase 15 (c)'s unsharded step (``lm_rec``); (d) the CLI's
+    ``--preset full`` for ``AUDIO_FULL_ARCH`` on the production mesh.  No
+    K1-K7 launch.  Returns the record."""
+    import dataclasses
+    configs, train_loop, optimizer, data, shapes, mesh_mod = (
+        mods["configs"], mods["train_loop"], mods["optimizer"], mods["data"],
+        mods["shapes"], mods["mesh"])
+    reset_counts, counts = counters
+    t_phase = time.perf_counter()
+    devices = None if torch.device(device).type == "cuda" else [device]
+    mesh = mesh_mod.make_mesh(SHARD_MESH, ("data", "model"), devices)
+    rec = {"gates": {}, "train": {}}
+    reset_counts()
+    for name in FAMILY_ARCHS:
+        t0 = time.perf_counter()
+        dt = "float64" if name.startswith("xlstm") else "float32"
+        cfg = dataclasses.replace(family_cfg(configs, name, LM_CPU[name]), dtype=dt,
+                                  param_dtype=dt)
+        if cfg.moe:
+            B, seq = MOE_GATE_BATCH, MOE_GATE_SEQ
+        else:
+            B = LM_CPU_BATCH
+            seq = {"vlm": LM_CPU_TOKENS + cfg.n_prefix_tokens,
+                   "audio": 2 * LM_CPU_TOKENS}.get(cfg.family, LM_CPU_TOKENS)
+        shape = dataclasses.replace(shapes.SHAPES["train_4k"], seq_len=seq,
+                                    global_batch=B)
+        row = sharded_gates(torch, mods, cfg, mesh,
+                            data.make_batch_fn(cfg, shape, seed=0)(0), device,
+                            adamw=False)
+        row.update(batch=B, seq=seq, dtype=dt, seconds=time.perf_counter() - t0)
+        rec["gates"][name] = row
+        reset_peak(torch, device)
+    for name in FAMILY_ARCHS:
+        cfg = family_cfg(configs, name, LM_TRAIN[name])
+        shape = dataclasses.replace(shapes.SHAPES["train_4k"], seq_len=LM_TRAIN_SEQ,
+                                    global_batch=FAMILY_BATCH)
+        batch_fn = data.make_batch_fn(cfg, shape, seed=0)
+        batches = [batch_fn(s) for s in range(SHARD_STEPS)]
+        tc = train_loop.TrainConfig(opt=optimizer.OptConfig(
+            warmup_steps=1, total_steps=SHARD_STEPS))
+        base = reset_peak(torch, device)
+        state = train_loop.init_sharded_state(cfg, mesh, seed=0)
+        _, step = train_loop.compile_train_step(cfg, tc, mesh, batches[0])
+        with timed_statistics(torch, train_loop, device, []) as stats_s:
+            state, step_s, losses = _timed_steps(torch, device, step, state, batches)
+        peak = peak_gb(torch, device, base)
+        del state
+        reset_peak(torch, device)
+        if not all(math.isfinite(v) for v in losses):
+            fail(f"sharded training {name}: losses {losses}")
+        u = lm_rec["train"].get(name, {})
+        row = {"arch": name, "n_layers": cfg.n_layers, "mesh": list(SHARD_MESH),
+               "batch": FAMILY_BATCH, "seq": LM_TRAIN_SEQ, "dtype": cfg.dtype,
+               "sharded_step_s": step_s, "sharded_ms_per_step": _steady_ms(step_s),
+               "losses": losses, "sharded_peak_gb": peak,
+               "unsharded_ms_per_step_1_row": u.get("ms_per_step"),
+               "unsharded_peak_gb_1_row": u.get("peak_gb")}
+        if cfg.moe:
+            row["stats_pass_s"] = stats_s
+        rec["train"][name] = row
+        say(f"sharded training {name} ({cfg.dtype}, {cfg.n_layers} layers, mesh "
+            f"{mesh.shape}, {FAMILY_BATCH} x {LM_TRAIN_SEQ}): "
+            f"{', '.join(f'{1e3 * t:.1f}' for t in step_s)} ms a step (wall), steady "
+            f"{row['sharded_ms_per_step']:.1f} ms, peak {peak} GB"
+            + (f", MoE statistics pass {', '.join(f'{1e3 * t:.1f}' for t in stats_s)}"
+               f" ms" if cfg.moe else "")
+            + f"; unsharded (phase 15 (c), 1 x {LM_TRAIN_SEQ}) "
+            f"{row['unsharded_ms_per_step_1_row']} ms, peak "
+            f"{row['unsharded_peak_gb_1_row']} GB; losses {losses}")
+    seen = counts()
+    if any(seen.values()):
+        fail(f"sharded families: launch counts {seen}, expected none of K1-K7")
+    rec["audio_full"] = full_cli_run(torch, mods, counters, AUDIO_FULL_ARCH,
+                                     AUDIO_FULL_BATCH, AUDIO_FULL_SEQ,
+                                     AUDIO_FULL_STEPS, device)
     rec["seconds"] = time.perf_counter() - t_phase
-    say(f"sharded training phase: {rec['seconds']:.1f} s")
-    return rec, entry
+    say(f"sharded families phase: {rec['seconds']:.1f} s")
+    return rec
+
+
+def _serve_inputs(np, cfg, B, prompt, frames):
+    """A prefill batch of ``B`` rows (VLM: its prefix embeddings; audio:
+    ``frames`` frame embeddings) and the prompts, from a fixed seed."""
+    rng = np.random.default_rng(17)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (B, prompt)).astype(np.int32)}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = rng.standard_normal(
+            (B, cfg.n_prefix_tokens, cfg.d_model), dtype=np.float32)
+    if cfg.family == "audio":
+        batch["frame_embeds"] = rng.standard_normal((B, frames, cfg.d_model),
+                                                    dtype=np.float32)
+    return batch
+
+
+def _greedy(torch, device, step, params, cache, toks, new):
+    """The prompt ``toks`` fed a token a step, then ``new`` greedy tokens:
+    (the new tokens, wall seconds a step)."""
+    cur, out, step_s = toks[:, :1], [], []
+    S = toks.shape[1]
+    for t in range(S + new - 1):
+        sync(torch, device)
+        t0 = time.perf_counter()
+        nxt, cache = step(params, cache, cur)
+        nxt = nxt.to(device)
+        sync(torch, device)
+        step_s.append(time.perf_counter() - t0)
+        if t + 1 < S:
+            cur = toks[:, t + 1:t + 2]
+        else:
+            cur = nxt
+            out.append(nxt)
+    return torch.cat(out, dim=1), step_s
+
+
+def sharded_serve_one(torch, np, mods, counters, cfg, mesh, B, prompt, new,
+                      cache_len, device, capture=None, prompt_cache=False):
+    """Phase 17 for one config: the unsharded prefill and greedy decode,
+    then (the parameters moved onto ``mesh``) the sharded ones; the gates;
+    returns (the row, K6's launches of the sharded prefill as ``capture``
+    caught them; ``capture`` then holds those of the sharded decode).  The
+    prompt goes into the cache a token a decode step, or
+    (``prompt_cache``, the transformer family) through the port's
+    unsharded ``transformer.prefill``, the cache it builds placed by
+    ``cache_shardings``; then ``new`` greedy decode steps from the token
+    the unsharded prefill picks.  Both peaks count from what was
+    allocated before the parameters were drawn."""
+    api, sharding, encdec, serve_loop, dryrun = (
+        mods["api"], mods["sharding"], mods["encdec"], mods["serve_loop"],
+        mods["dryrun"])
+    reset_counts, counts = counters
+    batch = _serve_inputs(np, cfg, B, SERVE17_PREFILL.get(cfg.name, prompt),
+                          LM_FRAMES)
+    tb = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+    toks = tb["tokens"][:, :prompt]
+    base = reset_peak(torch, device)
+    params = api.init_params(cfg, device=device, seed=0)
+
+    def new_cache():
+        if prompt_cache:
+            return mods["transformer"].prefill(params, tb["tokens"][:, :prompt], cfg,
+                                               cache_len)[1]
+        if cfg.family == "audio":
+            enc = encdec.encode(params, tb["frame_embeds"], cfg)
+            return encdec.build_cache(params, enc, cfg, B, cache_len)
+        return api.init_cache(cfg, B, api.decode_cache_len(cfg, cache_len),
+                              device=device)
+    with torch.no_grad():
+        want = dryrun.make_prefill_step(cfg)(params, tb).float()
+        cache = new_cache()
+        kept = new_cache() if cfg.family == "audio" else None
+        if prompt_cache:
+            toks = want[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        want_t, u_s = _greedy(torch, device, serve_loop.make_serve_step(cfg), params,
+                              cache, toks, new)
+        del cache
+        spec = kept if kept is not None else new_cache()
+    peak_u = peak_gb(torch, device, base)
+    reset_peak(torch, device)
+    placed = sharding.device_put(params, sharding.param_shardings(
+        cfg, mesh, api.init_params(cfg, device="meta")), donate=True)
+    del params
+    _, prefill = dryrun.compile_prefill_step(cfg, mesh, batch)
+    reset_counts()
+    if capture is not None:
+        capture.clear()
+    got = prefill(placed, batch).gather().float()
+    pre_seen = counts()
+    pre_calls = list(capture) if capture is not None else []
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    if not bool(torch.isfinite(got).all()) or err > SERVE17_TOL * scale:
+        fail(f"sharded prefill {cfg.name}: max |diff| {err} of max |logit| {scale} "
+             f"(limit {SERVE17_TOL})")
+    plan, step = mods["serve_loop"].compile_serve_step(cfg, mesh, spec)
+    scache = sharding.device_put(spec, plan.cache_shardings, donate=True)
+    del spec, kept
+    reset_counts()
+    if capture is not None:
+        capture.clear()
+    got_t, s_s = _greedy(torch, device, step, placed, scache, toks, new)
+    seen = counts()
+    peak_s = peak_gb(torch, device, base)
+    if not torch.equal(got_t.cpu(), want_t.cpu()):
+        fail(f"sharded decode {cfg.name}: greedy tokens {got_t.tolist()}, unsharded "
+             f"{want_t.tolist()}")
+    del placed, scache
+    steps = len(s_s)
+    return {"arch": cfg.name, "n_layers": cfg.n_layers, "mesh": list(mesh.devices.shape),
+            "dtype": cfg.dtype, "batch": B, "prompt": prompt,
+            "prefill_prompt": batch["tokens"].shape[1], "new_tokens": new,
+            "cache_len": cache_len, "kv_mode": plan.kv_mode,
+            "prompt_by": "transformer.prefill" if prompt_cache else "decode steps",
+            "prefill_max_abs_diff": err, "max_abs_logit": scale,
+            "tokens": got_t.cpu().tolist(), "decode_steps": steps,
+            "sharded_ms_per_decode_step": _steady_ms(s_s),
+            "unsharded_ms_per_decode_step": _steady_ms(u_s),
+            "sharded_peak_gb": peak_s, "unsharded_peak_gb": peak_u,
+            "prefill_launches": pre_seen, "launches": seen}, pre_calls
+
+
+def sharded_serve_phase(torch, np, mods, counters, rates, device="cuda"):
+    """Phase 17: (a) ``SERVE17`` on a ``SERVE_MESH`` mesh of the card in
+    f32; (b) ``GRANITE17_ARCH`` whole on the production mesh, the cache
+    split by sequence.  Every K6 launch of the sharded prefill and decode is
+    held bit for bit against its plain version and counted.  Returns (the
+    record, the kernels-line entries of K6 at a model shard's prefill and
+    decode shapes)."""
+    import dataclasses
+    configs, conv, conv_ops, conv_ref, mesh_mod = (
+        mods["configs"], mods["conv"], mods["conv_ops"], mods["conv_ref"], mods["mesh"])
+    t_phase = time.perf_counter()
+    devices = None if torch.device(device).type == "cuda" else [device]
+    rec = {"held_gb": reset_peak(torch, device) / 1e9, "serve": {}}
+    mesh = mesh_mod.make_mesh(SERVE_MESH, ("data", "model"), devices)
+    captured = []
+    kernel = conv_ops.causal_conv1d
+
+    def capture(x, w):                    # every K6 launch, its output beside
+        y = kernel(x, w)
+        captured.append((x.clone(), w.clone(), y.clone()))
+        return y
+    entries = []
+
+    def k6_checked(name, kind, calls, seen, want, per):
+        """``calls`` (K6's launches of the sharded ``kind``) bit for bit
+        their plain version, ``want`` of them (``per``); their kernels-line
+        entry (None off the card) and row fields."""
+        if seen["causal_conv1d"] != want or sum(seen.values()) != want \
+                or len(calls) != want:
+            fail(f"sharded {kind} {name}: launch counts {seen}, {len(calls)} K6 "
+                 f"calls seen; expected {want} of causal_conv1d ({per})")
+        for x, w, y in calls:
+            ref = conv_ref.causal_conv1d_ref(x, w)
+            if not torch.equal(y, ref):
+                fail(f"sharded {kind} {name}: K6 on a model shard's slice "
+                     f"{tuple(x.shape)} differs from its plain version by "
+                     f"{float((y.float() - ref.float()).abs().max())}")
+        x, w, y = calls[0]
+        B_, T_, W_ = x.shape
+        key = (f"causal_conv1d sharded {kind} {str(x.dtype).split('.')[1]} "
+               f"[{B_}, {T_}, {W_}]")
+        say(f"kernel {key}: all {want} launches of the sharded {kind} bit for "
+            f"bit their plain version")
+        fields = {f"k6_{kind}_launches": want, f"k6_{kind}_shape": [B_, T_, W_]}
+        if torch.device(device).type != "cuda":
+            return None, fields
+        t = conv_times(torch, torch.nn.functional, rates, conv, conv_ref,
+                       x, w, y, kind, key)
+        t.update(shape=[B_, T_, W_], dtype=str(x.dtype).split(".")[1],
+                 build=conv.build_of(x, w, y))
+        e = conv_entry_of(f"causal_conv1d.sharded_{kind}", t, "sharded serving")
+        e["launches"], e["max_abs_err"], e["sharded_launches"] = want, 0.0, want
+        fields[f"k6_{kind}_times"] = t
+        return e, fields
+    for name, kw in SERVE17.items():
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(family_cfg(configs, name, kw), dtype="float32")
+        hybrid = cfg.family == "hybrid"
+        conv_ops.causal_conv1d = capture if hybrid else kernel
+        try:
+            row, pre_calls = sharded_serve_one(
+                torch, np, mods, counters, cfg, mesh, SERVE17_BATCH, SERVE17_PROMPT,
+                SERVE17_NEW, SERVE17_PROMPT + SERVE17_NEW, device,
+                captured if hybrid else None)
+        finally:
+            conv_ops.causal_conv1d = kernel
+        seen = row["launches"]
+        if hybrid:
+            n_rec = mods["griffin"].block_types(cfg).count("rec")
+            shards = (f"{n_rec} recurrent layers x {SERVE_MESH[1]} model shards x "
+                      f"{SERVE_MESH[0]} data groups")
+            per_pass = n_rec * SERVE_MESH[0] * SERVE_MESH[1]
+            for kind, calls, seen_, want, per in (
+                    ("prefill", pre_calls, row["prefill_launches"], per_pass, shards),
+                    ("decode", captured, seen, per_pass * row["decode_steps"],
+                     f"{shards} x {row['decode_steps']} steps")):
+                e, fields = k6_checked(name, kind, calls, seen_, want, per)
+                row.update(fields)
+                if e is not None:
+                    entries.append(e)
+            del pre_calls
+            captured.clear()
+        elif any(seen.values()) or any(row["prefill_launches"].values()):
+            fail(f"sharded serving {name}: launch counts {seen} (decode), "
+                 f"{row['prefill_launches']} (prefill), expected none")
+        row["seconds"] = time.perf_counter() - t0
+        rec["serve"][name] = row
+        say(f"sharded serving {name} ({cfg.n_layers} layers, f32, mesh "
+            f"{mesh.shape}, kv_mode {row['kv_mode']}): prefill logits {row['prefill_max_abs_diff']:.3g} "
+            f"from the unsharded of max |logit| {row['max_abs_logit']:.3g} (limit "
+            f"{SERVE17_TOL}); {SERVE17_NEW} greedy tokens x {SERVE17_BATCH} rows token "
+            f"for token the unsharded; {row['sharded_ms_per_decode_step']:.1f} ms a "
+            f"decode step sharded, {row['unsharded_ms_per_decode_step']:.1f} "
+            f"unsharded; peak {row['sharded_peak_gb']} / {row['unsharded_peak_gb']} GB; "
+            f"{row['seconds']:.1f} s")
+        reset_peak(torch, device)
+    # (b)
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(configs.get(GRANITE17_ARCH), dtype="float32")
+    big = mesh_mod.make_production_mesh(devices=devices)
+    row, _ = sharded_serve_one(torch, np, mods, counters, cfg, big, GRANITE17_BATCH,
+                               SERVE17_PROMPT, SERVE17_NEW, GRANITE17_CACHE, device,
+                               prompt_cache=True)
+    if row["kv_mode"] != "seq" or any(row["launches"].values()) \
+            or any(row["prefill_launches"].values()):
+        fail(f"sharded serving {GRANITE17_ARCH} on (16, 16): kv_mode "
+             f"{row['kv_mode']}, launches {row['launches']} (decode), "
+             f"{row['prefill_launches']} (prefill)")
+    row["seconds"] = time.perf_counter() - t0
+    rec["granite_full"] = row
+    say(f"sharded serving {GRANITE17_ARCH} whole (f32, production mesh (16, 16), "
+        f"{GRANITE17_BATCH} rows, prompt {SERVE17_PROMPT} through "
+        f"transformer.prefill, cache {GRANITE17_CACHE}, kv_mode seq): prefill "
+        f"logits {row['prefill_max_abs_diff']:.3g} of max |logit| "
+        f"{row['max_abs_logit']:.3g}; greedy tokens token for token; "
+        f"{row['sharded_ms_per_decode_step']:.1f} ms a decode step sharded, "
+        f"{row['unsharded_ms_per_decode_step']:.1f} unsharded; peak "
+        f"{row['sharded_peak_gb']} / {row['unsharded_peak_gb']} GB; {row['seconds']:.1f} s")
+    reset_peak(torch, device)
+    rec["seconds"] = time.perf_counter() - t_phase
+    say(f"sharded serving phase: {rec['seconds']:.1f} s")
+    return rec, entries
 
 
 def main(argv=None) -> int:
@@ -3839,8 +4287,9 @@ def main(argv=None) -> int:
         from repro_torch.kernels.conv1d import ref as conv_ref
         from repro_torch.kernels.decode_attn import decode_attn as attn
         from repro_torch.kernels.decode_attn import ref as attn_ref
-        from repro_torch.models import api, encdec, griffin
+        from repro_torch.models import api, encdec, griffin, transformer
         from repro_torch.models import layers as lm_layers
+        from repro_torch.launch import dryrun
         from repro_torch.launch import train as train_cli
         from repro_torch.serving import serve_loop, stencil_serve
         from repro_torch.train import checkpoint, fault_tolerance
@@ -4513,13 +4962,20 @@ def main(argv=None) -> int:
                "train_cli": train_cli}
     record["sharded_training"], shard_entry = sharded_train_phase(
         torch, sh_mods, (reset_counts, counts), rates)
+    record["sharded_families"] = sharded_families_phase(
+        torch, sh_mods, (reset_counts, counts), record["lm_families"])
+    # -- 17. sharded serving ------------------------------------------------------------
+    sv_mods = {**sh_mods, "encdec": encdec, "serve_loop": serve_loop,
+               "dryrun": dryrun, "transformer": transformer}
+    record["sharded_serving"], serve_entries = sharded_serve_phase(
+        torch, np, sv_mods, (reset_counts, counts), rates)
     for e in conv_entries:
         row = serve_row if e["path"] == "serving" else train_row
         e["launches"], e["max_abs_err"] = row["k6_launches"], conv_worst
         e["sharded_launches"] = record["sharded_training"]["train"]["k6_launches"]
         if e["path"] != "serving":
             e["resilient_launches"] = record["resilience"]["training"]["k6_launches"]
-    conv_entries.append(shard_entry)
+    conv_entries += [shard_entry, *serve_entries]
     for kname, e in attn_entries.items():  # standalone: 0 on the serving path
         e["launches"] = serve_row["launches"][kname]
 

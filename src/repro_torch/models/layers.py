@@ -203,7 +203,9 @@ def _sdpa(q, k, v, mask, scale, kv_mode=None):
     intact for tensor parallelism).  Decode under a mesh uses the grouped
     form, q ``[B, Sq, K, H/K, D]`` against the unexpanded cache:
     ``kv_mode='seq'``: the cache's sequence dim is 'model'-split and the
-    logits keep it split (a softmax of partial max/sum);
+    logits keep it split: the softmax is ``exp(logits - logsumexp)``, each
+    shard's logsumexp combined across the shards, and each shard's PV
+    product a partial sum, summed once;
     ``kv_mode='heads'``: kv_heads divide the model axis and the grouped
     products split on the K dim."""
     B, Sq, H, D = q.shape
@@ -217,10 +219,11 @@ def _sdpa(q, k, v, mask, scale, kv_mode=None):
         return torch.einsum("bhqs,bshd->bqhd", probs.to(v.dtype), v)
 
     K = k.shape[2]
-    qg = q.reshape(B, Sq, K, H // K, D)
     if kv_mode == "seq":
+        q = constrain(q, "batch", "seq", None, "head_dim")
         k = constrain(k, "batch", "kv_seq", None, "head_dim")
         v = constrain(v, "batch", "kv_seq", None, "head_dim")
+    qg = q.reshape(B, Sq, K, H // K, D)
     logits = wide(torch.einsum("bqkgd,bskd->bkgqs", qg, k))
     logits = logits * scale
     if kv_mode == "seq":
@@ -228,8 +231,13 @@ def _sdpa(q, k, v, mask, scale, kv_mode=None):
     else:
         logits = constrain(logits, "batch", "kv_heads")
     logits = logits.masked_fill(~mask[:, :, None], -1e30)
-    probs = torch.softmax(logits, dim=-1)
+    if kv_mode == "seq":
+        probs = torch.exp(logits - torch.logsumexp(logits, dim=-1)[..., None])
+    else:
+        probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs.to(v.dtype), v)
+    if kv_mode == "seq":
+        out = constrain(out, "batch", "seq", None, None, "head_dim")
     return out.reshape(B, Sq, H, D)
 
 

@@ -10,15 +10,25 @@ the kept slots' rows into the ``[E, n_groups, C, D]`` buffers
 (``index_add`` on distinct rows; dropped slots into a spare row) and
 gathers them back, weighting each by its gate value (0 where dropped):
 the same kept set, positions and combine weights.
+
+Under a mesh (the sharded step, ``models/sharded.py``) each data group
+routes its own rows: the routing groups are those of the microbatch's
+global token count, which must not straddle two data groups unless no
+slot is dropped; the load-balancing loss is the microbatch's, not a
+group's (``AuxStats``).  ``constrain`` stands at the JAX package's call
+sites: the experts' products split ``d_ff`` over the model shards, and
+``wo``'s partial sums are summed once, in f32.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import contextlib
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.sharding import active_group, constrain
 
 from .layers import dense_init, pdtype, wide, wide_dtype
 
@@ -35,6 +45,75 @@ def init_moe(gen: Optional[torch.Generator], cfg: ModelConfig, device):
         "wu": dense_init(gen, (E, d, f), dt, device),
         "wo": dense_init(gen, (E, f, d), dt, device, scale=f ** -0.5),
     }
+
+
+class AuxStats:
+    """The routing statistic ``ce`` (each expert's share of first choices)
+    of one microbatch run as data groups one after another.  The JAX
+    package's load-balancing loss ``w·E·Σ_e me_e·ce_e`` takes both means
+    over every token of the microbatch; ``ce`` comes from a top-k index and
+    carries no gradient, so with ``ce`` fixed to the microbatch's mean the
+    loss is linear in each group's ``me``, and the groups' losses, weighted
+    by their shares, sum to the microbatch's in value and gradient.
+
+    ``collect(gi)``: a forward pass of group ``gi`` records each MoE
+    layer's ``ce``; ``fixed(gi)``: group ``gi``'s pass uses the mean over
+    the groups instead, after checking that it routed exactly as it did
+    when collected (a layer recomputed in the backward pass checks
+    again)."""
+
+    def __init__(self):
+        self.ce: Dict[int, List[torch.Tensor]] = {}
+        self.mean: Dict[int, torch.Tensor] = {}
+        self.group: Optional[int] = None
+        self.mode: Optional[str] = None
+
+    @contextlib.contextmanager
+    def _use(self, mode: str, gi: int):
+        global _STATS
+        prev, _STATS = _STATS, self
+        self.mode, self.group = mode, gi
+        try:
+            yield self
+        finally:
+            _STATS, self.mode, self.group = prev, None, None
+
+    def collect(self, gi: int):
+        return self._use("collect", gi)
+
+    def fixed(self, gi: int):
+        if not self.mean:
+            self.mean = {k: torch.stack([c.to(v[0].device) for c in v]).mean(0)
+                         for k, v in self.ce.items()}
+        return self._use("fixed", gi)
+
+    def take(self, key: int, ce):
+        """``ce`` of the layer ``key`` in the running group: recorded, or
+        checked and replaced by the mean."""
+        here = ce.parts[0] if hasattr(ce, "parts") else ce
+        if self.mode == "collect":
+            self.ce.setdefault(key, []).append(here.detach().clone())
+            return ce
+        seen = self.ce[key][self.group]
+        if not torch.equal(here.to(seen.device), seen):
+            raise RuntimeError(f"MoE routing of data group {self.group} differs "
+                               f"from its statistics pass")
+        return self.mean[key]
+
+
+_STATS: Optional[AuxStats] = None
+
+
+def _layer_key(p) -> int:
+    r = p["router"]
+    return id(getattr(r, "leaf", r))
+
+
+def _capacity(m, G: int, dropless: bool) -> int:
+    """An expert's buffer slots for a routing group of ``G`` tokens."""
+    if dropless:
+        return G * m.top_k
+    return max(int(m.capacity_factor * G * m.top_k / m.n_experts + 0.5), 1)
 
 
 def route(p, xg, cfg: ModelConfig, dropless: bool = False):
@@ -58,10 +137,11 @@ def route(p, xg, cfg: ModelConfig, dropless: bool = False):
     # load-balancing auxiliary loss (Switch/GShard form)
     me = probs.mean(dim=(0, 1))                             # [E]
     ce = F.one_hot(gate_idx[..., 0], E).to(probs.dtype).mean(dim=(0, 1))
+    if _STATS is not None:
+        ce = _STATS.take(_layer_key(p), ce)
     aux = m.aux_loss_weight * E * torch.sum(me * ce)
 
-    C = G * K if dropless else int(m.capacity_factor * G * K / E + 0.5)
-    C = max(C, 1)
+    C = _capacity(m, G, dropless)
     # position of each (token, k) inside its expert buffer: a running count
     # over the group's slots, token-major then k
     onehot = F.one_hot(gate_idx, E).reshape(n, G * K, E)
@@ -73,15 +153,28 @@ def route(p, xg, cfg: ModelConfig, dropless: bool = False):
 def moe_ffn(p, x, cfg: ModelConfig,
             dropless: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [B, S, D] → (out [B, S, D], aux_loss scalar f32).  The group
-    size must divide B·S (the configs pick it so)."""
+    size must divide B·S (the configs pick it so).  Inside a data group
+    of the sharded step, B is the group's rows and the routing groups are
+    those of the microbatch's ``n_data · B · S`` tokens."""
     m = cfg.moe
     B, S, D = x.shape
     E, K = m.n_experts, m.top_k
     dt = x.dtype
     T = B * S
-    G = max(1, min(m.group_size, T))
+    g = active_group()
+    T_all = T * (g.n_data if g is not None else 1)
+    G = max(1, min(m.group_size, T_all))
+    if T % G:
+        # a routing group would straddle data groups: the same result only
+        # where no slot is dropped, whatever the grouping
+        C = _capacity(m, G, dropless)
+        if C < G * K:
+            raise ValueError(
+                f"{cfg.name}: routing groups of {G} tokens straddle data groups "
+                f"of {T} tokens, and capacity {C} < {G * K} drops tokens")
+        G, dropless = T, True
     n = T // G
-    xg = x.reshape(n, G, D)
+    xg = constrain(x.reshape(n, G, D), "batch", None, None)
     gate_vals, gate_idx, pos, kept, C, aux = route(p, xg, cfg, dropless)
 
     # every slot's token row and its row in the [E, n, C] buffers; a dropped
@@ -94,11 +187,15 @@ def moe_ffn(p, x, cfg: ModelConfig,
     flat = x.reshape(T, D)
     expert_in = flat.new_zeros((rows + 1, D)).index_add(0, slot, flat[token])
     expert_in = expert_in[:rows].reshape(E, n * C, D)
+    expert_in = constrain(expert_in, "experts", "batch", None)
 
-    g = torch.einsum("ecd,edf->ecf", expert_in, p["wg"].to(dt))
+    gh = torch.einsum("ecd,edf->ecf", expert_in, p["wg"].to(dt))
     u = torch.einsum("ecd,edf->ecf", expert_in, p["wu"].to(dt))
-    h = F.silu(g) * u
+    gh = constrain(gh, "experts", "batch", "ff")
+    u = constrain(u, "experts", "batch", "ff")
+    h = F.silu(gh) * u
     expert_out = torch.einsum("ecf,efd->ecd", h, p["wo"].to(dt))
+    expert_out = constrain(expert_out, "experts", "batch", None)
 
     # combine: each slot's expert output times its gate value (0 where
     # dropped; cast to the compute dtype, as the JAX package's combine

@@ -40,36 +40,24 @@ and a collective is copies between shards' tensors.
   the stacks and the sums of partials are differentiable operations on the
   shards' tensors, so the gradients are exact by construction.
 
-The dense transformer and Griffin run so; MoE, VLM, xLSTM and the
-encoder-decoder under a mesh are ROADMAP.md item 9b (``check_family``).
+Every family runs so (MoE's load-balancing loss takes the microbatch's
+routing statistics across the groups: ``moe.AuxStats``).  The decode
+step reads a cache through ``Group.local_view`` (the group's own rows,
+views of the shards) and writes it in place: ``__setitem__`` on a
+model-split value writes each shard's part of the written range.
 """
 from __future__ import annotations
 
 import itertools
+import math
 from typing import Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch import sharding
-from repro_torch.configs.base import ModelConfig
-from repro_torch.core.dsl import not_ported
 
-__all__ = ["Group", "Sharded", "LeafView", "groups", "check_family",
-           "local", "SHARDED_FAMILIES"]
-
-#: the families whose sharded step is ported
-SHARDED_FAMILIES = ("dense", "hybrid")
-
-
-def check_family(cfg: ModelConfig) -> None:
-    """Raise ``not_ported`` for a family whose sharded step is not ported:
-    MoE (its load-balancing loss is a product of batch means, which data
-    groups run one after another would average per group), VLM, xLSTM and
-    the encoder-decoder."""
-    if cfg.family not in SHARDED_FAMILIES:
-        raise not_ported(f"the sharded train step of the '{cfg.family}' "
-                         f"family ({cfg.name})", "queue 1, item 9b")
+__all__ = ["Group", "Sharded", "LeafView", "groups", "local"]
 
 
 def _model_axis(mesh) -> Optional[int]:
@@ -118,6 +106,11 @@ class Group:
     def first(self) -> torch.device:
         return self.devices[0]
 
+    @property
+    def n_data(self) -> int:
+        """The number of data groups of the mesh (the batch's split)."""
+        return self.mesh.devices.size // self.m
+
     def __repr__(self):
         return f"Group({self.index}, {self.m} model shards)"
 
@@ -139,6 +132,52 @@ class Group:
         if js == list(range(js[0], js[0] + len(js))):
             return u.narrow(0, js[0], len(js))
         return u[torch.tensor(js, device=u.device)]
+
+    def _local_rows(self, leaf: sharding.ShardedTensor):
+        """(the leaf's model-split dimension or None, per device the rows
+        of its slab that hold this group's shards' blocks, in held order:
+        one for a value replicated over the model shards)."""
+        d_model = None
+        for d, ax in enumerate(leaf.sharding.dim_axes(leaf.ndim)):
+            if "model" in ax:
+                if ax != ("model",):
+                    raise ValueError(f"{leaf}: dimension {d} split over {ax}")
+                d_model = d
+        rows = {}
+        for dev, js in self.held.items():
+            js = js if d_model is not None else js[:1]
+            rows[dev] = [leaf.rows[dev][leaf.sharding.block_of(
+                leaf.shape, self.positions[j])] for j in js]
+        return d_model, rows
+
+    def local_view(self, leaf: sharding.ShardedTensor) -> "Sharded":
+        """A leaf split by rows over the data axes (a decode cache) as this
+        group holds it: each device's blocks of its own rows, not gathered
+        across the data groups.  A device's stack is a view of its slab
+        (``_put`` lays a slab's rows out so that a group's are evenly
+        spaced), so writes to the value write the leaf."""
+        d_model, rows = self._local_rows(leaf)
+        stacks = {dev: _rows_view(leaf.slabs[dev], idx) if d_model is not None
+                  else leaf.slabs[dev][idx[0]] for dev, idx in rows.items()}
+        block = leaf.sharding.block_of(leaf.shape, self.positions[0])
+        shape = [(b - a) * (self.m if d == d_model else 1)
+                 for d, (a, b) in enumerate(block)]
+        return Sharded(self, stacks, shape, sdim=d_model)
+
+    def write_back(self, leaf: sharding.ShardedTensor, value) -> None:
+        """Write ``value`` (the group's rows of ``leaf``, e.g. a decode
+        step's new state) into the leaf's blocks on each device, in place;
+        a stack that is already the leaf's storage is left as it is."""
+        d_model, rows = self._local_rows(leaf)
+        if not isinstance(value, Sharded):
+            value = self.replicate(value)
+        value = self.relayout(value, d_model)
+        with torch.no_grad():
+            for dev, idx in rows.items():
+                slab, src = leaf.slabs[dev], value.stacks[dev]
+                dst = _rows_view(slab, idx) if d_model is not None else slab[idx[0]]
+                if src.data_ptr() != dst.data_ptr() or src.stride() != dst.stride():
+                    dst.copy_(src)
 
     # -- layouts ----------------------------------------------------------------------
     def reduce(self, x: "Sharded") -> "Sharded":
@@ -189,6 +228,14 @@ class Group:
             if e == "model" or (isinstance(e, tuple) and "model" in e):
                 d = i
         return self.relayout(x, d)
+
+
+def _rows_view(slab: torch.Tensor, idx: List[int]) -> torch.Tensor:
+    """Rows ``idx`` of ``slab`` (evenly spaced) as a view."""
+    step = idx[1] - idx[0] if len(idx) > 1 else 1
+    if step <= 0 or idx != list(range(idx[0], idx[-1] + 1, step)):
+        raise ValueError(f"a group's rows {idx} of a slab are not evenly spaced")
+    return slab[idx[0]:idx[-1] + 1:step]
 
 
 class Sharded:
@@ -246,6 +293,9 @@ class Sharded:
         lay = "partial" if self.partial else (
             "replicated" if self.sdim is None else f"split dim {self.sdim}")
         return f"Sharded({tuple(self.shape)}, {self.dtype}, {lay}, m={self.group.m})"
+
+    def __setitem__(self, idx, value):
+        _setitem(self, idx, value)
 
     @classmethod
     def __torch_function__(cls, func, types, args=(), kwargs=None):
@@ -421,7 +471,7 @@ _ELEMENTWISE = {
     torch.abs, _T.abs, torch.square, _T.square, _T.pow, torch.pow,
     torch.clamp, _T.clamp, _T.clamp_min, torch.clamp_min, torch.maximum,
     torch.minimum, torch.where, _T.masked_fill, torch.masked_fill,
-    F.gelu, F.silu, F.softplus, F.relu, torch.relu,
+    F.gelu, F.silu, F.softplus, F.relu, torch.relu, F.logsigmoid,
     _T.to, _T.float, _T.double, _T.half, _T.bfloat16, _T.long, _T.int,
     _T.bool, _T.contiguous, _T.type_as, _T.clone, torch.clone, _T.detach,
     torch.zeros_like, torch.ones_like, torch.empty_like, torch.full_like,
@@ -500,7 +550,8 @@ for _f in (torch.softmax, _T.softmax, F.softmax, torch.log_softmax,
            _T.cumprod, torch.logsumexp, _T.logsumexp, torch.unsqueeze,
            _T.unsqueeze, torch.squeeze, _T.squeeze, torch.narrow, _T.narrow,
            torch.index_select, _T.index_select, torch.max, _T.max, torch.min,
-           _T.min, torch.flip, _T.flip, torch.unflatten, _T.unflatten):
+           _T.min, torch.flip, _T.flip, torch.unflatten, _T.unflatten,
+           torch.cummax, _T.cummax):
     _DIM_RULES[_f] = _dim_at(1, name="dims" if _f in (torch.flip, _T.flip)
                              else "dim")
 for _f in (torch.cat, torch.concat, torch.stack):
@@ -519,7 +570,8 @@ _DIM_RULES[torch.permute] = _permute_rule
 # keeps it whole (checked against the global shape)
 _KEEPS_SHAPE = {torch.softmax, _T.softmax, F.softmax, torch.log_softmax,
                 _T.log_softmax, F.log_softmax, torch.cumsum, _T.cumsum,
-                torch.cumprod, _T.cumprod, torch.flip, _T.flip}
+                torch.cumprod, _T.cumprod, torch.flip, _T.flip, torch.cummax,
+                _T.cummax}
 
 
 def _local_arg(a, dev, group, r, n_global, rank):
@@ -756,6 +808,81 @@ def _gather(x, dim, index, *, sparse_grad=False):
     return g.reduce(Sharded(g, stacks, index.shape, partial=True, dtype=x.dtype))
 
 
+def _reshape(x, *shape):
+    """A reshape that keeps every dimension before the model-split one and
+    splits or merges that one with the ones after it (its size still a
+    multiple of the shard count): each shard reshapes its block."""
+    x = _materialize(x)
+    if len(shape) == 1 and isinstance(shape[0], (tuple, list)):
+        shape = tuple(shape[0])
+    if not isinstance(x, Sharded) or x.sdim is None or x.partial:
+        return _generic(_T.reshape, (x, shape), {})
+    shape = list(shape)
+    if -1 in shape:
+        shape[shape.index(-1)] = x.shape.numel() // -math.prod(shape)
+    g, d = x.group, x.sdim
+    if tuple(shape[:d]) != tuple(x.shape[:d]) or len(shape) <= d \
+            or shape[d] % g.m:
+        raise ValueError(f"reshape of a model-split value (split dim {d} of "
+                         f"{tuple(x.shape)}) to {tuple(shape)}")
+    loc = list(shape)
+    loc[d] //= g.m
+    return Sharded(g, {dev: s.reshape((s.shape[0],) + tuple(loc))
+                       for dev, s in x.stacks.items()}, shape, sdim=d)
+
+
+def _new_zeros(x, size, *, dtype=None, device=None, **kw):
+    """Zeros of ``size``, replicated (on each device of the group)."""
+    x = _materialize(x)
+    g = x.group
+    size = tuple(size)
+    return Sharded(g, {dev: torch.zeros(size, dtype=dtype or x.dtype, device=dev)
+                       for dev in g.held}, size)
+
+
+def _setitem(x: "Sharded", idx, value) -> None:
+    """``x[idx] = value`` in place.  Replicated: on each device's copy.
+    Split: where ``idx`` (slices) keeps the split dimension whole, each
+    shard writes its block; where it takes a range of it (a write into a
+    sequence-split cache), each shard that holds part of the range writes
+    that part, the others nothing."""
+    if x.partial:
+        raise ValueError("a write into a partial sum")
+    g = x.group
+    if not x.stacked:
+        if isinstance(value, Sharded):
+            value = g.relayout(value, None)
+        for dev, t in x.stacks.items():
+            t[idx] = _rep_arg(value, dev)
+        return
+    idx = idx if isinstance(idx, tuple) else (idx,)
+    if any(not isinstance(e, slice) for e in idx):
+        raise ValueError(f"a write into a model-split value at {idx}: slices only")
+    d = x.sdim
+    e = idx[d] if d < len(idx) else slice(None)
+    if e == slice(None):
+        if not isinstance(value, Sharded):
+            value = g.replicate(value)
+        value = g.relayout(value, d)
+        for dev, t in x.stacks.items():
+            t[(slice(None),) + idx] = value.stacks[dev]
+        return
+    a, b, step = e.indices(x.shape[d])
+    if step != 1:
+        raise ValueError(f"a strided write along the model-split dimension ({e})")
+    if isinstance(value, Sharded):
+        value = g.relayout(value, None)
+    n = x.shape[d] // g.m
+    for dev, js in g.held.items():
+        v = _rep_arg(value, dev)
+        for r, j in enumerate(js):
+            lo, hi = max(a, j * n), min(b, (j + 1) * n)
+            if lo < hi:
+                loc = list(idx) + [slice(None)] * (d + 1 - len(idx))
+                loc[d] = slice(lo - j * n, hi - j * n)
+                x.stacks[dev][r][tuple(loc)] = v.narrow(d, lo - a, hi - lo)
+
+
 _HANDLERS = {
     torch.einsum: _einsum,
     torch.matmul: _matmul,
@@ -766,6 +893,10 @@ _HANDLERS = {
     _T.logsumexp: _logsumexp,
     torch.gather: _gather,
     _T.gather: _gather,
+    _T.reshape: _reshape,
+    torch.reshape: lambda x, shape: _reshape(x, shape),
+    _T.view: _reshape,
+    _T.new_zeros: _new_zeros,
 }
 
 
@@ -785,6 +916,7 @@ for _name in ("to", "float", "double", "half", "bfloat16", "long", "int", "bool"
               "clamp", "clamp_min", "exp", "log", "sqrt", "rsqrt", "sigmoid",
               "tanh", "abs", "square", "pow", "softmax", "logsumexp", "type_as",
               "flip", "narrow", "detach", "clone", "t", "matmul", "gather",
+              "new_zeros", "index_add",
               "__getitem__", "__add__", "__radd__", "__sub__", "__rsub__",
               "__mul__", "__rmul__", "__truediv__", "__rtruediv__", "__neg__",
               "__invert__", "__and__", "__or__", "__lt__", "__le__", "__gt__",

@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.sharding import constrain
 
 from . import layers as L
 from .griffin import _associative_scan
@@ -123,6 +124,9 @@ def _mlstm_proj(p, xn):
     q = torch.einsum("bsd,dhk->bshk", xn, p["wq"].to(dt))
     k = torch.einsum("bsd,dhk->bshk", xn, p["wk"].to(dt))
     v = torch.einsum("bsd,dhk->bshk", xn, p["wv"].to(dt))
+    q = constrain(q, "batch", "seq", "heads", "head_dim")
+    k = constrain(k, "batch", "seq", "heads", "head_dim")
+    v = constrain(v, "batch", "seq", "heads", "head_dim")
     i_pre = L.wide(torch.einsum("bsd,dh->bsh", xn, p["wi"].to(dt)))
     f_pre = L.wide(torch.einsum("bsd,dh->bsh", xn, p["wf"].to(dt))
                    + p["bf"].to(dt))
@@ -193,7 +197,8 @@ def mlstm_chunkwise(p, x, cfg: ModelConfig):
     out = torch.cat(outs, dim=1)[:, :S]
     out = out * og[:, :S].to(out.dtype)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
-    return x + y
+    # under a mesh: the heads' partial sums summed before the residual
+    return x + constrain(y, "batch", "seq", "embed")
 
 
 def mlstm_step(p, x, state, cfg: ModelConfig):
@@ -215,7 +220,8 @@ def mlstm_step(p, x, state, cfg: ModelConfig):
     den = torch.abs(torch.einsum("bhk,bhk->bh", qs, n2))
     den = torch.maximum(den, torch.exp(-m_new))
     out = (num / den[..., None]).to(x.dtype) * og
-    y = torch.einsum("bhk,hkd->bd", out, p["wo"].to(x.dtype))
+    y = constrain(torch.einsum("bhk,hkd->bd", out, p["wo"].to(x.dtype)),
+                  "batch", "embed")
     return x + y[:, None], [C2, n2, m_new]
 
 
@@ -280,7 +286,7 @@ def slstm_seq(p, x, cfg: ModelConfig):
     _, c, n = _associative_scan(linear, [wf, wi * tz, wi])
     h = (c / torch.clamp(n, min=1e-6)).to(x.dtype) * o
     y = torch.einsum("bshk,hkd->bsd", h, p["wo"].to(x.dtype))
-    return x + y
+    return x + constrain(y, "batch", "seq", "embed")
 
 
 def slstm_step(p, x, state, cfg: ModelConfig):
@@ -289,8 +295,8 @@ def slstm_step(p, x, state, cfg: ModelConfig):
     z, i, f, o = _slstm_proj(p, xn)
     state, h = _slstm_cell(state, torch.tanh(L.wide(z[:, 0])), i[:, 0],
                            F.logsigmoid(f[:, 0]))
-    y = torch.einsum("bhk,hkd->bd", h.to(x.dtype) * o[:, 0],
-                     p["wo"].to(x.dtype))
+    y = constrain(torch.einsum("bhk,hkd->bd", h.to(x.dtype) * o[:, 0],
+                               p["wo"].to(x.dtype)), "batch", "embed")
     return x + y[:, None], list(state)
 
 

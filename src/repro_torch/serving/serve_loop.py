@@ -11,6 +11,11 @@ Greedy decoding (temperature 0) is the parity target with the JAX package.
 Temperature sampling draws from a ``torch.Generator`` seeded with
 ``GenConfig.seed``: a different random stream from ``jax.random``'s, so
 sampled tokens differ from the JAX package's.
+
+``compile_serve_step`` is the step over a mesh (the JAX package's serve
+step jitted with ``param_shardings`` and ``cache_shardings``): each data
+group decodes its rows on its model shards (``models/sharded.py``), its
+cache read through views of the cache's shards and written in place.
 """
 from __future__ import annotations
 
@@ -21,8 +26,11 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch import sharding
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import api
+from repro_torch.models import layers as L
+from repro_torch.models import sharded as _sharded
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,22 +47,122 @@ def make_serve_step(cfg: ModelConfig, sample: bool = True,
     """→ ``serve_step(params, cache, tokens[B,1], generator) ->
     (next_tokens [B,1], cache')``.  Greedy when ``generator`` is None,
     temperature sampling from it otherwise.  With ``sample=False`` returns
-    the f32 logits of the last position instead of tokens."""
+    the logits of the last position instead of tokens (f32; f64 in an
+    f64 run)."""
     temperature = max(float(temperature), 1e-6)
 
     def serve_step(params, cache, tokens, generator=None):
         logits, cache2 = api.decode_step(cfg, params, cache, tokens)
-        logits = logits[:, -1].float()                   # [B, V]
-        if not sample:
-            return logits, cache2
-        if generator is None:
-            nxt = torch.argmax(logits, dim=-1)
-        else:
-            probs = torch.softmax(logits / temperature, dim=-1)
-            nxt = torch.multinomial(probs, 1, generator=generator)[:, 0]
-        return nxt[:, None].to(torch.int32), cache2
+        return _next(L.wide(logits[:, -1]), sample, temperature,
+                     generator), cache2
 
     return serve_step
+
+
+def _next(logits, sample: bool, temperature: float, generator):
+    """The logits ``[B, V]`` (``sample=False``; f32, f64 in an f64 run),
+    or the next tokens ``[B, 1]`` int32: greedy without a generator, else
+    one draw a row from it, rows in order."""
+    if not sample:
+        return logits
+    if generator is None:
+        nxt = torch.argmax(logits, dim=-1)
+    else:
+        probs = torch.softmax(logits / temperature, dim=-1)
+        nxt = torch.multinomial(probs, 1, generator=generator)[:, 0]
+    return nxt[:, None].to(torch.int32)
+
+
+@dataclasses.dataclass
+class ServePlan:
+    """What the sharded serve step was built for: the mesh, the params'
+    and the cache's shardings, the KV cache's split (``"heads"``,
+    ``"seq"`` or None) and the number of data groups."""
+    mesh: object
+    param_shardings: object
+    cache_shardings: object
+    kv_mode: Optional[str]
+    n_groups: int
+
+
+def _cache_pairs(cache, new):
+    """(leaf, new value) of every ``ShardedTensor`` of ``cache`` beside
+    the tree ``new`` of the same structure."""
+    if isinstance(cache, dict):
+        for k, v in cache.items():
+            yield from _cache_pairs(v, new[k])
+    elif isinstance(cache, (list, tuple)):
+        for a, b in zip(cache, new):
+            yield from _cache_pairs(a, b)
+    elif isinstance(cache, sharding.ShardedTensor):
+        yield cache, new
+
+
+def compile_serve_step(cfg: ModelConfig, mesh, cache_spec, sample: bool = True,
+                       temperature: float = 1.0,
+                       use_kernel_conv: Optional[bool] = None):
+    """The single-token step over ``mesh``: → ``(plan, step)``.
+    ``step(params, cache, tokens [B, 1], generator=None) -> (next_tokens
+    [B, 1] int32 or, with ``sample=False``, the logits [B, V];
+    cache')`` takes the params placed by ``state_shardings`` (or
+    ``sharding.param_shardings``) and a cache placed by
+    ``plan.cache_shardings`` (``cache_spec``: a cache of the same shapes,
+    e.g. the one to be placed).  The cache
+    is donated: its shards are written in place and ``cache'`` holds the
+    same ``ShardedTensor``s with the new position.  The rows go one data
+    group at a time; the logits are gathered over the vocab and stacked
+    in global row order, so that greedy decoding gives the unsharded
+    step's tokens and a generator draws once a row in that order, as
+    ``make_serve_step`` does.  ``use_kernel_conv`` as in
+    ``griffin.causal_conv`` (K6 once a model shard)."""
+    groups = _sharded.groups(mesh)
+    pshapes = api.init_params(cfg, device="meta")
+    with sharding.use_activation_mesh(mesh):
+        kv_mode = sharding.kv_cache_mode(cfg)
+    plan = ServePlan(mesh=mesh,
+                     param_shardings=sharding.param_shardings(cfg, mesh, pshapes),
+                     cache_shardings=sharding.cache_shardings(cfg, mesh, cache_spec),
+                     kv_mode=kv_mode, n_groups=len(groups))
+    temperature = max(float(temperature), 1e-6)
+    kw = {} if use_kernel_conv is None else {"use_kernel_conv": use_kernel_conv}
+
+    def step(params, cache, tokens, generator=None):
+        tokens = torch.as_tensor(np.asarray(tokens) if not torch.is_tensor(tokens)
+                                 else tokens)
+        B = tokens.shape[0]
+        if B % len(groups):
+            raise ValueError(f"batch {B} does not split into {len(groups)} "
+                             f"data groups")
+        b = B // len(groups)
+        dev0 = groups[0].first
+        rows, pos = [], None
+        with torch.no_grad(), sharding.use_activation_mesh(mesh):
+            for gi, g in enumerate(groups):
+                view = _tree_map(g.view, params)
+                local = _tree_map(g.local_view, cache)
+                with sharding.use_group(g):
+                    logits, new = api.decode_step(
+                        cfg, view, local, tokens[gi * b:(gi + 1) * b].to(g.first), **kw)
+                    logits = logits[:, -1]
+                    if isinstance(logits, _sharded.Sharded):
+                        logits = g.relayout(logits, None).parts[0]
+                for leaf, value in _cache_pairs(cache, new):
+                    g.write_back(leaf, value)
+                pos = new["pos"]
+                rows.append(L.wide(logits).to(dev0))
+        out = _next(torch.cat(rows), sample, temperature, generator)
+        return out, {**cache, "pos": pos}
+
+    return plan, step
+
+
+def _tree_map(fn, tree):
+    """``fn`` on each ``ShardedTensor`` of ``tree``; other leaves kept."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_map(fn, v) for v in tree]
+    return fn(tree) if isinstance(tree, sharding.ShardedTensor) else tree
 
 
 class Generator:

@@ -17,10 +17,14 @@ over a mesh (``launch/mesh.py``): the state placed by
 over ('pod', 'data').  Each microbatch runs its data groups one after
 another (``models/sharded.py``): a group's forward and backward over its
 model shards, its gradients added into the shards'.  Then each distinct
-block's gradient (summed over its replicas) goes through AdamW once.
+block's gradient (summed over its replicas) goes through AdamW once.  A
+MoE config's microbatch first runs a forward pass of every group without
+gradients, for the routing statistics of its load-balancing loss
+(``moe.AuxStats``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Dict, Optional
 
@@ -29,7 +33,7 @@ import torch
 
 from repro_torch import sharding
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import api
+from repro_torch.models import api, moe
 from repro_torch.models import sharded as _sharded
 
 from . import optimizer
@@ -147,13 +151,12 @@ def compile_train_step(cfg: ModelConfig, tc: TrainConfig, mesh, batch_specs,
     state in place (``donate=False``: a copy).  ``batch_specs``: the
     batch's leaves' shapes and dtypes (``configs.shapes.input_specs`` or
     the arrays).  ``use_kernel_conv`` as in ``griffin.causal_conv``.
-    MoE, VLM, xLSTM and encoder-decoder configs raise ``not_ported``
-    (ROADMAP.md item 9b)."""
-    _sharded.check_family(cfg)
+    ``metrics`` holds the loss, the load-balancing loss (``aux``) and
+    AdamW's metrics."""
     st_shard = state_shardings(cfg, mesh)
     b_shard = sharding.batch_shardings(cfg, mesh, batch_specs)
     scalar = sharding.scalar_sharding(mesh)
-    metrics_shard = {"loss": scalar, "grad_norm": scalar, "lr": scalar}
+    metrics_shard = {"loss": scalar, "aux": scalar, "grad_norm": scalar, "lr": scalar}
     plan = _plan(cfg, tc, mesh, st_shard, b_shard, metrics_shard, batch_specs)
     grad_fn = make_sharded_loss_and_grad(cfg, mesh, tc.n_microbatches,
                                          use_kernel_conv)
@@ -164,41 +167,46 @@ def compile_train_step(cfg: ModelConfig, tc: TrainConfig, mesh, batch_specs,
                      "opt": tree_map(lambda l: l.map(torch.clone), state["opt"]),
                      "step": state["step"]}
         params = state["params"]
-        loss, grads = grad_fn(params, batch)
+        loss, grads, lm = grad_fn(params, batch)
         new_params, new_opt, om = optimizer.apply(
             tc.opt, params, grads, state["opt"], state["step"],
             ndims=api.stacked_ndims(cfg, params))
         del grads
         new_state = {"params": new_params, "opt": new_opt,
                      "step": state["step"] + 1}
-        return new_state, {"loss": loss, **om}
+        return new_state, {"loss": loss, **lm, **om}
 
     return plan, step
 
 
 def make_sharded_loss_and_grad(cfg: ModelConfig, mesh, n_microbatches: int = 1,
                                use_kernel_conv: Optional[bool] = None):
-    """``loss_and_grad(params, batch) -> (loss, grads)`` over ``mesh``:
-    ``params`` placed by ``state_shardings``, ``batch`` the global batch;
-    the loss (f32, on the first group's first device) the mean over the
-    microbatches' data groups, as ``make_train_step``'s; ``grads`` a tree
-    of ``ShardedTensor``s, each block's gradient summed over its replicas
-    onto its primary copy."""
-    _sharded.check_family(cfg)
+    """``loss_and_grad(params, batch) -> (loss, grads, metrics)`` over
+    ``mesh``: ``params`` placed by ``state_shardings``, ``batch`` the
+    global batch; the loss (f32, f64 in an f64 run, on the first group's
+    first device) the mean over the microbatches' data groups, as
+    ``make_train_step``'s; ``grads`` a tree of ``ShardedTensor``s, each
+    block's gradient summed over its replicas onto its primary copy;
+    ``metrics["aux"]`` the load-balancing loss, the mean over the
+    microbatches (0 without MoE layers).
+
+    A MoE config's loss is the JAX package's: each microbatch's
+    load-balancing loss over all its tokens.  Where the microbatch spans
+    more than one data group, ``moe_statistics`` first collects each MoE
+    layer's routing statistic, and each group's pass then uses their mean
+    (``moe.AuxStats``)."""
     groups = _sharded.groups(mesh)
     n_mb, n_g = n_microbatches, len(groups)
+    two_pass = cfg.moe is not None and n_g > 1
 
     def group_step(params, batch, g, weight):
-        """One group's loss, its gradient (times ``weight``) added into the
-        shards'.  The backward pass runs under the group too: it recomputes
-        checkpointed layers."""
-        view = tree_map(g.view, params)
+        """One group's loss and load-balancing loss, its gradient (times
+        ``weight``) added into the shards'.  The backward pass runs under
+        the group too: it recomputes checkpointed layers."""
         with sharding.use_activation_mesh(mesh), sharding.use_group(g):
-            loss, _ = api.loss_fn(cfg, view, batch, use_kernel_conv=use_kernel_conv)
-            if isinstance(loss, _sharded.Sharded):
-                loss = loss.parts[0]
+            loss, aux = _group_loss(cfg, params, batch, g, use_kernel_conv)
             (loss * weight).backward()
-        return loss.detach()
+        return loss.detach(), aux.detach()
 
     def loss_and_grad(params, batch):
         batch = {k: torch.as_tensor(np.asarray(v)) if not torch.is_tensor(v) else v
@@ -210,26 +218,62 @@ def make_sharded_loss_and_grad(cfg: ModelConfig, mesh, n_microbatches: int = 1,
         b = B // (n_mb * n_g)
         held = [t for leaf in tree_leaves(params) for t in leaf.local_tensors()]
         dev0 = groups[0].first
-        loss_sum = torch.zeros((), dtype=torch.float32, device=dev0)
+        wd = _wide(cfg)
+        loss_sum = torch.zeros((), dtype=wd, device=dev0)
+        aux_sum = torch.zeros((), dtype=wd, device=dev0)
         try:
             for t in held:
                 t.grad = None
                 t.requires_grad_(True)
             for i in range(n_mb):
-                for gi, g in enumerate(groups):
-                    lo = i * (B // n_mb) + gi * b
-                    gb = {k: v[lo:lo + b].to(g.first) for k, v in batch.items()}
-                    loss = group_step(params, gb, g, 1.0 / (n_mb * n_g))
-                    loss_sum = loss_sum + loss.float().to(dev0)
+                gbs = [{k: v[i * (B // n_mb) + gi * b:][:b].to(g.first)
+                        for k, v in batch.items()} for gi, g in enumerate(groups)]
+                stats = moe_statistics(cfg, mesh, params, gbs, use_kernel_conv) \
+                    if two_pass else None
+                for gi, (g, gb) in enumerate(zip(groups, gbs)):
+                    with stats.fixed(gi) if stats else contextlib.nullcontext():
+                        loss, aux = group_step(params, gb, g, 1.0 / (n_mb * n_g))
+                    loss_sum = loss_sum + loss.to(dev0, wd)
+                    aux_sum = aux_sum + aux.to(dev0, wd)
         finally:
             for t in held:
                 t.requires_grad_(False)
         grads = tree_map(_summed_grad, params)
         for t in held:
             t.grad = None
-        return loss_sum / (n_mb * n_g), grads
+        return loss_sum / (n_mb * n_g), grads, {"aux": aux_sum / (n_mb * n_g)}
 
     return loss_and_grad
+
+
+def moe_statistics(cfg: ModelConfig, mesh, params, group_batches,
+                   use_kernel_conv: Optional[bool] = None) -> moe.AuxStats:
+    """The routing statistics of one microbatch of a MoE config: every
+    data group's forward pass (``group_batches`` in the order of
+    ``models.sharded.groups(mesh)``) without gradients."""
+    stats = moe.AuxStats()
+    with torch.no_grad(), sharding.use_activation_mesh(mesh):
+        for gi, (g, gb) in enumerate(zip(_sharded.groups(mesh), group_batches)):
+            with sharding.use_group(g), stats.collect(gi):
+                _group_loss(cfg, params, gb, g, use_kernel_conv)
+    return stats
+
+
+def _group_loss(cfg: ModelConfig, params, batch, g, use_kernel_conv):
+    """Group ``g``'s loss and load-balancing loss on its first device."""
+    loss, metrics = api.loss_fn(cfg, tree_map(g.view, params), batch,
+                                use_kernel_conv=use_kernel_conv)
+    aux = metrics["aux"]
+    if isinstance(loss, _sharded.Sharded):
+        loss = loss.parts[0]
+    if isinstance(aux, _sharded.Sharded):
+        aux = aux.parts[0]
+    return loss, aux
+
+
+def _wide(cfg: ModelConfig) -> torch.dtype:
+    """The dtype of a step's reported loss: f32, f64 in an f64 run."""
+    return torch.float64 if cfg.dtype == "float64" else torch.float32
 
 
 def _summed_grad(leaf: sharding.ShardedTensor) -> sharding.ShardedTensor:
@@ -307,7 +351,7 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig,
             ndims=api.stacked_ndims(cfg, params))
         new_state = {"params": new_params, "opt": new_opt,
                      "step": state["step"] + 1}
-        metrics = {"loss": loss.float(), **om}
+        metrics = {"loss": loss.to(_wide(cfg)), **om}
         return new_state, metrics
 
     return train_step

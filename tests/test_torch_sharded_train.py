@@ -1,7 +1,9 @@
 """Port parity: the sharded train step (``train_loop.compile_train_step``
 on a (2, 2) mesh of CPU shards, ``models/sharded.py``) against the JAX
 package's single-device ``make_train_step`` and against the port's own
-unsharded step; elastic checkpoint restore; the families left out.
+unsharded step, for every family; MoE's global load-balancing loss with
+dropped tokens and a routing group that would straddle data groups; an
+odd vocab; elastic checkpoint restore.
 
 The JAX package's sharded path does not run on this machine's JAX (its
 dry-run tests fail with a ``ShardingTypeError``), so the sharded step is
@@ -46,7 +48,8 @@ from repro_torch.train import checkpoint, fault_tolerance, optimizer, train_loop
 
 F32_TOL = 1e-5
 UNSHARDED_TOL = 1e-6
-ARCHS = ("recurrentgemma-9b", "phi3-mini-3.8b", "granite-8b")
+ARCHS = ("recurrentgemma-9b", "phi3-mini-3.8b", "granite-8b", "mixtral-8x7b",
+         "pixtral-12b", "xlstm-1.3b", "whisper-small")
 OPT = dict(warmup_steps=0, total_steps=10)
 
 
@@ -60,11 +63,17 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
-def _cfgs(arch, dtype="float32"):
-    j = dataclasses.replace(jconfigs.tiny(jconfigs.get(arch)), dtype=dtype)
-    t = dataclasses.replace(configs.tiny(configs.get(arch)), dtype=dtype)
-    assert dataclasses.asdict(j) == dataclasses.asdict(t)
-    return j, t
+def _cfgs(arch, dtype="float32", moe=None, **kw):
+    """(JAX config, port config): tiny ``arch`` in ``dtype``, ``kw``
+    replaced, ``moe`` (a dict) replaced in the MoE config."""
+    out = []
+    for c in (jconfigs, configs):
+        cfg = dataclasses.replace(c.tiny(c.get(arch)), dtype=dtype, **kw)
+        if moe:
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, **moe))
+        out.append(cfg)
+    assert dataclasses.asdict(out[0]) == dataclasses.asdict(out[1])
+    return tuple(out)
 
 
 def _mesh(devices="one", shape=(2, 2)):
@@ -73,10 +82,19 @@ def _mesh(devices="one", shape=(2, 2)):
     return M.make_mesh(shape, ("data", "model"), devices=devs)
 
 
-def _batch(B=4, S=16, seed=1, vocab=256):
+def _batch(B=4, S=16, seed=1, vocab=256, cfg=None):
+    """Tokens and labels, and the stub frontends' embeddings of ``cfg``'s
+    family (VLM: its prefix; audio: 16 frames)."""
     rng = np.random.default_rng(seed)
-    return {"tokens": rng.integers(0, vocab, (B, S)).astype(np.int32),
-            "labels": rng.integers(0, vocab, (B, S)).astype(np.int32)}
+    out = {"tokens": rng.integers(0, vocab, (B, S)).astype(np.int32),
+           "labels": rng.integers(0, vocab, (B, S)).astype(np.int32)}
+    if cfg is not None and cfg.family == "vlm":
+        out["patch_embeds"] = rng.standard_normal(
+            (B, cfg.n_prefix_tokens, cfg.d_model)).astype(np.float32)
+    if cfg is not None and cfg.family == "audio":
+        out["frame_embeds"] = rng.standard_normal(
+            (B, 16, cfg.d_model)).astype(np.float32)
+    return out
 
 
 def _paths(tree, pre=""):
@@ -130,7 +148,7 @@ def _jax_step(arch, n_mb):
     before = jax.tree.map(np.asarray, jstate)
     tc = jtl.TrainConfig(opt=jopt.OptConfig(**OPT), n_microbatches=n_mb)
     after, m = jax.jit(jtl.make_train_step(jcfg, tc))(
-        jstate, jax.tree.map(jnp.asarray, _batch()))
+        jstate, jax.tree.map(jnp.asarray, _batch(cfg=jcfg)))
     return before, jax.tree.map(np.asarray, after), {k: float(v) for k, v in m.items()}
 
 
@@ -143,7 +161,7 @@ def test_sharded_step_matches_jax(arch, n_mb):
     state = _placed(interop.state_from_jax(before, cfg, device="cpu"), cfg, mesh)
     p0 = interop.state_from_jax(before, cfg, device="cpu")["params"]
     tc = train_loop.TrainConfig(opt=optimizer.OptConfig(**OPT), n_microbatches=n_mb)
-    batch = _batch()
+    batch = _batch(cfg=cfg)
     plan, step = train_loop.compile_train_step(cfg, tc, mesh, batch)
     state2, m = step(state, batch)
     assert state2["step"] == 1 and plan.n_groups == 2
@@ -166,14 +184,15 @@ def test_sharded_step_matches_unsharded(arch, mesh_shape):
     """f64; on four distinct CPU devices, so replicated blocks have copies.
     (1, 4): granite's kv_heads (2 in the tiny config) do not split four
     ways, so wk/wv are replicated and each shard takes its q heads' KV
-    head."""
+    head.  xLSTM's f32 gradients are ill-conditioned: f64 holds its
+    sharded step to the unsharded one as it does the others'."""
     cfg = dataclasses.replace(configs.tiny(configs.get(arch)),
                               dtype="float64", param_dtype="float64")
     mesh = _mesh("four", mesh_shape)
     ref = train_loop.init_state(cfg, device="cpu", seed=5)
     state = _placed(train_loop.init_state(cfg, device="cpu", seed=5), cfg, mesh)
     tc = train_loop.TrainConfig(opt=optimizer.OptConfig(**OPT))
-    batch = _batch(seed=2)
+    batch = _batch(seed=2, cfg=cfg)
     # K6 takes f32 and bf16: Griffin runs its plain version (autograd) in f64
     kw = {"use_kernel_conv": False} if cfg.family == "hybrid" else {}
     _, step = train_loop.compile_train_step(cfg, tc, mesh, batch, **kw)
@@ -234,17 +253,95 @@ def test_plan_counts_bytes():
 
 @pytest.mark.parametrize("arch", ["mixtral-8x7b", "pixtral-12b", "xlstm-1.3b",
                                   "whisper-small"])
-def test_other_families_under_a_mesh_are_not_ported(arch):
+def test_other_families_placement_round_trips(arch):
+    """The four families PR 24 added: their shardings, placement and
+    gather round-trip bit for bit."""
     cfg = configs.tiny(configs.get(arch))
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        train_loop.compile_train_step(cfg, train_loop.TrainConfig(), _mesh(),
-                                      _batch())
-    # their shardings and placement work
     sh = train_loop.state_shardings(cfg, _mesh())
     st = train_loop.init_state(cfg, device="cpu")
     back = sharding.gather(sharding.device_put(st, sh))
     for (_, a), (_, b) in zip(_paths(back["params"]), _paths(st["params"])):
         assert torch.equal(a, b)
+
+
+# -- MoE: the global load-balancing loss ------------------------------------------
+def _jax_loss_grad(jcfg, cfg, batch):
+    """(JAX params in the port's layout, JAX loss, its aux, its gradient in
+    the port's layout) of ``jcfg`` from ``PRNGKey(0)`` on ``batch``."""
+    from repro.models import api as japi
+    jparams = japi.init_params(jcfg, jax.random.PRNGKey(0))
+    jb = jax.tree.map(jnp.asarray, batch)
+    (loss, met), grads = jax.jit(jax.value_and_grad(
+        functools.partial(japi.loss_fn, jcfg), has_aux=True))(jparams, jb)
+    np_ = functools.partial(jax.tree.map, np.asarray)
+    return (interop.params_from_jax(np_(jparams), cfg, device="cpu"), float(loss),
+            float(met["aux"]), interop.params_from_jax(np_(grads), cfg, device="cpu"))
+
+
+def test_moe_dropping_tokens_takes_the_global_aux_loss():
+    """Capacity 1.25 with a routing group a row (``group_size`` = S): tokens
+    are dropped, each data group routes its own rows, and the loss, the
+    load-balancing loss and every gradient leaf are JAX's over the whole
+    batch (not the mean of per-group losses)."""
+    jcfg, cfg = _cfgs("mixtral-8x7b", moe={"capacity_factor": 1.25,
+                                            "group_size": 16})
+    batch = _batch(cfg=cfg)
+    params, jloss, jaux, jgrads = _jax_loss_grad(jcfg, cfg, batch)
+    mesh = _mesh()
+    fn = train_loop.make_sharded_loss_and_grad(cfg, mesh)
+    placed = sharding.device_put(params, train_loop.state_shardings(cfg, mesh)["params"])
+    loss, grads, metrics = fn(placed, batch)
+    np.testing.assert_allclose(float(loss), jloss, rtol=F32_TOL)
+    np.testing.assert_allclose(float(metrics["aux"]), jaux, rtol=F32_TOL)
+    _close_leaves(sharding.gather(grads), jgrads, F32_TOL)
+    # some slot was dropped: the capacity bound binds on these inputs
+    from repro_torch.models import moe as tmoe
+    xg = torch.randn(4, 16, cfg.d_model)
+    *_, kept, C, _ = tmoe.route(params["layers"][0]["moe"], xg, cfg)
+    assert C == 10 and not bool(kept.all())
+
+
+def test_moe_routing_group_straddling_data_groups_raises():
+    """``group_size`` 64 over 4 x 16 tokens: one routing group would span
+    both data groups of 32 tokens, and capacity 1.25 drops tokens."""
+    _, cfg = _cfgs("mixtral-8x7b", moe={"capacity_factor": 1.25})
+    mesh = _mesh()
+    fn = train_loop.make_sharded_loss_and_grad(cfg, mesh)
+    placed = sharding.device_put(train_loop.init_state(cfg, device="cpu")["params"],
+                                 train_loop.state_shardings(cfg, mesh)["params"])
+    with pytest.raises(ValueError, match="64 tokens straddle data groups of 32"):
+        fn(placed, _batch(cfg=cfg))
+
+
+def test_moe_aux_stats_check_the_routing():
+    """A group whose routing differs from its statistics pass raises; the
+    fixed pass hands out the mean over the groups."""
+    from repro_torch.models import moe as tmoe
+    stats = tmoe.AuxStats()
+    for gi, ce in enumerate([torch.tensor([0.5, 0.5]), torch.tensor([1.0, 0.0])]):
+        with stats.collect(gi):
+            assert stats.take(7, ce) is ce
+    with stats.fixed(1):
+        assert torch.equal(stats.take(7, torch.tensor([1.0, 0.0])),
+                           torch.tensor([0.75, 0.25]))
+    with stats.fixed(0), pytest.raises(RuntimeError, match="differs"):
+        stats.take(7, torch.tensor([1.0, 0.0]))
+
+
+def test_odd_vocab_takes_the_replicated_cross_entropy():
+    """Whisper with a vocab of 257, which no model axis of 2 splits: the
+    logits stay replicated over the model shards; the step is JAX's."""
+    jcfg, cfg = _cfgs("whisper-small", vocab=257)
+    mesh = _mesh()
+    assert "model" not in str(train_loop.state_shardings(cfg, mesh)["params"]
+                              ["embed"]["tok"].spec)
+    batch = _batch(cfg=cfg, vocab=257)
+    params, jloss, _, jgrads = _jax_loss_grad(jcfg, cfg, batch)
+    fn = train_loop.make_sharded_loss_and_grad(cfg, mesh)
+    loss, grads, _ = fn(sharding.device_put(
+        params, train_loop.state_shardings(cfg, mesh)["params"]), batch)
+    np.testing.assert_allclose(float(loss), jloss, rtol=F32_TOL)
+    _close_leaves(sharding.gather(grads), jgrads, F32_TOL)
 
 
 def test_model_split_reductions_raise():

@@ -427,7 +427,7 @@ def test_launch_train_not_ported_options(argv, tmp_path, capsys, monkeypatch):
 def test_sharded_step_is_not_ported():
     """Once not ported, the sharded step runs: ``state_shardings`` and
     ``compile_train_step`` on a (2, 2) CPU mesh, one step of the tiny
-    Griffin to the unsharded step's loss; MoE is item 9b."""
+    Griffin, then of the tiny MoE, to the unsharded step's loss."""
     _, cfg = _cfgs()
     mesh = make_mesh((2, 2), ("data", "model"), devices=[CPU])
     shard = train_loop.state_shardings(cfg, mesh)
@@ -443,8 +443,12 @@ def test_sharded_step_is_not_ported():
     assert state["step"] == 1
     np.testing.assert_allclose(float(m["loss"]), float(want["loss"]), rtol=F32_TOL)
     moe = configs.tiny(configs.get("mixtral-8x7b"))
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        train_loop.compile_train_step(moe, tc, mesh, batch)
+    _, step = train_loop.compile_train_step(moe, tc, mesh, batch)
+    _, m = step(sharding.device_put(train_loop.init_state(moe, device=CPU, seed=3),
+                                    train_loop.state_shardings(moe, mesh)), batch)
+    _, want = train_loop.make_train_step(moe, tc)(
+        train_loop.init_state(moe, device=CPU, seed=3), batch)
+    np.testing.assert_allclose(float(m["loss"]), float(want["loss"]), rtol=F32_TOL)
 
 
 def test_training_entry_points_default_to_the_card(monkeypatch):

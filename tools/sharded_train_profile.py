@@ -2,18 +2,23 @@
 not a gate).
 
 ``chip_smoke.py`` phase 16 times the sharded steps; this script explains
-them: (a) one bf16 step of recurrentgemma-9b cut to 3 layers, 2 x 4096
-tokens, unsharded and on a (2, 2) mesh of the card, each under
-``torch.profiler`` (wall time, the top entries by device time, the most
-frequent operators); (b) one bf16 step of phi3-mini-3.8b whole, 16 x 512,
-on the production mesh (16, 16) of the card, with its AdamW timed apart,
-and one data group's forward and backward (recompute included) timed
-apart.  Each step follows a warm-up step.
+them: (a) one bf16 step of ``--arch`` (default recurrentgemma-9b) cut to
+``--layers`` (default 3; the encoder-decoder: that many encoder and
+decoder layers each), 2 x 4096 tokens, unsharded and on a (2, 2) mesh of
+the card, each under ``torch.profiler`` (wall time, the top entries by
+device time, the most frequent operators; a MoE config's statistics pass
+timed apart); (b) one bf16 step of ``--full-arch`` (default
+phi3-mini-3.8b) whole, 16 x 512 tokens, on the production mesh (16, 16)
+of the card, with its AdamW timed apart, and
+one data group's forward and backward (recompute included) timed apart
+(``--full-arch none`` skips it).  Each step follows a warm-up step.  Any
+of the ten configs (``configs.ARCH_NAMES``) goes in either part.
 
-    PYTHONPATH=src python3 tools/sharded_train_profile.py [--json PATH]
+    PYTHONPATH=src python3 tools/sharded_train_profile.py [--arch NAME]
+        [--layers N] [--full-arch NAME|none] [--json PATH]
 
-Needs a CUDA card (about 80 s); prints the card's name and power limit
-first and the record as JSON last.
+Needs a CUDA card (about 80 s at the defaults); prints the card's name and
+power limit first and the record as JSON last.
 """
 from __future__ import annotations
 
@@ -30,6 +35,9 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="recurrentgemma-9b")
+    ap.add_argument("--layers", type=int, default=3)
+    ap.add_argument("--full-arch", default="phi3-mini-3.8b")
     ap.add_argument("--json", help="also write the record to this file")
     args = ap.parse_args(argv)
     import torch
@@ -50,8 +58,21 @@ def main(argv=None) -> int:
     sync = torch.cuda.synchronize
     rec = {}
 
+    stats_s = []
+    statistics = train_loop.moe_statistics
+
+    def timed_statistics(*a, **k):     # MoE's statistics pass, timed apart
+        sync()
+        t0 = time.perf_counter()
+        out = statistics(*a, **k)
+        sync()
+        stats_s.append(time.perf_counter() - t0)
+        return out
+    train_loop.moe_statistics = timed_statistics
+
     def profiled(label, step, state, batch):
         sync()
+        stats_s.clear()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             state, m = step(state, batch)
@@ -69,10 +90,16 @@ def main(argv=None) -> int:
             print(f"   {ms:9.2f} ms  {n:7d}  {key[:110]}")
         print(f"   most frequent operators: {ops}")
         rec[label] = {"wall_ms": 1e3 * wall, "top_device": top, "frequent_ops": ops}
+        if stats_s:
+            rec[label]["stats_pass_ms"] = 1e3 * sum(stats_s)
+            print(f"   MoE statistics pass {1e3 * sum(stats_s):.1f} ms of it")
         return state
 
     # (a)
-    cfg = dataclasses.replace(configs.get("recurrentgemma-9b"), n_layers=3)
+    cfg = configs.get(args.arch)
+    n = args.layers
+    cfg = dataclasses.replace(cfg, n_layers=2 * n, n_enc_layers=n, n_dec_layers=n) \
+        if cfg.is_encdec else dataclasses.replace(cfg, n_layers=n)
     mesh = mesh_mod.make_mesh((2, 2), ("data", "model"))
     shape = dataclasses.replace(shapes.SHAPES["train_4k"], seq_len=4096, global_batch=2)
     batch_fn = data.make_batch_fn(cfg, shape, seed=0)
@@ -89,9 +116,11 @@ def main(argv=None) -> int:
     state = profiled("a sharded", step, state, batch_fn(1))
     del state, step
     torch.cuda.empty_cache()
+    if args.full_arch == "none":
+        return _report(rec, args.json)
 
     # (b)
-    cfg = configs.get("phi3-mini-3.8b")
+    cfg = configs.get(args.full_arch)
     mesh = mesh_mod.make_production_mesh()
     shape = dataclasses.replace(shapes.SHAPES["train_4k"], seq_len=512, global_batch=16)
     batch = data.make_batch_fn(cfg, shape, seed=0)(0)
@@ -143,8 +172,12 @@ def main(argv=None) -> int:
     print(f"b sharded step: {wall:.2f} s, AdamW {apply_s[0]:.2f} s; one of "
           f"{rec['b']['groups']} data groups: forward {rec['b']['group_forward_ms']:.1f} "
           f"ms, backward (recompute included) {rec['b']['group_backward_ms']:.1f} ms")
-    if args.json:
-        pathlib.Path(args.json).write_text(json.dumps(rec, indent=1, default=str))
+    return _report(rec, args.json)
+
+
+def _report(rec, path) -> int:
+    if path:
+        pathlib.Path(path).write_text(json.dumps(rec, indent=1, default=str))
     print(json.dumps(rec, default=str))
     return 0
 
