@@ -252,6 +252,18 @@ Phases, each of which exits non-zero when it fails:
    decode against the unsharded steps; every K6 launch of the sharded
    prefill and decode on a model shard's slice bit for bit its plain
    version, counted, and timed beside it and ``F.conv1d``.
+18. the dry run's accounting — the sharded steps of 16 (a), 16 (b), 17 (a)
+   (prefill and decode) and 17 (b), each run once on a mesh of meta
+   shards of the same shape under ``op_analysis.Account``
+   (``launch/dryrun.account_cell``; nothing runs on the card): FLOPs a
+   step per device and executed, the achieved TFLOP/s (executed FLOPs
+   over the phase's measured ms a step, against the card's peak for the
+   compute dtype), bytes and collective bytes, the memory it predicts
+   beside the measured peak.  Gates: a shard's argument bytes in the
+   account equal those of the same state placed on the card (drawn and
+   placed again here, summed over a shard's tensors), and its K6 ops
+   equal the launches the card made (16 (a): 24 a step, 72 in all; 17
+   (a)'s prefill: 8).
 
 It prints the kernels line ``{"kernels": [...]}`` and then, last,
 ``{"ok": true, "device": {...}}``.  ``--quick`` runs phases 1–3 at the two
@@ -567,6 +579,9 @@ SERVE17_BATCH, SERVE17_PROMPT, SERVE17_NEW, SERVE17_TOL = 2, 16, 8, 1e-3
 # straddle the data groups at capacity 1.25, which the port refuses)
 SERVE17_PREFILL = {"mixtral-8x7b": 4096}
 GRANITE17_ARCH, GRANITE17_BATCH, GRANITE17_CACHE = "granite-8b", 16, 4096
+# phase 18: the card's peak FLOP rate for a compute dtype (the data
+# sheet's dense rates: bf16 on the tensor cores, f32 outside them)
+PEAK_FLOPS = {"NVIDIA H100 80GB HBM3": {"bfloat16": 989e12, "float32": 67e12}}
 
 
 def bf16_ulp(scale: float) -> float:
@@ -4248,6 +4263,149 @@ def sharded_serve_phase(torch, np, mods, counters, rates, device="cuda"):
     return rec, entries
 
 
+def _shard_bytes(tree) -> int:
+    """Bytes of one shard's tensors (mesh position 0) of every
+    ``ShardedTensor`` of ``tree``."""
+    total = 0
+    for _, leaf in _named_leaves(tree):
+        if hasattr(leaf, "shard"):
+            t = leaf.shard((0,) * leaf.mesh.devices.ndim)
+            total += t.numel() * t.element_size()
+    return total
+
+
+def placed_state_bytes(torch, mods, cfg, mesh, kind, cache_spec=None, device="cuda"):
+    """A shard's bytes of the state a phase placed on the card, summed over
+    its tensors: the state drawn and placed on ``mesh`` again (train:
+    params and moments; prefill: params; decode: params and cache), then
+    freed."""
+    api, sharding, train_loop, serve_loop = (mods["api"], mods["sharding"],
+                                             mods["train_loop"], mods["serve_loop"])
+    if kind == "train":
+        state = train_loop.init_sharded_state(cfg, mesh, seed=0)
+        n = _shard_bytes(state["params"]) + _shard_bytes(state["opt"])
+    else:
+        pshard = sharding.param_shardings(cfg, mesh, api.init_params(cfg, device="meta"))
+        state = {"params": sharding.device_put(api.init_params(cfg, device=device, seed=0),
+                                               pshard, donate=True)}
+        if kind == "decode":
+            real = api.init_cache(cfg, *cache_spec, device=device)
+            plan, _ = serve_loop.compile_serve_step(cfg, mesh, real)
+            state["cache"] = sharding.device_put(real, plan.cache_shardings, donate=True)
+        n = _shard_bytes(state)
+    del state
+    sync(torch, device)
+    return n
+
+
+def dry_run_phase(torch, mods, record, smi, device="cuda"):
+    """Phase 18: the dry run's account of the sharded steps phases 16 and
+    17 ran (``record``'s), each on meta shards of the same mesh; its gates
+    (argument bytes against the state placed on the card, K6 ops against
+    the card's launches) and the achieved rate beside the card's peak.
+    Returns the record."""
+    import dataclasses
+    configs, shapes, dryrun, mesh_mod, serve_loop = (
+        mods["configs"], mods["shapes"], mods["dryrun"], mods["mesh"], mods["serve_loop"])
+    t_phase = time.perf_counter()
+    devices = None if torch.device(device).type == "cuda" else [device]
+    meta = [torch.device("meta")]
+    peaks = PEAK_FLOPS.get(torch.cuda.get_device_name(0) if devices is None else "", {})
+    st16, sv17 = record["sharded_training"], record["sharded_serving"]
+    rg = sv17["serve"][TRAIN_ARCH]
+    full = st16["full"]
+    train_shape = shapes.SHAPES["train_4k"]
+    # (name, cfg, mesh shape, shape, the phase's measured s a step (None:
+    # not measured), its peak GB, the card's K6 launches a step)
+    cases = [
+        ("16 (a)", dataclasses.replace(configs.get(TRAIN_ARCH), n_layers=TRAIN_LAYERS),
+         SHARD_MESH, dataclasses.replace(train_shape, seq_len=TRAIN_SEQ,
+                                         global_batch=TRAIN_BATCH),
+         st16["train"]["sharded_ms_per_step"] / 1e3, st16["train"]["sharded_peak_gb"],
+         st16["train"]["k6_launches"] / SHARD_STEPS),
+        ("16 (b)", configs.get(FULL_ARCH), (16, 16),
+         dataclasses.replace(train_shape, seq_len=FULL_SEQ, global_batch=FULL_BATCH),
+         _steady_ms(full["sharded_step_s"]) / 1e3, full["sharded_peak_gb"], 0),
+        ("17 (a) prefill", dataclasses.replace(configs.get(TRAIN_ARCH), n_layers=3,
+                                               dtype="float32"),
+         SERVE_MESH, shapes.ShapeSpec("prefill", "prefill", SERVE17_PROMPT, SERVE17_BATCH),
+         None, rg["sharded_peak_gb"], rg["k6_prefill_launches"]),
+        ("17 (a) decode", dataclasses.replace(configs.get(TRAIN_ARCH), n_layers=3,
+                                              dtype="float32"),
+         SERVE_MESH, shapes.ShapeSpec("decode", "decode", SERVE17_PROMPT + SERVE17_NEW,
+                                      SERVE17_BATCH),
+         rg["sharded_ms_per_decode_step"] / 1e3, rg["sharded_peak_gb"],
+         rg["k6_decode_launches"] / rg["decode_steps"]),
+        ("17 (b) decode", dataclasses.replace(configs.get(GRANITE17_ARCH), dtype="float32"),
+         (16, 16), shapes.ShapeSpec("decode", "decode", GRANITE17_CACHE, GRANITE17_BATCH),
+         sv17["granite_full"]["sharded_ms_per_decode_step"] / 1e3,
+         sv17["granite_full"]["sharded_peak_gb"], 0),
+    ]
+    rec = {"nvidia_smi": smi, "cells": {}}
+    for name, cfg, mshape, shape, step_s, peak, k6 in cases:
+        t0 = time.perf_counter()
+        over = {}
+        if shape.kind == "train":
+            over["n_microbatches"] = 1
+        mmesh = mesh_mod.make_mesh(mshape, ("data", "model"), meta)
+        acct, info, _, _ = dryrun.account_cell(cfg, shape, False, over, mesh=mmesh)
+        account_s = time.perf_counter() - t0
+        args = info["arguments"]
+        state = args.get("state", 0) + args.get("params", 0) + args.get("cache", 0)
+        cmesh = mesh_mod.make_mesh(mshape, ("data", "model"), devices)
+        cache = (shape.global_batch, mods["api"].decode_cache_len(cfg, shape.seq_len)) \
+            if shape.kind == "decode" else None
+        placed = placed_state_bytes(torch, mods, cfg, cmesh, shape.kind, cache, device)
+        if placed != state:
+            fail(f"dry run {name} ({cfg.name}): a shard's state in the account "
+                 f"{state} bytes, placed on the card {placed}")
+        got_k6 = acct.kernels.get("causal_conv1d", 0)
+        if got_k6 != k6:
+            fail(f"dry run {name} ({cfg.name}): {got_k6} K6 ops a step in the "
+                 f"account, the card launched {k6} a step")
+        pd, ex = acct.per_device, acct.executed
+        mem = info["memory"]
+        peak_rate = peaks.get(cfg.dtype)
+        tflops = ex.total_flops / step_s / 1e12 if step_s else None
+        row = {"arch": cfg.name, "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+               "mesh": list(mshape), "kind": shape.kind, "batch": shape.global_batch,
+               "seq": shape.seq_len, "account_s": account_s,
+               "flops_per_device": pd.total_flops, "dot_flops_per_device": pd.dot_flops,
+               "flops_executed": ex.total_flops, "dot_flops_executed": ex.dot_flops,
+               "hbm_bytes_per_device": pd.hbm_bytes, "hbm_bytes_executed": ex.hbm_bytes,
+               "collective_bytes_per_device": pd.collective_bytes,
+               "collective_bytes_executed": ex.collective_bytes,
+               "memory_per_device": mem, "temp_bytes_executed": acct.executed_temp_bytes,
+               "held_bytes_executed": info["held_bytes"],
+               "predicted_peak_gb": (info["held_bytes"] + acct.executed_temp_bytes) / 1e9,
+               "argument_bytes_per_shard": args, "placed_state_bytes_per_shard": placed,
+               "k6_ops": got_k6, "k6_launches_on_card": k6,
+               "measured_s_per_step": step_s, "measured_peak_gb": peak,
+               "achieved_tflops": tflops,
+               "peak_share": tflops * 1e12 / peak_rate if tflops and peak_rate else None}
+        rec["cells"][name] = row
+        rate = (f"{tflops:.2f} TFLOP/s achieved ({row['peak_share']:.2%} of "
+                f"{peak_rate / 1e12:g} {cfg.dtype})" if tflops and peak_rate else
+                f"{tflops:.2f} TFLOP/s achieved" if tflops else
+                "its ms a step not measured")
+        say(f"dry run {name} ({cfg.name} {cfg.n_layers} layers, {cfg.dtype}, {shape.kind} "
+            f"{shape.global_batch} x {shape.seq_len}, meta mesh {mshape}; {smi}): "
+            f"{pd.total_flops:.6g} FLOPs a step a device ({pd.dot_flops:.6g} dot), "
+            f"{ex.total_flops:.6g} executed; {rate}; HBM bytes {pd.hbm_bytes:.6g} a "
+            f"device, {ex.hbm_bytes:.6g} executed; collective bytes {pd.collective_bytes:.6g} "
+            f"a device {dict(pd.coll_counts)}; memory a device {mem['per_device_total_bytes'] / 1e9:.3f} GB "
+            f"(arguments {mem['argument_size_in_bytes'] / 1e9:.3f}, temp "
+            f"{mem['temp_size_in_bytes'] / 1e9:.3f}); one process holds "
+            f"{row['predicted_peak_gb']:.3f} GB at its peak (arguments "
+            f"{info['held_bytes'] / 1e9:.3f}, temp {acct.executed_temp_bytes / 1e9:.3f}) "
+            f"beside the measured peak {peak} GB; "
+            f"state a shard {state} bytes = placed on the card; K6 {got_k6} ops a step "
+            f"= the card's {k6:g}; accounted in {account_s:.1f} s")
+    rec["seconds"] = time.perf_counter() - t_phase
+    say(f"dry run phase: {rec['seconds']:.1f} s")
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -4976,6 +5134,8 @@ def main(argv=None) -> int:
         if e["path"] != "serving":
             e["resilient_launches"] = record["resilience"]["training"]["k6_launches"]
     conv_entries += [shard_entry, *serve_entries]
+    # -- 18. the dry run's accounting ----------------------------------------------------
+    record["dry_run"] = dry_run_phase(torch, {**sv_mods, "mesh": mesh_mod}, record, smi)
     for kname, e in attn_entries.items():  # standalone: 0 on the serving path
         e["launches"] = serve_row["launches"][kname]
 

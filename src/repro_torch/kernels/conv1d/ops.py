@@ -1,5 +1,13 @@
 """Entry points of K6: the causal depthwise conv1d on any device, and its
-gradient (``CausalConv1dFn``)."""
+gradient (``CausalConv1dFn``).
+
+K6 is the operator ``torch.ops.repro_torch.causal_conv1d``: one operator
+to the dispatcher whatever runs inside it (the kernel on the card, the
+plain version on the CPU), with a fake implementation that gives the
+output's shape, so that ``meta`` and fake tensors compute nothing.  It is
+registered through ``torch.library.Library`` (``custom_op``'s wrapper
+imports ``torch._dynamo`` at the first call, seconds, and checks aliasing
+at every call)."""
 from __future__ import annotations
 
 import torch
@@ -8,16 +16,25 @@ from .conv1d import causal_conv1d_cuda, check_args
 from .ref import causal_conv1d_ref
 
 
+_LIB = torch.library.Library("repro_torch", "DEF")
+_LIB.define("causal_conv1d(Tensor x, Tensor w) -> Tensor")
+_LIB.impl("causal_conv1d", causal_conv1d_cuda, "CUDA")
+_LIB.impl("causal_conv1d", causal_conv1d_ref, "CPU")
+
+
+@torch.library.register_fake("repro_torch::causal_conv1d", lib=_LIB)
+def _(x, w):
+    return torch.empty_like(x)
+
+
 def causal_conv1d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x: [B, T, W]; w: [cw, W] → causal depthwise conv, same length (zero
     history).  CUDA tensors launch the kernel (or raise); CPU tensors run
-    the plain version."""
+    the plain version; ``meta`` tensors give the output's shape."""
     check_args(x, w)
-    if x.device.type == "cuda":
-        return causal_conv1d_cuda(x, w)
-    if x.device.type != "cpu":
+    if x.device.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"causal_conv1d: unsupported device {x.device}")
-    return causal_conv1d_ref(x, w)
+    return torch.ops.repro_torch.causal_conv1d(x, w)
 
 
 def weight_grad(x: torch.Tensor, g: torch.Tensor, cw: int) -> torch.Tensor:

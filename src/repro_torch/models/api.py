@@ -32,10 +32,12 @@ def module_for(cfg: ModelConfig):
     return _FAMILY[cfg.family]
 
 
-def _conv_kw(use_kernel_conv: Optional[bool]) -> Dict:
+def _conv_kw(cfg: ModelConfig, use_kernel_conv: Optional[bool]) -> Dict:
     """The ``use_kernel_conv`` argument of the families with a temporal
-    conv (``griffin``), passed only when set."""
-    return {} if use_kernel_conv is None else {"use_kernel_conv": use_kernel_conv}
+    conv (``griffin``), passed only to them and only when set."""
+    if use_kernel_conv is None or module_for(cfg) is not griffin:
+        return {}
+    return {"use_kernel_conv": use_kernel_conv}
 
 
 def init_params(cfg: ModelConfig, *, device=None, seed: int = 0):
@@ -92,7 +94,7 @@ def forward_hidden(cfg: ModelConfig, params, batch: Dict,
         return mod.forward(params, batch, cfg)
     prefix = batch.get("patch_embeds")
     hid, aux = mod.forward(params, batch["tokens"], cfg, prefix_embeds=prefix,
-                           **_conv_kw(use_kernel_conv))
+                           **_conv_kw(cfg, use_kernel_conv))
     if prefix is not None:
         hid = hid[:, prefix.shape[1]:]
     return hid, aux
@@ -160,7 +162,7 @@ def decode_step(cfg: ModelConfig, params, cache, tokens,
                 use_kernel_conv: Optional[bool] = None):
     """One decode step: tokens [B, S] → (logits [B, S, vocab], cache')."""
     return module_for(cfg).decode_step(params, cache, tokens, cfg,
-                                       **_conv_kw(use_kernel_conv))
+                                       **_conv_kw(cfg, use_kernel_conv))
 
 
 def decode_cache_len(cfg: ModelConfig, context_len: int) -> int:

@@ -95,7 +95,8 @@ class AuxStats:
             self.ce.setdefault(key, []).append(here.detach().clone())
             return ce
         seen = self.ce[key][self.group]
-        if not torch.equal(here.to(seen.device), seen):
+        # meta tensors (a step accounted on meta shards) hold no values
+        if seen.device.type != "meta" and not torch.equal(here.to(seen.device), seen):
             raise RuntimeError(f"MoE routing of data group {self.group} differs "
                                f"from its statistics pass")
         return self.mean[key]

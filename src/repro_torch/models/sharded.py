@@ -40,6 +40,18 @@ and a collective is copies between shards' tensors.
   the stacks and the sums of partials are differentiable operations on the
   shards' tensors, so the gradients are exact by construction.
 
+Under an ``op_analysis.Account`` each operation a device runs is tagged
+with who does it on a real mesh (``Group.run``: one shard's row of a stack, or
+every shard of a replicated value), and each copy between shards is
+recorded as the collective it stands for: the FSDP gather of
+``LeafView.materialize`` (an all-gather over the data axes; its
+backward a reduce-scatter, and an all-reduce over the data groups that
+hold copies of a piece), the sum of partials (an all-reduce), the
+gather of a split value (an all-gather) and the cross-shard combines of
+the logsumexp and the label gather (all-reduces).  A split of a
+replicated value, and a write into the shard that owns a slot
+(``_setitem``), move nothing.
+
 Every family runs so (MoE's load-balancing loss takes the microbatch's
 routing statistics across the groups: ``moe.AuxStats``).  The decode
 step reads a cache through ``Group.local_view`` (the group's own rows,
@@ -56,6 +68,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import sharding
+from repro_torch.launch import op_analysis as _acct
 
 __all__ = ["Group", "Sharded", "LeafView", "groups", "local"]
 
@@ -110,6 +123,16 @@ class Group:
     def n_data(self) -> int:
         """The number of data groups of the mesh (the batch's split)."""
         return self.mesh.devices.size // self.m
+
+    def run(self, dev, stacked: bool, fn, *args, inputs=None, **kwargs):
+        """``fn(*args, **kwargs)``, one operation of device ``dev`` in this
+        group: under an account, charged to each shard's row where
+        ``stacked``, else in full to each shard ``dev`` holds
+        (``op_analysis.call``)."""
+        if _acct.active() is None:
+            return fn(*args, **kwargs)
+        return _acct.call(fn, args, kwargs, r=1 if stacked else len(self.held[dev]),
+                          spread=self.n_data, inputs=inputs)
 
     def __repr__(self):
         return f"Group({self.index}, {self.m} model shards)"
@@ -176,33 +199,43 @@ class Group:
             for dev, idx in rows.items():
                 slab, src = leaf.slabs[dev], value.stacks[dev]
                 dst = _rows_view(slab, idx) if d_model is not None else slab[idx[0]]
-                if src.data_ptr() != dst.data_ptr() or src.stride() != dst.stride():
-                    dst.copy_(src)
+                if not _same_memory(src, dst):
+                    self.run(dev, d_model is not None, dst.copy_, src)
 
     # -- layouts ----------------------------------------------------------------------
     def reduce(self, x: "Sharded") -> "Sharded":
         """Partials summed (in their wide dtype: a device's shards, then the
         devices in order on the first one), rounded once to the logical
         dtype, replicated."""
-        acc = None
+        acc = dev0 = None
         for d, s in x.stacks.items():
-            part = s.sum(0) if s.shape[0] > 1 else s.squeeze(0)
-            acc = part if acc is None else acc + part.to(acc.device)
-        return self.replicate(acc.to(x.dtype))
+            part = self.run(d, True, lambda s: s.sum(0) if s.shape[0] > 1
+                            else s.squeeze(0), s)
+            if acc is None:
+                acc, dev0 = part, d
+            else:
+                acc = self.run(d, True, lambda a, p: a + p.to(a.device), acc, part)
+        _acct.record("all-reduce", acc.numel() * acc.element_size(), self.m,
+                     devices=self.m)
+        return self.replicate(self.run(dev0, False, acc.to, x.dtype, inputs=acc))
 
     def allgather(self, x: "Sharded") -> "Sharded":
         """A split value joined along its split dimension, replicated."""
         d = x.sdim
+        _acct.record("all-gather", x.shape.numel() * x.dtype.itemsize, self.m,
+                     devices=self.m)
         if len(x.stacks) == 1:
             (dev, s), = x.stacks.items()
-            return Sharded(self, {dev: s.movedim(0, d).flatten(d, d + 1)}, x.shape)
+            return Sharded(self, {dev: self.run(
+                dev, False, lambda s: s.movedim(0, d).flatten(d, d + 1), s)}, x.shape)
         parts = x.parts
-        return Sharded(self, {dev: torch.cat([p.to(dev) for p in parts], dim=d)
-                              for dev in self.held}, x.shape)
+        return Sharded(self, {dev: self.run(
+            dev, False, lambda: torch.cat([p.to(dev) for p in parts], dim=d),
+            inputs=parts) for dev in self.held}, x.shape)
 
     def split(self, x: "Sharded", d: int) -> "Sharded":
         """A replicated value split along ``d`` (each shard its block)."""
-        return Sharded(self, {dev: self.split_view(t, d, dev)
+        return Sharded(self, {dev: self.run(dev, True, self.split_view, t, d, dev)
                               for dev, t in x.stacks.items()}, x.shape, sdim=d)
 
     def relayout(self, x: "Sharded", d: Optional[int]) -> "Sharded":
@@ -228,6 +261,12 @@ class Group:
             if e == "model" or (isinstance(e, tuple) and "model" in e):
                 d = i
         return self.relayout(x, d)
+
+
+def _same_memory(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether ``a`` and ``b`` are the same elements of one storage."""
+    return a.untyped_storage()._cdata == b.untyped_storage()._cdata \
+        and a.storage_offset() == b.storage_offset() and a.stride() == b.stride()
 
 
 def _rows_view(slab: torch.Tensor, idx: List[int]) -> torch.Tensor:
@@ -375,25 +414,52 @@ class LeafView:
     def materialize(self) -> Sharded:
         """Each model shard's block of the leaf, gathered across the other
         mesh axes onto its device (a device's shards stacked): one index
-        of the device's slab where it holds every piece, else copies."""
+        of the device's slab where it holds every piece, else copies.
+        Under an account each shard's gather is an all-gather over the
+        data axes, its gradient's way back a reduce-scatter and, where
+        data groups hold copies of a piece, an all-reduce over them."""
         leaf, g = self.leaf, self.group
         d_model, other, rows, local = self._plan()
+        kept = _acct.active() is not None
         stacks = {}
         for dev, rs in rows.items():
-            if dev in local:                 # [rows x pieces, *block]
-                slab = leaf.slabs[dev]
-                flat = slab if local[dev] is None else slab.index_select(0, local[dev])
-            else:
-                flat = torch.stack([leaf.slabs[src][leaf.rows[src][b]].to(dev)
-                                    for r in rs for b, src in r])
             k, n = len(rs), len(rs[0])
-            if other:                        # join the pieces along their dim
-                d = other[0]
-                t = flat.unflatten(0, (k, n)).movedim(1, d + 1).flatten(d + 1, d + 2)
-            else:
-                t = flat
-            stacks[dev] = t if d_model is not None else t.squeeze(0)
+
+            def one(dev=dev, rs=rs, k=k, n=n):
+                if dev in local:             # [rows x pieces, *block]
+                    slab = leaf.slabs[dev]
+                    flat = slab if local[dev] is None else slab.index_select(0, local[dev])
+                else:
+                    flat = torch.stack([leaf.slabs[src][leaf.rows[src][b]].to(dev)
+                                        for r in rs for b, src in r])
+                if other:                    # join the pieces along their dim
+                    d = other[0]
+                    t = flat.unflatten(0, (k, n)).movedim(1, d + 1).flatten(d + 1, d + 2)
+                else:
+                    t = flat
+                return t if d_model is not None else t.squeeze(0)
+            if not kept:
+                stacks[dev] = one()
+                continue
+            srcs = [leaf.slabs[dev]] if dev in local else \
+                [leaf.slabs[src] for src in {src for r in rs for _, src in r}]
+            stacks[dev] = t = g.run(dev, d_model is not None, one, inputs=srcs)
+            self._record(t, n, g.n_data // n, len(g.held[dev]), d_model is not None)
         return Sharded(g, stacks, leaf.shape, sdim=d_model)
+
+    def _record(self, t, n: int, copies: int, devices: int, stacked: bool) -> None:
+        """The all-gather of ``devices`` shards' blocks of ``n`` pieces each
+        into ``t``; when ``t``'s gradient arrives, its reduce-scatter over
+        the pieces and the all-reduce of a piece over the ``copies`` data
+        groups that hold it."""
+        block = (t[0] if stacked else t).numel() * t.element_size()
+        piece = block // n
+        _acct.record("all-gather", block, n, devices=devices)
+        if t.requires_grad and (n > 1 or copies > 1):
+            def arrived(grad):
+                _acct.record("reduce-scatter", piece, n, devices=devices)
+                _acct.record("all-reduce", piece, copies, devices=devices)
+            t.register_hook(arrived)
 
     def __getattr__(self, name):
         return getattr(self.materialize(), name)
@@ -574,6 +640,19 @@ _KEEPS_SHAPE = {torch.softmax, _T.softmax, F.softmax, torch.log_softmax,
                 _T.cummax}
 
 
+def _partial_grad(group, t) -> None:
+    """Under an account: ``t``, replicated, is broadcast into the model
+    shards' stacks, so its gradient arrives as the shards' partial sums,
+    an all-reduce over the group (recorded once a tensor, when it
+    arrives)."""
+    if _acct.active() is None or not isinstance(t, torch.Tensor) \
+            or not t.requires_grad or getattr(t, "_acct_partial", False):
+        return
+    t._acct_partial = True
+    nbytes, m = t.numel() * t.element_size(), group.m
+    t.register_hook(lambda g: _acct.record("all-reduce", nbytes, m, devices=m))
+
+
 def _local_arg(a, dev, group, r, n_global, rank):
     """``a`` as a device's operand: a split value's stack; a replicated
     value or plain tensor whole along the aligned split dimension as its
@@ -592,6 +671,7 @@ def _local_arg(a, dev, group, r, n_global, rank):
         v = group.split_view(t, t.dim() + r, dev)
         return v.reshape(v.shape[:1] + (1,) * (rank - t.dim()) + v.shape[1:]) \
             if t.dim() < rank else v
+    _partial_grad(group, t)
     return t
 
 
@@ -619,8 +699,9 @@ def _generic(func, args, kwargs):
     group = shs[0].group
     split = [s for s in shs if s.sdim is not None]
     if not split:                       # replicated: once a device
-        stacks = {dev: func(*_subst(args, lambda a: _rep_arg(a, dev)),
-                            **_subst(kwargs, lambda a: _rep_arg(a, dev)))
+        stacks = {dev: group.run(dev, False, func,
+                                 *_subst(args, lambda a: _rep_arg(a, dev)),
+                                 **_subst(kwargs, lambda a: _rep_arg(a, dev)))
                   for dev in group.held}
         first = next(iter(stacks.values()))
         if isinstance(first, torch.Tensor):
@@ -656,7 +737,8 @@ def _generic(func, args, kwargs):
     if rule is None and func is not F.pad:
         G = _bshape([tuple(t.shape) for t in tensors])
     else:
-        out_meta = func(*_subst(args, _meta), **_subst(kwargs, _meta))
+        with _acct.hidden():            # shape inference, not the step's work
+            out_meta = func(*_subst(args, _meta), **_subst(kwargs, _meta))
         G = out_meta if not isinstance(out_meta, torch.Tensor) else tuple(out_meta.shape)
     stacks = {}
     for dev in group.held:
@@ -665,7 +747,7 @@ def _generic(func, args, kwargs):
         a, k = _subst(args, loc), (_subst(kwargs, loc) if kwargs else kwargs)
         if rule is not None:
             a, k = rule(a, k)
-        stacks[dev] = func(*a, **k)
+        stacks[dev] = group.run(dev, True, func, *a, **k)
     return _wrap(name, group, stacks, G)
 
 
@@ -739,13 +821,14 @@ def _einsum(eq, *ops):
                 G.append(o.shape[ins[i].index(c)])
                 break
     if not letters:
-        return Sharded(group, {dev: torch.einsum(eq, *[_rep_arg(o, dev) for o in ops])
+        return Sharded(group, {dev: group.run(dev, False, torch.einsum, eq,
+                                              *[_rep_arg(o, dev) for o in ops])
                                for dev in group.held}, G)
     (c,) = letters
     partial = c not in out
     wide = _wide(dt)
-    stacks = {}
-    for dev in group.held:
+
+    def one(dev):
         loc, subs = [], []
         for i, o in enumerate(ops):
             if isinstance(o, Sharded) and o.sdim is not None:
@@ -754,9 +837,14 @@ def _einsum(eq, *ops):
                 t, s = _rep_arg(o, dev), ins[i]
                 if c in s:
                     t, s = group.split_view(t, s.index(c), dev), "Z" + s
+                else:
+                    _partial_grad(group, t)
             loc.append(t.to(wide) if partial else t)
             subs.append(s)
-        stacks[dev] = torch.einsum(",".join(subs) + "->Z" + out, *loc)
+        return torch.einsum(",".join(subs) + "->Z" + out, *loc)
+    stacks = {dev: group.run(dev, True, one, dev, inputs=[
+        o.stacks[dev] if isinstance(o, Sharded) else o for o in ops])
+        for dev in group.held}
     if partial:
         return Sharded(group, stacks, G, partial=True, dtype=dt)
     return Sharded(group, stacks, G, sdim=out.index(c))
@@ -778,11 +866,13 @@ def _logsumexp(x, dim, keepdim=False):
             or keepdim or x.partial:
         return _generic(torch.logsumexp, (x, dim), {"keepdim": keepdim})
     g = x.group
-    per_dev = [torch.logsumexp(torch.logsumexp(s, dim=x.sdim + 1), dim=0)
-               for s in x.stacks.values()]
-    dev = per_dev[0].device
-    total = per_dev[0] if len(per_dev) == 1 else torch.logsumexp(
-        torch.stack([t.to(dev) for t in per_dev]), dim=0)
+    per_dev = [g.run(d, True, lambda s: torch.logsumexp(
+        torch.logsumexp(s, dim=x.sdim + 1), dim=0), s) for d, s in x.stacks.items()]
+    dev = next(iter(x.stacks))
+    total = per_dev[0] if len(per_dev) == 1 else g.run(
+        dev, True, lambda: torch.logsumexp(torch.stack([t.to(dev) for t in per_dev]),
+                                           dim=0), inputs=per_dev)
+    _acct.record("all-reduce", total.numel() * total.element_size(), g.m, devices=g.m)
     return g.replicate(total)
 
 
@@ -797,14 +887,15 @@ def _gather(x, dim, index, *, sparse_grad=False):
         if index.stacked:
             raise ValueError("gather with a model-split index")
         index = next(iter(index.stacks.values()))
-    stacks = {}
-    for dev, s in x.stacks.items():
+
+    def one(dev, s):
         offs = torch.tensor(g.held[dev], device=dev) * n
         idx = index.to(dev)[None] - offs.reshape((-1,) + (1,) * index.dim())
         ok = (idx >= 0) & (idx < n)
         got = torch.gather(s, x.sdim + 1, idx.clamp(0, n - 1))
-        stacks[dev] = torch.where(ok, got, torch.zeros((), dtype=got.dtype,
-                                                       device=dev))
+        return torch.where(ok, got, torch.zeros((), dtype=got.dtype, device=dev))
+    stacks = {dev: g.run(dev, True, one, dev, s, inputs=[s])
+              for dev, s in x.stacks.items()}
     return g.reduce(Sharded(g, stacks, index.shape, partial=True, dtype=x.dtype))
 
 
@@ -827,7 +918,8 @@ def _reshape(x, *shape):
                          f"{tuple(x.shape)}) to {tuple(shape)}")
     loc = list(shape)
     loc[d] //= g.m
-    return Sharded(g, {dev: s.reshape((s.shape[0],) + tuple(loc))
+    return Sharded(g, {dev: g.run(dev, True, s.reshape, (s.shape[0],) + tuple(loc),
+                                  inputs=[s])
                        for dev, s in x.stacks.items()}, shape, sdim=d)
 
 
@@ -836,7 +928,8 @@ def _new_zeros(x, size, *, dtype=None, device=None, **kw):
     x = _materialize(x)
     g = x.group
     size = tuple(size)
-    return Sharded(g, {dev: torch.zeros(size, dtype=dtype or x.dtype, device=dev)
+    return Sharded(g, {dev: g.run(dev, False, torch.zeros, size,
+                                  dtype=dtype or x.dtype, device=dev)
                        for dev in g.held}, size)
 
 
@@ -853,7 +946,7 @@ def _setitem(x: "Sharded", idx, value) -> None:
         if isinstance(value, Sharded):
             value = g.relayout(value, None)
         for dev, t in x.stacks.items():
-            t[idx] = _rep_arg(value, dev)
+            g.run(dev, False, t.__setitem__, idx, _rep_arg(value, dev))
         return
     idx = idx if isinstance(idx, tuple) else (idx,)
     if any(not isinstance(e, slice) for e in idx):
@@ -865,7 +958,7 @@ def _setitem(x: "Sharded", idx, value) -> None:
             value = g.replicate(value)
         value = g.relayout(value, d)
         for dev, t in x.stacks.items():
-            t[(slice(None),) + idx] = value.stacks[dev]
+            g.run(dev, True, t.__setitem__, (slice(None),) + idx, value.stacks[dev])
         return
     a, b, step = e.indices(x.shape[d])
     if step != 1:
@@ -880,7 +973,8 @@ def _setitem(x: "Sharded", idx, value) -> None:
             if lo < hi:
                 loc = list(idx) + [slice(None)] * (d + 1 - len(idx))
                 loc[d] = slice(lo - j * n, hi - j * n)
-                x.stacks[dev][r][tuple(loc)] = v.narrow(d, lo - a, hi - lo)
+                g.run(dev, True, x.stacks[dev][r].__setitem__, tuple(loc),
+                      v.narrow(d, lo - a, hi - lo))
 
 
 _HANDLERS = {
@@ -940,17 +1034,17 @@ def local(fn):
         if any(s.partial for s in shs) or len({s.sdim - s.ndim for s in split}) > 1:
             raise ValueError(f"{fn}: operands in different layouts")
         if not split:
-            return Sharded(g, {dev: fn(*(_rep_arg(a, dev) for a in args))
+            return Sharded(g, {dev: g.run(dev, False, fn, *(_rep_arg(a, dev) for a in args))
                                for dev in g.held}, shs[0].shape)
         like = split[0]
         stacks = {}
         for dev, js in g.held.items():
             rows = [a.stacks[dev].unbind(0) if isinstance(a, Sharded) and a.stacked
                     else None for a in args]
-            outs = [fn(*(r[i] if r is not None else _rep_arg(a, dev)
-                         for a, r in zip(args, rows)))
+            outs = [g.run(dev, True, fn, *(r[i] if r is not None else _rep_arg(a, dev)
+                                           for a, r in zip(args, rows)))
                     for i in range(len(js))]
-            stacks[dev] = torch.stack(outs)
+            stacks[dev] = g.run(dev, True, torch.stack, outs)
         shape = list(stacks[g.first].shape[1:])
         d = len(shape) + (like.sdim - like.ndim)
         shape[d] *= g.m

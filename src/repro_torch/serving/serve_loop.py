@@ -28,6 +28,7 @@ import torch
 
 from repro_torch import sharding
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch import op_analysis
 from repro_torch.models import api
 from repro_torch.models import layers as L
 from repro_torch.models import sharded as _sharded
@@ -75,14 +76,19 @@ def _next(logits, sample: bool, temperature: float, generator):
 
 @dataclasses.dataclass
 class ServePlan:
-    """What the sharded serve step was built for: the mesh, the params'
-    and the cache's shardings, the KV cache's split (``"heads"``,
-    ``"seq"`` or None) and the number of data groups."""
+    """What the sharded serve step was built for: the mesh, the params',
+    the cache's and the tokens' shardings, the KV cache's split
+    (``"heads"``, ``"seq"`` or None), the number of data groups, and the
+    bytes of params, cache and tokens each shard holds."""
     mesh: object
     param_shardings: object
     cache_shardings: object
+    token_sharding: sharding.NamedSharding
     kv_mode: Optional[str]
     n_groups: int
+    param_bytes_per_shard: int
+    cache_bytes_per_shard: int
+    token_bytes_per_shard: int
 
 
 def _cache_pairs(cache, new):
@@ -119,10 +125,16 @@ def compile_serve_step(cfg: ModelConfig, mesh, cache_spec, sample: bool = True,
     pshapes = api.init_params(cfg, device="meta")
     with sharding.use_activation_mesh(mesh):
         kv_mode = sharding.kv_cache_mode(cfg)
-    plan = ServePlan(mesh=mesh,
-                     param_shardings=sharding.param_shardings(cfg, mesh, pshapes),
-                     cache_shardings=sharding.cache_shardings(cfg, mesh, cache_spec),
-                     kv_mode=kv_mode, n_groups=len(groups))
+    pshard = sharding.param_shardings(cfg, mesh, pshapes)
+    cshard = sharding.cache_shardings(cfg, mesh, cache_spec)
+    B = next(leaf.shape[0] for leaf in _leaves(cache_spec) if hasattr(leaf, "shape"))
+    tokens = torch.empty((B, 1), dtype=torch.int32, device="meta")
+    tshard = sharding.NamedSharding(mesh, sharding.resolve(("batch", None), (B, 1), mesh))
+    plan = ServePlan(mesh=mesh, param_shardings=pshard, cache_shardings=cshard,
+                     token_sharding=tshard, kv_mode=kv_mode, n_groups=len(groups),
+                     param_bytes_per_shard=sharding.shard_bytes(pshapes, pshard),
+                     cache_bytes_per_shard=sharding.shard_bytes(cache_spec, cshard),
+                     token_bytes_per_shard=sharding.shard_bytes(tokens, tshard))
     temperature = max(float(temperature), 1e-6)
     kw = {} if use_kernel_conv is None else {"use_kernel_conv": use_kernel_conv}
 
@@ -130,14 +142,22 @@ def compile_serve_step(cfg: ModelConfig, mesh, cache_spec, sample: bool = True,
         tokens = torch.as_tensor(np.asarray(tokens) if not torch.is_tensor(tokens)
                                  else tokens)
         B = tokens.shape[0]
-        if B % len(groups):
-            raise ValueError(f"batch {B} does not split into {len(groups)} "
-                             f"data groups")
-        b = B // len(groups)
         dev0 = groups[0].first
+        if B % len(groups) == 0:
+            b = B // len(groups)
+            loop = op_analysis.trips(enumerate(groups))    # an account may sample it
+            repeat = 1
+        else:
+            # a batch that does not split over the data groups is replicated
+            # over them (``resolve`` leaves it whole, as the cache's rows):
+            # the first group decodes every row, its new cache state is
+            # copied to the replicas, and an account charges its pass to
+            # every group, as each decodes the rows on a mesh
+            b, loop, repeat = B, op_analysis.trips(enumerate(groups[:1])), len(groups)
         rows, pos = [], None
-        with torch.no_grad(), sharding.use_activation_mesh(mesh):
-            for gi, g in enumerate(groups):
+        with torch.no_grad(), sharding.use_activation_mesh(mesh), \
+                op_analysis.repeated(repeat):
+            for gi, g in loop:
                 view = _tree_map(g.view, params)
                 local = _tree_map(g.local_view, cache)
                 with sharding.use_group(g):
@@ -150,10 +170,24 @@ def compile_serve_step(cfg: ModelConfig, mesh, cache_spec, sample: bool = True,
                     g.write_back(leaf, value)
                 pos = new["pos"]
                 rows.append(L.wide(logits).to(dev0))
-        out = _next(torch.cat(rows), sample, temperature, generator)
+            if repeat > 1:
+                for leaf, _ in _cache_pairs(cache, cache):
+                    leaf.sync_replicas()
+        out = _next(torch.cat(loop.fill(rows)), sample, temperature, generator)
         return out, {**cache, "pos": pos}
 
     return plan, step
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 def _tree_map(fn, tree):

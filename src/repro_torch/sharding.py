@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch import op_analysis as _acct
 
 __all__ = [
     "LOGICAL_RULES", "PartitionSpec", "NamedSharding", "ShardedTensor",
@@ -48,6 +49,7 @@ __all__ = [
     "batch_shardings", "cache_shardings", "scalar_sharding",
     "use_activation_mesh", "activation_mesh", "constrain",
     "constrain_like_params", "kv_cache_mode", "device_put", "gather",
+    "shard_bytes",
 ]
 
 # logical axis → preferred mesh axis (None = replicate)
@@ -342,6 +344,27 @@ def param_shardings(cfg: ModelConfig, mesh, param_shapes):
     return _tree_map_paths(one, param_shapes)
 
 
+def shard_bytes(tree, shardings) -> int:
+    """Bytes one shard holds of ``tree`` (tensors, arrays; Python numbers
+    hold none) placed by ``shardings`` (a matching tree, or one
+    ``NamedSharding`` for every leaf)."""
+    total = 0
+
+    def one(leaf, s):
+        nonlocal total
+        shape = _shape_of(leaf)
+        if shape is not None:
+            dt = leaf.dtype if torch.is_tensor(leaf) else \
+                torch.from_numpy(np.zeros((), np.asarray(leaf).dtype)).dtype
+            total += int(np.prod(s.shard_shape(shape), dtype=np.int64)) * \
+                torch.empty((), dtype=dt).element_size()
+    if isinstance(shardings, NamedSharding):
+        _tree_map(lambda l: one(l, shardings), tree)
+    else:
+        _tree_map(one, tree, shardings)
+    return total
+
+
 def scalar_sharding(mesh) -> NamedSharding:
     """Replicated on every shard."""
     return NamedSharding(mesh, P())
@@ -450,7 +473,9 @@ def use_group(group):
     prev = getattr(_ACT, "group", None)
     _ACT.group = group
     try:
-        yield
+        # under an account: one of the mesh's data groups, run in turn
+        with _acct.default_place(1, group.n_data):
+            yield
     finally:
         _ACT.group = prev
 
@@ -601,7 +626,19 @@ class ShardedTensor:
             for block, copies in self.blocks.items():
                 sl = tuple(slice(a, b) for a, b in block)
                 out[sl] = next(iter(copies.values()))
+        # under an account: each block a copy onto the one device
+        _acct.record("collective-permute", self.shape.numel() * out.element_size(), 2)
         return out
+
+    def sync_replicas(self) -> None:
+        """Each block's copies on other devices take its primary copy's
+        values, in place."""
+        if len(self.slabs) == 1:
+            return
+        with torch.no_grad():
+            for copies in self.replicas():
+                for r in copies[1:]:
+                    r.copy_(copies[0])
 
     def map(self, fn) -> "ShardedTensor":
         """A new ShardedTensor of ``fn(slab)`` for every slab (``fn`` keeps
@@ -630,10 +667,13 @@ def _put(x, s: NamedSharding, dtype=None) -> ShardedTensor:
             blocks, key=lambda b: (tuple(b[d] for d in dm), b)))}
         for dev, blocks in held.items()}
     slabs = {}
-    with torch.no_grad():
+    with torch.no_grad(), _acct.lead():
         for dev, held in rows.items():
             slabs[dev] = torch.stack([t[tuple(slice(a, b) for a, b in block)]
                                       for block in held]).to(dev)
+    # under an account: each mesh position receives its block
+    _acct.record("collective-permute", int(np.prod(s.shard_shape(t.shape), dtype=np.int64))
+                 * t.element_size(), 2, devices=mesh.size)
     return ShardedTensor(s, t.shape, t.dtype, slabs, rows)
 
 

@@ -250,9 +250,7 @@ def _apply_sharded(c: OptConfig, params, grads, opt_state, step, ndims):
         # replicas take their block's new values
         for leaf in leaves:
             for t_ in leaf:
-                for copies in t_.replicas():
-                    for r in copies[1:]:
-                        r.copy_(copies[0])
+                t_.sync_replicas()
     return params, opt_state, {"grad_norm": gnorm, "lr": lr}
 
 

@@ -33,6 +33,7 @@ import torch
 
 from repro_torch import sharding
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch import op_analysis
 from repro_torch.models import api, moe
 from repro_torch.models import sharded as _sharded
 
@@ -168,9 +169,10 @@ def compile_train_step(cfg: ModelConfig, tc: TrainConfig, mesh, batch_specs,
                      "step": state["step"]}
         params = state["params"]
         loss, grads, lm = grad_fn(params, batch)
-        new_params, new_opt, om = optimizer.apply(
-            tc.opt, params, grads, state["opt"], state["step"],
-            ndims=api.stacked_ndims(cfg, params))
+        with op_analysis.lead():         # on the slabs of the shards' blocks
+            new_params, new_opt, om = optimizer.apply(
+                tc.opt, params, grads, state["opt"], state["step"],
+                ndims=api.stacked_ndims(cfg, params))
         del grads
         new_state = {"params": new_params, "opt": new_opt,
                      "step": state["step"] + 1}
@@ -225,12 +227,13 @@ def make_sharded_loss_and_grad(cfg: ModelConfig, mesh, n_microbatches: int = 1,
             for t in held:
                 t.grad = None
                 t.requires_grad_(True)
-            for i in range(n_mb):
+            # the loops an account may sample (op_analysis.trips)
+            for i in op_analysis.trips(range(n_mb)):
                 gbs = [{k: v[i * (B // n_mb) + gi * b:][:b].to(g.first)
                         for k, v in batch.items()} for gi, g in enumerate(groups)]
                 stats = moe_statistics(cfg, mesh, params, gbs, use_kernel_conv) \
                     if two_pass else None
-                for gi, (g, gb) in enumerate(zip(groups, gbs)):
+                for gi, (g, gb) in op_analysis.trips(enumerate(zip(groups, gbs))):
                     with stats.fixed(gi) if stats else contextlib.nullcontext():
                         loss, aux = group_step(params, gb, g, 1.0 / (n_mb * n_g))
                     loss_sum = loss_sum + loss.to(dev0, wd)
@@ -238,7 +241,8 @@ def make_sharded_loss_and_grad(cfg: ModelConfig, mesh, n_microbatches: int = 1,
         finally:
             for t in held:
                 t.requires_grad_(False)
-        grads = tree_map(_summed_grad, params)
+        with op_analysis.lead():
+            grads = tree_map(_summed_grad, params)
         for t in held:
             t.grad = None
         return loss_sum / (n_mb * n_g), grads, {"aux": aux_sum / (n_mb * n_g)}
@@ -253,7 +257,8 @@ def moe_statistics(cfg: ModelConfig, mesh, params, group_batches,
     ``models.sharded.groups(mesh)``) without gradients."""
     stats = moe.AuxStats()
     with torch.no_grad(), sharding.use_activation_mesh(mesh):
-        for gi, (g, gb) in enumerate(zip(_sharded.groups(mesh), group_batches)):
+        for gi, (g, gb) in op_analysis.trips(
+                enumerate(zip(_sharded.groups(mesh), group_batches))):
             with sharding.use_group(g), stats.collect(gi):
                 _group_loss(cfg, params, gb, g, use_kernel_conv)
     return stats
@@ -283,7 +288,7 @@ def _summed_grad(leaf: sharding.ShardedTensor) -> sharding.ShardedTensor:
     slabs = {d: t.grad if t.grad is not None else torch.zeros_like(t)
              for d, t in leaf.slabs.items()}
     g = sharding.ShardedTensor(leaf.sharding, leaf.shape, None, slabs, leaf.rows)
-    for copies in g.replicas():
+    for copies in (g.replicas() if len(slabs) > 1 else ()):
         for r in copies[1:]:
             copies[0].add_(r.to(copies[0].device))
     return g

@@ -172,6 +172,31 @@ def test_serving_modules_load_neither_jax_nor_repro():
     assert out.returncode == 0, out.stdout + out.stderr
 
 
+# the dry run's accounting
+DRYRUN_MODULES = ("repro_torch.launch.op_analysis", "repro_torch.launch.dryrun")
+
+
+@pytest.mark.parametrize("mod", DRYRUN_MODULES)
+def test_dryrun_modules_are_checked(mod):
+    assert REPO / "src" / (mod.replace(".", "/") + ".py") in FILES
+
+
+def test_dryrun_modules_load_neither_jax_nor_repro():
+    """Importing the dry run and its accounting in a fresh interpreter
+    leaves ``jax`` and ``repro`` out of ``sys.modules``."""
+    code = ("import sys\n"
+            + "".join(f"import {m}\n" for m in DRYRUN_MODULES)
+            + "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+              "('jax', 'jaxlib', 'repro'))\n"
+              "print(bad)\n"
+              "assert not bad\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=str(REPO / "src")),
+                         timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
 def test_forbidden_rule():
     assert _forbidden("jax.numpy") and _forbidden("repro.core.dsl")
     assert not _forbidden("repro_torch.core") and not _forbidden("torch")

@@ -63,10 +63,11 @@ def _cfg(arch):
                                dtype="float64", param_dtype="float64")
 
 
-def _jax_cfgs(arch):
-    """(JAX config, port config): tiny ``arch`` in f32, equal fields."""
-    j = dataclasses.replace(jconfigs.tiny(jconfigs.get(arch)), dtype="float32")
-    t = dataclasses.replace(configs.tiny(configs.get(arch)), dtype="float32")
+def _jax_cfgs(arch, **over):
+    """(JAX config, port config): tiny ``arch`` in f32 (and ``over``),
+    equal fields."""
+    j = dataclasses.replace(jconfigs.tiny(jconfigs.get(arch)), dtype="float32", **over)
+    t = dataclasses.replace(configs.tiny(configs.get(arch)), dtype="float32", **over)
     assert dataclasses.asdict(j) == dataclasses.asdict(t)
     return j, t
 
@@ -76,15 +77,15 @@ def _kw(cfg):
     return {"use_kernel_conv": False} if cfg.family == "hybrid" else {}
 
 
-def _inputs(cfg, seed=0):
+def _inputs(cfg, seed=0, b=B):
     rng = np.random.default_rng(seed)
     dt = np.float64 if cfg.dtype == "float64" else np.float32
-    batch = {"tokens": rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)}
+    batch = {"tokens": rng.integers(0, cfg.vocab, (b, S)).astype(np.int32)}
     if cfg.family == "vlm":
-        batch["patch_embeds"] = rng.standard_normal((B, cfg.n_prefix_tokens,
+        batch["patch_embeds"] = rng.standard_normal((b, cfg.n_prefix_tokens,
                                                      cfg.d_model)).astype(dt)
     if cfg.family == "audio":
-        batch["frame_embeds"] = rng.standard_normal((B, 12, cfg.d_model)).astype(dt)
+        batch["frame_embeds"] = rng.standard_normal((b, 12, cfg.d_model)).astype(dt)
     return batch
 
 
@@ -159,25 +160,28 @@ def test_sharded_prefill_and_decode_match_unsharded(arch, mesh_shape):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_reference(arch):
+def _jax_reference(arch, b=B, n_kv_heads=None):
     """The JAX package's single-device prefill and greedy decode of tiny
-    ``arch`` in f32: (port config, port params, batch, prefill logits
-    ``[B, 1, V]``, the JAX initial cache in the port's layout, the logits
-    ``[B, V]`` of every decode step, the greedy tokens ``[B, NEW]``).  The
-    prompt goes in a token a step, as ``_decode`` feeds it."""
-    jcfg, cfg = _jax_cfgs(arch)
+    ``arch`` in f32, ``b`` rows (``n_kv_heads``: the config's, or that
+    many): (port config, port params, batch, prefill logits ``[b, 1, V]``,
+    the JAX initial cache in the port's layout, the logits ``[b, V]`` of
+    every decode step, the greedy tokens ``[b, NEW]``, the last cache in
+    the port's layout).  The prompt goes in a token a step, as ``_decode``
+    feeds it."""
+    jcfg, cfg = _jax_cfgs(arch, **({} if n_kv_heads is None
+                                   else {"n_kv_heads": n_kv_heads}))
     jparams = japi.init_params(jcfg, jax.random.PRNGKey(0))
     params = interop.params_from_jax(jax.tree.map(np.asarray, jparams), cfg,
                                      device="cpu")
-    batch = _inputs(cfg)
+    batch = _inputs(cfg, b=b)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     hid, _ = japi.forward_hidden(jcfg, jparams, jb)
     prefill = np.asarray(jlayers.unembed(jparams["embed"], hid[:, -1:], jcfg))
     if cfg.family == "audio":
         enc = jencdec.encode(jparams, jb["frame_embeds"], jcfg)
-        jcache = jencdec.build_cache(jparams, enc, jcfg, B, CACHE)
+        jcache = jencdec.build_cache(jparams, enc, jcfg, b, CACHE)
     else:
-        jcache = japi.init_cache(jcfg, B, japi.decode_cache_len(jcfg, CACHE))
+        jcache = japi.init_cache(jcfg, b, japi.decode_cache_len(jcfg, CACHE))
     cache = interop.cache_from_jax(jax.tree.map(np.asarray, jcache), cfg,
                                    device="cpu")
     step = jax.jit(jserve.make_serve_step(jcfg, sample=False))
@@ -191,7 +195,9 @@ def _jax_reference(arch):
         else:
             cur = np.asarray(jnp.argmax(lg, axis=-1))[:, None].astype(np.int32)
             out.append(cur)
-    return cfg, params, batch, prefill, cache, logits, np.concatenate(out, axis=1)
+    last = interop.cache_from_jax(jax.tree.map(np.asarray, jcache), cfg, device="cpu")
+    return (cfg, params, batch, prefill, cache, logits, np.concatenate(out, axis=1),
+            last)
 
 
 def _close(got, want, tol):
@@ -206,7 +212,7 @@ def test_sharded_prefill_and_decode_match_jax(arch, mesh_shape):
     """The sharded steps in f32 on the JAX package's parameters, cache and
     tokens: prefill logits, every decode step's logits and the greedy
     tokens, against JAX's single-device prefill and ``make_serve_step``."""
-    cfg, params, batch, want_p, cache, want_l, want_t = _jax_reference(arch)
+    cfg, params, batch, want_p, cache, want_l, want_t, _ = _jax_reference(arch)
     mesh = _mesh(mesh_shape)
     ps = _placed(cfg, params, mesh)
     _, prefill = dryrun.compile_prefill_step(cfg, mesh, batch)
@@ -220,6 +226,56 @@ def test_sharded_prefill_and_decode_match_jax(arch, mesh_shape):
     assert len(got_l) == len(want_l)
     for a, b in zip(got_l, want_l):
         _close(a, b, F32_TOL)
+
+
+def _odd_batches():
+    for arch in FAMILIES:
+        for b in (1, 3):
+            yield arch, b, "heads"
+            if arch != "xlstm-1.3b":        # no KV cache to split
+                yield arch, b, "seq"
+
+
+@pytest.mark.parametrize("arch,b,kv_mode", list(_odd_batches()),
+                         ids=lambda v: str(v))
+def test_sharded_decode_of_a_batch_that_does_not_split(arch, b, kv_mode):
+    """A batch of ``b`` rows that does not split over (2, 2)'s two data
+    groups: the cache's rows are replicated over them, the first group
+    decodes every row and the other group's devices take its new cache
+    rows.  The config with 2 KV heads on both sides splits the cache by
+    heads, with 1 by sequence.  In f32 on
+    the JAX package's parameters, cache and tokens: every decode step's
+    logits and the greedy tokens against JAX's single-device
+    ``make_serve_step``, and every replica of every cache block, on each
+    device that holds one, against JAX's last cache, at ``F32_TOL``."""
+    cfg, params, batch, _, cache, want_l, want_t, want_c = _jax_reference(
+        arch, b, {"heads": 2, "seq": 1}[kv_mode])
+    mesh = _mesh((2, 2))
+    plan, step = serve_loop.compile_serve_step(cfg, mesh, cache, sample=False)
+    assert plan.n_groups == 2 and b % plan.n_groups
+    assert plan.kv_mode == kv_mode
+    placed = sharding.device_put(cache, plan.cache_shardings)
+    got_l, got_t, new = _decode(cfg, _placed(cfg, params, mesh), placed,
+                                batch["tokens"], step)
+    np.testing.assert_array_equal(got_t.numpy(), want_t)
+    assert len(got_l) == len(want_l) == S + NEW - 1
+    for a, w in zip(got_l, want_l):
+        _close(a, w, F32_TOL)
+    assert new["pos"] == want_c["pos"] == S + NEW - 1
+    n = 0
+    for (path, a), (_, w) in zip(_leaves(placed), _leaves(want_c)):
+        if not isinstance(a, sharding.ShardedTensor):
+            continue
+        w = w.double().numpy()
+        for block, copies in a.blocks.items():
+            assert len(copies) >= 2, (path, block)     # one a data group at least
+            sl = tuple(slice(lo, hi) for lo, hi in block)
+            for dev, t in copies.items():
+                err = float(np.abs(t.double().numpy() - w[sl]).max())
+                assert err <= F32_TOL * max(float(np.abs(w).max()), 1.0), \
+                    (path, block, dev, err)
+                n += 1
+    assert n > 0
 
 
 def _leaves(tree, pre=""):
