@@ -237,7 +237,7 @@ Phases, each of which exits non-zero when it fails:
    sharded loss and gradients against the unsharded ones (loss 1e-5
    relative, every gradient leaf 1e-4 of its max); then ``python -m
    repro_torch.launch.train --preset full --arch phi3-mini-3.8b
-   --global-batch 16 --seq-len 512 --steps 2`` (in-process, bf16): its
+   --global-batch 16 --seq-len 512 --steps 1`` (in-process, bf16): its
    first loss within phase 9's bf16 1e-3 of the unsharded loss on the same
    parameters and batch (a forward pass, run first, then freed), seconds
    a step and peak GB; K1-K7 stay 0 there; (c) mixtral-8x7b (its
@@ -264,8 +264,25 @@ Phases, each of which exits non-zero when it fails:
    placed again here, summed over a shard's tensors), and its K6 ops
    equal the launches the card made (16 (a): 24 a step, 72 in all; 17
    (a)'s prefill: 8).
+19. the examples — every script of ``examples/torch_port/`` through its
+   ``main([...])`` on the card, as a user runs it: ``quickstart`` at its
+   defaults (50 ``st.map`` steps of K4 gmem at 256² and 50 fused steps of
+   K1, each against ``st.torch()``); ``acoustic_iso_3d`` at 512³, 100
+   steps, on K4 gmem a step and on K2 in fused windows of 10, and
+   ``--distributed`` at its defaults on ``st.torch()`` shards and on K4
+   gmem shards; ``fwi``'s full inversion (48², 60 steps, 120 AdamW
+   iterations) on K1, its final misfit below 10 % of the first, and
+   ``--smoke --mesh 4``; ``serve_lm`` at its defaults (K6 in
+   recurrentgemma's decode); ``train_lm --preset 100m --steps 150`` (16
+   x 512, falling loss) and ``--preset smoke --ckpt-dir`` (a directory
+   under ``build/smoke_tmp``, removed afterwards).  Each run's seconds
+   and its K1/K2/K4/K6 launches (set to 0 just before it) beside the
+   card's name and power limit; a path's kernel must launch, and no
+   kernel off its path.
 
-It prints the kernels line ``{"kernels": [...]}`` and then, last,
+Every phase prints its wall seconds (``phase <n> <name>: <s> s``) and,
+before the kernels line, a table of them, also in ``--json`` under
+``phase_seconds``.  It prints the kernels line ``{"kernels": [...]}`` and then, last,
 ``{"ok": true, "device": {...}}``.  ``--quick`` runs phases 1–3 at the two
 small shapes only (K6 and K7 at all of theirs, untimed) and prints no
 result line.  Phases 4, 5 and 10 read the launch counts of the fused path, 6
@@ -487,7 +504,9 @@ LM_LAYERS = {"mixtral-8x7b": 6, "mixtral-8x22b": 3, "nemotron-4-15b": 17,
              "pixtral-12b": 31}
 # (a) serving: BatchServer waves of 4 greedy requests (whisper:
 # Generator.generate with 1500 frames, one prompt length)
-LM_REQUESTS, LM_MAX_NEW, LM_PROMPT_LEN, LM_FRAMES = 4, 8, (4, 16), 1500
+# (LM_PROMPT_LEN cut (4, 16) -> (4, 8) for phase 19's room: a wave's context
+# buckets to 16 positions, not 32)
+LM_REQUESTS, LM_MAX_NEW, LM_PROMPT_LEN, LM_FRAMES = 4, 8, (4, 8), 1500
 # (b) decode against forward in f32 on a prompt of LM_CHECK_LEN tokens, 2
 # rows: within LM_CHECK_TOL of the largest |logit|; moe with capacity
 # factor n_experts (dropless in both groupings, as configs.tiny does)
@@ -536,14 +555,15 @@ LM_CPU_LOSS_RTOL, LM_CPU_GRAD_TOL, LM_CPU_F64_TOL = 1e-5, 1e-4, 1e-9
 SHARD_MESH = (2, 2)
 SHARD_STEPS = 3
 SHARD_LOSS_RTOL, SHARD_GRAD_TOL = 1e-5, 1e-4
-FULL_ARCH, FULL_BATCH, FULL_SEQ, FULL_STEPS = "phi3-mini-3.8b", 16, 512, 2
+# (FULL_STEPS cut 2 -> 1 for phase 19's room: 16-22 s a step)
+FULL_ARCH, FULL_BATCH, FULL_SEQ, FULL_STEPS = "phi3-mini-3.8b", 16, 512, 1
 # (c) the four families PR 24 added, on SHARD_MESH: the gates of (a) at
 # phase 15 (d)'s depths (LM_CPU) and batch, xLSTM in f64 (its f32
 # gradients are ill-conditioned), mixtral at MOE_GATE_BATCH x
 # MOE_GATE_SEQ tokens with its published capacity 1.25 (each data group
 # one whole routing group of 4096 tokens, capacity 1280 of 8192 slots:
 # tokens dropped), its load-balancing loss within SHARD_AUX_RTOL of the
-# unsharded one; then SHARD_STEPS timed bf16 steps at phase 15 (c)'s
+# unsharded one; then FAMILY_STEPS timed bf16 steps at phase 15 (c)'s
 # depths (LM_TRAIN), FAMILY_BATCH x LM_TRAIN_SEQ.  (d) the CLI's --preset
 # full for AUDIO_FULL_ARCH whole on the production mesh (16, 16), its
 # heads (12) and vocab (51865) replicated over the 16 model shards:
@@ -553,7 +573,10 @@ FAMILY_ARCHS = ("mixtral-8x7b", "pixtral-12b", "xlstm-1.3b", "whisper-small")
 MOE_GATE_BATCH, MOE_GATE_SEQ, SHARD_AUX_RTOL = 2, 4096, 1e-6
 FAMILY_BATCH = 2
 AUDIO_FULL_ARCH, AUDIO_FULL_BATCH, AUDIO_FULL_SEQ, AUDIO_FULL_STEPS = (
-    "whisper-small", 16, 1024, 2)
+    "whisper-small", 16, 1024, 1)
+# cut for phase 19's room: (c)'s timed steps 3 -> 2 (xLSTM's sharded step
+# takes 5.1 s), (d)'s CLI steps 2 -> 1 (12.4 s a step); the gates unchanged
+FAMILY_STEPS = 2
 # phase 17: sharded serving.  (a) one config a family on SERVE_MESH at
 # phase 15's depths (recurrentgemma-9b at phase 9's), f32: the sharded
 # prefill's logits within SERVE17_TOL of the largest |logit| of the
@@ -567,18 +590,22 @@ AUDIO_FULL_ARCH, AUDIO_FULL_BATCH, AUDIO_FULL_SEQ, AUDIO_FULL_STEPS = (
 # splits by sequence (kv_mode "seq"); the same gates.  (b)'s prompt enters
 # the cache through the port's unsharded transformer.prefill (a sharded
 # decode step of the 256 shards takes seconds, host-bound), then
-# SERVE17_NEW sharded decode steps
-SERVE17 = {"phi3-mini-3.8b": {}, "mixtral-8x7b": {"n_layers": 6},
-           "pixtral-12b": {"n_layers": 31}, "xlstm-1.3b": {}, "whisper-small": {},
-           "recurrentgemma-9b": {"n_layers": 3}}
+# GRANITE17_NEW sharded decode steps.  Cut for phase 19's room: (a)'s
+# prompt 16 -> 8 tokens and new tokens 8 -> 2 (23 -> 9 decode steps), its
+# depths phi3-mini 32 -> 8 layers, pixtral 31 -> 8, xLSTM 48 -> 16 (two
+# cycles); (b)'s decode steps 8 -> 2 (4.2-4.7 s each on (16, 16))
+SERVE17 = {"phi3-mini-3.8b": {"n_layers": 8}, "mixtral-8x7b": {"n_layers": 6},
+           "pixtral-12b": {"n_layers": 8}, "xlstm-1.3b": {"n_layers": 16},
+           "whisper-small": {}, "recurrentgemma-9b": {"n_layers": 3}}
 SERVE_MESH = (2, 2)
-SERVE17_BATCH, SERVE17_PROMPT, SERVE17_NEW, SERVE17_TOL = 2, 16, 8, 1e-3
+SERVE17_BATCH, SERVE17_PROMPT, SERVE17_NEW, SERVE17_TOL = 2, 8, 2, 1e-3
 # the prefill's prompt where it differs from SERVE17_PROMPT: a MoE prefill
 # routes groups of min(group_size, the batch's tokens), and mixtral's 4096
 # is one row only at a prompt of 4096 (shorter, a routing group would
 # straddle the data groups at capacity 1.25, which the port refuses)
 SERVE17_PREFILL = {"mixtral-8x7b": 4096}
 GRANITE17_ARCH, GRANITE17_BATCH, GRANITE17_CACHE = "granite-8b", 16, 4096
+GRANITE17_NEW = 2
 # phase 18: the card's peak FLOP rate for a compute dtype (the data
 # sheet's dense rates: bf16 on the tensor cores, f32 outside them)
 PEAK_FLOPS = {"NVIDIA H100 80GB HBM3": {"bfloat16": 989e12, "float32": 67e12}}
@@ -3521,17 +3548,20 @@ def lm_families_phase(torch, np, mods, counters, device="cuda"):
         row = lm_serve(torch, np, mods, cfg, params, device)
         row.update(arch=name, n_layers=depth, published_layers=base.n_layers,
                    params=n_params, init_s=init_s, dtype=cfg.dtype)
+        t0 = time.perf_counter()
         err, scale = lm_decode_check(torch, np, mods, cfg, params, device)
+        check_s = time.perf_counter() - t0
         row["peak_gb"] = peak_gb(torch, device, held)
         rec["serve"][name] = row
-        rec["decode_check"][name] = {"max_abs_diff": err, "max_abs_logit": scale}
+        rec["decode_check"][name] = {"max_abs_diff": err, "max_abs_logit": scale,
+                                     "seconds": check_s}
         say(f"lm {name} ({cfg.family}), {depth} of {base.n_layers} layers, "
             f"{n_params} params (f32) drawn in {init_s:.2f} s: served "
             f"{row['new_tokens']} new tokens in {row['decode_steps']} decode steps "
             f"in {row['seconds']:.3f} s = {row['tokens_per_s']:.2f} tokens/s, "
             f"{row['ms_per_decode_step']:.2f} ms a decode step ({cfg.dtype}); "
             f"decode vs forward (f32): max |diff| {err:.3g} of max |logit| "
-            f"{scale:.3g}; peak {row['peak_gb']} GB")
+            f"{scale:.3g} ({check_s:.1f} s); peak {row['peak_gb']} GB")
         del params
         reset_peak(torch, device)
     for name, kw in LM_TRAIN.items():
@@ -3546,8 +3576,10 @@ def lm_families_phase(torch, np, mods, counters, device="cuda"):
             f"peak {row['peak_gb']} GB")
         reset_peak(torch, device)
     for name, kw in LM_CPU.items():
+        t0 = time.perf_counter()
         row = lm_card_vs_cpu(torch, mods, dataclasses.replace(
             configs.get(name), **kw), device)
+        row["seconds"] = time.perf_counter() - t0
         rec["card_vs_cpu"][name] = row
         say(f"lm card vs CPU {name} ({kw}): loss {row['loss_rel_diff']:.3g} apart "
             f"(limit {LM_CPU_LOSS_RTOL}), worst gradient leaf "
@@ -3557,7 +3589,7 @@ def lm_families_phase(torch, np, mods, counters, device="cuda"):
                 f"f32 (the CPU's own f32 {row['cpu_f32_vs_f64_worst_rel']:.3g} "
                 f"from f64) within {row['f64_worst_rel_diff']:.3g} in f64 (limit "
                 f"{LM_CPU_F64_TOL})" if row["leaves_over_f32_tol"]
-                else f"all {row['leaves']} leaves within it"))
+                else f"all {row['leaves']} leaves within it") + f"; {row['seconds']:.1f} s")
         reset_peak(torch, device)
     seen = counts()
     if any(seen.values()):
@@ -3938,7 +3970,7 @@ def family_cfg(configs, name, kw):
 def sharded_families_phase(torch, mods, counters, lm_rec, device="cuda"):
     """Phase 16 (c): ``FAMILY_ARCHS`` on a ``SHARD_MESH`` mesh of the card:
     f32 gates (xLSTM f64; mixtral at its published capacity with tokens
-    dropped, its load-balancing loss too), then ``SHARD_STEPS`` timed bf16
+    dropped, its load-balancing loss too), then ``FAMILY_STEPS`` timed bf16
     steps beside phase 15 (c)'s unsharded step (``lm_rec``); (d) the CLI's
     ``--preset full`` for ``AUDIO_FULL_ARCH`` on the production mesh.  No
     K1-K7 launch.  Returns the record."""
@@ -3976,9 +4008,9 @@ def sharded_families_phase(torch, mods, counters, lm_rec, device="cuda"):
         shape = dataclasses.replace(shapes.SHAPES["train_4k"], seq_len=LM_TRAIN_SEQ,
                                     global_batch=FAMILY_BATCH)
         batch_fn = data.make_batch_fn(cfg, shape, seed=0)
-        batches = [batch_fn(s) for s in range(SHARD_STEPS)]
+        batches = [batch_fn(s) for s in range(FAMILY_STEPS)]
         tc = train_loop.TrainConfig(opt=optimizer.OptConfig(
-            warmup_steps=1, total_steps=SHARD_STEPS))
+            warmup_steps=1, total_steps=FAMILY_STEPS))
         base = reset_peak(torch, device)
         state = train_loop.init_sharded_state(cfg, mesh, seed=0)
         _, step = train_loop.compile_train_step(cfg, tc, mesh, batches[0])
@@ -4240,7 +4272,7 @@ def sharded_serve_phase(torch, np, mods, counters, rates, device="cuda"):
     cfg = dataclasses.replace(configs.get(GRANITE17_ARCH), dtype="float32")
     big = mesh_mod.make_production_mesh(devices=devices)
     row, _ = sharded_serve_one(torch, np, mods, counters, cfg, big, GRANITE17_BATCH,
-                               SERVE17_PROMPT, SERVE17_NEW, GRANITE17_CACHE, device,
+                               SERVE17_PROMPT, GRANITE17_NEW, GRANITE17_CACHE, device,
                                prompt_cache=True)
     if row["kv_mode"] != "seq" or any(row["launches"].values()) \
             or any(row["prefill_launches"].values()):
@@ -4316,7 +4348,9 @@ def dry_run_phase(torch, mods, record, smi, device="cuda"):
     full = st16["full"]
     train_shape = shapes.SHAPES["train_4k"]
     # (name, cfg, mesh shape, shape, the phase's measured s a step (None:
-    # not measured), its peak GB, the card's K6 launches a step)
+    # not measured, or only a cold first step: 16 (b) at FULL_STEPS = 1),
+    # its peak GB, the card's K6 launches a step)
+    full_s = full["sharded_step_s"]
     cases = [
         ("16 (a)", dataclasses.replace(configs.get(TRAIN_ARCH), n_layers=TRAIN_LAYERS),
          SHARD_MESH, dataclasses.replace(train_shape, seq_len=TRAIN_SEQ,
@@ -4325,7 +4359,8 @@ def dry_run_phase(torch, mods, record, smi, device="cuda"):
          st16["train"]["k6_launches"] / SHARD_STEPS),
         ("16 (b)", configs.get(FULL_ARCH), (16, 16),
          dataclasses.replace(train_shape, seq_len=FULL_SEQ, global_batch=FULL_BATCH),
-         _steady_ms(full["sharded_step_s"]) / 1e3, full["sharded_peak_gb"], 0),
+         _steady_ms(full_s) / 1e3 if len(full_s) > 1 else None,
+         full["sharded_peak_gb"], 0),
         ("17 (a) prefill", dataclasses.replace(configs.get(TRAIN_ARCH), n_layers=3,
                                                dtype="float32"),
          SERVE_MESH, shapes.ShapeSpec("prefill", "prefill", SERVE17_PROMPT, SERVE17_BATCH),
@@ -4387,7 +4422,7 @@ def dry_run_phase(torch, mods, record, smi, device="cuda"):
         rate = (f"{tflops:.2f} TFLOP/s achieved ({row['peak_share']:.2%} of "
                 f"{peak_rate / 1e12:g} {cfg.dtype})" if tflops and peak_rate else
                 f"{tflops:.2f} TFLOP/s achieved" if tflops else
-                "its ms a step not measured")
+                "no steady step measured (none, or a cold first step only)")
         say(f"dry run {name} ({cfg.name} {cfg.n_layers} layers, {cfg.dtype}, {shape.kind} "
             f"{shape.global_batch} x {shape.seq_len}, meta mesh {mshape}; {smi}): "
             f"{pd.total_flops:.6g} FLOPs a step a device ({pd.dot_flops:.6g} dot), "
@@ -4403,6 +4438,239 @@ def dry_run_phase(torch, mods, record, smi, device="cuda"):
             f"= the card's {k6:g}; accounted in {account_s:.1f} s")
     rec["seconds"] = time.perf_counter() - t_phase
     say(f"dry run phase: {rec['seconds']:.1f} s")
+    return rec
+
+
+class PhaseClock:
+    """Wall seconds a phase: ``next(name)`` closes the running phase
+    (printing ``phase <name>: <s> s``) and opens ``name``; ``stop()``
+    closes the last.  The seconds go into ``record["phase_seconds"]``."""
+
+    def __init__(self, record: dict):
+        self.seconds = record.setdefault("phase_seconds", {})
+        self.name, self.t0 = None, time.perf_counter()
+
+    def next(self, name) -> None:
+        now = time.perf_counter()
+        if self.name is not None:
+            self.seconds[self.name] = now - self.t0
+            say(f"phase {self.name}: {now - self.t0:.1f} s")
+        self.name, self.t0 = name, now
+
+    def stop(self) -> None:
+        self.next(None)
+
+    def table(self) -> None:
+        say("| phase | seconds |")
+        say("|---|---|")
+        for name, sec in self.seconds.items():
+            say(f"| {name} | {sec:.1f} |")
+        say(f"| all phases | {sum(self.seconds.values()):.1f} |")
+
+
+# phase 19: the examples of examples/torch_port through main([...]): (label,
+# script, argv, {kernel: (fewest, most launches)}, most None: no bound;
+# every kernel not named must stay 0).  fwi's full mode runs its forward
+# 1 + 120 times and replays each backward pass's windows on the same
+# kernel: at least 60 x 121 K1 launches.  train_lm's 100m preset runs 150
+# of its 300 steps: its 300 took 39-55 s, and the whole script passed
+# 1000 s with them on slower hosts
+EXAMPLES_DIR = ROOT / "examples" / "torch_port"
+EXAMPLE_RUNS = (
+    ("quickstart", "quickstart", [], {"map_step": (50, 50), "fused_step": (50, 50)}),
+    ("acoustic 512^3 gmem", "acoustic_iso_3d",
+     ["--shape", "512", "512", "512", "--iters", "100", "--template", "gmem"],
+     {"map_step": (100, 100)}),
+    ("acoustic 512^3 shift --fuse 10", "acoustic_iso_3d",
+     ["--shape", "512", "512", "512", "--iters", "100", "--template", "shift",
+      "--fuse", "10"], {"stream_step": (100, 100)}),
+    ("acoustic --distributed", "acoustic_iso_3d", ["--distributed"], {}),
+    ("acoustic --distributed --template gmem", "acoustic_iso_3d",
+     ["--distributed", "--template", "gmem"], {"map_step": (1, None)}),
+    ("fwi --template gmem", "fwi", ["--template", "gmem"],
+     {"fused_step": (60 * 121, None)}),
+    ("fwi --smoke --mesh 4", "fwi", ["--smoke", "--mesh", "4"], {}),
+    ("serve_lm", "serve_lm", [], {"causal_conv1d": (1, None)}),
+    ("train_lm --preset 100m --steps 150", "train_lm",
+     ["--preset", "100m", "--steps", "150"], {}),
+    ("train_lm --preset smoke --ckpt-dir", "train_lm", ["--preset", "smoke"], {}),
+)
+# the kernels a phase 19 row reports (K3, K5 and K7 are off these paths:
+# they must stay 0 too)
+EXAMPLE_KERNELS = {"K1": "fused_step", "K2": "stream_step", "K4": "map_step",
+                   "K6": "causal_conv1d"}
+# phase 19 holds the kernels its examples run at their own sources and
+# shapes against st.torch() on the card: each pair's wavefields (the
+# kernel's run, then the torch run: max |diff| within the field gate,
+# EXAMPLE_FIELD_TOL of the torch field's max; energy and max |p| within
+# EXAMPLE_REL_TOL relative); and fwi's full-mode problem (FWI_N² x
+# FWI_STEPS) under K1: its observed data within the field gate, its first
+# misfit within EXAMPLE_REL_TOL relative and its gradient within
+# FWI_GRAD_TOL of the gradient's max (tests/test_torch_examples.py's
+# limits against the JAX package)
+EXAMPLE_PAIRS = (("acoustic --distributed --template gmem", "acoustic --distributed"),)
+EXAMPLE_FIELD_TOL, EXAMPLE_REL_TOL, FWI_GRAD_TOL = 2e-5, 1e-5, 5e-4
+FWI_N, FWI_STEPS = 48, 60
+
+
+def load_example(name: str):
+    """``examples/torch_port/<name>.py`` as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(f"torch_port_{name}",
+                                                  EXAMPLES_DIR / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def example_sources(torch, st, codegen) -> list:
+    """The sources of phase 19's fused K1 runs (quickstart's star2d4r at
+    256², fwi's wave at 48²), for phase 2's parallel build."""
+    q, f = load_example("quickstart"), load_example("fwi")
+    out = []
+    for k, shape, swap in ((q.kernel_star2d4r, q.SHAPE, ("v", "u")),
+                           (f.wave2d, (FWI_N, FWI_N), ("p0", "p1"))):
+        halos = {g: (k.info.order,) * 2 for g in k.ir.grid_params}
+        out.append(codegen.plan_cuda(k.ir, halos, shape, st.hopper(),
+                                     swap=swap).source(torch.float32))
+    return out
+
+
+def _numbers(x):
+    """The JSON-able numbers of an example's result (tensors and arrays
+    dropped)."""
+    if isinstance(x, dict):
+        out = {str(k): _numbers(v) for k, v in x.items()}
+        return {k: v for k, v in out.items() if v is not None}
+    if isinstance(x, (list, tuple)):
+        out = [_numbers(v) for v in x]
+        return out if all(v is not None for v in out) else None
+    if isinstance(x, bool) or x is None:
+        return x
+    if isinstance(x, (int, float, str)):
+        return x
+    return None
+
+
+def _field_diff(torch, label, got, want):
+    """``got``'s wavefield against ``want``'s (both an example's result):
+    fails past the field gate or the relative gates.  Returns the row."""
+    a, b = got["field"].double(), want["field"].double()
+    scale = float(b.abs().max())
+    err = float((a - b).abs().max())
+    rel = {k: abs(got[k] - want[k]) / abs(want[k]) for k in ("energy", "max_abs_p")}
+    if (not bool(torch.isfinite(a).all()) or err > EXAMPLE_FIELD_TOL * scale
+            or max(rel.values()) > EXAMPLE_REL_TOL):
+        fail(f"example {label}: max |diff| {err} of max |p| {scale} (limit "
+             f"{EXAMPLE_FIELD_TOL}), relative {rel} (limit {EXAMPLE_REL_TOL})")
+    return {"max_abs_diff": err, "max_abs_field": scale,
+            **{f"{k}_rel_diff": v for k, v in rel.items()}}
+
+
+def fwi_check(torch, st, counters, device):
+    """fwi's full-mode problem (``FWI_N``² x ``FWI_STEPS``, the source
+    phase 2 built) under K1 against ``st.torch()`` on ``device``: the
+    observed data, the first misfit and its gradient.  K1 must launch in
+    the K1 run and not in the torch run.  Returns the row."""
+    reset_counts, counts = counters
+    f = load_example("fwi")
+    got = {}
+    for name, backend in (("torch", st.torch()), ("K1", st.hopper(template="gmem"))):
+        reset_counts()
+        _, d_obs, misfit = f.make_problem(FWI_N, FWI_STEPS, device, backend)
+        v = torch.full((FWI_N, FWI_N), 1.0, device=device, requires_grad=True)
+        loss = misfit(v)
+        (g,) = torch.autograd.grad(loss, v)
+        got[name] = (d_obs, float(loss.detach()), g.detach().double(),
+                     counts()["fused_step"])
+    (obs_t, loss_t, g_t, n_t), (obs_k, loss_k, g_k, n_k) = got["torch"], got["K1"]
+    scale = max(float(obs_t[g].abs().max()) for g in obs_t)
+    obs_err = max(float((obs_k[g].double() - obs_t[g].double()).abs().max())
+                  for g in obs_t)
+    loss_rel = abs(loss_k - loss_t) / abs(loss_t)
+    g_scale = float(g_t.abs().max())
+    g_err = float((g_k - g_t).abs().max())
+    row = {"n": FWI_N, "steps": FWI_STEPS, "observed_max_abs_diff": obs_err,
+           "observed_max_abs": scale, "misfit_torch": loss_t, "misfit_k1": loss_k,
+           "misfit_rel_diff": loss_rel, "grad_max_abs_diff": g_err,
+           "grad_max_abs": g_scale, "k1_launches": n_k}
+    if n_t or n_k < 2 * FWI_STEPS:
+        fail(f"fwi check: K1 launched {n_k} times under st.hopper (at least "
+             f"{2 * FWI_STEPS}: the observed data and the misfit's forward) and "
+             f"{n_t} under st.torch() (expected 0)")
+    if (obs_err > EXAMPLE_FIELD_TOL * scale or loss_rel > EXAMPLE_REL_TOL
+            or not math.isfinite(g_err) or g_err > FWI_GRAD_TOL * g_scale):
+        fail(f"fwi check: K1 against st.torch() {row} (limits: data "
+             f"{EXAMPLE_FIELD_TOL} of max, misfit {EXAMPLE_REL_TOL} relative, "
+             f"gradient {FWI_GRAD_TOL} of max)")
+    return row
+
+
+def examples_phase(torch, st, counters, smi, device="cuda"):
+    """Phase 19: each of ``EXAMPLE_RUNS`` through its script's ``main``
+    on ``device``; the counts set to 0 just before a run and read just
+    after, each within its run's bounds; then ``EXAMPLE_PAIRS``' fields
+    and ``fwi_check``.  Returns the record."""
+    reset_counts, counts = counters
+    rec = {"runs": [], "pairs": {}}
+    keep = {lab for pair in EXAMPLE_PAIRS for lab in pair}
+    fields = {}
+    tmp = CKPT_ROOT / "examples"
+    for label, script, argv, want in EXAMPLE_RUNS:
+        mod = load_example(script)
+        args = ["--device", str(device), *argv]
+        if "--ckpt-dir" in label:
+            shutil.rmtree(tmp, ignore_errors=True)
+            tmp.mkdir(parents=True)
+            args += ["--ckpt-dir", str(tmp)]
+        say(f"example {label}: python examples/torch_port/{script}.py "
+            f"{' '.join(args)}")
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            out = mod.main(args)
+        except AssertionError as e:
+            fail(f"example {label}: {e}")
+        finally:
+            if "--ckpt-dir" in label:
+                shutil.rmtree(tmp, ignore_errors=True)
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        seen = counts()
+        for kname, n in seen.items():
+            lo, hi = want.get(kname, (0, 0))
+            if n < lo or (hi is not None and n > hi):
+                fail(f"example {label}: {n} launches of {kname}, expected "
+                     f"{lo} to {hi if hi is not None else 'any'} ({seen})")
+        row = {"example": label, "script": script, "argv": args,
+               "seconds": seconds, "launches": seen, "result": _numbers(out)}
+        rec["runs"].append(row)
+        say(f"example {label}: OK in {seconds:.1f} s; launches "
+            + ", ".join(f"{k} {seen[v]}" for k, v in EXAMPLE_KERNELS.items())
+            + f"; {smi}")
+        if label in keep:
+            fields[label] = out
+        del mod, out
+        gc.collect()
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+    for got, want in EXAMPLE_PAIRS:
+        row = _field_diff(torch, got, fields[got], fields[want])
+        rec["pairs"][f"{got} vs {want}"] = row
+        say(f"example {got} against {want}: max |diff| {row['max_abs_diff']:.4g} of "
+            f"max |p| {row['max_abs_field']:.6g} (limit {EXAMPLE_FIELD_TOL}), energy "
+            f"{row['energy_rel_diff']:.3g} and max |p| {row['max_abs_p_rel_diff']:.3g} "
+            f"relative (limit {EXAMPLE_REL_TOL}); {smi}")
+    del fields
+    rec["fwi_check"] = row = fwi_check(torch, st, counters, device)
+    say(f"fwi check ({FWI_N}² x {FWI_STEPS} steps, K1 against st.torch()): observed "
+        f"data max |diff| {row['observed_max_abs_diff']:.4g} of {row['observed_max_abs']:.6g}"
+        f" (limit {EXAMPLE_FIELD_TOL}), first misfit {row['misfit_k1']!r} against "
+        f"{row['misfit_torch']!r} ({row['misfit_rel_diff']:.3g} relative, limit "
+        f"{EXAMPLE_REL_TOL}), gradient max |diff| {row['grad_max_abs_diff']:.4g} of "
+        f"{row['grad_max_abs']:.6g} (limit {FWI_GRAD_TOL}); K1 {row['k1_launches']} "
+        f"launches (not counted on the path); {smi}")
     return rec
 
 
@@ -4478,8 +4746,10 @@ def main(argv=None) -> int:
         return seen
 
     record = {"phases": {}}
+    clock = PhaseClock(record)
 
     # -- 1. environment ------------------------------------------------------
+    clock.next("1 environment")
     try:
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4508,6 +4778,7 @@ def main(argv=None) -> int:
     jacobi = Workload("jacobi3d", mods, kernel=jacobi3d)
 
     # -- 2. build ------------------------------------------------------------
+    clock.next("2 build")
     shapes = SMALL_SHAPES if args.quick else SMALL_SHAPES + (MAIN_SHAPE,)
     t0 = time.perf_counter()
     # K2's and K3's sources depend on the buffers' pitches (their staging
@@ -4546,10 +4817,12 @@ def main(argv=None) -> int:
         st.cuda(computeCapability="9.0", threadsPerBlock=(8, 128),
                 template="gmem")).source()]
     sources += [conv.source(), attn.source()]
-    # phase 13 runs its first request under K2 at the request's own shape
+    # phase 13 runs its first request under K2 at the request's own shape;
+    # phase 19 K1 on two 2D grids
     if not args.quick:
         sources.append(workloads[0].plan(codegen, sim_requests(np)[0][0],
                                          "shift").source(torch.float32))
+        sources += example_sources(torch, st, codegen)
     try:
         _build.build_many(sources)
     except RuntimeError as e:
@@ -4591,6 +4864,7 @@ def main(argv=None) -> int:
             f"{row['spill_loads']} B spill loads")
 
     # -- 3. kernels vs plain versions ----------------------------------------
+    clock.next("3 kernels")
     entries = {}
     library = {}        # workload -> ms of its one library call, or None
     for w in workloads:
@@ -4795,6 +5069,7 @@ def main(argv=None) -> int:
         return 0
 
     # -- 4. main path ----------------------------------------------------------
+    clock.next("4 main path")
     main_rows = []
 
     def star_run(backend, grids):
@@ -4885,6 +5160,7 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
 
     # -- 5. absorbing boundary -------------------------------------------------
+    clock.next("5 absorbing boundary")
     init = acoustic.make_fields(PML_SHAPE, pml_width=10)
     fresh = lambda: tuple(x.copy() for x in init[:4]) + (init[4],)  # noqa: E731
     refs = {}           # fusion window -> st.torch() fields (the source is
@@ -4927,8 +5203,12 @@ def main(argv=None) -> int:
     record["absorbing_boundary"] = pml_rows
 
     # -- 6. per-application main path --------------------------------------------
+    clock.next("6 per-application")
+    star_init = suite.make_grids("star3d4r", MAIN_SHAPE, seed=0)
+
     def star_map(backend):
-        grids = suite.make_grids("star3d4r", MAIN_SHAPE, seed=0)
+        # copies on the card of one draw (a 512³ draw takes seconds on the host)
+        grids = {g: x.copy() for g, x in star_init.items()}
         k = suite.get_kernel("star3d4r")
 
         @st.target
@@ -4983,8 +5263,10 @@ def main(argv=None) -> int:
         del ref
         torch.cuda.empty_cache()
     record["map_path"] = map_rows
+    del star_init
 
     # -- 7. regions and Listing 1 ------------------------------------------------
+    clock.next("7 regions and Listing 1")
     k = suite.get_kernel("star3d4r")
     init = suite.make_grids("star3d4r", MAIN_SHAPE, seed=3)
     boxes = regions.seven_region(MAIN_SHAPE, PML_WIDTH)
@@ -5054,6 +5336,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # -- 8. serving ------------------------------------------------------------
+    clock.next("8 serving")
     lm_mods = {"configs": configs, "api": api, "griffin": griffin,
                "layers": lm_layers, "serve_loop": serve_loop, "conv": conv,
                "conv_ref": conv_ref, "attn": attn}
@@ -5061,6 +5344,7 @@ def main(argv=None) -> int:
     record["serving"] = serve_row
 
     # -- 9. training -------------------------------------------------------------
+    clock.next("9 training")
     train_mods = {"configs": configs, "train_loop": train_loop,
                   "optimizer": optimizer, "data": train_data,
                   "shapes": lm_shapes, "griffin": griffin, "conv_ref": conv_ref}
@@ -5068,6 +5352,7 @@ def main(argv=None) -> int:
     record["training"] = train_row
 
     # -- 10. autotune --------------------------------------------------------------
+    clock.next("10 autotune")
     at_mods = {"st": st, "suite": suite, "acoustic": acoustic,
                "autotune": autotune, "cost_model": cost_model,
                "timeloop": timeloop}
@@ -5075,6 +5360,7 @@ def main(argv=None) -> int:
                                                main_rows)
 
     # -- 11. batched scenarios and the adjoint -------------------------------------
+    clock.next("11 batch and adjoint")
     b_mods = {"st": st, "acoustic": acoustic, "suite": suite, "codegen": codegen,
               "wrappers": wrappers, "acoustic_workload": workloads[1],
               "adjoint": adjoint}
@@ -5083,6 +5369,7 @@ def main(argv=None) -> int:
     record["adjoint"] = adjoint_phase(torch, b_mods, (reset_counts, counts))
 
     # -- 12. resilience ------------------------------------------------------------------
+    clock.next("12 resilience")
     r_mods = {"st": st, "acoustic": acoustic, "timeloop": timeloop, "adjoint": adjoint,
               "checkpoint": checkpoint, "fault_tolerance": fault_tolerance,
               "configs": configs, "train_loop": train_loop, "optimizer": optimizer,
@@ -5095,11 +5382,13 @@ def main(argv=None) -> int:
         entries[f"{name}[acoustic_iso]"]["resilient_launches"] = n
 
     # -- 13. stencil serving ---------------------------------------------------------------
+    clock.next("13 stencil serving")
     s_mods = {"st": st, "suite": suite, "autotune": autotune, "cost_model": cost_model,
               "stencil_serve": stencil_serve}
     record["stencil_serving"] = stencil_serve_phase(torch, np, s_mods,
                                                     (reset_counts, counts))
     # -- 14. the distributed layer -----------------------------------------------------
+    clock.next("14 distributed")
     d_mods = {"st": st, "suite": suite, "acoustic": acoustic, "distributed": distributed,
               "mesh": mesh_mod, "timeloop": timeloop, "adjoint": adjoint,
               "cost_model": cost_model, "autotune": autotune,
@@ -5108,11 +5397,13 @@ def main(argv=None) -> int:
     record["distributed"] = distributed_phase(torch, np, d_mods, (reset_counts, counts),
                                               main_rows, map_rows, entries)
     # -- 15. the other language models ----------------------------------------------
+    clock.next("15 LM families")
     f_mods = {"configs": configs, "api": api, "encdec": encdec, "layers": lm_layers,
               "serve_loop": serve_loop, "train_loop": train_loop,
               "optimizer": optimizer, "data": train_data, "shapes": lm_shapes}
     record["lm_families"] = lm_families_phase(torch, np, f_mods, (reset_counts, counts))
     # -- 16. the LM side of the distributed layer -------------------------------------
+    clock.next("16 sharded training")
     sh_mods = {"configs": configs, "api": api, "griffin": griffin,
                "train_loop": train_loop, "optimizer": optimizer, "data": train_data,
                "shapes": lm_shapes, "mesh": mesh_mod, "sharding": sharding,
@@ -5123,6 +5414,7 @@ def main(argv=None) -> int:
     record["sharded_families"] = sharded_families_phase(
         torch, sh_mods, (reset_counts, counts), record["lm_families"])
     # -- 17. sharded serving ------------------------------------------------------------
+    clock.next("17 sharded serving")
     sv_mods = {**sh_mods, "encdec": encdec, "serve_loop": serve_loop,
                "dryrun": dryrun, "transformer": transformer}
     record["sharded_serving"], serve_entries = sharded_serve_phase(
@@ -5135,9 +5427,16 @@ def main(argv=None) -> int:
             e["resilient_launches"] = record["resilience"]["training"]["k6_launches"]
     conv_entries += [shard_entry, *serve_entries]
     # -- 18. the dry run's accounting ----------------------------------------------------
+    clock.next("18 dry run")
     record["dry_run"] = dry_run_phase(torch, {**sv_mods, "mesh": mesh_mod}, record, smi)
     for kname, e in attn_entries.items():  # standalone: 0 on the serving path
         e["launches"] = serve_row["launches"][kname]
+    # -- 19. the examples --------------------------------------------------------------
+    clock.next("19 examples")
+    record["examples"] = examples_phase(torch, st, (reset_counts, counts), smi)
+    clock.stop()
+    say(f"seconds a phase ({smi}):")
+    clock.table()
 
     kernels = [entries[f"{k}[{w.name}]"] for w in workloads
                for k in list(KERNELS) + list(MAP_KERNELS)]

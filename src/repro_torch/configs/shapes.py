@@ -12,6 +12,8 @@
 ``meta`` device (shape and dtype, nothing allocated), the port's
 counterpart of the JAX package's ``jax.ShapeDtypeStruct`` stand-ins; a
 decode cell's cache is the port's cache layout (one state per layer).
+``make_host_batch`` fills the same specs with numbers (small configs
+only).
 """
 from __future__ import annotations
 
@@ -22,7 +24,8 @@ import torch
 
 from .base import ModelConfig
 
-__all__ = ["ShapeSpec", "SHAPES", "applicable", "input_specs"]
+__all__ = ["ShapeSpec", "SHAPES", "applicable", "input_specs",
+           "batch_dims", "make_host_batch"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,3 +100,38 @@ def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> Dict:
     kw = {"enc_len": 1500} if cfg.family == "audio" else {}
     cache = api.init_cache(cfg, B, cache_len, device="meta", **kw)
     return {"tokens": spec((B, 1), i32), "cache": cache}
+
+
+def batch_dims(cfg: ModelConfig, shape: ShapeSpec) -> Dict[str, int]:
+    """Leading batch dim of every input-spec leaf group (for sharding)."""
+    return {"tokens": 0, "labels": 0, "patch_embeds": 0, "frame_embeds": 0}
+
+
+def make_host_batch(cfg: ModelConfig, shape: ShapeSpec, seed: int = 0,
+                    *, device=None) -> Dict:
+    """Concrete inputs matching ``input_specs`` as tensors on ``device``
+    (None: the card), for reduced smoke configs only: token ids and
+    embeddings drawn by ``numpy.random.default_rng(seed)`` in the JAX
+    package's order (int32 ids, f32 embeddings: the same numbers as its
+    ``make_host_batch``); a decode cell's cache is ``api.init_cache``'s."""
+    import numpy as np
+
+    from repro_torch.core.dsl import resolve_device
+    from repro_torch.models import api
+
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, spec in input_specs(cfg, shape).items():
+        if name == "cache":
+            cache_len = api.decode_cache_len(cfg, shape.seq_len)
+            kw = {"enc_len": 1500} if cfg.family == "audio" else {}
+            out[name] = api.init_cache(cfg, shape.global_batch, cache_len,
+                                       device=dev, **kw)
+        elif spec.dtype == torch.int32:
+            out[name] = torch.from_numpy(rng.integers(
+                0, cfg.vocab, tuple(spec.shape)).astype(np.int32)).to(dev)
+        else:
+            out[name] = torch.from_numpy(rng.standard_normal(
+                tuple(spec.shape)).astype(np.float32)).to(dev)
+    return out

@@ -142,7 +142,7 @@ def acoustic_target_fused(p0: st.grid, p1: st.grid, vp2: st.grid,
         acoustic_iso_kernel)(p0, p1, vp2, damp, dt)
 
 
-def run(shape=(64, 64, 64), iters: int = 10, backend=None,
+def run(shape=(64, 64, 64), iters: int = 10, backend=None, mesh=None,
         pml_width: int = 8, with_source: bool = True,
         fuse_steps: int = None, device=None):
     """Convenience entry point.  Returns (final wavefield grid, launch profile).
@@ -153,7 +153,9 @@ def run(shape=(64, 64, 64), iters: int = 10, backend=None,
     kernels), with the wavelet injected every step.  ``fuse_steps``
     switches to the fused time-loop engine: the wavelet is then injected
     every ``fuse_steps`` steps instead of every step — identical when
-    ``fuse_steps=1``.  Fields live on ``device`` (None: the card).  The
+    ``fuse_steps=1``.  Fields live on ``device`` (None: the card).  With
+    ``backend=st.distributed(...)`` both paths run on ``mesh``'s shards
+    (``repro_torch.launch.mesh.make_mesh``), as in the JAX package.  The
     per-step path's profile sums the launches' phases and adds ``loop``,
     the host seconds of the whole step loop, injections included (each
     ``st.map`` ends in a sync).
@@ -169,7 +171,7 @@ def run(shape=(64, 64, 64), iters: int = 10, backend=None,
                 inject_source(grids["p1"], t)
         else:
             between = None
-        res = st.launch(backend=backend, fuse_steps=fuse_steps)(
+        res = st.launch(backend=backend, mesh=mesh, fuse_steps=fuse_steps)(
             acoustic_target_fused)(p0, p1, vp2, damp, dt, iters,
                                    between=between)
         return p1, res.profile
@@ -178,7 +180,7 @@ def run(shape=(64, 64, 64), iters: int = 10, backend=None,
     for t in range(iters):
         if with_source:
             inject_source(p1, t)
-        res = st.launch(backend=backend)(acoustic_target)(
+        res = st.launch(backend=backend, mesh=mesh)(acoustic_target)(
             p0, p1, vp2, damp, dt, 1)
         for k, v in res.profile.items():
             total_prof[k] = total_prof.get(k, 0.0) + v

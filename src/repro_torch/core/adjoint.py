@@ -87,7 +87,13 @@ SECONDS: Dict[str, float] = {
 
 
 def reset_stats() -> None:
-    """Zero ``CHECKPOINT_STATS`` and ``SECONDS``."""
+    """Zero ``CHECKPOINT_STATS`` and ``SECONDS`` (call before a fresh
+    adjoint pass so its checkpoint/replay counters start from zero).
+
+    >>> reset_stats()
+    >>> CHECKPOINT_STATS["checkpoints"]
+    0
+    """
     for k in CHECKPOINT_STATS:
         CHECKPOINT_STATS[k] = 0
     for k in SECONDS:

@@ -519,10 +519,12 @@ def run_timeloop(kernel: _ir.StencilIR,
                  swap: Optional[Tuple[str, str]] = None,
                  fuse_steps: Optional[int] = None,
                  between: Optional[Callable] = None,
+                 mesh=None,
                  batch: int = 0) -> Dict[str, torch.Tensor]:
-    """One-shot convenience wrapper (builds a fresh engine)."""
+    """One-shot convenience wrapper (builds a fresh engine; ``mesh`` for a
+    distributed backend)."""
     eng = TimeloopEngine(kernel, halos, interior_shape, backend, swap=swap,
-                         batch=batch)
+                         mesh=mesh, batch=batch)
     return eng.run(dict(arrays), scalars, steps, fuse_steps, between)
 
 

@@ -45,14 +45,17 @@ def stencil_timeloop(kernel: "st.Kernel",
                      halos: Optional[Mapping[str, Tuple[int, ...]]] = None,
                      template: str = "gmem",
                      block: Optional[Tuple[int, ...]] = None,
+                     mem_type: Optional[str] = None,
                      fuse_steps: Optional[int] = None,
-                     time_block: int = 1) -> Dict[str, torch.Tensor]:
+                     time_block: int = 1,
+                     batch: int = 0) -> Dict[str, torch.Tensor]:
     """Fused time stepping on raw halo-padded tensors (the array-level twin
     of ``st.timeloop`` on the hopper backend): ``steps`` applications +
     leapfrog rotation of the ``swap`` pair, ``time_block`` steps per launch
-    of the temporal-blocking kernel when it is above 1.  Returns the final
-    arrays under the name-rotation convention; the tensors are advanced in
-    place."""
+    of the temporal-blocking kernel when it is above 1.  ``batch=B``
+    advances B scenarios (the tensors carry a leading scenario axis), one
+    launch a step for all of them.  Returns the final arrays under the
+    name-rotation convention; the tensors are advanced in place."""
     from repro_torch.core import timeloop as _tl
 
     k_ir = kernel.ir
@@ -60,10 +63,11 @@ def stencil_timeloop(kernel: "st.Kernel",
         h = kernel.info.halo
         halos = {g: h for g in k_ir.grid_params}
     g0 = k_ir.grid_params[0]
-    interior = tuple(s - 2 * hh for s, hh in zip(arrays[g0].shape, halos[g0]))
-    backend = st.hopper(template=template, block=block,
+    spatial = arrays[g0].shape[1:] if batch else arrays[g0].shape
+    interior = tuple(s - 2 * hh for s, hh in zip(spatial, halos[g0]))
+    backend = st.hopper(template=template, block=block, mem_type=mem_type,
                         time_block=time_block)
     return _tl.run_timeloop(k_ir, dict(arrays), dict(scalars or {}), steps,
                             halos=dict(halos), interior_shape=interior,
                             backend=backend, swap=swap,
-                            fuse_steps=fuse_steps)
+                            fuse_steps=fuse_steps, batch=batch)

@@ -1,6 +1,7 @@
-"""The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports JAX or the JAX package ``repro``; and entry points
-run on the card unless the caller asks for the CPU."""
+"""The port stands alone: no module of ``src/repro_torch``, no example
+under ``examples/torch_port/`` and not ``chip_smoke.py`` imports JAX or the
+JAX package ``repro``; and entry points run on the card unless the caller
+asks for the CPU."""
 import ast
 import os
 import pathlib
@@ -20,7 +21,9 @@ from repro_torch.models import api  # noqa: E402
 from repro_torch.train import train_loop  # noqa: E402
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
-FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+EXAMPLES = sorted((REPO / "examples" / "torch_port").glob("*.py"))
+FILES = (sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+         + EXAMPLES)
 
 
 def _forbidden(mod: str) -> bool:
@@ -284,3 +287,29 @@ def test_production_mesh_defaults_to_the_card(monkeypatch):
         mesh_mod.make_production_mesh()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_cli.main(["--preset", "full", "--steps", "1"])
+
+
+# the examples of the port
+def test_examples_are_checked():
+    assert [p.stem for p in EXAMPLES] == ["acoustic_iso_3d", "fwi", "quickstart",
+                                          "serve_lm", "train_lm"]
+    assert all(p in FILES for p in EXAMPLES)
+
+
+@pytest.mark.parametrize("path", EXAMPLES, ids=lambda p: p.stem)
+def test_examples_load_neither_jax_nor_repro(path):
+    """Loading an example in a fresh interpreter (its module body: the
+    kernels it parses, the port modules it imports) leaves ``jax`` and
+    ``repro`` out of ``sys.modules``."""
+    code = ("import importlib.util, sys\n"
+            f"spec = importlib.util.spec_from_file_location('ex', {str(path)!r})\n"
+            "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro'))\n"
+            "print(bad)\n"
+            "assert not bad\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=str(REPO / "src")),
+                         timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
