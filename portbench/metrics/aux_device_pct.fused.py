@@ -1,0 +1,3 @@
+"""``aux_device_pct`` in the cells of the ``fused_solves`` driver (a bound of
+its own); the reading is ``aux_device_pct.py``'s."""
+from portbench.metrics.aux_device_pct import read  # noqa: F401
