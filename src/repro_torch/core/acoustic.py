@@ -26,6 +26,7 @@ import torch
 
 from . import dsl as st
 from . import regions
+from . import trace as _trace
 
 # 8th-order central second-derivative coefficients
 C0 = -205.0 / 72.0
@@ -99,25 +100,26 @@ def inject_source(p: st.grid, t: int,
     adjoint's hook) the sum is out of place, ``p.data`` a new tensor, so
     that it is differentiated as the JAX package's ``.at[].add`` is; the
     values are the same."""
-    if pos is None:
-        pos = tuple(s // 2 for s in p.shape)
-    o = p.order
-    val = amp * source_wavelet(t)
-    if p.batch:
-        shots = [tuple(pos)] * p.batch if np.ndim(pos) == 1 else [tuple(q) for q in pos]
-        if len(shots) != p.batch:
-            raise ValueError(f"{len(shots)} source positions for {p.batch} shots")
-        idx = (torch.arange(p.batch, device=p.data.device),) + tuple(
-            torch.tensor([o + q[ax] for q in shots], device=p.data.device)
-            for ax in range(len(p.shape)))
-    else:
-        idx = tuple(o + q for q in pos)
-    if torch.is_grad_enabled() and p.data.requires_grad:
-        idx = tuple(torch.as_tensor(i, device=p.data.device) for i in idx)
-        add = torch.full(idx[0].shape, val, dtype=p.dtype, device=p.data.device)
-        p.data = p.data.index_put(idx, add, accumulate=True)
-    else:
-        p.data[idx] += val
+    with _trace.span("rt.inject_source"):
+        if pos is None:
+            pos = tuple(s // 2 for s in p.shape)
+        o = p.order
+        val = amp * source_wavelet(t)
+        if p.batch:
+            shots = [tuple(pos)] * p.batch if np.ndim(pos) == 1 else [tuple(q) for q in pos]
+            if len(shots) != p.batch:
+                raise ValueError(f"{len(shots)} source positions for {p.batch} shots")
+            idx = (torch.arange(p.batch, device=p.data.device),) + tuple(
+                torch.tensor([o + q[ax] for q in shots], device=p.data.device)
+                for ax in range(len(p.shape)))
+        else:
+            idx = tuple(o + q for q in pos)
+        if torch.is_grad_enabled() and p.data.requires_grad:
+            idx = tuple(torch.as_tensor(i, device=p.data.device) for i in idx)
+            add = torch.full(idx[0].shape, val, dtype=p.dtype, device=p.data.device)
+            p.data = p.data.index_put(idx, add, accumulate=True)
+        else:
+            p.data[idx] += val
 
 
 @st.target

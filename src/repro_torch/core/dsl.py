@@ -51,6 +51,7 @@ from . import analysis as _analysis
 from . import frontend as _frontend
 from . import ir as _ir
 from . import lowering as _lowering
+from . import trace as _trace
 
 __all__ = [
     "grid", "kernel", "target", "map", "timeloop", "launch",
@@ -226,9 +227,7 @@ class Kernel:
     def __init__(self, fn: Callable):
         self.fn = fn
         self.name = fn.__name__
-        t0 = time.perf_counter()
         self.ir: _ir.StencilIR = _frontend.parse_kernel(fn)
-        self.frontend_time = time.perf_counter() - t0
         _analysis.check_read_after_write(self.ir)
         self.info: _analysis.StencilInfo = _analysis.analyze(self.ir)
         self._cache: Dict = {}
@@ -365,20 +364,16 @@ class distributed(Backend):
 
 
 # --------------------------------------------------------------------------
-# launch context + profiler
+# launch context
 # --------------------------------------------------------------------------
 class _Ctx(threading.local):
     def __init__(self):
         self.backend: Backend = torch_backend()
         self.mesh = None
-        self.profile: Dict[str, float] = {}
         self.active = False
         self.fuse_steps: Optional[int] = None
         self.time_block: Optional[int] = None
         self.autotune: Optional[dict] = None
-
-    def add(self, phase: str, dt: float):
-        self.profile[phase] = self.profile.get(phase, 0.0) + dt
 
 
 _CTX = _Ctx()
@@ -387,8 +382,9 @@ _CTX = _Ctx()
 @dataclasses.dataclass
 class LaunchResult:
     """What a launched target returns: the target's own return ``value``
-    and ``profile``, phase name → accumulated seconds (``codegen``,
-    ``layout``, ``kernel``, ``autotune``, ``total``)."""
+    and ``profile``, phase name → accumulated host seconds (``codegen``,
+    ``layout``, ``kernel``, ``autotune``, ``total``; on a mesh ``scatter``
+    and ``gather``), fed by the program's spans (``core/trace.py``)."""
     value: object
     profile: Dict[str, float]
 
@@ -478,45 +474,45 @@ def scalar_tensors(scalars, device, batch: int = 0) -> Dict[str, _torch.Tensor]:
 
 
 def _apply_kernel(k: Kernel, args, begin, end):
-    grids, scalars = _bind_args(k, args)
-    if next(iter(grids.values())).batch:
-        raise ValueError("st.map does not support batched grids; use "
-                         "st.timeloop(..., batch=B)")
-    interior = next(iter(grids.values())).shape
-    region = None
-    if begin is not None:
-        region = tuple((int(b), int(e)) for b, e in zip(begin, end))
-        if region == tuple((0, s) for s in interior):
-            region = None
-    backend = _CTX.backend if _CTX.active else torch_backend()
-    mesh = _CTX.mesh if _CTX.active else None
-    key = ("map", backend.cache_key(),
-           tuple(sorted((n, g.shape, g.order, str(g.dtype))
-                        for n, g in grids.items())), region,
-           id(mesh) if mesh is not None else None)
-    fn = k._cache.get(key)
-    if fn is None:
-        t0 = time.perf_counter()
-        halos = {n: g.halo for n, g in grids.items()}
-        if backend.kind == "distributed":
-            from . import distributed as _dist
-            fn = _dist.lower_distributed(k.ir, halos, interior, region,
-                                         backend, mesh)
-        elif backend.kind == "hopper":
-            from repro_torch.kernels.stencil import codegen as _codegen
-            fn = _codegen.lower_hopper(k.ir, halos, interior, region,
-                                       backend).apply
-        else:
-            lowered = _lowering.lower_torch(k.ir, halos, interior, region)
-            fn = lambda arrays, scal: lowered(  # noqa: E731
-                arrays, scalar_tensors(scal, next(iter(arrays.values())).device))
-        _CTX.add("codegen", time.perf_counter() - t0)
-        k._cache[key] = fn
-    device = next(iter(grids.values())).device
-    t0 = time.perf_counter()
-    fn({n: g.data for n, g in grids.items()}, scalars)
-    _sync(device)
-    _CTX.add("kernel", time.perf_counter() - t0)
+    with _trace.span("rt.map"):
+        grids, scalars = _bind_args(k, args)
+        if next(iter(grids.values())).batch:
+            raise ValueError("st.map does not support batched grids; use "
+                             "st.timeloop(..., batch=B)")
+        interior = next(iter(grids.values())).shape
+        region = None
+        if begin is not None:
+            region = tuple((int(b), int(e)) for b, e in zip(begin, end))
+            if region == tuple((0, s) for s in interior):
+                region = None
+        backend = _CTX.backend if _CTX.active else torch_backend()
+        mesh = _CTX.mesh if _CTX.active else None
+        key = ("map", backend.cache_key(),
+               tuple(sorted((n, g.shape, g.order, str(g.dtype))
+                            for n, g in grids.items())), region,
+               id(mesh) if mesh is not None else None)
+        fn = k._cache.get(key)
+        if fn is None:
+            with _trace.span("rt.build", phase="codegen"):
+                halos = {n: g.halo for n, g in grids.items()}
+                if backend.kind == "distributed":
+                    from . import distributed as _dist
+                    fn = _dist.lower_distributed(k.ir, halos, interior, region,
+                                                 backend, mesh)
+                elif backend.kind == "hopper":
+                    from repro_torch.kernels.stencil import codegen as _codegen
+                    fn = _codegen.lower_hopper(k.ir, halos, interior, region,
+                                               backend).apply
+                else:
+                    lowered = _lowering.lower_torch(k.ir, halos, interior, region)
+                    fn = lambda arrays, scal: lowered(  # noqa: E731
+                        arrays, scalar_tensors(scal, next(iter(arrays.values())).device))
+            k._cache[key] = fn
+        device = next(iter(grids.values())).device
+        with _trace.span("rt.map.launch", phase="kernel"):
+            fn({n: g.data for n, g in grids.items()}, scalars)
+        with _trace.span("rt.map.sync", phase="kernel"):
+            _sync(device)
     return None
 
 
@@ -578,100 +574,98 @@ def timeloop(steps: int, swap=None, fuse_steps: Optional[int] = None,
 def _run_timeloop(k: Kernel, args, call: _TimeloopCall) -> TimeloopResult:
     from . import timeloop as _tl
 
-    grids, scalars = _bind_args(k, args)
-    interior = next(iter(grids.values())).shape
-    grid_batch = next(iter(grids.values())).batch or 0
-    if call.batch and grid_batch and call.batch != grid_batch:
-        raise ValueError(
-            f"st.timeloop(batch={call.batch}) but grids carry "
-            f"batch={grid_batch}")
-    if call.batch and not grid_batch:
-        raise ValueError(
-            f"st.timeloop(batch={call.batch}) requires grids built with "
-            f"st.grid(..., batch={call.batch})")
-    batch = call.batch or grid_batch
-    backend = _CTX.backend if _CTX.active else torch_backend()
-    mesh = _CTX.mesh if _CTX.active else None
-    swap = _tl.normalize_swap(k.ir, call.swap)
-    at_cfg = _CTX.autotune if _CTX.active else None
-    tuned_fuse = None
-    if (at_cfg is not None and swap is not None and not batch
-            and call.steps > 0 and backend.kind != "distributed"):
-        # st.launch(autotune=...): pick the backend (and default fusion
-        # window) by the two-stage search.  The measurement launches inside
-        # tune() run under their own _Launcher, whose autotune=None stops
-        # recursion.
-        from . import autotune as _at
-        t0 = time.perf_counter()
-        tuned = _at.tune(
-            k, grids, iters=at_cfg["iters"], space=at_cfg["space"],
-            swap=swap, steps=min(call.steps, at_cfg["steps"]),
-            fuse_space=at_cfg["fuse_space"],
-            time_block_space=at_cfg["time_block_space"],
-            cache_dir=at_cfg["cache_dir"], top_k=at_cfg["top_k"],
-            cost_model=at_cfg["cost_model"], scalars=scalars,
-            # distributed candidates in a custom space are priced and
-            # measured on the launch mesh
-            mesh=mesh)
-        _CTX.add("autotune", time.perf_counter() - t0)
-        backend = tuned.backend
-        tuned_fuse = tuned.fuse_steps
-    tb = _CTX.time_block if _CTX.active else None
-    if tb is not None:
-        # launch-level override of the in-kernel temporal-blocking depth
-        if backend.kind == "hopper":
-            backend = dataclasses.replace(backend, time_block=int(tb))
-        elif (backend.kind == "distributed"
-              and getattr(backend.inner, "kind", None) == "hopper"):
-            backend = dataclasses.replace(
-                backend, inner=dataclasses.replace(backend.inner,
-                                                   time_block=int(tb)))
-        elif int(tb) != 1:
-            # silently running without blocking would let a user believe
-            # the depth is active while measuring the plain fused loop
-            raise ValueError(f"time_block={tb} requires a hopper backend (or "
-                             f"a distributed backend with a hopper inner); "
-                             f"got '{backend.kind}'")
-    fuse = call.fuse_steps
-    if fuse is None and _CTX.active:
-        fuse = _CTX.fuse_steps
-    if fuse is None:
-        fuse = tuned_fuse        # the tuned window, unless overridden
-    if fuse is not None:
-        fuse = max(1, int(fuse))
+    with _trace.span("rt.timeloop"):
+        grids, scalars = _bind_args(k, args)
+        interior = next(iter(grids.values())).shape
+        grid_batch = next(iter(grids.values())).batch or 0
+        if call.batch and grid_batch and call.batch != grid_batch:
+            raise ValueError(
+                f"st.timeloop(batch={call.batch}) but grids carry "
+                f"batch={grid_batch}")
+        if call.batch and not grid_batch:
+            raise ValueError(
+                f"st.timeloop(batch={call.batch}) requires grids built with "
+                f"st.grid(..., batch={call.batch})")
+        batch = call.batch or grid_batch
+        backend = _CTX.backend if _CTX.active else torch_backend()
+        mesh = _CTX.mesh if _CTX.active else None
+        swap = _tl.normalize_swap(k.ir, call.swap)
+        at_cfg = _CTX.autotune if _CTX.active else None
+        tuned_fuse = None
+        if (at_cfg is not None and swap is not None and not batch
+                and call.steps > 0 and backend.kind != "distributed"):
+            # st.launch(autotune=...): pick the backend (and default fusion
+            # window) by the two-stage search.  The measurement launches inside
+            # tune() run under their own _Launcher, whose autotune=None stops
+            # recursion.
+            from . import autotune as _at
+            with _trace.span("rt.autotune", phase="autotune"):
+                tuned = _at.tune(
+                    k, grids, iters=at_cfg["iters"], space=at_cfg["space"],
+                    swap=swap, steps=min(call.steps, at_cfg["steps"]),
+                    fuse_space=at_cfg["fuse_space"],
+                    time_block_space=at_cfg["time_block_space"],
+                    cache_dir=at_cfg["cache_dir"], top_k=at_cfg["top_k"],
+                    cost_model=at_cfg["cost_model"], scalars=scalars,
+                    # distributed candidates in a custom space are priced and
+                    # measured on the launch mesh
+                    mesh=mesh)
+            backend = tuned.backend
+            tuned_fuse = tuned.fuse_steps
+        tb = _CTX.time_block if _CTX.active else None
+        if tb is not None:
+            # launch-level override of the in-kernel temporal-blocking depth
+            if backend.kind == "hopper":
+                backend = dataclasses.replace(backend, time_block=int(tb))
+            elif (backend.kind == "distributed"
+                  and getattr(backend.inner, "kind", None) == "hopper"):
+                backend = dataclasses.replace(
+                    backend, inner=dataclasses.replace(backend.inner,
+                                                       time_block=int(tb)))
+            elif int(tb) != 1:
+                # silently running without blocking would let a user believe
+                # the depth is active while measuring the plain fused loop
+                raise ValueError(f"time_block={tb} requires a hopper backend (or "
+                                 f"a distributed backend with a hopper inner); "
+                                 f"got '{backend.kind}'")
+        fuse = call.fuse_steps
+        if fuse is None and _CTX.active:
+            fuse = _CTX.fuse_steps
+        if fuse is None:
+            fuse = tuned_fuse        # the tuned window, unless overridden
+        if fuse is not None:
+            fuse = max(1, int(fuse))
 
-    key = ("timeloop", backend.cache_key(),
-           tuple(sorted((n, g.shape, g.order, str(g.dtype))
-                        for n, g in grids.items())), swap,
-           id(mesh) if mesh is not None else None, batch)
-    engine = k._cache.get(key)
-    if engine is None:
-        t0 = time.perf_counter()
-        engine = _tl.TimeloopEngine(
-            k.ir, {n: g.halo for n, g in grids.items()}, interior, backend,
-            swap=swap, profile_cb=_CTX.add if _CTX.active else None,
-            batch=batch, mesh=mesh)
-        _CTX.add("codegen", time.perf_counter() - t0)
-        k._cache[key] = engine
-    fuse = engine.window_for(call.steps, fuse)
+        key = ("timeloop", backend.cache_key(),
+               tuple(sorted((n, g.shape, g.order, str(g.dtype))
+                            for n, g in grids.items())), swap,
+               id(mesh) if mesh is not None else None, batch)
+        engine = k._cache.get(key)
+        if engine is None:
+            with _trace.span("rt.build", phase="codegen"):
+                engine = _tl.TimeloopEngine(
+                    k.ir, {n: g.halo for n, g in grids.items()}, interior, backend,
+                    swap=swap, batch=batch, mesh=mesh)
+            k._cache[key] = engine
+        fuse = engine.window_for(call.steps, fuse)
 
-    def between_arrays(t, arrays):
+        def between_arrays(t, arrays):
+            for n, g in grids.items():
+                g.data = arrays[n]
+            call.between(t, grids)
+            return {n: g.data for n, g in grids.items()}
+
+        t0 = time.perf_counter()
+        arrays = engine.run({n: g.data for n, g in grids.items()}, scalars,
+                            call.steps, fuse,
+                            between_arrays if call.between else None)
+        seconds = time.perf_counter() - t0
         for n, g in grids.items():
             g.data = arrays[n]
-        call.between(t, grids)
-        return {n: g.data for n, g in grids.items()}
-
-    t0 = time.perf_counter()
-    arrays = engine.run({n: g.data for n, g in grids.items()}, scalars,
-                        call.steps, fuse,
-                        between_arrays if call.between else None)
-    seconds = time.perf_counter() - t0
-    for n, g in grids.items():
-        g.data = arrays[n]
-    return TimeloopResult(
-        steps=call.steps, fuse_steps=fuse,
-        windows=-(-call.steps // fuse) if call.steps else 0,
-        seconds=seconds)
+        return TimeloopResult(
+            steps=call.steps, fuse_steps=fuse,
+            windows=-(-call.steps // fuse) if call.steps else 0,
+            seconds=seconds)
 
 
 def _proxy(g: grid) -> grid:
@@ -808,21 +802,19 @@ class _Launcher:
 
     def __call__(self, tgt: Callable):
         def run(*args, **kw) -> LaunchResult:
-            prev = (_CTX.backend, _CTX.profile, _CTX.active, _CTX.fuse_steps,
+            prev = (_CTX.backend, _CTX.active, _CTX.fuse_steps,
                     _CTX.time_block, _CTX.autotune, _CTX.mesh)
-            _CTX.backend, _CTX.profile, _CTX.active = self.backend, {}, True
+            _CTX.backend, _CTX.active = self.backend, True
             _CTX.mesh = self.mesh
             _CTX.fuse_steps, _CTX.time_block = self.fuse_steps, self.time_block
             _CTX.autotune = self.autotune
-            t0 = time.perf_counter()
+            prof: Dict[str, float] = {}
             try:
-                value = tgt(*args, **kw)
+                with _trace.collect(prof), _trace.span("rt.launch", phase="total"):
+                    value = tgt(*args, **kw)
             finally:
-                prof = _CTX.profile
-                prof["total"] = time.perf_counter() - t0
-                (_CTX.backend, _CTX.profile, _CTX.active,
-                 _CTX.fuse_steps, _CTX.time_block, _CTX.autotune,
-                 _CTX.mesh) = prev
+                (_CTX.backend, _CTX.active, _CTX.fuse_steps, _CTX.time_block,
+                 _CTX.autotune, _CTX.mesh) = prev
             return LaunchResult(value=value, profile=prof)
         return run
 

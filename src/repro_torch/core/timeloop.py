@@ -58,7 +58,6 @@ bit for bit the uninterrupted run.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
@@ -67,6 +66,7 @@ import torch
 from . import ir as _ir
 from . import lowering
 from .dsl import scalar_tensors
+from .trace import span
 
 
 def window_parts(kw: int, k_inner: int) -> list:
@@ -182,7 +182,6 @@ class TimeloopEngine:
                  interior_shape: Tuple[int, ...],
                  backend,
                  swap: Optional[Tuple[str, str]] = None,
-                 profile_cb: Optional[Callable[[str, float], None]] = None,
                  batch: int = 0,
                  differentiable: bool = False,
                  mesh=None):
@@ -199,7 +198,6 @@ class TimeloopEngine:
         # trades buffers with them
         self.touched = tuple(g for g in kernel.grid_params
                              if g in set(kernel.output_grids()) | set(self.swap or ()))
-        self._profile_cb = profile_cb
         self._windows: Dict[Tuple[int, bool], Callable] = {}
         self._plan = self._plan1 = None
         self.time_block = 1
@@ -225,10 +223,6 @@ class TimeloopEngine:
             _dist.window_depth(kernel, self.interior, backend, mesh, self.swap, 1)
         elif backend.kind != "torch":
             raise ValueError(f"timeloop: unsupported backend {backend.kind}")
-
-    def _add(self, phase: str, dt: float) -> None:
-        if self._profile_cb is not None:
-            self._profile_cb(phase, dt)
 
     def _window(self, kw: int, masked: bool = False) -> Callable:
         """The torch window of ``kw`` steps; ``masked``: the serving variant
@@ -399,7 +393,8 @@ class TimeloopEngine:
         arrays = dict(arrays)
         self.check_batch(arrays)
         device = next(iter(arrays.values())).device
-        scal = self.launch_scalars(scalars, device)
+        with span("rt.engine.scalars"):
+            scal = self.launch_scalars(scalars, device)
         masked = domain_mask is not None or step_limits is not None
         if masked:
             mask, limits = self.masked_operands(domain_mask, step_limits, steps,
@@ -410,24 +405,26 @@ class TimeloopEngine:
         t = 0
         while t < steps:
             kw = min(fuse, steps - t)
-            t0 = time.perf_counter()
-            if masked:
-                arrays = self._window(kw, masked=True)(arrays, scal, mask, t, limits)
-            else:
-                arrays = self._apply_window(arrays, scal, kw,
-                                            fresh=self.differentiable, count=True)
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            self._add("kernel", time.perf_counter() - t0)
+            with span("rt.engine.window", phase="kernel"):
+                if masked:
+                    arrays = self._window(kw, masked=True)(arrays, scal, mask, t, limits)
+                else:
+                    arrays = self._apply_window(arrays, scal, kw,
+                                                fresh=self.differentiable, count=True)
+                with span("rt.engine.sync"):
+                    if device.type == "cuda":
+                        torch.cuda.synchronize(device)
             t += kw
             if between is not None and t < steps:
-                arrays = between(t, arrays) or arrays
+                with span("rt.engine.between"):
+                    arrays = between(t, arrays) or arrays
         return arrays
 
     def _sync_mesh(self) -> None:
-        for d in dict.fromkeys(self.mesh.devices.flat):
-            if d.type == "cuda":
-                torch.cuda.synchronize(d)
+        with span("rt.engine.sync"):
+            for d in dict.fromkeys(self.mesh.devices.flat):
+                if d.type == "cuda":
+                    torch.cuda.synchronize(d)
 
     def _run_distributed(self, arrays, scal, steps, fuse, between, mask, limits):
         """``run`` on a mesh: the state scattered into the shards once, the
@@ -437,33 +434,29 @@ class TimeloopEngine:
         ``kernel`` (the windows), ``gather`` and ``scatter``."""
         masked = mask is not None
         main = self.distributed_window(fuse, fuse, masked)
-        t0 = time.perf_counter()
-        st = main.scatter(arrays)
-        self._sync_mesh()
-        self._add("scatter", time.perf_counter() - t0)
+        with span("rt.engine.scatter", phase="scatter"):
+            st = main.scatter(arrays)
+            self._sync_mesh()
         t = 0
         while t < steps:
             kw = min(fuse, steps - t)
             win = main if kw == fuse else self.distributed_window(kw, fuse, masked)
-            t0 = time.perf_counter()
-            win.advance(st, scal, mask, t, limits)
-            self._sync_mesh()
-            self._add("kernel", time.perf_counter() - t0)
+            with span("rt.engine.window", phase="kernel"):
+                win.advance(st, scal, mask, t, limits)
+                self._sync_mesh()
             t += kw
             if between is not None and t < steps:
-                t0 = time.perf_counter()
-                arrays = main.gather(st, arrays, self.touched, self.differentiable)
-                self._sync_mesh()
-                self._add("gather", time.perf_counter() - t0)
-                arrays = between(t, arrays) or arrays
-                t0 = time.perf_counter()
-                main.layout.scatter(st.bufs, arrays, self.kernel.grid_params)
-                self._sync_mesh()
-                self._add("scatter", time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        arrays = main.gather(st, arrays, self.touched, self.differentiable)
-        self._sync_mesh()
-        self._add("gather", time.perf_counter() - t0)
+                with span("rt.engine.gather", phase="gather"):
+                    arrays = main.gather(st, arrays, self.touched, self.differentiable)
+                    self._sync_mesh()
+                with span("rt.engine.between"):
+                    arrays = between(t, arrays) or arrays
+                with span("rt.engine.scatter", phase="scatter"):
+                    main.layout.scatter(st.bufs, arrays, self.kernel.grid_params)
+                    self._sync_mesh()
+        with span("rt.engine.gather", phase="gather"):
+            arrays = main.gather(st, arrays, self.touched, self.differentiable)
+            self._sync_mesh()
         return arrays
 
     def _apply_window(self, arrays, scal, kw, fresh: bool = False,
@@ -477,35 +470,36 @@ class TimeloopEngine:
                           for g, a in arrays.items()}
             return self._window(kw)(arrays, scal)
         plan, swap, k = self._plan, self.swap, self.time_block
-        t0 = time.perf_counter()
-        padded = plan.to_padded(arrays, fresh)   # ONE layout cut/grid/window
+        with span("rt.engine.pad", phase="layout" if count else None):
+            padded = plan.to_padded(arrays, fresh)   # ONE layout cut/grid/window
         if count:
-            self._add("layout", time.perf_counter() - t0)
             plan.count_window(kw, self.batch)
         m, r = divmod(kw, k) if k > 1 else (0, kw)
-        if m:
-            spares = plan.make_spares(padded)
-            for _ in range(m):
-                # K3 writes into the spares; the buffers just read become
-                # the next launch's spares.  k rotations net to k mod 2,
-                # applied to the names of both, so every name keeps a
-                # spare carrying its own halo
-                out = plan.step(padded, scal, spares=spares)
-                spares = {g: padded[g] for g in plan.step_out_grids}
-                padded = out
-                if swap and k % 2:
+        with span("rt.engine.steps"):
+            if m:
+                spares = plan.make_spares(padded)
+                for _ in range(m):
+                    # K3 writes into the spares; the buffers just read become
+                    # the next launch's spares.  k rotations net to k mod 2,
+                    # applied to the names of both, so every name keeps a
+                    # spare carrying its own halo
+                    out = plan.step(padded, scal, spares=spares)
+                    spares = {g: padded[g] for g in plan.step_out_grids}
+                    padded = out
+                    if swap and k % 2:
+                        padded = _rotate(padded, swap)
+                        spares = _rotate(spares, swap)
+            for _ in range(r):
+                padded = self._plan1.step(padded, scal)
+                if swap:
                     padded = _rotate(padded, swap)
-                    spares = _rotate(spares, swap)
-        for _ in range(r):
-            padded = self._plan1.step(padded, scal)
-            if swap:
-                padded = _rotate(padded, swap)
         # the layout buffers rotated kw times; apply the same parity to the
         # full arrays so halos travel with their buffers, then write the
         # layout interiors back
         if swap and kw % 2:
             arrays = _rotate(arrays, swap)
-        return plan.from_padded(padded, arrays, fresh)
+        with span("rt.engine.unpad"):
+            return plan.from_padded(padded, arrays, fresh)
 
 
 def run_timeloop(kernel: _ir.StencilIR,
