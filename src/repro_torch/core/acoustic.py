@@ -158,9 +158,10 @@ def run(shape=(64, 64, 64), iters: int = 10, backend=None, mesh=None,
     ``fuse_steps=1``.  Fields live on ``device`` (None: the card).  With
     ``backend=st.distributed(...)`` both paths run on ``mesh``'s shards
     (``repro_torch.launch.mesh.make_mesh``), as in the JAX package.  The
-    per-step path's profile sums the launches' phases and adds ``loop``,
-    the host seconds of the whole step loop, injections included (each
-    ``st.map`` ends in a sync).
+    per-step path is one launch of the whole step loop, injections
+    included: on the card its host work runs one application ahead of the
+    kernels and the launch returns when they have finished.  Its profile
+    is the launch's phases and ``loop``, the host seconds of the loop.
     """
     p0, p1, vp2, damp, dt = make_fields(shape, pml_width=pml_width,
                                         device=device)
@@ -177,14 +178,14 @@ def run(shape=(64, 64, 64), iters: int = 10, backend=None, mesh=None,
             acoustic_target_fused)(p0, p1, vp2, damp, dt, iters,
                                    between=between)
         return p1, res.profile
-    total_prof = {}
+    @st.target
+    def steps(p0, p1, vp2, damp, dt):
+        for t in range(iters):
+            if with_source:
+                inject_source(p1, t)
+            acoustic_target(p0, p1, vp2, damp, dt, 1)
+
     t0 = time.perf_counter()
-    for t in range(iters):
-        if with_source:
-            inject_source(p1, t)
-        res = st.launch(backend=backend, mesh=mesh)(acoustic_target)(
-            p0, p1, vp2, damp, dt, 1)
-        for k, v in res.profile.items():
-            total_prof[k] = total_prof.get(k, 0.0) + v
-    total_prof["loop"] = time.perf_counter() - t0
-    return p1, total_prof
+    prof = st.launch(backend=backend, mesh=mesh)(steps)(p0, p1, vp2, damp, dt).profile
+    prof["loop"] = time.perf_counter() - t0
+    return p1, prof

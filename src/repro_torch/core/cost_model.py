@@ -73,6 +73,7 @@ from . import dsl as st
 from . import halo as _halo
 from . import ir as _ir
 from . import timeloop as _tl
+from . import trace as _trace
 from ..launch.mesh import mesh_axes
 
 __all__ = ["CALIBRATION_VERSION", "Rate", "DEFAULT_RATES", "CostModel",
@@ -353,14 +354,19 @@ def time_timeloop(kernel, grids, scalars, backend, fuse: int, steps: int,
 def time_map(kernel, grids, scalars, backend, iters: int,
              apps: int = 1, mesh=None) -> List[float]:
     """Host seconds of one ``st.map`` application over the interior (each
-    ends in a sync), averaged over runs of ``apps`` applications, for
-    ``iters`` runs on copies of ``grids`` after one warm-up application."""
+    ends in a sync of its own here, where ``st.map`` would run ahead),
+    averaged over runs of ``apps`` applications, for ``iters`` runs on
+    copies of ``grids`` after one warm-up application."""
     gs = {n: g.copy() for n, g in grids.items()}
     args = tuple(gs.values()) + tuple(scalars.values())
+    device = next(iter(gs.values())).device
 
     def tgt(*a):
         for _ in range(apps):
             st.map(e=a[0].shape)(kernel)(*a)
+            if device.type == "cuda":
+                with _trace.span("rt.map.sync", phase="kernel"):
+                    torch.cuda.synchronize(device)
 
     run = st.launch(backend=backend, mesh=mesh)
     run(lambda *a: st.map(e=a[0].shape)(kernel)(*a))(*args)

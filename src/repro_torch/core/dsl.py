@@ -384,14 +384,49 @@ class LaunchResult:
     """What a launched target returns: the target's own return ``value``
     and ``profile``, phase name → accumulated host seconds (``codegen``,
     ``layout``, ``kernel``, ``autotune``, ``total``; on a mesh ``scatter``
-    and ``gather``), fed by the program's spans (``core/trace.py``)."""
+    and ``gather``), fed by the program's spans, and ``counts``, the
+    program's counters (``core/trace.py``)."""
     value: object
     profile: Dict[str, float]
+    counts: Dict[str, int] = dataclasses.field(default_factory=dict)
 
 
-def _sync(device: _torch.device) -> None:
-    if device.type == "cuda":
-        _torch.cuda.synchronize(device)
+class _Ahead(threading.local):
+    """This thread's ``st.map`` applications on each CUDA device (by
+    index): two events a device, recorded in turn after the applications'
+    launches, and the one the host has not waited for yet."""
+
+    def __init__(self):
+        self.events: Dict[int, List[_torch.cuda.Event]] = {}
+        self.pending: Dict[int, _torch.cuda.Event] = {}
+
+
+_AHEAD = _Ahead()
+
+
+def _run_ahead(device: _torch.device) -> None:
+    """After an application's launch on ``device``: record its event on
+    the stream it launched on and wait for the application before it, so
+    the host runs at most one application ahead of the card."""
+    i = device.index if device.index is not None else _torch.cuda.current_device()
+    pair = _AHEAD.events.get(i)
+    if pair is None:
+        pair = _AHEAD.events[i] = [_torch.cuda.Event(), _torch.cuda.Event()]
+    prev = _AHEAD.pending.get(i)
+    ev = pair[1] if prev is pair[0] else pair[0]    # the host waited for it
+    ev.record(_torch.cuda.current_stream(device))
+    _AHEAD.pending[i] = ev
+    _trace.count("rt.map.apps")
+    if prev is not None and not prev.query():
+        _trace.count("rt.map.overlapped")
+        prev.synchronize()
+
+
+def _wait_ahead() -> None:
+    """Wait for every application this thread left running ahead."""
+    for ev in _AHEAD.pending.values():
+        ev.synchronize()
+    _AHEAD.pending.clear()
 
 
 # --------------------------------------------------------------------------
@@ -419,8 +454,13 @@ def map(begin=None, end=None, e=None) -> _MapCall:  # noqa: A001 (paper name)
     hand-written kernel (``codegen.lower_hopper``): gmem/f4/smem run K4,
     shift/unroll K4's streaming kernel (K2's source), semi K5; taps read the
     old values, also of an output grid read off-center, and on CPU grids
-    the kernels' plain versions run.  The host syncs after each
-    application."""
+    the kernels' plain versions run.  On CUDA grids the host runs at most
+    one application ahead of the card: each application waits for the
+    one before it, so the next one's host work (the caller's hooks, its
+    bind and launch) overlaps the kernel, and ``st.launch`` returns only
+    when its work has finished on the card; outside a launch an
+    application returns finished, and on a distributed backend each one
+    ends in a sync."""
     return _MapCall(begin=begin, end=end, e=e)
 
 
@@ -459,9 +499,9 @@ def scalar_tensors(scalars, device, batch: int = 0) -> Dict[str, _torch.Tensor]:
     """Scalars arrive as f32, as in the JAX package: 0-d tensors on
     ``device``, or under ``batch=B`` ``(B,)`` tensors, each scalar a float
     (shared by the scenarios) or B values (one a scenario)."""
-    if not batch:
-        return {n: _torch.tensor(float(np.float32(float(v))), dtype=_torch.float32,
-                                 device=device)
+    if not batch:       # filled on the device: no copy from the host
+        return {n: _torch.full((), float(np.float32(float(v))), dtype=_torch.float32,
+                               device=device)
                 for n, v in scalars.items()}
     out = {}
     for n, v in scalars.items():
@@ -512,7 +552,13 @@ def _apply_kernel(k: Kernel, args, begin, end):
         with _trace.span("rt.map.launch", phase="kernel"):
             fn({n: g.data for n, g in grids.items()}, scalars)
         with _trace.span("rt.map.sync", phase="kernel"):
-            _sync(device)
+            if device.type == "cuda":
+                if backend.kind == "distributed":
+                    _torch.cuda.synchronize(device)
+                else:
+                    _run_ahead(device)
+                    if not _CTX.active:
+                        _wait_ahead()
     return None
 
 
@@ -809,13 +855,18 @@ class _Launcher:
             _CTX.fuse_steps, _CTX.time_block = self.fuse_steps, self.time_block
             _CTX.autotune = self.autotune
             prof: Dict[str, float] = {}
+            counts: Dict[str, int] = {}
             try:
-                with _trace.collect(prof), _trace.span("rt.launch", phase="total"):
+                with (_trace.collect(prof, counts),
+                      _trace.span("rt.launch", phase="total")):
                     value = tgt(*args, **kw)
+                    if _AHEAD.pending:      # returns when its work is done
+                        with _trace.span("rt.map.sync", phase="kernel"):
+                            _wait_ahead()
             finally:
                 (_CTX.backend, _CTX.active, _CTX.fuse_steps, _CTX.time_block,
                  _CTX.autotune, _CTX.mesh) = prev
-            return LaunchResult(value=value, profile=prof)
+            return LaunchResult(value=value, profile=prof, counts=counts)
         return run
 
 

@@ -13,6 +13,9 @@ profiler's trace.
   operations.
 - Otherwise a span costs one check of the profiler's flag.
 
+``count(name)`` adds one to this thread's innermost launch's counts
+(``LaunchResult.counts``); outside a launch it does nothing.
+
 Every span is named ``rt.<...>`` (the kernels' C entries are ``rt_*``), so
 no name of the program's is a name a caller gives its own ranges.  The
 self time of ``rt.map`` and ``rt.timeloop`` is the bind, the cache key and
@@ -24,7 +27,12 @@ span                  what                                         phase
 ``rt.launch``         an ``st.launch`` target                      total
 ``rt.map``            an ``st.map`` application                    —
 ``rt.map.launch``     its plan's launch (arguments, library, call) kernel
-``rt.map.sync``       its wait for the device                      kernel
+``rt.map.sync``       on one CUDA device its wait for the          kernel
+                      application before it (the host runs at
+                      most one ahead) or, with no launch open, for
+                      itself; a sync on a distributed backend; a
+                      launch's drain of the one left running; the
+                      cost model's probe's sync after each
 ``rt.timeloop``       an ``st.timeloop`` call                      —
 ``rt.build``          a cache miss's lowering (map or engine)      codegen
 ``rt.autotune``       the launch's tune of a time loop             autotune
@@ -39,6 +47,18 @@ span                  what                                         phase
 ``rt.engine.gather``  state out of the shards                      gather
 ``rt.inject_source``  ``acoustic.inject_source``                   —
 ===================== ============================================ ========
+
+The counters (``LaunchResult.counts``):
+
+===================== ===================================================
+counter               what
+===================== ===================================================
+``rt.map.apps``       ``st.map`` applications on one CUDA device
+``rt.map.overlapped`` those launched while the application before still
+                      ran on the card: in a step loop whose host work
+                      is shorter than the kernel, all but a launch's
+                      first
+===================== ===================================================
 """
 from __future__ import annotations
 
@@ -55,6 +75,7 @@ PREFIX = "rt."
 
 class _Sink(threading.local):
     profile: Optional[Dict[str, float]] = None
+    counts: Optional[Dict[str, int]] = None
 
 
 _SINK = _Sink()
@@ -109,12 +130,22 @@ def span(name: str, phase: Optional[str] = None):
     return _Span(name, phase, profile, recording)
 
 
+def count(name: str) -> None:
+    """Add one to ``name`` in the innermost launch's counts."""
+    counts = _SINK.counts
+    if counts is not None:
+        counts[name] = counts.get(name, 0) + 1
+
+
 @contextlib.contextmanager
-def collect(profile: Dict[str, float]) -> Iterator[Dict[str, float]]:
-    """Make ``profile`` this thread's sink of the spans' phases for the
-    block; the enclosing sink (an outer launch's, or none) resumes after."""
-    prev, _SINK.profile = _SINK.profile, profile
+def collect(profile: Dict[str, float],
+            counts: Optional[Dict[str, int]] = None) -> Iterator[Dict[str, float]]:
+    """Make ``profile`` (and ``counts``) this thread's sink of the spans'
+    phases (and of ``count``) for the block; the enclosing sink (an outer
+    launch's, or none) resumes after."""
+    prev = _SINK.profile, _SINK.counts
+    _SINK.profile, _SINK.counts = profile, counts
     try:
         yield profile
     finally:
-        _SINK.profile = prev
+        _SINK.profile, _SINK.counts = prev

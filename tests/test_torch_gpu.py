@@ -437,6 +437,58 @@ def test_map_on_the_card_matches_torch(cuda, template):
         _check(out[1][n].data, out[0][n].data, n)
 
 
+@pytest.mark.parametrize("template", ["gmem", "torch"])
+def test_map_run_ahead_equals_a_sync_after_each_step(cuda, template):
+    """200 acoustic steps at 128³ with the source and a receiver plane each
+    step, as one launch: with ``st.map`` one application ahead of the card
+    the wavefields and the seismogram are bit for bit those of the same
+    steps with a ``torch.cuda.synchronize()`` after each ``st.map``, and
+    under ``set_sync_debug_mode("warn")`` no call of the step synchronizes."""
+    import warnings
+    be = st.torch() if template == "torch" else st.hopper(template=template)
+    shape, steps = (128, 128, 128), 200
+    step = st.map(e=shape)(acoustic.acoustic_iso_kernel)
+
+    def shot(synced):
+        """The launch of one shot, and the state it leaves."""
+        p0, p1, vp2, damp, dt = acoustic.make_fields(shape, pml_width=10, device=cuda)
+        seis = torch.empty((steps,) + shape[1:], device=cuda)
+
+        @st.target
+        def run():
+            for t in range(steps):
+                seis[t].copy_(p1.interior[shape[0] // 2])
+                acoustic.inject_source(p1, t)
+                step(p0, p1, vp2, damp, dt)
+                if synced:
+                    torch.cuda.synchronize()
+                p0.data, p1.data = p1.data, p0.data
+        return st.launch(backend=be)(run), lambda: (p0.data, p1.data, seis)
+
+    run, synced = shot(synced=True)
+    run()                                   # builds the kernel
+    run, ahead = shot(synced=False)
+    torch.cuda.synchronize()
+
+    def syncing(fn):
+        """The synchronizing calls ``fn`` makes, as the debug mode warns."""
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return [str(w.message) for w in caught
+                if "called a synchronizing" in str(w.message)]
+    assert syncing(lambda: torch.ones(1, device=cuda).item())    # the mode sees one
+    found = syncing(run)
+    assert not found, found[:3]
+    for a, b, n in zip(ahead(), synced(), ("p0", "p1", "seis")):
+        assert torch.equal(a, b), n
+    assert float(synced()[2].abs().max()) > 0
+
+
 # ---- K4 f4's load paths and smem's staging paths --------------------------------
 # (shape, region, f4 aligned, smem by TMA): pitches that are multiples of 4
 # cells (f4 fixes each row's place at plan time) and of 16 bytes (smem's

@@ -16,13 +16,12 @@ does, warms it up, traces ``--seconds`` of its window under
   ``dispatch_us.map`` and what of the idle share no ``.map`` share (or the
   ``.fused`` one) takes;
 - ``spans_per_step``: how many times each span opened;
-- ``sync_after_kernel_us``: for each ``rt.map.sync``, its end minus the
-  device end of the stencil kernel its sibling ``rt.map.launch`` launched
-  (min, median, max, count), on the benchmark's constant offset
-  (``timeline``) and on ``host_layers.aligned``'s drift-free clock: the
-  host's and the device's times on one clock, as the readers assume;
-- ``engine_sync_tail_us``: for each ``rt.engine.sync``, its end minus the
-  end of the last stencil kernel before it (drift-free clock);
+- ``sync_tail_us``: for ``rt.map.sync`` and ``rt.engine.sync``, each
+  wait's end minus the end of the last stencil kernel that ended inside
+  it (the host's wake-up; a wait that found its kernel finished has
+  none), on the benchmark's constant offset (``timeline``) and on
+  ``host_layers.aligned``'s drift-free clock: the host's and the device's
+  times on one clock, as the readers assume;
 - ``queued_kernel_gap_us``: the idle gaps between consecutive stencil
   kernels where the second was already launched (the device's own);
 - ``span_us``: host microseconds of one ``trace.span`` (no phase) and of
@@ -41,31 +40,13 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
 
 
-def sync_after_kernel(tr):
-    """``rt.map.sync`` end minus the device end of the stencil kernel
-    launched inside the ``rt.map.launch`` before it, for each pair."""
-    kernels = sorted((o for o in tr.in_window() if o.stencil and o.launch is not None),
-                     key=lambda o: o.launch)
-    launches = [o.launch for o in kernels]
-    spans = [s for s in tr.spans if s.name in ("rt.map.launch", "rt.map.sync")]
-    out, last = [], None
-    for s in spans:
-        if s.name == "rt.map.launch":
-            i = bisect.bisect_left(launches, s.start)
-            last = kernels[i] if i < len(kernels) and launches[i] <= s.end else None
-        elif last is not None:
-            out.append(s.end - last.end)
-            last = None
-    return out
-
-
-def engine_sync_tail(tr):
-    """``rt.engine.sync`` end minus the end of the last stencil kernel
-    that ended before it."""
+def sync_tail(tr, name):
+    """For each span ``name``, its end minus the end of the last stencil
+    kernel that ended inside it."""
     ends = sorted(o.end for o in tr.ops if o.stencil)
     out = []
     for s in tr.spans:
-        if s.name == "rt.engine.sync":
+        if s.name == name:
             i = bisect.bisect_right(ends, s.end) - 1
             if i >= 0 and ends[i] >= s.start:
                 out.append(s.end - ends[i])
@@ -159,9 +140,9 @@ def main(argv=None):
            "shares": shares,
            "spans_per_step": {k: v / steps for k, v in sorted(counts.items())},
            "trace_clock_shift_us": tr.offset_us,
-           "sync_after_kernel_us": {"offset": stats(sync_after_kernel(tr)),
-                                    "drift_free": stats(sync_after_kernel(al))},
-           "engine_sync_tail_us": stats(engine_sync_tail(al)),
+           "sync_tail_us": {n: {"offset": stats(sync_tail(tr, n)),
+                                "drift_free": stats(sync_tail(al, n))}
+                            for n in ("rt.map.sync", "rt.engine.sync")},
            "queued_kernel_gap_us": stats(queued_gaps(al)),
            "span_us": span_costs()}
     line = json.dumps(out)
