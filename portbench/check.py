@@ -5,7 +5,7 @@ on the benchmark's own inputs, following the schedule the timed path ran:
 before step ``t``, when ``t`` is a multiple of ``record_every`` the
 receivers' plane is recorded as sample ``t // record_every``, then, when
 ``t`` is a multiple of ``inject_every``, the source's sample ``t`` is
-added; then the update, then the leapfrog pair trades names.  ``compare``
+added; then the update, then each leapfrog pair trades names.  ``compare``
 reads, for each answer, the largest gap to the reference relative to the
 reference's largest magnitude, against the cell's limit.  A gap that is
 not finite fails.
@@ -17,7 +17,7 @@ from typing import Dict, List
 
 import torch
 
-from portbench.stencils import interior
+from portbench.stencils import interior, leapfrog_pairs, pair_grids
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,10 +39,10 @@ class Check:
 
 
 def reference_run(ref, cfg, state, scalars, schedule: Schedule) -> Dict[str, torch.Tensor]:
-    """The reference's answers: the interiors of the leapfrog pair after
-    ``schedule.steps`` steps and, with receivers, the seismogram.  Advances
-    ``state`` (full f32 grids) in place."""
-    written, other = cfg["swap"]
+    """The reference's answers: the interiors of every grid of every
+    leapfrog pair after ``schedule.steps`` steps and, with receivers, the
+    seismogram.  Advances ``state`` (full f32 grids) in place."""
+    pairs = leapfrog_pairs(cfg["swap"])
     scratch = ref.prepare(state, scalars, cfg)
     seis = None
     r, e = schedule.record_every, schedule.inject_every
@@ -56,9 +56,10 @@ def reference_run(ref, cfg, state, scalars, schedule: Schedule) -> Dict[str, tor
         if e and t % e == 0:
             ref.inject(state, t, cfg)
         ref.update(state, scratch, cfg)
-        state[written], state[other] = state[other], state[written]
+        for w, o in pairs:
+            state[w], state[o] = state[o], state[w]
     del scratch
-    out = {g: state[g][interior(cfg)] for g in (written, other)}
+    out = {g: state[g][interior(cfg)] for g in pair_grids(pairs)}
     if seis is not None:
         out["seis"] = seis
     return out

@@ -8,10 +8,11 @@
 - ``solve()``: one whole solve from the seeded state (the limits' script);
 - ``finish()``: completes a solve the window's end cut off;
 - ``outputs()``: the answers of the last solve, by the names the cell's
-  limits give (the leapfrog pair's interiors, ``seis``).
+  limits give (the interiors of every grid of every leapfrog pair,
+  ``seis``).
 
-Each solve starts by resetting the grids the kernel writes from the seeded
-state held on the card (``init``).  In a traced run, spans
+Each solve starts by resetting every grid of every leapfrog pair from the
+seeded state held on the card (``init``).  In a traced run, spans
 (``torch.profiler``'s ``record_function``) mark the calls into each layer:
 ``window``, ``solve`` or ``shot``, ``reset``, ``st.launch``, ``st.map``,
 ``inject_source``, ``receivers``; an untraced run opens none."""
@@ -24,6 +25,8 @@ from typing import List
 
 import torch
 from torch.profiler import record_function
+
+from portbench.stencils import pair_grids
 
 
 @dataclasses.dataclass
@@ -66,11 +69,11 @@ class Probe:
 
 
 def reset(prog, init, probe) -> None:
-    """The grids the kernel writes, back to the seeded state."""
+    """Every grid of every leapfrog pair back to the seeded state."""
     with probe.span("reset"):
-        for g in prog.swap:
+        for g in pair_grids(prog.pairs):
             prog.grids[g].data.copy_(init[g])
 
 
 def interiors(prog) -> dict:
-    return {g: prog.grids[g].interior for g in prog.swap}
+    return {g: prog.grids[g].interior for g in pair_grids(prog.pairs)}

@@ -16,6 +16,10 @@ from portbench.drivers import Window, interiors, reset
 class Driver:
     def __init__(self, prog, init, traffic, probe):
         from repro_torch.core import dsl as st
+        if len(prog.pairs) != 1:
+            raise ValueError(f"the program's st.timeloop takes one leapfrog pair; "
+                             f"this stencil has {len(prog.pairs)}")
+        swap = prog.pairs[0]
         self.prog, self.init, self.probe = prog, init, probe
         self.steps = int(traffic["steps_per_solve"])
         self.every = int(traffic.get("hooks_every") or 0)
@@ -33,7 +37,7 @@ class Driver:
 
         @st.target
         def solve(*args):
-            return st.timeloop(self.steps, swap=prog.swap, fuse_steps=fuse,
+            return st.timeloop(self.steps, swap=swap, fuse_steps=fuse,
                                between=between)(prog.kernel)(*args)
         self._launch = st.launch(backend=st.hopper())(solve)
 

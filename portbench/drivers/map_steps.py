@@ -1,8 +1,8 @@
 """A user's own step loop (the paper's §6.2 host loop): closed-loop shots
 of ``steps_per_solve`` steps under ``st.hopper()`` (its default template),
-each step one ``st.map`` of the kernel over the interior and the leapfrog
-pair trading buffers.  Before step ``t`` the receivers' plane is copied
-into the seismogram on the card when ``t`` is a multiple of
+each step one ``st.map`` of the kernel over the interior and every
+leapfrog pair trading buffers.  Before step ``t`` the receivers' plane is
+copied into the seismogram on the card when ``t`` is a multiple of
 ``receivers_every`` (0: never), and the source's sample ``t`` is injected
 when ``t`` is a multiple of ``source_every`` (0: never).  Each shot
 starts from the seeded state.  The window ends at the first step past its
@@ -31,7 +31,9 @@ class Driver:
             plane = prog.record()
             self.seis = plane.new_empty((-(-self.steps // self.rec),) + tuple(plane.shape))
         self.t = 0
-        self._map = st.map(e=prog.grids[prog.swap[0]].shape)(prog.kernel)
+        self._map = st.map(e=prog.grids[prog.pairs[0][0]].shape)(prog.kernel)
+        # the grid objects stay; each step trades their buffers
+        self._pairs = [(prog.grids[w], prog.grids[o]) for w, o in prog.pairs]
 
         @st.target
         def shot(end, deadline=None):
@@ -41,7 +43,7 @@ class Driver:
     def _steps(self, end: int, deadline=None):
         """Steps ``self.t`` .. ``end`` - 1 of the shot, stopping after the
         first step that ends past ``deadline``."""
-        prog, (w, o) = self.prog, self.prog.swap
+        prog = self.prog
         while self.t < end:
             t = self.t
             if self.rec and t % self.rec == 0:
@@ -52,8 +54,8 @@ class Driver:
                     prog.inject(t)
             with self.probe.span("st.map"):
                 self._map(*prog.args)
-            gw, go = prog.grids[w], prog.grids[o]
-            gw.data, go.data = go.data, gw.data
+            for gw, go in self._pairs:
+                gw.data, go.data = go.data, gw.data
             self.t += 1
             if deadline is not None and time.perf_counter() >= deadline:
                 return

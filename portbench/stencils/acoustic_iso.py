@@ -21,7 +21,7 @@ import inspect
 import numpy as np
 
 from portbench.reference.acoustic_iso import source_position
-from portbench.stencils import Program, full_shape, interior
+from portbench.stencils import Program, full_shape, interior, leapfrog_pairs
 
 
 def damping(cfg, device):
@@ -68,6 +68,12 @@ def make_state(cfg, gen, device):
             {"dt": dt})
 
 
+def kernel():
+    """The program's DSL kernel: ``core/acoustic.py``'s."""
+    from repro_torch.core import acoustic
+    return acoustic.acoustic_iso_kernel
+
+
 def bind(cfg, tensors, scalars, dtype="f32"):
     """The program's kernel, grids and hooks on ``tensors`` (cast to
     ``dtype``).  The program's source has a fixed wavelet: a configuration
@@ -80,15 +86,15 @@ def bind(cfg, tensors, scalars, dtype="f32"):
         raise ValueError(f"the program's wavelet is f0={defaults['f0'].default}, "
                          f"t0={defaults['t0'].default}; the configuration asks "
                          f"for f0={wv['f0']}, t0={wv['t0']}")
-    kernel = acoustic.acoustic_iso_kernel
+    k = kernel()
     grids = {n: st.grid(dtype=getattr(st, dtype), shape=tuple(cfg["shape"]),
                         order=cfg["order"], data=tensors[n])
-             for n in kernel.ir.grid_params}
+             for n in k.ir.grid_params}
     pos = source_position(cfg)
     p1 = grids["p1"]
     return Program(
-        kernel=kernel, grids=grids,
-        args=[grids[n] for n in kernel.ir.grid_params] + [np.float32(scalars["dt"])],
-        swap=tuple(cfg["swap"]),
+        kernel=k, grids=grids,
+        args=[grids[n] for n in k.ir.grid_params] + [np.float32(scalars["dt"])],
+        pairs=leapfrog_pairs(cfg["swap"]),
         inject=lambda t: acoustic.inject_source(p1, t, pos=pos, amp=wv["amp"]),
         record=lambda: p1.interior[pos[0]])

@@ -8,7 +8,7 @@ names trade buffers.
 """
 from __future__ import annotations
 
-from portbench.stencils import Program, full_shape, interior
+from portbench.stencils import Program, full_shape, interior, leapfrog_pairs
 
 
 def make_state(cfg, gen, device):
@@ -20,13 +20,18 @@ def make_state(cfg, gen, device):
     return {"u": u, "v": torch.zeros_like(u)}, {}
 
 
+def kernel():
+    """The program's DSL kernel: its suite's ``star3d4r``."""
+    from repro_torch.core import suite
+    return suite.get_kernel("star3d4r")
+
+
 def bind(cfg, tensors, scalars, dtype="f32"):
     """The program's kernel and grids on ``tensors`` (cast to ``dtype``)."""
-    from repro_torch.core import dsl as st, suite
-    kernel = suite.get_kernel("star3d4r")
+    from repro_torch.core import dsl as st
+    k = kernel()
     grids = {n: st.grid(dtype=getattr(st, dtype), shape=tuple(cfg["shape"]),
                         order=cfg["order"], data=tensors[n])
-             for n in kernel.ir.grid_params}
-    return Program(kernel=kernel, grids=grids,
-                   args=[grids[n] for n in kernel.ir.grid_params],
-                   swap=tuple(cfg["swap"]))
+             for n in k.ir.grid_params}
+    return Program(kernel=k, grids=grids, args=[grids[n] for n in k.ir.grid_params],
+                   pairs=leapfrog_pairs(cfg["swap"]))

@@ -1,15 +1,16 @@
 """Shared fixtures of the benchmark's CPU tests: cells at small sizes (the
 plain versions of the program's kernels run on CPU tensors), and the card
 fixture that skips a test without one."""
+import json
+import pathlib
+
 import pytest
 
-# small sizes of each cell that keep its shape of work: the stencil, the
-# halo, the hooks, a PML, the source's time
-SMALL = {
-    "star3d4r-512-fused": ({"shape": [24, 24, 24]}, {"steps_per_solve": 20}),
-    "acoustic-iso-512-shot": ({"shape": [32, 32, 32], "pml_width": 4},
-                              {"steps_per_solve": 60}),
-}
+# small sizes of each cell that keep its shape of work (the stencil, the
+# halo, the hooks, a PML, the source's time): ``small/<workload>.json``
+# holds ``{"cfg": ..., "traffic": ...}``, the keys that replace the cell's
+SMALL = {p.stem: json.loads(p.read_text())
+         for p in sorted((pathlib.Path(__file__).parent / "small").glob("*.json"))}
 
 
 @pytest.fixture
@@ -22,5 +23,6 @@ def card():
 
 def small_cell(name, **traffic):
     from portbench import harness
-    cfg, tr = SMALL[name]
-    return harness.load_cell(name, cfg_over=cfg, traffic_over={**tr, **traffic})
+    small = SMALL[name]
+    return harness.load_cell(name, cfg_over=small["cfg"],
+                             traffic_over={**small["traffic"], **traffic})

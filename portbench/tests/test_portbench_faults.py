@@ -2,7 +2,9 @@
 each fault these cells can have, planted in the program's kernel stage
 (its plain versions on the CPU), with the rest of the run as it is.  The
 cells run on one card with no batch of scenarios and no exchange between
-chips, so those faults cannot occur here."""
+chips, so those faults cannot occur here.  A fault only a stencil with a
+source can have is in that stencil's own test file."""
+import math
 import time
 
 import pytest
@@ -32,37 +34,39 @@ def altered(real):
     return step
 
 
-def plant(monkeypatch, name, fault):
-    """The fault in the plans' kernel stage; the kernels' caches of built
-    callables start empty, so no unbroken plan is reused."""
-    from repro_torch.core import acoustic, suite
+# the plans' kernel stage each driver's timed path runs
+STAGE = {"fused_solves": ("CudaPlan", "step"), "map_steps": ("MapPlan", "apply")}
+
+
+def plant(monkeypatch, cell, fault):
+    """The fault in the kernel stage of the cell's driver; the cell's
+    kernel's cache of built callables starts empty, so no unbroken plan is
+    reused."""
     from repro_torch.kernels.stencil import codegen
-    for k in (acoustic.acoustic_iso_kernel, suite.get_kernel("star3d4r")):
-        monkeypatch.setattr(k, "_cache", {})
-    cls, attr = ((codegen.CudaPlan, "step") if name.startswith("star")
-                 else (codegen.MapPlan, "apply"))
+    monkeypatch.setattr(cell.stencil.kernel(), "_cache", {})
+    name, attr = STAGE[cell.traffic["driver"]]
+    cls = getattr(codegen, name)
     monkeypatch.setattr(cls, attr, fault(getattr(cls, attr)))
 
 
 @pytest.mark.parametrize("name", sorted(SMALL))
 @pytest.mark.parametrize("fault", [unchanged, altered])
 def test_fault_reads_incorrect(monkeypatch, name, fault):
-    plant(monkeypatch, name, fault)
-    out = harness.run(small_cell(name), 17, 0.2, False, "cpu", time.perf_counter)
+    cell = small_cell(name)
+    plant(monkeypatch, cell, fault)
+    out = harness.run(cell, 17, 0.2, False, "cpu", time.perf_counter)
     assert out["correct"] is False and out["failed"] == 1
 
 
-def test_dropped_source_reads_incorrect(monkeypatch):
-    """The source's injection left out where the program makes it."""
-    from repro_torch.core import acoustic
-    monkeypatch.setattr(acoustic, "inject_source", lambda *a, **k: None)
-    out = harness.run(small_cell("acoustic-iso-512-shot"), 17, 0.2, False, "cpu",
-                      time.perf_counter)
-    assert out["correct"] is False
+def smallest():
+    """The cell whose small size does the least work."""
+    def work(name):
+        cell = small_cell(name)
+        return math.prod(cell.cfg["shape"]) * cell.traffic["steps_per_solve"]
+    return min(sorted(SMALL), key=work)
 
 
 def test_sound_run_reads_correct():
-    out = harness.run(small_cell("star3d4r-512-fused"), 17, 0.2, False, "cpu",
-                      time.perf_counter)
+    out = harness.run(small_cell(smallest()), 17, 0.2, False, "cpu", time.perf_counter)
     assert out["correct"] is True and torch.isfinite(torch.tensor(
         [c["value"] for c in out["checks"].values()])).all()

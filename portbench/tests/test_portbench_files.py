@@ -6,6 +6,8 @@ import re
 import pytest
 
 from portbench import harness
+from portbench.stencils import leapfrog_pairs, pair_grids
+from portbench.tests.conftest import SMALL
 
 BENCH = json.loads((harness.ROOT / "BENCHMARK.json").read_text())
 WORKLOADS = [w["name"] for w in BENCH["workloads"]]
@@ -18,7 +20,7 @@ UNIT = re.compile(r"^[A-Za-z0-9_/%.\-]{1,16}$")
 def test_cell_loads_by_name(workload):
     cell = harness.load_cell(workload)
     assert cell.driver.Driver and cell.stencil.make_state and cell.reference.update
-    assert set(cell.limits) >= set(cell.cfg["swap"])
+    assert set(cell.limits) >= set(pair_grids(leapfrog_pairs(cell.cfg["swap"])))
     assert cell.end_to_end and cell.per_layer
 
 
@@ -36,14 +38,12 @@ def test_config_file(conf):
 
 
 def test_flops_per_point_are_the_expressions():
-    """The yardstick's operations a point are those of the program's DSL
-    kernels as written (paper Table 4: 49; acoustic ISO: 43)."""
-    from repro_torch.core import acoustic, suite
-    kernels = {"star3d4r": suite.get_kernel("star3d4r"),
-               "acoustic_iso": acoustic.acoustic_iso_kernel}
+    """The yardstick's operations a point, and the grids it counts, are
+    those of the program's DSL kernel as written, which each configuration's
+    stencil file names."""
     for conf in BENCH["configs"]:
         cfg = json.loads((harness.ROOT / conf["file"]).read_text())
-        k = kernels[cfg["stencil"]]
+        k = harness.load_module("stencils", cfg["stencil"]).kernel()
         assert cfg["flops_per_point"] == k.info.flops_per_point
         assert set(cfg["reads"]) == set(k.info.input_grids)
         assert set(cfg["writes"]) == set(k.info.output_grids)
@@ -79,3 +79,31 @@ def test_benchmark_file_shape():
         assert any(m in BENCH["per_layer"] for m in mine)
         assert any(m in BENCH["end_to_end"] and m["name"] != "setup_s" for m in mine)
     assert len(json.dumps(BENCH)) < 64 * 1024
+
+
+def test_small_sizes_name_cells():
+    """Every small size is a cell's, and keeps to the cell's driver."""
+    assert SMALL and set(SMALL) <= set(WORKLOADS)
+    for name, small in SMALL.items():
+        assert set(small) == {"cfg", "traffic"} and "driver" not in small["traffic"], name
+
+
+# stencil names may stand only in the stencil's own files: its state and
+# binding, its reference, and the tests of its configurations
+def stencil_words():
+    stems = [p.stem for p in (harness.HERE / "stencils").glob("*.py") if p.stem != "__init__"]
+    return stems, re.compile("(?<![A-Za-z0-9])(%s)" % "|".join(
+        re.escape(s.split("_")[0]) for s in stems), re.IGNORECASE)
+
+
+def test_no_stencil_is_named_outside_its_own_files():
+    stems, word = stencil_words()
+    own = {f"tests/test_portbench_{s}.py" for s in stems}
+    found = []
+    for path in sorted(harness.HERE.rglob("*.py")):
+        rel = path.relative_to(harness.HERE).as_posix()
+        if rel.startswith(("stencils/", "reference/")) or rel in own:
+            continue
+        found += [f"{rel}:{i}" for i, line in enumerate(path.read_text().splitlines(), 1)
+                  if word.search(line)]
+    assert stems and found == []

@@ -32,7 +32,7 @@ def read(name, trace):
 
 
 def shot_step():
-    """One step of the acoustic shot over 0..200 µs: the receivers' copy,
+    """One step of a shot with hooks over 0..200 µs: the receivers' copy,
     the injection's add, ``st.map``'s dispatch, K4 (100..180) and the
     sync that wakes 8 µs after K4 ends; the driver's loop after it."""
     spans = [("shot", 1, 199),

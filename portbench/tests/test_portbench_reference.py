@@ -4,17 +4,18 @@ with the schedule of hooks the drivers run."""
 import pytest
 import torch
 
-from portbench import check, harness
-from portbench.tests.conftest import small_cell
+from portbench import check
+from portbench.stencils import pair_grids
+from portbench.tests.conftest import SMALL, small_cell
 
 
 def torch_run(cell, prog, schedule):
     """The program under ``st.torch()``, step by step as ``map_steps``
     does it."""
     from repro_torch.core import dsl as st
-    w, o = prog.swap
     seis = []
-    mapped = st.map(e=prog.grids[w].shape)(prog.kernel)
+    pairs = [(prog.grids[w], prog.grids[o]) for w, o in prog.pairs]
+    mapped = st.map(e=pairs[0][0].shape)(prog.kernel)
     launch = st.launch(backend=st.torch())(lambda *a: mapped(*a))
     for t in range(schedule.steps):
         if schedule.record_every and t % schedule.record_every == 0:
@@ -22,15 +23,15 @@ def torch_run(cell, prog, schedule):
         if schedule.inject_every and t % schedule.inject_every == 0:
             prog.inject(t)
         launch(*prog.args)
-        gw, go = prog.grids[w], prog.grids[o]
-        gw.data, go.data = go.data, gw.data
-    out = {g: prog.grids[g].interior for g in prog.swap}
+        for gw, go in pairs:
+            gw.data, go.data = go.data, gw.data
+    out = {g: prog.grids[g].interior for g in pair_grids(prog.pairs)}
     if seis:
         out["seis"] = torch.stack(seis)
     return out
 
 
-@pytest.mark.parametrize("name", ["star3d4r-512-fused", "acoustic-iso-512-shot"])
+@pytest.mark.parametrize("name", sorted(SMALL))
 def test_reference_matches_st_torch(name):
     cell = small_cell(name)
     cell.cfg["shape"] = [32, 32, 32]
@@ -49,21 +50,9 @@ def test_reference_matches_st_torch(name):
         assert check.rel_gap(got[n], want[n]) < 2e-6, n
 
 
-def test_acoustic_wave_meets_the_pml_and_an_interface():
-    """At the cell's own geometry the shot is not trivial: the seeded
-    model is layered, the source sits under the top PML."""
-    cell = harness.load_cell("acoustic-iso-512-shot")
-    cfg = {**cell.cfg, "shape": [512, 4, 4]}
-    init, scalars = cell.stencil.make_state(cfg, torch.Generator().manual_seed(5), "cpu")
-    vp = init["vp2"][4:-4, 6, 6].sqrt()
-    assert float(vp[0]) == pytest.approx(1.5) and float(vp[-1]) == pytest.approx(4.5)
-    assert len(torch.unique(vp)) == cfg["velocity"]["layers"]
-    assert scalars["dt"] * 4.5 == pytest.approx(0.4, rel=1e-6)
-    assert cell.stencil.source_position(cell.cfg)[0] == 12
-
-
 def test_same_seed_same_inputs():
-    cell = small_cell("acoustic-iso-512-shot")
-    a, _ = cell.stencil.make_state(cell.cfg, torch.Generator().manual_seed(2 ** 32 + 3), "cpu")
-    b, _ = cell.stencil.make_state(cell.cfg, torch.Generator().manual_seed(2 ** 32 + 3), "cpu")
-    assert all(torch.equal(a[n], b[n]) for n in a)
+    for name in SMALL:
+        cell = small_cell(name)
+        a, _ = cell.stencil.make_state(cell.cfg, torch.Generator().manual_seed(2 ** 32 + 3), "cpu")
+        b, _ = cell.stencil.make_state(cell.cfg, torch.Generator().manual_seed(2 ** 32 + 3), "cpu")
+        assert all(torch.equal(a[n], b[n]) for n in a), name

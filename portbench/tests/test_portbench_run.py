@@ -12,9 +12,12 @@ import time
 import pytest
 
 from portbench import harness
+from portbench.stencils import leapfrog_pairs
 from portbench.tests.conftest import SMALL, small_cell
 
 T0 = time.perf_counter()
+WORKLOADS = [w["name"] for w in
+             json.loads((harness.ROOT / "BENCHMARK.json").read_text())["workloads"]]
 
 
 def since():
@@ -57,13 +60,15 @@ def test_forbidden_modules_compares_whole_names(monkeypatch):
 
 
 def test_a_run_loads_neither_jax_nor_the_jax_package():
-    """A fresh process that runs a cell (CPU, small) holds no module whose
-    top-level name is jax, jaxlib, flax or repro."""
+    """A fresh process that runs every cell (CPU, small, traced) holds no
+    module whose top-level name is jax, jaxlib, flax or repro."""
     code = (
         "import sys, time; sys.path[:0] = [%r, %r]\n"
         "from portbench import harness\n"
-        "from portbench.tests.conftest import small_cell\n"
-        "harness.run(small_cell('acoustic-iso-512-shot'), 1, 0.2, True, 'cpu', time.perf_counter)\n"
+        "from portbench.tests.conftest import SMALL, small_cell\n"
+        "for name in SMALL:\n"
+        "    harness.run(small_cell(name, steps_per_solve=4), 1, 0.1, True, 'cpu',\n"
+        "                time.perf_counter)\n"
         "print(harness.forbidden_modules())\n") % (str(harness.ROOT), str(harness.ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=300, cwd=harness.ROOT)
@@ -77,7 +82,7 @@ def test_without_a_card_or_without_the_program_no_result(tmp_path):
     import torch
     if torch.cuda.is_available():
         pytest.skip("this machine has a card")
-    args = ["--workload", "star3d4r-512-fused", "--seed", "1", "--seconds", "1", "--trace", "0"]
+    args = ["--workload", WORKLOADS[0], "--seed", "1", "--seconds", "1", "--trace", "0"]
     shutil.copy(harness.ROOT / "BENCHMARK.json", tmp_path / "BENCHMARK.json")
     shutil.copytree(harness.HERE, tmp_path / "portbench",
                     ignore=shutil.ignore_patterns("__pycache__"))
@@ -88,17 +93,32 @@ def test_without_a_card_or_without_the_program_no_result(tmp_path):
         assert out.returncode != 0 and out.stdout.strip() == ""
 
 
-@pytest.mark.parametrize("name, traffic", [
-    # row 1 of PERF.md's further cells: star3d4r step by step through st.map
-    ("star3d4r-512-fused", {"driver": "map_steps", "steps_per_solve": 20,
-                            "source_every": 0, "receivers_every": 0}),
-    # row 2: acoustic shots in fused windows of 10, hooks at each boundary
-    ("acoustic-iso-512-shot", {"driver": "fused_solves", "steps_per_solve": 60,
-                               "fuse_steps": 10, "hooks_every": 10}),
-])
-def test_further_cells_are_data_only(name, traffic):
-    """The next cells need only a traffic file: each driver runs either
-    stencil, and the reference follows its schedule."""
-    out = harness.run(small_cell(name, **traffic), 5, 0.2, False, "cpu", since)
+def on_the_other_driver(traffic):
+    """A cell's traffic moved to the other driver, with its hooks: a step
+    loop's become a hook at every tenth step of fused windows of 10; fused
+    solves become a step loop with the hooks' cadence."""
+    steps = traffic["steps_per_solve"]
+    if traffic["driver"] == "fused_solves":
+        every = traffic.get("hooks_every") or 0
+        return {"driver": "map_steps", "steps_per_solve": steps,
+                "source_every": every, "receivers_every": every}
+    hooks = traffic.get("source_every") or traffic.get("receivers_every")
+    return {"driver": "fused_solves", "steps_per_solve": steps, "fuse_steps": 10,
+            "hooks_every": 10 if hooks else 0}
+
+
+@pytest.mark.parametrize("name", sorted(SMALL))
+def test_further_cells_are_data_only(name):
+    """The next cells need only a traffic file: each driver runs each
+    cell's stencil, and the reference follows its schedule.  The fused
+    driver refuses several leapfrog pairs (the program's ``st.timeloop``
+    takes one)."""
+    cell = small_cell(name)
+    moved = small_cell(name, **on_the_other_driver(cell.traffic))
+    if moved.traffic["driver"] == "fused_solves" and len(leapfrog_pairs(cell.cfg["swap"])) > 1:
+        with pytest.raises(ValueError, match="one leapfrog pair"):
+            harness.run(moved, 5, 0.2, False, "cpu", since)
+        return
+    out = harness.run(moved, 5, 0.2, False, "cpu", since)
     assert out["correct"] is True
-    assert set(out["checks"]) == set(small_cell(name).limits)
+    assert set(out["checks"]) == set(cell.limits)
