@@ -101,25 +101,33 @@ def inject_source(p: st.grid, t: int,
     that it is differentiated as the JAX package's ``.at[].add`` is; the
     values are the same."""
     with _trace.span("rt.inject_source"):
-        if pos is None:
-            pos = tuple(s // 2 for s in p.shape)
-        o = p.order
-        val = amp * source_wavelet(t)
-        if p.batch:
-            shots = [tuple(pos)] * p.batch if np.ndim(pos) == 1 else [tuple(q) for q in pos]
-            if len(shots) != p.batch:
-                raise ValueError(f"{len(shots)} source positions for {p.batch} shots")
-            idx = (torch.arange(p.batch, device=p.data.device),) + tuple(
-                torch.tensor([o + q[ax] for q in shots], device=p.data.device)
-                for ax in range(len(p.shape)))
-        else:
-            idx = tuple(o + q for q in pos)
-        if torch.is_grad_enabled() and p.data.requires_grad:
-            idx = tuple(torch.as_tensor(i, device=p.data.device) for i in idx)
-            add = torch.full(idx[0].shape, val, dtype=p.dtype, device=p.data.device)
-            p.data = p.data.index_put(idx, add, accumulate=True)
-        else:
-            p.data[idx] += val
+        add_sample(p, amp * source_wavelet(t), pos)
+
+
+def add_sample(p: st.grid, val: float,
+               pos: Union[None, Tuple[int, ...], Sequence[Tuple[int, ...]]] = None) -> None:
+    """Add ``val`` to ``p`` at the source point ``pos`` (default: the
+    centre; a batched grid takes one position for every shot or one a
+    shot), in place, or out of place where autograd records the grid:
+    ``inject_source``'s sum, shared with ``tti.inject_source``."""
+    if pos is None:
+        pos = tuple(s // 2 for s in p.shape)
+    o = p.order
+    if p.batch:
+        shots = [tuple(pos)] * p.batch if np.ndim(pos) == 1 else [tuple(q) for q in pos]
+        if len(shots) != p.batch:
+            raise ValueError(f"{len(shots)} source positions for {p.batch} shots")
+        idx = (torch.arange(p.batch, device=p.data.device),) + tuple(
+            torch.tensor([o + q[ax] for q in shots], device=p.data.device)
+            for ax in range(len(p.shape)))
+    else:
+        idx = tuple(o + q for q in pos)
+    if torch.is_grad_enabled() and p.data.requires_grad:
+        idx = tuple(torch.as_tensor(i, device=p.data.device) for i in idx)
+        add = torch.full(idx[0].shape, val, dtype=p.dtype, device=p.data.device)
+        p.data = p.data.index_put(idx, add, accumulate=True)
+    else:
+        p.data[idx] += val
 
 
 @st.target

@@ -45,7 +45,9 @@ span                  what                                         phase
 ``rt.engine.between`` the ``between`` hook                         —
 ``rt.engine.scatter`` state into the mesh's shards                 scatter
 ``rt.engine.gather``  state out of the shards                      gather
-``rt.inject_source``  ``acoustic.inject_source``                   —
+``rt.inject_source``  ``acoustic.inject_source``;                  —
+                      ``tti.inject_source``, one span for both
+                      fields
 ===================== ============================================ ========
 
 The counters (``LaunchResult.counts``):

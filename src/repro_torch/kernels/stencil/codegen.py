@@ -362,6 +362,40 @@ def gmem_column(B3, gh3, read_grids) -> GmemColumn:
                       {g: 2 * gh3[g][0] + 1 for g in read_grids})
 
 
+# K1's and K4 gmem's register budget (csrc/map_step.cuh kMinBlocks): by
+# default the build holds 768 threads an SM, 80 registers a lane at 128
+# lanes a block.  A lane keeps its queues, their leads and its grids' row
+# pointers across the planes of its column (gmem_held_registers).  A build
+# that holds at most GMEM_HELD_LIMIT keeps the default, with 16 or more
+# registers left for the point's arithmetic: star3d4r holds 24 and
+# acoustic 40, 40 and 24 under the limit.  A build that holds more is
+# budgeted for the most blocks an SM (RT_MIN_BLOCKS) whose lanes each get
+# GMEM_ROOM registers beyond what they hold: TTI holds 108 and gets 3
+# blocks of 168 registers (PERF.md, Findings, has the budgets measured).
+GMEM_REGISTERS_PER_SM = 65536
+GMEM_HELD_LIMIT = 64
+GMEM_ROOM = 40
+
+
+def gmem_held_registers(column: GmemColumn, n_grids: int) -> int:
+    """Registers a K1/K4 gmem lane holds across its column's planes: each
+    read grid's queue slots and lead (``column.cells`` f32 each) and a
+    64-bit row pointer a grid."""
+    return column.cells * sum(n + 1 for n in column.queues.values()) + 2 * n_grids
+
+
+def gmem_min_blocks(column: GmemColumn, n_grids: int) -> Optional[int]:
+    """Blocks an SM K1's and K4 gmem's build is budgeted for where its
+    lanes hold more than ``GMEM_HELD_LIMIT`` registers (the most blocks
+    whose lanes each get ``GMEM_ROOM`` more, in the card's units of 8, at
+    least 1); None where the default budget stands."""
+    held = gmem_held_registers(column, n_grids)
+    if held <= GMEM_HELD_LIMIT:
+        return None
+    need = -(-(held + GMEM_ROOM) // 8) * 8
+    return max(1, GMEM_REGISTERS_PER_SM // (column.threads * need))
+
+
 def _smem_bytes(kind: str, B3, gh3) -> int:
     """Shared memory one block of ``kind`` takes with f32 grids (bf16 ones
     take no more): K5's ring of ``SEMI_STAGES`` staged planes, K4 smem's
@@ -586,11 +620,16 @@ class _Plan:
         computes (``RT_GMEM_P``), whether a tap reads each grid
         (``grid_read``), each grid's pitches (``grid_sx``, ``grid_sy``: the
         taps' offsets are constants of the code; the launch refuses buffers
-        of other pitches) and its pair loads (``grid_vec``,
-        ``gmem_pairs``)."""
+        of other pitches), its pair loads (``grid_vec``, ``gmem_pairs``)
+        and, where the default register budget is too small for its lanes,
+        the blocks an SM it is budgeted for (``RT_MIN_BLOCKS``,
+        ``gmem_min_blocks``)."""
         g_of = self.opnd_grids
+        col = self.gmem_column()
+        blocks = gmem_min_blocks(col, len(g_of))
         return "\n".join([
-            f"#define RT_GMEM_P {self.gmem_column().cells}",
+            f"#define RT_GMEM_P {col.cells}",
+            *([] if blocks is None else [f"#define RT_MIN_BLOCKS {blocks}"]),
             emit.int_table("grid_read", [int(g in self.in_grids) for g in g_of]),
             emit.int_table("grid_sx", [self.pitch3[g][0] for g in g_of]),
             emit.int_table("grid_sy", [self.pitch3[g][1] for g in g_of]),

@@ -117,24 +117,30 @@ __global__ void __launch_bounds__(kThreads) map_step_kernel(const Params p) {
 #else
 #include "gmem_column.cuh"
 constexpr int kRowThreads = RT_TB2 / kP;
-// blocks an SM the registers are budgeted for: three of 256 threads
+// blocks an SM the registers are budgeted for: by default three of 256
+// threads; the plan's RT_MIN_BLOCKS where its lanes hold more than that
+// budget gives (codegen.py gmem_min_blocks)
+#ifdef RT_MIN_BLOCKS
+constexpr int kMinBlocks = RT_MIN_BLOCKS;
+#else
 constexpr int kMinBlocks = kThreads < 768 ? 768 / kThreads : 1;
+#endif
 
 // a lane's kP cells of one row of a grid, as f32
 struct Unit {
   float v[kP];
 };
 
-// the aligned pair of cells at ptr, as f32 (one 8-byte or 4-byte load)
-__device__ __forceinline__ void ld_pair(const float* ptr, float* out) {
-  const float2 v = __ldg(reinterpret_cast<const float2*>(ptr));
-  out[0] = v.x;
-  out[1] = v.y;
+// the aligned pair of cells at ptr, as f32 (one 8-byte or 4-byte load),
+// returned by value: a pair written through a pointer kept its array in
+// local memory in builds of hundreds of taps (an 808-byte stack frame a
+// lane in a build of 434 taps; PERF.md, Findings)
+__device__ __forceinline__ float2 ld_pair(const float* ptr) {
+  return __ldg(reinterpret_cast<const float2*>(ptr));
 }
-__device__ __forceinline__ void ld_pair(const __nv_bfloat16* ptr, float* out) {
+__device__ __forceinline__ float2 ld_pair(const __nv_bfloat16* ptr) {
   const unsigned v = __ldg(reinterpret_cast<const unsigned*>(ptr));
-  out[0] = __uint_as_float(v << 16);
-  out[1] = __uint_as_float(v & 0xffff0000u);
+  return make_float2(__uint_as_float(v << 16), __uint_as_float(v & 0xffff0000u));
 }
 
 // Grid G's cell (DX, DY, DZ) from `base` (a lane's cell of plane 0 of its
@@ -156,7 +162,9 @@ __device__ __forceinline__ Unit load_unit(const Params& p, const elem_t* const* 
   const int zhi = p.R2 - 1 + grid_h2(G);
   Unit u;
   if constexpr (kP == 2 && grid_vec(G)) {
-    ld_pair(cell<G>(row[G] + min(zl, zhi & ~1), xp), u.v);
+    const float2 v = ld_pair(cell<G>(row[G] + min(zl, zhi & ~1), xp));
+    u.v[0] = v.x;
+    u.v[1] = v.y;
   } else {
 #pragma unroll
     for (int j = 0; j < kP; ++j) u.v[j] = ld_elem(cell<G>(row[G] + min(zl + j, zhi), xp));
@@ -228,9 +236,8 @@ struct ColumnReader {
       // the aligned pair holding the cell, its start clamped to the tap's
       // reach (a no-op for a point in the region)
       constexpr int e = (J + DZ) & ~1;
-      float v[2];
-      ld_pair(cell<G, DX, DY, e>(row[G] + min(zl, ((p.R2 - 1 + DZ) & ~1) - e), x), v);
-      return v[J + DZ - e];
+      const float2 v = ld_pair(cell<G, DX, DY, e>(row[G] + min(zl, ((p.R2 - 1 + DZ) & ~1) - e), x));
+      return J + DZ == e ? v.x : v.y;
     } else {
       return ld_elem(cell<G, DX, DY, DZ>(row[G] + zp, x));
     }

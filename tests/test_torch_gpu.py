@@ -6,9 +6,11 @@ per-application kernels of ``st.map`` (K4 gmem/f4/smem, K2's and K5's
 builds with a destination) in 2D, with box taps, with an output read
 off-center (into a destination buffer), with two outputs where the second
 reads the first, at a thin region at each face, f4 at a ragged pitch and
-region start, and under both ``mem_type`` values; every stencil source
-built for bf16 grids (within one bf16 ulp of max(1, |plain|): both versions
-compute in f32 and round once), K5 with two coefficient groups, and K7's
+region start, and under both ``mem_type`` values; K4 gmem on
+pseudo-acoustic TTI (170 taps, off-axis taps and coefficients read off the
+centre, two outputs, its own register budget) and its run-ahead; every stencil source built for bf16 grids (within one bf16
+ulp of max(1, |plain|): both versions compute in f32 and round once), K5
+with two coefficient groups, and K7's
 split and combine passes with lengths 0, 1, S and one past a split
 boundary, at B=1 and with 32 query heads to a KV head; ``batch=B`` under
 K1, K2, K3 (k=2 and 3) and K5 in f32 and bf16 (each scenario bit for bit
@@ -487,6 +489,120 @@ def test_map_run_ahead_equals_a_sync_after_each_step(cuda, template):
     for a, b, n in zip(ahead(), synced(), ("p0", "p1", "seis")):
         assert torch.equal(a, b), n
     assert float(synced()[2].abs().max()) > 0
+
+
+# ---- K4 gmem on pseudo-acoustic TTI: 170 taps, off-axis taps in every ----------
+# coordinate plane, θ and φ read only off the centre, 48 sin/cos and a sqrt,
+# two outputs written in place, its build budgeted for fewer blocks an SM
+# (codegen.gmem_min_blocks).  Boxes: odd
+# pitches (every tap a load of one cell, lanes past the region clamped),
+# even pitches with an odd region (aligned pair loads, clamped at the
+# region's end) and a sub-region starting at odd cells
+TTI_CASES = [((37, 29, 45), None), ((37, 29, 46), None),
+             ((37, 29, 46), ((3, 34), (1, 28), (5, 41)))]
+
+
+def _tti_fields(shape, device, seed):
+    """TTI's full tensors on ``device``: standard-normal wavefields, each
+    coefficient random in its physical range (ε ≥ δ)."""
+    from repro_torch.core import tti
+    gen = torch.Generator(device=device).manual_seed(seed)
+    full = tuple(n + 2 * tti.ORDER for n in shape)
+    out = {g: torch.randn(full, generator=gen, device=device) for g in tti.GRIDS}
+
+    def unit(g):
+        return torch.rand(full, generator=gen, device=device)
+    out["vp2"] = (1.5 + 3.0 * unit("vp2")) ** 2
+    out["delta"] = 0.05 + 0.05 * unit("delta")
+    out["epsilon"] = out["delta"] + 0.15 * unit("epsilon")
+    out["theta"] = 0.15 + 0.45 * unit("theta")
+    out["phi"] = 0.2 + unit("phi")
+    out["damp"] = 0.2 * unit("damp")
+    return out
+
+
+@pytest.fixture(scope="module")
+def tti_built():
+    """The TTI builds of the cases, in parallel (one nvcc each)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.core import tti
+    k = tti.tti_kernel
+    halos = {g: (tti.ORDER,) * 3 for g in k.ir.grid_params}
+    plans = [codegen.lower_hopper(k.ir, halos, shape, region, st.hopper())
+             for shape, region in TTI_CASES]
+    cuda = torch.device("cuda")
+    srcs = [pl.source(torch.float32, {g: t for g, t in _tti_fields(sh, cuda, 0).items()})
+            for pl, (sh, _) in zip(plans, TTI_CASES)]
+    _build.build_many(srcs)
+    return srcs
+
+
+@pytest.mark.parametrize("case", TTI_CASES, ids=["odd-pitch", "pairs", "pairs-region"])
+def test_tti_map_matches_torch(cuda, tti_built, case):
+    """One ``st.map`` of TTI under ``st.hopper()`` (K4 gmem) against
+    ``st.torch()`` on the card: both outputs written in place over the
+    region, every other cell and grid as it was."""
+    from repro_torch.core import tti
+    shape, region = case
+    fields = _tti_fields(shape, cuda, 7)
+    span = ({} if region is None else
+            {"begin": tuple(b for b, _ in region), "end": tuple(e for _, e in region)})
+    out = []
+    for be in (st.torch(), st.hopper()):
+        grids = [st.grid(shape=shape, order=tti.ORDER, data=fields[g].clone())
+                 for g in tti.GRIDS]
+        n = map_step.launches
+        mapped = st.map(**span) if span else st.map(e=shape)
+        st.launch(backend=be)(lambda *a: mapped(tti.tti_kernel)(*a))(*grids, np.float32(0.07))
+        assert map_step.launches == n + (be.kind == "hopper")
+        out.append(dict(zip(tti.GRIDS, grids)))
+    for g in tti.GRIDS:
+        if g in ("p0", "r0"):
+            _check(out[1][g].data, out[0][g].data, g)
+            assert not torch.equal(out[1][g].data, fields[g]), g
+        else:
+            assert torch.equal(out[1][g].data, fields[g]), g
+    plan_src = tti_built[TTI_CASES.index(case)]
+    assert "#define RT_MIN_BLOCKS" in plan_src
+
+
+def test_tti_run_ahead_equals_a_sync_after_each_step(cuda):
+    """20 TTI steps at 48³ as one launch, the source into both fields and
+    a receiver plane each step: with ``st.map`` one application ahead of
+    the card, the four wavefields and the seismogram are bit for bit those
+    of the same steps with a sync after each ``st.map``, and within f32
+    rounding of ``st.torch()``'s."""
+    from repro_torch.core import tti
+    shape, steps = (48, 48, 48), 20
+
+    def shot(be, synced):
+        f = tti.make_fields(shape, pml_width=6, device=cuda)
+        p0, p1, r0, r1 = f[:4]
+        seis = torch.empty((steps,) + shape[1:], device=cuda)
+        step = st.map(e=shape)(tti.tti_kernel)
+
+        @st.target
+        def run():
+            for t in range(steps):
+                seis[t].copy_(p1.interior[shape[0] // 2])
+                tti.inject_source(p1, r1, t, amp=100.0)
+                step(*f)
+                if synced:
+                    torch.cuda.synchronize()
+                p0.data, p1.data = p1.data, p0.data
+                r0.data, r1.data = r1.data, r0.data
+        st.launch(backend=be)(run)()
+        torch.cuda.synchronize()
+        return p0.data, p1.data, r0.data, r1.data, seis
+
+    synced = shot(st.hopper(), True)
+    ahead = shot(st.hopper(), False)
+    plain = shot(st.torch(), False)
+    for a, b, c, n in zip(ahead, synced, plain, ("p0", "p1", "r0", "r1", "seis")):
+        assert torch.equal(a, b), n
+        _check(a, c, n)
+    assert float(synced[1].abs().max()) > 1.0
 
 
 # ---- K4 f4's load paths and smem's staging paths --------------------------------
